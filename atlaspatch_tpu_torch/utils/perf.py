@@ -1,0 +1,91 @@
+"""Per-stage timing counters for the pipeline's host stages.
+
+Lightweight wall-clock counters for the pipeline stages (thumbnail,
+segment dispatch/fetch, contours, grid scan). Thread-safe; aggregated report
+via `report()` and logged at the end of a run when ATLASPATCH_PROFILE=1.
+Device time is not seen here: a stage that dispatches CUDA work returns
+before the card finishes, so `segment_fetch` carries the wait.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+logger = logging.getLogger("atlaspatch_tpu_torch.perf")
+
+_lock = threading.Lock()
+_totals: dict[str, float] = defaultdict(float)
+_counts: dict[str, int] = defaultdict(int)
+_cpu_totals: dict[str, float] = defaultdict(float)
+
+
+def enabled() -> bool:
+    return os.environ.get("ATLASPATCH_PROFILE") == "1"
+
+
+@contextmanager
+def stage(name: str):
+    """Time a pipeline stage. Near-zero overhead when profiling is off.
+
+    Records wall time AND the calling thread's CPU time: on a 1-CPU host a
+    stage's wall inflates whenever its thread is descheduled by another
+    pipeline stage, so cpu_s is the signal for "cycles to cut" while
+    total_s - cpu_s is contention/IO wait."""
+    if not enabled():
+        yield
+        return
+    t0 = time.perf_counter()
+    c0 = time.thread_time()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        dc = time.thread_time() - c0
+        with _lock:
+            _totals[name] += dt
+            _counts[name] += 1
+            _cpu_totals[name] += dc
+
+
+def add(name: str, seconds: float, count: int = 1) -> None:
+    with _lock:
+        _totals[name] += seconds
+        _counts[name] += count
+
+
+def report() -> dict[str, dict[str, float]]:
+    with _lock:
+        return {
+            name: {
+                "total_s": round(_totals[name], 4),
+                "cpu_s": round(_cpu_totals[name], 4),
+                "count": _counts[name],
+                "mean_ms": round(1000 * _totals[name] / max(1, _counts[name]), 3),
+            }
+            for name in sorted(_totals)
+        }
+
+
+def reset() -> None:
+    with _lock:
+        _totals.clear()
+        _counts.clear()
+        _cpu_totals.clear()
+
+
+def log_report() -> None:
+    if not enabled():
+        return
+    for name, row in report().items():
+        logger.warning(
+            "perf %-18s total=%8.3fs n=%6d mean=%8.3fms",
+            name,
+            row["total_s"],
+            row["count"],
+            row["mean_ms"],
+        )

@@ -31,3 +31,10 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's kernels); skips elsewhere",
+    )

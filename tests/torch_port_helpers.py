@@ -1,0 +1,42 @@
+"""Shared fixtures for the parity tests of the PyTorch port (tests/test_torch_*.py).
+
+One Flax parameter tree, made from a seed, feeds both packages: the JAX model
+reads it as jnp arrays, the port loads it through ``flax_to_torch``. The
+Flax initializers leave the positional embeddings and the no-memory
+embedding at zero, so those are filled from numpy to make parity meaningful.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+
+from atlaspatch_tpu.models.sam2.config import SAM2Config as JaxSAM2Config
+from atlaspatch_tpu.models.sam2.model import init_params as jax_init_params
+from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+from atlaspatch_tpu_torch.models.sam2.convert import flax_to_torch, load_into
+from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel
+
+JAX_CFG = JaxSAM2Config.test_tiny()
+CFG = SAM2Config.test_tiny()
+
+
+def shared_flax_params(seed: int = 0, cfg=JAX_CFG) -> dict:
+    """Flax param tree as numpy arrays, with the zero-initialized embeddings
+    randomized."""
+    params = jax.tree.map(np.asarray, jax_init_params(cfg, seed))
+    rng = np.random.default_rng(seed + 1)
+    bb = params["backbone"]
+    for name in ("pos_embed", "pos_embed_window"):
+        bb[name] = rng.normal(0.0, 0.5, bb[name].shape).astype(np.float32)
+    params["no_memory_embedding"] = rng.normal(
+        0.0, 0.5, params["no_memory_embedding"].shape
+    ).astype(np.float32)
+    return params
+
+
+def port_model(params: dict, cfg=CFG) -> SAM2ImageModel:
+    """The port's float32 CPU model holding ``params``."""
+    model = SAM2ImageModel(cfg)
+    load_into(model, flax_to_torch(params, cfg))
+    return model.eval()
