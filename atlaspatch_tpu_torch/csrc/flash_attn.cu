@@ -30,8 +30,9 @@
 // Where T_kv spans several tiles and W = 4, the K/V tiles are
 // double-buffered: tile i+1 loads while tile i is multiplied. W is 1 when
 // T_q <= 16 (the q-pool blocks hand it T_q = 4 and 16), so small Q tiles do
-// not leave three warps idle. No wgmma or TMA yet: mma.sync reaches only part
-// of the tensor-core peak.
+// not leave three warps idle. mma.sync reaches only part of the tensor-core
+// peak: bfloat16 with D in {64, 96, 128} and T_q > 16 goes to the wgmma + TMA
+// body in flash_attn_wgmma.cu instead (ops/attention.py::kernel_variant).
 //
 // float32 (the reference-exact default): float32 FMA on the CUDA cores (no
 // TF32), 256 threads per 64-row Q tile, each thread a 4x4 block of scores

@@ -1,16 +1,26 @@
-"""Attention for the Hiera trunk: a hand-written CUDA kernel and its plain version.
+"""Attention for the Hiera trunk: hand-written CUDA kernels and their plain version.
 
-``flash_attention`` launches ``csrc/flash_attn.cu`` (built with nvcc for
-sm_90a at first use, loaded with ctypes), the port of the TPU kernel
-``atlaspatch_tpu/ops/attention.py::_flash_kernel``. ``reference_attention``
-is the plain PyTorch version of the same function. ``attention`` dispatches
-on the tensor's device: the plain version for a CPU tensor, the kernel for a
-CUDA tensor (or an error). There is no fallback from the kernel to the plain
-version and no switch that selects it on the card.
+``flash_attention`` launches one of the ports of the TPU kernel
+``atlaspatch_tpu/ops/attention.py::_flash_kernel``, each built with nvcc for
+sm_90a at first use and loaded with ctypes. ``kernel_variant`` picks it:
+
+- ``wgmma_m64`` / ``wgmma_m128`` / ``wgmma_m192``: ``csrc/flash_attn_wgmma.cu``,
+  bfloat16 on wgmma fed by TMA, for D in {64, 96, 128} and T_q > 16 (64-,
+  128- or 192-row Q tiles: one, two or three consumer warpgroups);
+- ``mma``: the bfloat16 body of ``csrc/flash_attn.cu`` on mma.sync, for
+  T_q <= 16 and the other head dims;
+- ``f32``: the float32 body of ``csrc/flash_attn.cu``.
+
+``reference_attention`` is the plain PyTorch version of the same function.
+``attention`` dispatches on the tensor's device: the plain version for a CPU
+tensor, a kernel for a CUDA tensor (or an error). There is no fallback from
+one kernel to another or to the plain version, and no switch that selects the
+plain version on the card.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 
@@ -18,36 +28,89 @@ import torch
 
 from atlaspatch_tpu_torch.build import CSRC, build_shared_library, nvcc_path
 
-_LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_int64)
+# library name -> (source, entry point, its argument types after the 4 pointers)
+_SOURCES = {
+    "atlas_flash_attn": (
+        "flash_attn.cu", "atlas_flash_attn_fwd",
+        [_INT] * 5 + [_STRIDES, _INT, ctypes.c_float, _PTR],
+    ),
+    "atlas_flash_attn_wgmma": (
+        "flash_attn_wgmma.cu", "atlas_flash_attn_wgmma_fwd",
+        [_INT] * 5 + [_STRIDES, _INT, ctypes.c_float, _PTR],
+    ),
+}
+_LOCKS = {name: threading.Lock() for name in _SOURCES}  # one per library: they build in parallel
+WGMMA_HEAD_DIMS = (64, 96, 128)
+M192_HEAD_DIMS = (64, 96)  # three consumer warpgroups fit their registers without spills
+# wgmma variant -> Q rows of its tile (K/V rows 64, 128 and 64: flash_attn_wgmma.cu)
+WGMMA_TILES = {"wgmma_m64": 64, "wgmma_m128": 128, "wgmma_m192": 192}
+_ENCODE_FAILED, _NO_DRIVER_ENTRY = 1_000_000, 2_000_000  # flash_attn_wgmma.cu's error bases
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """Build (once) and load one kernel library; raises if the build fails."""
+    with _LOCKS[name]:
+        if name in _LIBS:
+            return _LIBS[name]
+        source, entry, argtypes = _SOURCES[name]
+        path = build_shared_library(name, [CSRC / source], [nvcc_path(), *_NVCC_FLAGS])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_PTR] * 4 + argtypes
+        _LIBS[name] = lib
+        return lib
 
 
 def load_flash_library() -> ctypes.CDLL:
-    """Build (once) and load the kernel library; raises if the build fails."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        path = build_shared_library(
-            "atlas_flash_attn",
-            [CSRC / "flash_attn.cu"],
-            [
-                nvcc_path(),
-                "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v",
-            ],
-        )
-        lib = ctypes.CDLL(str(path))
-        lib.atlas_flash_attn_fwd.restype = ctypes.c_int
-        lib.atlas_flash_attn_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        _LIB = lib
-        return lib
+    """The mma.sync (bfloat16) and float32 bodies, ``csrc/flash_attn.cu``."""
+    return _load("atlas_flash_attn")
+
+
+def load_wgmma_library() -> ctypes.CDLL:
+    """The wgmma + TMA bfloat16 body, ``csrc/flash_attn_wgmma.cu``."""
+    return _load("atlas_flash_attn_wgmma")
+
+
+def kernel_variant(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
+    """The kernel body ``flash_attention`` launches for these inputs: ``f32``,
+    ``mma``, ``wgmma_m64``, ``wgmma_m128`` or ``wgmma_m192`` (see the module
+    docstring).
+
+    bfloat16 with D in WGMMA_HEAD_DIMS and T_q > 16 takes the wgmma body: one
+    consumer warpgroup (64 Q rows) up to T_q = 64; beyond, three (192 rows)
+    where D allows it and the 192-row tiles pad T_q no more than 128-row tiles
+    would (the global blocks: 2304 = 12 x 192), else two. T_q <= 16 (the q-pool
+    and stage-1 blocks) stays on mma.sync, whose one-warp CTA does not spend a
+    64-row wgmma tile on 4 or 16 rows. ``tk`` does not decide."""
+    del tk
+    if dtype == torch.float32:
+        return "f32"
+    if d not in WGMMA_HEAD_DIMS or tq <= 16:
+        return "mma"
+    if tq <= 64:
+        return "wgmma_m64"
+    if d in M192_HEAD_DIMS and -tq % 192 <= -tq % 128:
+        return "wgmma_m192"
+    return "wgmma_m128"
+
+
+def _admissible(dtype: torch.dtype, d: int) -> tuple[str, ...]:
+    """The variants a forced ``flash_attention(variant=...)`` may name."""
+    if dtype == torch.float32:
+        return ("f32",)
+    if d not in WGMMA_HEAD_DIMS:
+        return ("mma",)
+    return ("mma", *(v for v in WGMMA_TILES if v != "wgmma_m192" or d in M192_HEAD_DIMS))
 
 
 def _strides(t: torch.Tensor) -> list[int]:
@@ -55,16 +118,35 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [s if n > 1 else 0 for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """(B, H, T) element strides of a (B, H, T, D) tensor as a TMA map takes
+    them: a dimension of size 1, never stepped, gets the contiguous stride in
+    place of whatever torch keeps for it (the map wants multiples of 16
+    bytes)."""
+    B, H, T, D = t.shape
+    s_b, s_h, s_t = t.stride()[:3]
+    s_t = s_t if T > 1 else D
+    s_h = s_h if H > 1 else s_t * T
+    s_b = s_b if B > 1 else s_h * H
+    return [s_b, s_h, s_t]
+
+
 def _kernel_readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it in place (D contiguous, every
-    row on 16 bytes), else a contiguous copy."""
-    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides(t)):
+    """``t`` itself when every body can read it in place (D contiguous, every
+    row on 16 bytes, no broadcast dimension: a TMA map takes no zero stride),
+    else a contiguous copy."""
+    rows_ok = all(s % 8 == 0 and (s or n == 1) for n, s in zip(t.shape[:3], t.stride()[:3]))
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and rows_ok:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sm_scale: float | None = None,
+    variant: str | None = None,
 ) -> torch.Tensor:
     """(B, H, T, D) non-causal attention on the card. T_q and T_kv may differ.
 
@@ -73,8 +155,10 @@ def flash_attention(
     contiguous and rows are 16-byte aligned (as in views of a fused qkv
     projection), else copies them. Accumulates in float32 and returns the
     input dtype, as a (B, H, T_q, D) view of a (B, T_q, H, D) tensor, so the
-    caller's merge of the heads is free. ``flash_attention.launches`` counts
-    kernel launches."""
+    caller's merge of the heads is free. ``variant`` names the body to launch
+    (default ``kernel_variant``); one these inputs do not admit raises.
+    ``flash_attention.launches`` counts kernel launches, and
+    ``flash_attention.variant_launches`` counts them by variant."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected (B, H, T, D) tensors, got {q.shape}, {k.shape}, {v.shape}")
     B, H, Tq, D = q.shape
@@ -89,25 +173,50 @@ def flash_attention(
         raise ValueError(f"flash_attention takes head dims that are multiples of 8 up to 128, got {D}")
     if Tq == 0 or Tk == 0 or B * H == 0:
         raise ValueError(f"flash_attention got an empty sequence: {q.shape}, {k.shape}")
+    if variant is None:
+        variant = kernel_variant(q.dtype, Tq, Tk, D)
+    elif variant not in _admissible(q.dtype, D):
+        raise ValueError(f"variant {variant!r} does not take {q.dtype} with head dim {D}")
     if sm_scale is None:
         sm_scale = D**-0.5
     q, k, v = _kernel_readable(q), _kernel_readable(k), _kernel_readable(v)
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_int64 * 12)(*_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    lib = load_flash_library()
+    operand_strides = _tma_strides if variant in WGMMA_TILES else _strides
+    strides = (ctypes.c_int64 * 12)(
+        *operand_strides(q), *operand_strides(k), *operand_strides(v), *_strides(out)
+    )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = lib.atlas_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Tq, Tk, D, strides, _DTYPES[q.dtype], float(sm_scale), stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if variant in WGMMA_TILES:
+        err = load_wgmma_library().atlas_flash_attn_wgmma_fwd(
+            *ptrs, B, H, Tq, Tk, D, strides, WGMMA_TILES[variant], float(sm_scale), stream
+        )
+    else:
+        err = load_flash_library().atlas_flash_attn_fwd(
+            *ptrs, B, H, Tq, Tk, D, strides, _DTYPES[q.dtype], float(sm_scale), stream
+        )
+    if err >= _NO_DRIVER_ENTRY:
+        raise RuntimeError(
+            f"the CUDA driver has no cuTensorMapEncodeTiled: cudaError {err - _NO_DRIVER_ENTRY}"
+        )
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"TMA tensor map encode failed ({variant}): CUresult {err - _ENCODE_FAILED}")
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash attention kernel launch failed ({variant}): cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    """Zero ``flash_attention.launches`` and its per-variant counts."""
+    flash_attention.launches = 0
+    flash_attention.variant_launches.clear()
 
 
 def reference_attention(q, k, v, sm_scale=None):

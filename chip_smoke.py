@@ -6,17 +6,24 @@ Phases, one line each (any failure exits non-zero with no result line):
 
   env     torch / CUDA versions, the card's name and power limit, and which of
           Pillow / h5py / OpenCV import (for information only)
-  build   the attention kernel (nvcc, sm_90a) and the contour tracer (g++),
-          both from the sources in atlaspatch_tpu_torch/csrc, built together
+  build   the attention kernel's two libraries (nvcc, sm_90a: the wgmma + TMA
+          bfloat16 body, and the mma.sync bfloat16 and float32 bodies) and
+          the contour tracer (g++), all from the sources in
+          atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
+          per body, and the wgmma body's SASS checked for HGMMA and UTMALDG
   kernel  the attention kernel against its plain PyTorch version at the shapes
           the main path hands it (every trunk block of the --fast preset and
           of the float32 default) plus ragged and q-pool checks; each line
-          gives the kernel's, the plain version's and
-          F.scaled_dot_product_attention's time and the bound
+          gives the variant launched, the kernel's, the plain version's and
+          F.scaled_dot_product_attention's time and the bound; each bfloat16
+          line also times the other bodies the shape admits
   seg     SAM2SegmentationService(device="cuda") at full Hiera-tiny width with
           random weights: (a) the --fast preset (bfloat16, input 768, batch 8)
           on 16 thumbnails of two shapes, (b) float32 at 1024, batch 1, on 2
-          thumbnails. The kernel must have launched 12 times per forward.
+          thumbnails. The kernel must have launched 12 times per forward, each
+          variant as often as kernel_variant picks it at the trunk's shapes
+          (the 3 global blocks of each forward of (a) on the wgmma body's
+          192-row tile).
           (b)'s logits are held against the same model on the CPU.
   profile one forward of (a) and of (b) under torch.profiler: device time by
           kernel, and the device's busy share of the forward
@@ -32,9 +39,11 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -49,7 +58,7 @@ for _var in ("ATLASPATCH_SAM2_CHECKPOINT", "ATLASPATCH_WEIGHTS_DIR", "ATLASPATCH
 
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA cores
 H100_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "atlaspatch_tpu_torch/csrc/flash_attn.cu"
+KERNEL_SOURCE = "atlaspatch_tpu_torch/csrc/flash_attn_wgmma.cu"  # and flash_attn.cu
 KERNEL_REPLACES = "atlaspatch_tpu/ops/attention.py:23"  # _flash_kernel
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -113,10 +122,28 @@ def phase_env(state):
         f"card=[{state['card']}] host_libs={libs}")
 
 
+def _ptxas_by_body(log: str) -> dict:
+    """ptxas -v of a kernel library: per body (wgmma / mma / f32), the most
+    registers and the instantiations (head dim first) with stack or spills."""
+    bodies: dict = {}
+    for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
+        kind = re.search(r"flash_fwd_(wgmma|bf16|f32)_kernel", name).group(1)
+        kind = {"bf16": "mma"}.get(kind, kind)
+        entry = bodies.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
+        entry["kernels"] += 1
+        registers = int(re.search(r"Used (\d+) registers", body).group(1))
+        entry["max_registers"] = max(entry["max_registers"], registers)
+        stack = re.search(r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads)", body)
+        if stack and stack.group(1) != NO_SPILL:
+            d, second = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?", name).groups()
+            entry["spilling"].append(f"D={d}{'' if second is None else f'/{second}'}: {stack.group(1)}")
+    return bodies
+
+
 def phase_build(state):
-    from atlaspatch_tpu_torch.build import build_log
+    from atlaspatch_tpu_torch.build import build_log, nvcc_path
     from atlaspatch_tpu_torch.io.native import load_contours_library
-    from atlaspatch_tpu_torch.ops.attention import load_flash_library
+    from atlaspatch_tpu_torch.ops.attention import load_flash_library, load_wgmma_library
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -124,24 +151,26 @@ def phase_build(state):
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        flash = pool.submit(timed, load_flash_library)
-        contours = pool.submit(timed, load_contours_library)
-        (flash_lib, flash_s), (_, contours_s) = flash.result(), contours.result()
-    # ptxas -v: "Function properties for <name>", then its stack/spill line,
-    # then "Used N registers"
-    registers, spilled, name = [], [], ""
-    for line in build_log(Path(flash_lib._name)).splitlines():
-        if "Function properties for" in line:
-            name = line.split("Function properties for")[1].strip()
-        elif "spill stores" in line and not line.strip().startswith(NO_SPILL):
-            spilled.append(f"{name}: {line.strip()}")
-        elif "Used " in line:
-            registers.append(int(line.split("Used ")[1].split()[0]))
-    log(f"build ok flash_attn.so {flash_s:.1f}s (nvcc sm_90a), atlas_contours.so "
-        f"{contours_s:.1f}s (g++), wall {time.perf_counter() - t0:.1f}s; ptxas: "
-        f"{len(registers)} kernels, max registers {max(registers)}, "
-        f"stack or spills: {'; '.join(spilled) if spilled else 'none'}")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = [pool.submit(timed, fn)
+                for fn in (load_wgmma_library, load_flash_library, load_contours_library)]
+        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (_, contours_s) = (j.result() for j in jobs)
+    bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
+              **_ptxas_by_body(build_log(Path(flash_lib._name)))}
+    if any(s.startswith("D=96") for s in bodies["wgmma"]["spilling"]):
+        raise AssertionError(f"the wgmma body spills at D = 96: {bodies['wgmma']['spilling']}")
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", wgmma_lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+    if not ops["HGMMA"] or not ops["UTMALDG"]:
+        raise AssertionError(f"the wgmma library's SASS lacks HGMMA or UTMALDG: {ops}")
+    log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s and flash_attn.so {flash_s:.1f}s (nvcc sm_90a), "
+        f"atlas_contours.so {contours_s:.1f}s (g++), wall {time.perf_counter() - t0:.1f}s")
+    for kind, entry in bodies.items():
+        log(f"build ptxas {kind}: {entry['kernels']} kernels, max registers {entry['max_registers']}, "
+            f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
+    log(f"build wgmma SASS: {ops}")
 
 
 def phase_kernel(state):
@@ -172,6 +201,7 @@ def phase_kernel(state):
         k = torch.randn(n, h, tk, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(n, h, tk, d, device="cuda", generator=gen).to(dtype)
         scale = d**-0.5
+        variant = A.kernel_variant(dtype, tq, tk, d)
         got = A.flash_attention(q, k, v, scale)
         want = A.reference_attention(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
@@ -183,14 +213,18 @@ def phase_kernel(state):
         ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: A.reference_attention(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        others = {alt: cuda_ms(lambda: A.flash_attention(q, k, v, scale, variant=alt))
+                  for alt in A._admissible(dtype, d) if alt != variant}
         op_ms, byte_ms = attention_bound(shape, dtype_name)
         row = dict(label=label, shape=shape, dtype=dtype_name, err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, op_ms=op_ms, byte_ms=byte_ms)
         rows.append(row)
         log(f"kernel {label:18s} (BH={n}x{h}, Tq={tq}, Tkv={tk}, D={d}) {dtype_name:8s} "
-            f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"{variant:10s} max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"sdpa_ms={library_ms:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
-            f"({'operations' if op_ms >= byte_ms else 'bytes'}) [{state['card']}]")
+            f"({'operations' if op_ms >= byte_ms else 'bytes'})"
+            + (f" others={ {k_: round(v_, 4) for k_, v_ in others.items()} }" if others else "")
+            + f" [{state['card']}]")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -245,6 +279,7 @@ def phase_seg(state):
     import torch
 
     from atlaspatch_tpu_torch.core.config import SegmentationConfig
+    from atlaspatch_tpu_torch.models.sam2.hiera import trunk_attention_shapes
     from atlaspatch_tpu_torch.models.sam2.model import pil_nearest_index, thumbs_to_logits
     from atlaspatch_tpu_torch.ops import attention as A
     from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
@@ -263,13 +298,21 @@ def phase_seg(state):
     _run_service(f32, f32_thumbs)
 
     perf.reset()
-    A.flash_attention.launches = 0
+    A.reset_launch_counts()
     fast_masks, fast_s = _run_service(fast, fast_thumbs)
     f32_masks, f32_s = _run_service(f32, f32_thumbs)
     launches = A.flash_attention.launches
+    variants = dict(A.flash_attention.variant_launches)
     forwards = 2 + 2  # (a): one batch of 8 per thumbnail shape; (b): one per thumbnail
     if launches != 12 * forwards:
         raise AssertionError(f"kernel launched {launches} times in {forwards} forwards, want 12 each")
+    cfg = fast.predictor.model.cfg
+    want = Counter()
+    for dtype, size, batch, n in ((torch.bfloat16, 768, 8, 2), (torch.float32, 1024, 1, 2)):
+        for _, _, tq, tk, d in trunk_attention_shapes(cfg, size, batch):
+            want[A.kernel_variant(dtype, tq, tk, d)] += n
+    if variants != dict(want) or want["wgmma_m192"] != 3 * 2:  # the global blocks of (a)
+        raise AssertionError(f"kernel variants launched {variants}, want {dict(want)}")
     state["launches"] = launches
     stages = perf.report()
 
@@ -281,7 +324,8 @@ def phase_seg(state):
         f"{np.mean([m.data.mean() for m in fast_masks]):.3f} [{state['card']}]")
     log(f"seg (b) f32 input 1024 batch 1: {len(f32_thumbs)} thumbnails in {f32_s:.3f} s "
         f"= {len(f32_thumbs) / f32_s:.2f} thumbnails/s [{state['card']}]")
-    log(f"seg kernel launches {launches} in {forwards} forwards (12 per forward)")
+    log(f"seg kernel launches {launches} in {forwards} forwards (12 per forward), by variant "
+        f"{variants}")
     log("seg stages " + json.dumps(stages) + f" [{state['card']}]")
 
     # (b) on the card (every trunk attention is the kernel) vs the same

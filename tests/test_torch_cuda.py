@@ -5,10 +5,11 @@ is installed. Run it on a machine with an H100 and nvcc:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py configures JAX.) The kernel is held
-against the plain version on the same inputs, computed in float32 on the
+(``--noconftest``: tests/conftest.py configures JAX.) Each kernel body is
+held against the plain version on the same inputs, computed in float32 on the
 card: max-abs 1e-4 for float32 inputs, 2e-2 for bfloat16 (the kernel rounds
-its float32 result to bfloat16; inputs are unit-normal).
+p and its float32 result to bfloat16; inputs are unit-normal). The bfloat16
+cases assert which body launched, by the wrapper's per-variant counts.
 """
 
 import pytest
@@ -63,6 +64,70 @@ def test_kernel_matches_plain(card, dtype, shape):
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
+def _launched(fn):
+    """The result of fn() and the variant it launched, by the wrapper's counts."""
+    before = dict(A.flash_attention.variant_launches)
+    out = fn()
+    after = dict(A.flash_attention.variant_launches)
+    (variant,) = [k for k in after if after[k] != before.get(k, 0)]
+    return out, variant
+
+
+WGMMA_CASES = [
+    ((1, 4, 2304, 2304, 96), "wgmma_m192"),  # the global block at small B*H
+    *[((1, 2, tq, tk, 96), v) for tq, v in ((63, "wgmma_m64"), (64, "wgmma_m64"), (65, "wgmma_m128"),
+                                            (129, "wgmma_m192")) for tk in (127, 128, 129)],  # tile edges
+    ((2, 4, 49, 49, 96), "wgmma_m64"),  # stage-3 window: ragged 49-row tiles
+    ((2, 4, 196, 196, 96), "wgmma_m128"),  # stage-2 window: 196 = 128 + 68 keys
+    ((2, 4, 49, 196, 96), "wgmma_m64"),  # q-pool from 14x14 windows
+    ((1, 2, 200, 300, 64), "wgmma_m128"),
+    ((1, 2, 384, 300, 64), "wgmma_m192"),
+    ((1, 2, 200, 300, 128), "wgmma_m128"),
+    ((2, 2, 40, 100, 64), "wgmma_m64"),
+    ((2, 2, 40, 100, 128), "wgmma_m64"),
+]
+
+
+@pytest.mark.parametrize("shape,variant", WGMMA_CASES)
+def test_wgmma_body_matches_plain(card, shape, variant):
+    """bfloat16 with D in {64, 96, 128} and T_q > 16 launches the wgmma body."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.bfloat16)
+    got, launched = _launched(lambda: A.flash_attention(q, k, v))
+    torch.cuda.synchronize()
+    assert launched == variant
+    want = A.reference_attention(q.float(), k.float(), v.float())
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("variant", ["mma", "wgmma_m64", "wgmma_m128", "wgmma_m192"])
+@pytest.mark.parametrize("shape", [(2, 4, 64, 64, 96), (2, 4, 196, 196, 96), (1, 1, 17, 300, 64)])
+def test_every_bf16_body_agrees(card, shape, variant):
+    """Forced to any body the inputs admit, the result is the same function."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.bfloat16, seed=3)
+    got, launched = _launched(lambda: A.flash_attention(q, k, v, variant=variant))
+    torch.cuda.synchronize()
+    assert launched == variant
+    want = A.reference_attention(q.float(), k.float(), v.float())
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize(
+    "dtype,d,variant",
+    [
+        (torch.bfloat16, 72, "wgmma_m128"),
+        (torch.bfloat16, 128, "wgmma_m192"),
+        (torch.float32, 96, "wgmma_m64"),
+        (torch.float32, 96, "mma"),
+    ],
+)
+def test_forced_variant_refused(card, dtype, d, variant):
+    q, k, v = _qkv(card, 1, 1, 128, 128, d, dtype)
+    with pytest.raises(ValueError, match="variant"):
+        A.flash_attention(q, k, v, variant=variant)
+
+
 def test_launch_count_and_non_contiguous_inputs(card):
     q, k, v = _qkv(card, 1, 2, 70, 70, 32, torch.float32)
     before = A.flash_attention.launches
@@ -84,8 +149,9 @@ def test_strided_views_of_a_fused_projection(card, dtype, misaligned):
     start = 1 if misaligned else 0
     qkv = wide[..., start : start + 3 * h * d].unflatten(-1, (3, h, d))
     q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
-    got = A.flash_attention(q, k, v)
+    got, variant = _launched(lambda: A.flash_attention(q, k, v))
     torch.cuda.synchronize()
+    assert variant == ("wgmma_m192" if dtype == torch.bfloat16 else "f32")
     assert got.shape == (b, h, t, d) and got.transpose(1, 2).is_contiguous()
     want = A.reference_attention(q.float(), k.float(), v.float())
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
