@@ -27,8 +27,8 @@
 // - CTAs are persistent: as many as fit on the card, each walking work items
 //   (b*h, Q tile). One thread of the producer issues TMA loads: an item's Q
 //   into one of two Q buffers, then its K and V tiles (64 keys for C = 1 and
-//   3, 128 for C = 2) into a ring of stages (2, 3 and 4 for C = 1, 2, 3, fewer
-//   where shared memory is short), running ahead into the next item while the
+//   3, 128 for C = 2) into a ring of stages (2, 3 and 4 for C = 1, 2, 3; 2
+//   for C = 2 at D = 128, where 3 do not fit), running ahead into the next item while the
 //   consumers finish this one. Full mbarriers (K and V apart, so Q K^T starts
 //   before V has landed) carry the byte counts; empty mbarriers, arrived at by
 //   each consumer warp, hand buffers back. No __syncthreads() after set-up.
@@ -91,24 +91,16 @@ constexpr int smem_limit(int ctas_per_sm) {
   return ctas_per_sm == 1 ? 232448 : 233472 / 2 - 1024;
 }
 
-// The dynamic shared memory of a CTA (the layout of WgmmaShape).
-constexpr int smem_bytes(int d, int c, int bn, int s) {
-  return 2 * (d / 32) * 64 * c * 64   // two Q buffers of 64c rows
-         + 2 * s * (d / 32) * bn * 64  // s K and s V tiles of bn rows
-         + 8 * (4 + 3 * s) + 1024;     // barriers, alignment slack
-}
-
-// The most ring stages, up to `want`, that fit in the CTA's shared memory.
-constexpr int fit_stages(int d, int c, int bn, int want) {
-  int s = want;
-  while (s > 2 && smem_bytes(d, c, bn, s) > smem_limit(c == 1 ? 2 : 1)) --s;
-  return s;
-}
-
-template <int D, int C, int BN, int S>
+// The tile of C consumer warpgroups at head dim D: K/V rows per ring stage
+// and ring stages, as measured on an H100 (PERF.md): 64 keys in 2 stages for
+// 64 Q rows, 128 keys in 3 stages for 128 Q rows (2 at D = 128, where 3 do
+// not fit), 64 keys in 4 stages for 192 Q rows (128 keys spill there).
+template <int D, int C>
 struct WgmmaShape {
   static_assert(D % kPanelCols == 0 && D <= 128, "D is a multiple of 32 up to 128");
-  static_assert(S >= 2, "the PV product of tile i-1 and Q K^T of tile i need both tiles resident");
+  static_assert(C >= 1 && C <= 3, "one to three consumer warpgroups");
+  static constexpr int BN = C == 2 ? 128 : 64;
+  static constexpr int S = C == 1 ? 2 : C == 3 ? 4 : D == 128 ? 2 : 3;
   static constexpr int kPanels = D / kPanelCols;
   static constexpr int kBlockM = 64 * C;
   static constexpr int kThreads = 128 * (C + 1);
@@ -121,7 +113,7 @@ struct WgmmaShape {
   static constexpr int kBarOff = kVOff + S * kKVBytes;
   // then Q full and empty per Q buffer, per stage K full, V full and K/V
   // empty, and 1024 bytes of slack to align the base
-  static constexpr int kSmemBytes = smem_bytes(D, C, BN, S);
+  static constexpr int kSmemBytes = kBarOff + 8 * (4 + 3 * S) + 1024;
   static constexpr int kCtasPerSm = C == 1 ? 2 : 1;  // as __launch_bounds__ asks
   static_assert(kSmemBytes <= smem_limit(kCtasPerSm), "the ring does not fit in shared memory");
   // Registers per thread after setmaxnreg: the producer's 24, the rest of
@@ -405,14 +397,15 @@ __device__ __forceinline__ void fence_p(uint32_t (&pa)[BN / 16][4]) {
 // A CTA walks work items (b*h, Q tile) blockIdx.x, + gridDim.x, ...: the
 // producer runs ahead into the next item (its Q into the other of two Q
 // buffers, its K/V into the ring) while the consumers finish this one.
-template <int D, int C, int BN, int S>
+template <int D, int C>
 __global__ void __launch_bounds__(128 * (C + 1), C == 1 ? 2 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        int64_t o_sb, int64_t o_sh, int64_t o_st, int bh_total, int heads, int tq,
                        int tk, float scale_log2) {
-  using G = WgmmaShape<D, C, BN, S>;
+  using G = WgmmaShape<D, C>;
+  constexpr int BN = G::BN, S = G::S;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + G::kBarOff;
@@ -640,19 +633,19 @@ CUresult encode_operand(EncodeTiled encode, CUtensorMap* map, const void* ptr, i
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D, int C, int BN, int S>
+template <int D, int C>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                  int tq, int tk, const int64_t* st, float scale, cudaStream_t stream) {
-  using G = WgmmaShape<D, C, BN, S>;
+  using G = WgmmaShape<D, C>;
   EncodeTiled encode = nullptr;
   const cudaError_t found = encoder(&encode);
   if (found != cudaSuccess) return kNoDriverEntry + (int)found;
   CUtensorMap tm_q, tm_k, tm_v;
   CUresult res = encode_operand(encode, &tm_q, q, D, tq, heads, batch, st + 0, G::kBlockM);
-  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_k, k, D, tk, heads, batch, st + 3, BN);
-  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_v, v, D, tk, heads, batch, st + 6, BN);
+  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_k, k, D, tk, heads, batch, st + 3, G::BN);
+  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_v, v, D, tk, heads, batch, st + 6, G::BN);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
-  auto kernel = flash_fwd_wgmma_kernel<D, C, BN, S>;
+  auto kernel = flash_fwd_wgmma_kernel<D, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)G::kSmemBytes);
   int device = 0, sms = 0;
@@ -670,28 +663,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch
 
 }  // namespace
 
-// The K/V rows and ring stages of the 64-, 128- and 192-row Q tiles (a build
-// may override them: atlaspatch_tpu_torch/tools/attention_tiles.py compares);
-// the stages are cut to what fits in shared memory (3 -> 2 at D = 128).
-#ifndef ATLAS_M64_KV_ROWS
-#define ATLAS_M64_KV_ROWS 64
-#endif
-#ifndef ATLAS_M64_STAGES
-#define ATLAS_M64_STAGES 2
-#endif
-#ifndef ATLAS_M128_KV_ROWS
-#define ATLAS_M128_KV_ROWS 128
-#endif
-#ifndef ATLAS_M128_STAGES
-#define ATLAS_M128_STAGES 3
-#endif
-#ifndef ATLAS_M192_KV_ROWS
-#define ATLAS_M192_KV_ROWS 64
-#endif
-#ifndef ATLAS_M192_STAGES
-#define ATLAS_M192_STAGES 4
-#endif
-
 // q, k, v, o: (batch, heads, t, d) bfloat16 device buffers with d contiguous,
 // d in {64, 96, 128}; `strides` holds the (batch, heads, t) element strides of
 // q, k, v and o in that order (12 values): those of q, k and v non-zero
@@ -708,17 +679,12 @@ extern "C" int atlas_flash_attn_wgmma_fwd(const void* q, const void* k, const vo
                                           void* stream) {
   if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-#define ATLAS_TILE(DV, C, BN, S)                                                 \
-  if (d == DV && block_m == 64 * C)                                              \
-    return launch_wgmma<DV, C, BN, fit_stages(DV, C, BN, S)>(q, k, v, o, batch, heads, tq, tk, \
-                                                             strides, scale, s);
-#define ATLAS_HEAD_DIM(DV)                                 \
-  ATLAS_TILE(DV, 1, ATLAS_M64_KV_ROWS, ATLAS_M64_STAGES) \
-  ATLAS_TILE(DV, 2, ATLAS_M128_KV_ROWS, ATLAS_M128_STAGES)
-  ATLAS_HEAD_DIM(64) ATLAS_HEAD_DIM(96) ATLAS_HEAD_DIM(128)
-  ATLAS_TILE(64, 3, ATLAS_M192_KV_ROWS, ATLAS_M192_STAGES)
-  ATLAS_TILE(96, 3, ATLAS_M192_KV_ROWS, ATLAS_M192_STAGES)
-#undef ATLAS_HEAD_DIM
+#define ATLAS_TILE(DV, C) \
+  if (d == DV && block_m == 64 * C) \
+    return launch_wgmma<DV, C>(q, k, v, o, batch, heads, tq, tk, strides, scale, s);
+  ATLAS_TILE(64, 1) ATLAS_TILE(96, 1) ATLAS_TILE(128, 1)
+  ATLAS_TILE(64, 2) ATLAS_TILE(96, 2) ATLAS_TILE(128, 2)
+  ATLAS_TILE(64, 3) ATLAS_TILE(96, 3)
 #undef ATLAS_TILE
   return (int)cudaErrorInvalidValue;
 }

@@ -104,15 +104,6 @@ def kernel_variant(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
     return "wgmma_m128"
 
 
-def _admissible(dtype: torch.dtype, d: int) -> tuple[str, ...]:
-    """The variants a forced ``flash_attention(variant=...)`` may name."""
-    if dtype == torch.float32:
-        return ("f32",)
-    if d not in WGMMA_HEAD_DIMS:
-        return ("mma",)
-    return ("mma", *(v for v in WGMMA_TILES if v != "wgmma_m192" or d in M192_HEAD_DIMS))
-
-
 def _strides(t: torch.Tensor) -> list[int]:
     """(B, H, T) element strides of a (B, H, T, D) tensor; 0 for a dim of size 1."""
     return [s if n > 1 else 0 for n, s in zip(t.shape[:3], t.stride()[:3])]
@@ -146,7 +137,6 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     sm_scale: float | None = None,
-    variant: str | None = None,
 ) -> torch.Tensor:
     """(B, H, T, D) non-causal attention on the card. T_q and T_kv may differ.
 
@@ -155,9 +145,8 @@ def flash_attention(
     contiguous and rows are 16-byte aligned (as in views of a fused qkv
     projection), else copies them. Accumulates in float32 and returns the
     input dtype, as a (B, H, T_q, D) view of a (B, T_q, H, D) tensor, so the
-    caller's merge of the heads is free. ``variant`` names the body to launch
-    (default ``kernel_variant``); one these inputs do not admit raises.
-    ``flash_attention.launches`` counts kernel launches, and
+    caller's merge of the heads is free. Launches the body ``kernel_variant``
+    picks; ``flash_attention.launches`` counts kernel launches, and
     ``flash_attention.variant_launches`` counts them by variant."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected (B, H, T, D) tensors, got {q.shape}, {k.shape}, {v.shape}")
@@ -173,10 +162,17 @@ def flash_attention(
         raise ValueError(f"flash_attention takes head dims that are multiples of 8 up to 128, got {D}")
     if Tq == 0 or Tk == 0 or B * H == 0:
         raise ValueError(f"flash_attention got an empty sequence: {q.shape}, {k.shape}")
-    if variant is None:
-        variant = kernel_variant(q.dtype, Tq, Tk, D)
-    elif variant not in _admissible(q.dtype, D):
-        raise ValueError(f"variant {variant!r} does not take {q.dtype} with head dim {D}")
+    return _launch(kernel_variant(q.dtype, Tq, Tk, D), q, k, v, sm_scale)
+
+
+def _launch(variant: str, q, k, v, sm_scale: float | None = None) -> torch.Tensor:
+    """Launch ``variant`` on inputs ``flash_attention`` has checked. The card
+    tests call it to hold every body a shape fits against the plain version;
+    a wgmma tile the library does not build for this D raises."""
+    if (q.dtype == torch.float32) != (variant == "f32"):
+        raise ValueError(f"variant {variant!r} does not take {q.dtype}")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
     if sm_scale is None:
         sm_scale = D**-0.5
     q, k, v = _kernel_readable(q), _kernel_readable(k), _kernel_readable(v)
@@ -228,6 +224,21 @@ def reference_attention(q, k, v, sm_scale=None):
     s = torch.einsum("bhqd,bhkd->bhqk", q * sm_scale, k)
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def bf16_error_limit(q, k, v, sm_scale=None):
+    """The plain version in float32 of bfloat16 (q, k, v), and the most a
+    bfloat16 body may differ from it, element by element.
+
+    A body rounds each probability p to bfloat16 before the PV product, and
+    its float32 result to bfloat16, each within u = 2^-8 of its value; all else
+    is float32. So |body - plain| <= u * (sum_j p_j |v_j| + |plain|) for each
+    output element; 5% on top covers float32 sums taken in another order and
+    ex2.approx. Returns (plain, limit), both float32."""
+    q, k, v = q.float(), k.float(), v.float()
+    want = reference_attention(q, k, v, sm_scale)
+    spread = reference_attention(q, k, v.abs(), sm_scale)
+    return want, 1.05 * 2.0**-8 * (spread + want.abs())
 
 
 def attention(q, k, v, sm_scale=None):

@@ -1,10 +1,13 @@
-"""Which attention kernel the port launches, and what the wgmma body's TMA maps are handed.
+"""Which attention kernel the port launches, what the wgmma body's TMA maps are
+handed, and the limit the bfloat16 bodies are held to.
 
 CPU only: ``kernel_variant`` and the stride rules are pure Python, so they are
 held here at every shape the main path hands the kernel (Hiera-tiny, the
 ``--fast`` preset and the float32 default) and on the q/k/v views that the
-trunk's attention hands over. The kernels themselves are held against the
-plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+trunk's attention hands over. ``bf16_error_limit`` is held against a bfloat16
+body emulated in float64, sound and with planted faults. The kernels
+themselves are held against the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -77,25 +80,49 @@ def test_variant_edges(dtype, tq, d, want):
     assert A.kernel_variant(dtype, tq, 196, d) == want
 
 
+def _bf16_body(q, k, v, scale, p_dtype=torch.bfloat16, skip=0):
+    """A bfloat16 body emulated in float64: P rounded to ``p_dtype`` before
+    the PV product, the output to bfloat16. ``p_dtype`` other than bfloat16,
+    or ``skip`` > 0 (keys [0, skip) dropped), plants a fault."""
+    q, k, v = q.double(), k[:, :, skip:].double(), v[:, :, skip:].double()
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) * scale, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.float().to(p_dtype).double(), v)
+    return out.to(torch.bfloat16).float()
+
+
+def _limit_ratio(shape, scale_sign=1, **fault):
+    """max |body - plain| / bf16_error_limit over the output, seeded inputs."""
+    b, h, tq, tk, d = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d), np.float32)).to(torch.bfloat16)
+               for t in (tq, tk, tk))
+    scale = scale_sign * d**-0.5
+    want, limit = A.bf16_error_limit(q, k, v, scale)
+    return ((_bf16_body(q, k, v, scale, **fault) - want).abs() / limit).max().item()
+
+
+# (B, H, T_q, T_kv, D): a global block's rows at small B*H and Q length, the
+# 49/196 q-pool, the stage-1 window, and D = 128.
+LIMIT_SHAPES = [(1, 2, 256, 2304, 96), (2, 2, 49, 196, 96), (2, 4, 16, 16, 96), (1, 1, 128, 128, 128)]
+
+
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("shape", LIMIT_SHAPES)
+def test_bf16_limit_holds_a_sound_body(shape, scale_sign):
+    """A body that rounds only where the bodies round stays within the limit
+    (at most 0.57 of it at these shapes)."""
+    assert _limit_ratio(shape, scale_sign) <= 0.75
+
+
 @pytest.mark.parametrize(
-    "dtype,d,variant,ok",
-    [
-        (torch.bfloat16, 96, "wgmma_m128", True),
-        (torch.bfloat16, 96, "wgmma_m64", True),
-        (torch.bfloat16, 96, "wgmma_m192", True),
-        (torch.bfloat16, 64, "wgmma_m192", True),
-        (torch.bfloat16, 128, "wgmma_m192", False),
-        (torch.bfloat16, 128, "wgmma_m128", True),
-        (torch.bfloat16, 96, "mma", True),
-        (torch.bfloat16, 72, "wgmma_m64", False),
-        (torch.bfloat16, 96, "f32", False),
-        (torch.float32, 96, "wgmma_m128", False),
-        (torch.float32, 96, "mma", False),
-        (torch.float32, 96, "f32", True),
-    ],
+    "shape,fault",
+    [(s, "p_fp8") for s in LIMIT_SHAPES] + [(s, "tile_skipped") for s in LIMIT_SHAPES if s[3] > 64],
 )
-def test_forced_variants_the_inputs_admit(dtype, d, variant, ok):
-    assert (variant in A._admissible(dtype, d)) == ok
+def test_bf16_limit_catches_planted_faults(shape, fault):
+    """P in fp8 (e4m3) or one 64-key K/V tile skipped exceeds the limit
+    several times over (6.8x at least at these shapes)."""
+    kw = {"p_dtype": torch.float8_e4m3fn} if fault == "p_fp8" else {"skip": 64}
+    assert _limit_ratio(shape, **kw) > 3.0
 
 
 def _trunk_views(dim, dim_out, heads, query_stride, monkeypatch):

@@ -7,9 +7,10 @@ is installed. Run it on a machine with an H100 and nvcc:
 
 (``--noconftest``: tests/conftest.py configures JAX.) Each kernel body is
 held against the plain version on the same inputs, computed in float32 on the
-card: max-abs 1e-4 for float32 inputs, 2e-2 for bfloat16 (the kernel rounds
-p and its float32 result to bfloat16; inputs are unit-normal). The bfloat16
-cases assert which body launched, by the wrapper's per-variant counts.
+card: max-abs 1e-4 for float32 inputs; for bfloat16 max-abs 2e-2 and, element
+by element, ``bf16_error_limit`` (the kernel rounds p and its float32 result
+to bfloat16; inputs are unit-normal). The bfloat16 cases assert which body
+launched, by the wrapper's per-variant counts.
 """
 
 import pytest
@@ -38,6 +39,18 @@ def _qkv(card, b, h, tq, tk, d, dtype, seed=0):
     return q, k, v
 
 
+def _assert_close(got, q, k, v, sm_scale=None):
+    """got against the plain version in float32, as the docstring says."""
+    if got.dtype == torch.float32:
+        want = A.reference_attention(q, k, v, sm_scale)
+        assert (got - want).abs().max().item() <= TOL[torch.float32]
+        return
+    want, limit = A.bf16_error_limit(q, k, v, sm_scale)
+    err = (got.float() - want).abs()
+    assert err.max().item() <= TOL[torch.bfloat16]
+    assert (err <= limit).all(), f"max err/limit {(err / limit).max().item()}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape",
@@ -60,8 +73,7 @@ def test_kernel_matches_plain(card, dtype, shape):
     got = A.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    want = A.reference_attention(q.float(), k.float(), v.float())
-    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    _assert_close(got, q, k, v)
 
 
 def _launched(fn):
@@ -96,36 +108,48 @@ def test_wgmma_body_matches_plain(card, shape, variant):
     got, launched = _launched(lambda: A.flash_attention(q, k, v))
     torch.cuda.synchronize()
     assert launched == variant
-    want = A.reference_attention(q.float(), k.float(), v.float())
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_close(got, q, k, v)
 
 
 @pytest.mark.parametrize("variant", ["mma", "wgmma_m64", "wgmma_m128", "wgmma_m192"])
 @pytest.mark.parametrize("shape", [(2, 4, 64, 64, 96), (2, 4, 196, 196, 96), (1, 1, 17, 300, 64)])
 def test_every_bf16_body_agrees(card, shape, variant):
-    """Forced to any body the inputs admit, the result is the same function."""
+    """Launched on any body that fits the inputs, the result is the same function."""
     b, h, tq, tk, d = shape
     q, k, v = _qkv(card, b, h, tq, tk, d, torch.bfloat16, seed=3)
-    got, launched = _launched(lambda: A.flash_attention(q, k, v, variant=variant))
+    got, launched = _launched(lambda: A._launch(variant, q, k, v))
     torch.cuda.synchronize()
     assert launched == variant
-    want = A.reference_attention(q.float(), k.float(), v.float())
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_close(got, q, k, v)
+
+
+@pytest.mark.parametrize("variant", ["mma", "wgmma_m64", "wgmma_m128", "wgmma_m192"])
+@pytest.mark.parametrize("shape", [(1, 2, 196, 196, 96), (2, 2, 49, 300, 64)])
+def test_negative_scale(card, shape, variant):
+    """A negative scale reverses the order of the scores; on ragged K/V tiles
+    the masked keys must still get no weight (the wgmma body applies the scale
+    before the mask)."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.bfloat16, seed=4)
+    got, launched = _launched(lambda: A._launch(variant, q, k, v, -0.125))
+    torch.cuda.synchronize()
+    assert launched == variant and torch.isfinite(got).all()
+    _assert_close(got, q, k, v, -0.125)
 
 
 @pytest.mark.parametrize(
-    "dtype,d,variant",
+    "dtype,d,variant,error",
     [
-        (torch.bfloat16, 72, "wgmma_m128"),
-        (torch.bfloat16, 128, "wgmma_m192"),
-        (torch.float32, 96, "wgmma_m64"),
-        (torch.float32, 96, "mma"),
+        (torch.bfloat16, 72, "wgmma_m128", RuntimeError),  # the library builds D 64/96/128
+        (torch.bfloat16, 128, "wgmma_m192", RuntimeError),  # and 192 rows only to D = 96
+        (torch.float32, 96, "wgmma_m64", ValueError),
+        (torch.float32, 96, "mma", ValueError),
     ],
 )
-def test_forced_variant_refused(card, dtype, d, variant):
+def test_forced_variant_refused(card, dtype, d, variant, error):
     q, k, v = _qkv(card, 1, 1, 128, 128, d, dtype)
-    with pytest.raises(ValueError, match="variant"):
-        A.flash_attention(q, k, v, variant=variant)
+    with pytest.raises(error, match="variant|cudaError 1"):
+        A._launch(variant, q, k, v)
 
 
 def test_launch_count_and_non_contiguous_inputs(card):
@@ -133,8 +157,7 @@ def test_launch_count_and_non_contiguous_inputs(card):
     before = A.flash_attention.launches
     got = A.attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     assert A.flash_attention.launches == before + 1
-    want = A.reference_attention(q, k, v)
-    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    _assert_close(got, q, k, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -153,8 +176,7 @@ def test_strided_views_of_a_fused_projection(card, dtype, misaligned):
     torch.cuda.synchronize()
     assert variant == ("wgmma_m192" if dtype == torch.bfloat16 else "f32")
     assert got.shape == (b, h, t, d) and got.transpose(1, 2).is_contiguous()
-    want = A.reference_attention(q.float(), k.float(), v.float())
-    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    _assert_close(got, q, k, v)
 
 
 @pytest.mark.parametrize(
