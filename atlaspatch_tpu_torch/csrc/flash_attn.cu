@@ -16,7 +16,8 @@
 // 2*(T_q+T_kv)*D*bytes of traffic. At the global blocks it is bound by
 // operations (T=2304, D=96, B*H=32 in bfloat16: 65.2 GFLOP vs 56.6 MB, 66 us
 // at the 989 TFLOP/s bf16 tensor-core peak vs 17 us at 3.35 TB/s); the
-// windowed blocks (T <= 196) are bound by bytes. Two kernels, by input type:
+// windowed blocks (T <= 196) are bound by bytes. Three bodies, by input type
+// and shape:
 //
 // bfloat16 (the --fast path): QK^T and PV run on the tensor cores as
 // mma.sync m16n8k16 (bf16 in, float32 accumulate). A CTA of W warps owns a
@@ -34,10 +35,33 @@
 // peak: bfloat16 with D in {64, 96, 128} and T_q > 16 goes to the wgmma + TMA
 // body in flash_attn_wgmma.cu instead (ops/attention.py::kernel_variant).
 //
-// float32 (the reference-exact default): float32 FMA on the CUDA cores (no
-// TF32), 256 threads per 64-row Q tile, each thread a 4x4 block of scores
-// and a 4-row block of the output, fed by 16-byte shared-memory loads. Its
-// bound is the 67 TFLOP/s FP32 rate it uses.
+// float32 with T_q > 16 and D in {64, 96} (tf32x3, the reference-exact
+// default's global and windowed blocks): the same mma.sync structure on
+// m16n8k8 TF32, error-compensated: each operand x is split into big =
+// tf32(x) and small = tf32(x - big), and each product is small*big +
+// big*small + big*big, which keeps float32 accuracy (ops/attention.py::
+// f32_error_limit). Its bound is those 3 x 4*T_q*T_kv*D flop at the 495
+// TFLOP/s TF32 rate: 0.156 ms at the global block (B*H=4, 4096, 4096, 96),
+// where the FMA body's 67 TFLOP/s FP32 rate allows 0.385 ms. SDPA's float32
+// route runs the same scheme (PyTorch's memory-efficient attention on
+// OpMultiplyAddFastF32). 4 warps own a 64-row Q tile, held as big and small
+// A fragments in registers; K/V arrive in 64-key tiles by cp.async, double-
+// buffered, and their B fragments come out of shared memory without bank
+// conflicts (K as 8-byte loads) to be split in registers. P needs no
+// shuffle: the keys of each 8-key group are relabelled so that the score
+// accumulator is P's A fragment as it stands. Choices measured on an H100
+// (tools/tf32x3_variants.py, PERF.md): the split is an integer add and mask
+// (cvt.rna.tf32.f32 compiles to a compare-and-select sequence, about 1.3x
+// slower overall); PV's products go into a fresh accumulator per two key
+// groups, since the tensor cores truncate the sums they accumulate and,
+// chained over T_kv, that drift left f32_error_limit; 255 registers at
+// D = 96 allow 2 CTAs per SM, and D = 128 spills, so it stays on the FMA
+// body.
+//
+// float32 otherwise (T_q <= 16: the q-pool and stage-1 blocks; other D):
+// float32 FMA on the CUDA cores (no TF32), 256 threads per 64-row Q tile,
+// each thread a 4x4 block of scores and a 4-row block of the output, fed by
+// 16-byte shared-memory loads. Its bound is the 67 TFLOP/s FP32 rate it uses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +71,7 @@
 
 namespace {
 
-constexpr int kBlockN = 64;  // key rows per K/V tile (both kernels)
+constexpr int kBlockN = 64;  // key rows per K/V tile (every body)
 
 // Element strides of one (B, H, T, D) operand; D is contiguous.
 struct Strides {
@@ -304,8 +328,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 
 // 16 bytes global -> shared without passing through registers; copies
 // nothing and writes zeros when !valid (`src` must still be a valid address).
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            bool valid) {
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
@@ -562,13 +585,333 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
   return launch_bf16_warps<D, 4, 2>(q, k, v, o, L, bh, tq, tk, scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores: 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32), lane = 4*g + t:
+//   A (16x8, row-major): a0 = A[g][t],  a1 = A[g+8][t],  a2 = A[g][t+4],  a3 = A[g+8][t+4]
+//   B (8x8, "col"):      b0 = B[t][g],  b1 = B[t+4][g]
+//   C (16x8, float32):   c0,c1 = C[g][2t..2t+1],  c2,c3 = C[g+8][2t..2t+1]
+// The k index of an mma is only a label that A and B share. QK^T: in k-step
+// kk, k-column t is d = 8kk + 2t and t+4 is d = 8kk + 2t + 1, so K's B
+// fragment b0/b1 = K[key g][8kk + 2t, +1] is one 8-byte load; K rows of D + 8
+// floats are 8 banks apart, so a half-warp's loads cover banks 8g + 2t (+1)
+// once each. PV: within each 8-key group k-column t is key 2t and t+4 is key
+// 2t+1. The score accumulator of that group, {c0, c2, c1, c3}, is then P's A
+// fragment as it stands, and b0/b1 = V[key 2t / 2t+1][column g]; V rows of
+// D + 4 floats are 4 banks apart, so those loads hit banks 8t + g (+4): 32
+// distinct banks, no conflict.
+
+constexpr int kTf32Warps = 4;
+constexpr int kTf32Threads = 32 * kTf32Warps;
+constexpr int kTf32BlockM = 16 * kTf32Warps;  // query rows per CTA
+constexpr int kTf32PvGroups = 2;               // 8-key groups per fresh PV accumulator
+static_assert(kTf32BlockM == kBlockN, "the Q tile passes through a K buffer");
+
+template <int D>
+struct Tf32Shape {
+  // smem rows (floats), 16-byte aligned: K's 8 banks apart (its fragments
+  // are 8-byte loads), V's 4 banks apart (32-bit loads from two rows).
+  static constexpr int kStrideK = D + 8;
+  static constexpr int kStrideV = D + 4;
+  static constexpr int kTileK = kBlockN * kStrideK;  // one Q or K buffer (floats)
+  static constexpr int kTileV = kBlockN * kStrideV;  // one V buffer
+  // K and V, two stages each; Q passes through the second K buffer first.
+  static constexpr size_t kSmemBytes = sizeof(float) * 2 * (size_t)(kTileK + kTileV);
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
+// as cvt.rna.tf32.f32 rounds; an integer add and mask, since cvt.rna.tf32.f32
+// compiles to a longer compare-and-select sequence.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to within 2^-22 |x|; both TF32, rounded to nearest.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));  // exact in float32
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b as small*big + big*small + big*big (CUTLASS's OpMultiplyAddFastF32
+// order: the small terms first, so they are not lost below the big one).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], float b0, float b1) {
+  uint32_t b0_big, b0_small, b1_big, b1_small;
+  split_tf32(b0, b0_big, b0_small);
+  split_tf32(b1, b1_big, b1_small);
+  mma_tf32(c, a_small, b0_big, b1_big);
+  mma_tf32(c, a_big, b0_small, b1_small);
+  mma_tf32(c, a_big, b0_big, b1_big);
+}
+
+// 64 x D rows of a float32 source (rows `row_stride` apart) into smem rows of
+// kStride floats, zero beyond `valid` rows; cp.async, not waited for here.
+template <int D, int kStride>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int64_t row_stride,
+                                              int valid, int tid) {
+  constexpr int kVecs = D / 4;
+  for (int e = tid; e < kBlockN * kVecs; e += kTf32Threads) {
+    const int r = e / kVecs;
+    const int c = (e - r * kVecs) * 4;
+    const bool ok = r < valid;
+    cp_async_16(dst + r * kStride + c, ok ? src + r * row_stride + c : src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads, 2)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, Layout L, int tq,
+                        int tk, float scale_log2) {
+  using S = Tf32Shape<D>;
+  constexpr int kSteps = D / 8;  // QK^T k-steps, and PV n-tiles over the head dim
+  extern __shared__ __align__(16) float smem_tf32[];
+  float* ks = smem_tf32;           // [2][kBlockN][kStrideK]
+  float* vs = ks + 2 * S::kTileK;  // [2][kBlockN][kStrideV]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTf32BlockM;
+  const int q_rows = min(kTf32BlockM, tq - q0);
+  const float* kb = k + head_offset(L.k, bh, L.heads);
+  const float* vb = v + head_offset(L.v, bh, L.heads);
+  const int n_tiles = (tk + kBlockN - 1) / kBlockN;
+
+  // Every K/V tile is 64 whole rows, zero past T_kv: QK^T runs on all of
+  // them (their scores are masked) and P (0 there) times V stays 0.
+  auto load_kv = [&](int tile, int stage) {
+    const int kv0 = tile * kBlockN;
+    const int valid = min(kBlockN, tk - kv0);
+    load_rows_f32<D, S::kStrideK>(ks + stage * S::kTileK, kb + kv0 * L.k.t, L.k.t, valid, tid);
+    load_rows_f32<D, S::kStrideV>(vs + stage * S::kTileV, vb + kv0 * L.v.t, L.v.t, valid, tid);
+    cp_async_commit();
+  };
+
+  load_rows_f32<D, S::kStrideK>(ks + S::kTileK, q + head_offset(L.q, bh, L.heads) + q0 * L.q.t,
+                                L.q.t, q_rows, tid);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_wait<1>();  // Q has landed (tile 0 may still be in flight)
+  __syncthreads();
+
+  // This warp's 16 Q rows, times scale * log2(e) (scores come out in log2
+  // units), as big and small A fragments kept in registers. In k-step kk,
+  // k-column t is d = 8kk + 2t and t+4 is 8kk + 2t + 1 (K's B fragment
+  // takes the same labels, so it is one 8-byte load).
+  uint32_t q_big[kSteps][4], q_small[kSteps][4];
+  {
+    const float* qr = ks + S::kTileK + (warp * 16 + g) * S::kStrideK + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const float x[4] = {qr[kk * 8], qr[8 * S::kStrideK + kk * 8], qr[kk * 8 + 1],
+                          qr[8 * S::kStrideK + kk * 8 + 1]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(x[i] * scale_log2, q_big[kk][i], q_small[kk][i]);
+    }
+  }
+  __syncthreads();  // every warp holds its Q before tile 1 overwrites the buffer
+
+  // Rows g and g+8 of this warp's 16: running max (log2 units) and this
+  // lane's partial row sum (its 2 columns of each 8-column tile).
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[kSteps][4];
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kv_rows = min(kBlockN, tk - it * kBlockN);
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `it` is in shared memory for every warp
+    const float* kt = ks + (it & 1) * S::kTileK;
+    const float* vt = vs + (it & 1) * S::kTileV;
+
+    // S = Q K^T over the 8 key groups, k-steps outer so that the 8
+    // accumulators are independent chains of mma.
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const float* kr = kt + g * S::kStrideK + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kr + j * 8 * S::kStrideK + kk * 8);
+        mma_3xtf32(s[j], q_big[kk], q_small[kk], kj.x, kj.y);  // K[key g][8kk + 2t, +1]
+      }
+    }
+
+    // Online softmax in log2 units; the 4 lanes of a row are lanes 4g..4g+3.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (j * 8 + 2 * t + e >= kv_rows) s[j][e] = s[j][2 + e] = -INFINITY;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0);  // finite: key 0 of every tile is valid
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0);
+    const float alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // acc += P V. P's A fragment of key group j is its score accumulator
+    // {c0, c2, c1, c3} (keys relabelled: k-column t is key 2t, t+4 is 2t+1).
+    // The tensor cores truncate each sum they accumulate, and chained over
+    // all of T_kv (1536 products at T_kv = 4096) that drift exceeds
+    // f32_error_limit. So the products of kTf32PvGroups key groups go into a
+    // fresh accumulator, added to the running one in float32 (rounded to
+    // nearest). Groups past the ragged end are skipped: a uniform branch,
+    // which also keeps ptxas from hoisting the next groups' loads into spills.
+    const float* vr = vt + 2 * t * S::kStrideV + g;
+#pragma unroll
+    for (int j0 = 0; j0 < kBlockN / 8; j0 += kTf32PvGroups) {
+      if (j0 * 8 >= kv_rows) continue;
+      uint32_t p_big[kTf32PvGroups][4], p_small[kTf32PvGroups][4];
+#pragma unroll
+      for (int jj = 0; jj < kTf32PvGroups; ++jj) {
+        const float* c = s[j0 + jj];
+        split_tf32(c[0], p_big[jj][0], p_small[jj][0]);  // P[g][key 2t]
+        split_tf32(c[2], p_big[jj][1], p_small[jj][1]);  // P[g+8][key 2t]
+        split_tf32(c[1], p_big[jj][2], p_small[jj][2]);  // P[g][key 2t+1]
+        split_tf32(c[3], p_big[jj][3], p_small[jj][3]);  // P[g+8][key 2t+1]
+      }
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < kTf32PvGroups; ++jj) {
+          const float* vj = vr + (j0 + jj) * 8 * S::kStrideV + n * 8;
+          mma_3xtf32(c, p_big[jj], p_small[jj], vj[0], vj[S::kStrideV]);  // V[key 2t / 2t+1][8n + g]
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] += c[i];
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = warp * 16 + g;
+  float* ob0 = o + head_offset(L.o, bh, L.heads) + (q0 + r0) * L.o.t + 2 * t;
+  float* ob1 = ob0 + 8 * L.o.t;
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n) {
+    if (r0 < q_rows)
+      *reinterpret_cast<float2*>(ob0 + n * 8) = make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r0 + 8 < q_rows)
+      *reinterpret_cast<float2*>(ob1 + n * 8) = make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// Dynamic shared memory, and the largest carveout: only under it do two
+// CTAs (2 x 104 KB at D = 96) share an SM.
+template <int D>
+cudaError_t configure_tf32x3() {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Tf32Shape<D>::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, const Layout& L,
+                          int bh, int tq, int tk, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Tf32Shape<D>::kSmemBytes;
+  cudaError_t err = configure_tf32x3<D>();
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + kTf32BlockM - 1) / kTf32BlockM);
+  flash_fwd_tf32x3_kernel<D><<<grid, kTf32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), L, tq, tk, scale * 1.4426950408889634f);  // exp(x) = exp2(x log2 e)
+  return cudaGetLastError();
+}
+
+// Body codes of atlas_flash_attn_fwd (ops/attention.py::_BODIES).
+enum Body { kBodyF32 = 0, kBodyMma = 1, kBodyTf32x3 = 2 };
+
+// Head dims the tf32x3 body is built for (ops/attention.py::TF32X3_HEAD_DIMS).
+template <int D>
+constexpr bool kTf32x3Dim = D == 64 || D == 96;
+
+template <int D>
+cudaError_t launch_body(int body, const void* q, const void* k, const void* v, void* o,
+                        const Layout& L, int bh, int tq, int tk, float scale,
+                        cudaStream_t stream) {
+  switch (body) {
+    case kBodyF32:
+      return launch_f32<D>(q, k, v, o, L, bh, tq, tk, scale, stream);
+    case kBodyMma:
+      return launch_bf16<D>(q, k, v, o, L, bh, tq, tk, scale, stream);
+    case kBodyTf32x3:
+      if constexpr (kTf32x3Dim<D>) return launch_tf32x3<D>(q, k, v, o, L, bh, tq, tk, scale, stream);
+      else return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const Layout& L,
-                     int bh, int tq, int tk, int d, int dtype, float scale, cudaStream_t stream) {
+                     int bh, int tq, int tk, int d, int body, float scale, cudaStream_t stream) {
   switch (d) {
-#define ATLAS_CASE(DV)                                                            \
-  case DV:                                                                        \
-    return dtype == 0 ? launch_f32<DV>(q, k, v, o, L, bh, tq, tk, scale, stream)  \
-                      : launch_bf16<DV>(q, k, v, o, L, bh, tq, tk, scale, stream);
+#define ATLAS_CASE(DV) \
+  case DV:             \
+    return launch_body<DV>(body, q, k, v, o, L, bh, tq, tk, scale, stream);
     ATLAS_CASE(8) ATLAS_CASE(16) ATLAS_CASE(24) ATLAS_CASE(32)
     ATLAS_CASE(40) ATLAS_CASE(48) ATLAS_CASE(56) ATLAS_CASE(64)
     ATLAS_CASE(72) ATLAS_CASE(80) ATLAS_CASE(88) ATLAS_CASE(96)
@@ -581,20 +924,33 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const
 
 }  // namespace
 
-// q, k, v, o: (batch, heads, t, d) device buffers of one dtype (0 = float32,
-// 1 = bfloat16) with d contiguous; `strides` holds the (batch, heads, t)
+// q, k, v, o: (batch, heads, t, d) device buffers of the dtype `body` takes
+// (0 = f32: float32 FMA; 1 = mma: bfloat16; 2 = tf32x3: float32 3xTF32, for
+// d in 64/96) with d contiguous; `strides` holds the (batch, heads, t)
 // element strides of q, k, v and o in that order (12 values). Every row
-// must start on 16 bytes (both kernels move 16-byte vectors). Launches on
+// must start on 16 bytes (the bodies move 16-byte vectors). Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after the
-// launch (or cudaErrorInvalidValue for an unsupported dtype or head dim).
+// launch (or cudaErrorInvalidValue for an unknown body or a head dim it is
+// not built for).
 extern "C" int atlas_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     int batch, int heads, int tq, int tk, int d,
-                                    const int64_t* strides, int dtype, float scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+                                    const int64_t* strides, int body, float scale, void* stream) {
+  if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   const int64_t* t = strides;
   const Layout L{{t[0], t[1], t[2]}, {t[3], t[4], t[5]}, {t[6], t[7], t[8]}, {t[9], t[10], t[11]},
                  heads};
-  return (int)dispatch(q, k, v, o, L, batch * heads, tq, tk, d, dtype, scale,
+  return (int)dispatch(q, k, v, o, L, batch * heads, tq, tk, d, body, scale,
                        static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of the tf32x3 body that fit on one SM at head dim 96, as the launch
+// configures it (registers, dynamic shared memory, carveout); negative: the
+// cudaError of the query.
+extern "C" int atlas_flash_attn_tf32x3_ctas_per_sm() {
+  cudaError_t err = configure_tf32x3<96>();
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, flash_fwd_tf32x3_kernel<96>,
+                                                        kTf32Threads, Tf32Shape<96>::kSmemBytes);
+  return err == cudaSuccess ? ctas : -(int)err;
 }

@@ -9,7 +9,14 @@ sm_90a at first use and loaded with ctypes. ``kernel_variant`` picks it:
   128- or 192-row Q tiles: one, two or three consumer warpgroups);
 - ``mma``: the bfloat16 body of ``csrc/flash_attn.cu`` on mma.sync, for
   T_q <= 16 and the other head dims;
-- ``f32``: the float32 body of ``csrc/flash_attn.cu``.
+- ``tf32x3``: the float32 body of ``csrc/flash_attn.cu`` on the tensor cores,
+  for D in TF32X3_HEAD_DIMS and T_q > 16: error-compensated 3xTF32 on
+  mma.sync (each operand split into a TF32 big and small part, three
+  products), which keeps float32 accuracy at the TF32 tensor-core rate. It is
+  bound by those operations (3 x 4 T_q T_kv D flop at 495 TFLOP/s) at the
+  global blocks, where SDPA's float32 route runs the same scheme;
+- ``f32``: the float32 body of ``csrc/flash_attn.cu`` on the CUDA cores (FMA,
+  bound by the 67 TFLOP/s FP32 rate), for T_q <= 16 and the other head dims.
 
 ``reference_attention`` is the plain PyTorch version of the same function.
 ``attention`` dispatches on the tensor's device: the plain version for a CPU
@@ -29,7 +36,8 @@ import torch
 from atlaspatch_tpu_torch.build import CSRC, build_shared_library, nvcc_path
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_BODIES = {"f32": 0, "mma": 1, "tf32x3": 2}  # flash_attn.cu's body codes
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -53,6 +61,9 @@ WGMMA_HEAD_DIMS = (64, 96, 128)
 M192_HEAD_DIMS = (64, 96)  # three consumer warpgroups fit their registers without spills
 # wgmma variant -> Q rows of its tile (K/V rows 64, 128 and 64: flash_attn_wgmma.cu)
 WGMMA_TILES = {"wgmma_m64": 64, "wgmma_m128": 128, "wgmma_m192": 192}
+TF32X3_HEAD_DIMS = (64, 96)  # flash_attn.cu builds the tf32x3 body for these (at 128 it spills)
+_VARIANT_DTYPES = {"f32": torch.float32, "tf32x3": torch.float32, "mma": torch.bfloat16,
+                   **{name: torch.bfloat16 for name in WGMMA_TILES}}
 _ENCODE_FAILED, _NO_DRIVER_ENTRY = 1_000_000, 2_000_000  # flash_attn_wgmma.cu's error bases
 
 
@@ -72,7 +83,7 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def load_flash_library() -> ctypes.CDLL:
-    """The mma.sync (bfloat16) and float32 bodies, ``csrc/flash_attn.cu``."""
+    """The mma.sync bfloat16 body and the two float32 bodies, ``csrc/flash_attn.cu``."""
     return _load("atlas_flash_attn")
 
 
@@ -83,8 +94,11 @@ def load_wgmma_library() -> ctypes.CDLL:
 
 def kernel_variant(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
     """The kernel body ``flash_attention`` launches for these inputs: ``f32``,
-    ``mma``, ``wgmma_m64``, ``wgmma_m128`` or ``wgmma_m192`` (see the module
-    docstring).
+    ``tf32x3``, ``mma``, ``wgmma_m64``, ``wgmma_m128`` or ``wgmma_m192`` (see
+    the module docstring).
+
+    float32 with D in TF32X3_HEAD_DIMS and T_q > 16 takes the 3xTF32 body
+    (64-row Q tiles), the rest the FMA body.
 
     bfloat16 with D in WGMMA_HEAD_DIMS and T_q > 16 takes the wgmma body: one
     consumer warpgroup (64 Q rows) up to T_q = 64; beyond, three (192 rows)
@@ -94,7 +108,7 @@ def kernel_variant(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
     64-row wgmma tile on 4 or 16 rows. ``tk`` does not decide."""
     del tk
     if dtype == torch.float32:
-        return "f32"
+        return "tf32x3" if d in TF32X3_HEAD_DIMS and tq > 16 else "f32"
     if d not in WGMMA_HEAD_DIMS or tq <= 16:
         return "mma"
     if tq <= 64:
@@ -168,8 +182,9 @@ def flash_attention(
 def _launch(variant: str, q, k, v, sm_scale: float | None = None) -> torch.Tensor:
     """Launch ``variant`` on inputs ``flash_attention`` has checked. The card
     tests call it to hold every body a shape fits against the plain version;
-    a wgmma tile the library does not build for this D raises."""
-    if (q.dtype == torch.float32) != (variant == "f32"):
+    a wgmma tile or a tf32x3 body the library does not build for this D
+    raises."""
+    if _VARIANT_DTYPES.get(variant) != q.dtype:
         raise ValueError(f"variant {variant!r} does not take {q.dtype}")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -190,7 +205,7 @@ def _launch(variant: str, q, k, v, sm_scale: float | None = None) -> torch.Tenso
         )
     else:
         err = load_flash_library().atlas_flash_attn_fwd(
-            *ptrs, B, H, Tq, Tk, D, strides, _DTYPES[q.dtype], float(sm_scale), stream
+            *ptrs, B, H, Tq, Tk, D, strides, _BODIES[variant], float(sm_scale), stream
         )
     if err >= _NO_DRIVER_ENTRY:
         raise RuntimeError(
@@ -239,6 +254,35 @@ def bf16_error_limit(q, k, v, sm_scale=None):
     want = reference_attention(q, k, v, sm_scale)
     spread = reference_attention(q, k, v.abs(), sm_scale)
     return want, 1.05 * 2.0**-8 * (spread + want.abs())
+
+
+def f32_error_limit(q, k, v, sm_scale=None):
+    """The plain version in float32 of (q, k, v), and the most a float32 body
+    may differ from it, element by element.
+
+    The tf32x3 body splits every operand x into big = tf32(x) and small =
+    tf32(x - big), both rounded to nearest, and drops small * small: each
+    product is within 3 * 2^-22 of its value, and u = 2^-20 covers that. A
+    score s_j is then off by at most u * a_j, a_j = |scale| sum_d |q_d k_jd|,
+    which moves the output by sum_j p_j u a_j |v_j - out| <= u * (sum_j p_j a_j
+    |v_j| + |out| sum_j p_j a_j); the PV product and the final division add
+    u * (sum_j p_j |v_j| + |out|). The float32 sums' own rounding stays far
+    inside this worst-case weighting: the body emulated in float64 reads at
+    most 0.072 of the limit and one uncompensated TF32 pass 12x or more
+    (tests/test_torch_attention_dispatch.py); on an H100, whose tensor cores
+    truncate their sums, the body reads at most 0.30 and that fault 14.8x
+    at the global block. The FMA body rounds only in float32, so it is held
+    to the same limit. Returns (plain, limit), both float32."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    q, k, v = q.float(), k.float(), v.float()
+    want = reference_attention(q, k, v, sm_scale)
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q * sm_scale, k), dim=-1)
+    pa = p * torch.einsum("bhqd,bhkd->bhqk", q.abs(), k.abs()) * abs(sm_scale)
+    spread = torch.einsum("bhqk,bhkd->bhqd", pa, v.abs()) + pa.sum(-1, keepdim=True) * want.abs()
+    del pa
+    spread += torch.einsum("bhqk,bhkd->bhqd", p, v.abs()) + want.abs()
+    return want, 2.0**-20 * spread
 
 
 def attention(q, k, v, sm_scale=None):

@@ -7,16 +7,22 @@ Phases, one line each (any failure exits non-zero with no result line):
   env     torch / CUDA versions, the card's name and power limit, and which of
           Pillow / h5py / OpenCV import (for information only)
   build   the attention kernel's two libraries (nvcc, sm_90a: the wgmma + TMA
-          bfloat16 body, and the mma.sync bfloat16 and float32 bodies) and
-          the contour tracer (g++), all from the sources in
-          atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
-          per body, and the wgmma body's SASS checked for HGMMA and UTMALDG
+          bfloat16 body; the mma.sync bfloat16 body and the two float32
+          bodies, 3xTF32 on mma.sync and FMA) and the contour tracer (g++),
+          all from the sources in atlaspatch_tpu_torch/csrc, built in
+          parallel; registers and spills per body (none allowed at D = 96 in
+          the wgmma and tf32x3 bodies), the tf32x3 body's CTAs per SM, the
+          wgmma body's SASS checked for HGMMA and UTMALDG, flash_attn.so's
+          for TF32 HMMA
   kernel  the attention kernel against its plain PyTorch version at the shapes
           the main path hands it (every trunk block of the --fast preset and
           of the float32 default) plus ragged and q-pool checks; each line
           gives the variant launched, the kernel's, the plain version's and
-          F.scaled_dot_product_attention's time and the bound. float32 is held
-          to max-abs 1e-4; bfloat16 to 2e-2 and, element by element, to
+          F.scaled_dot_product_attention's time and the bound (float32 rows:
+          the FP32-core and the 3xTF32 tensor-core bound). float32 is held to
+          max-abs 1e-4 and, element by element, to attention.f32_error_limit,
+          which a planted single TF32 pass on the global float32 block's
+          inputs must exceed; bfloat16 to 2e-2 and, element by element, to
           attention.bf16_error_limit, which two planted faults emulated on the
           global block's inputs (P in fp8, one K/V tile skipped) must exceed
   seg     SAM2SegmentationService(device="cuda") at full Hiera-tiny width with
@@ -25,7 +31,7 @@ Phases, one line each (any failure exits non-zero with no result line):
           thumbnails. The kernel must have launched 12 times per forward, each
           variant as often as kernel_variant picks it at the trunk's shapes
           (the 3 global blocks of each forward of (a) on the wgmma body's
-          192-row tile).
+          192-row tile; 9 tf32x3 and 3 f32 launches per forward of (b)).
           (b)'s logits are held against the same model on the CPU.
   profile one forward of (a) and of (b) under torch.profiler: device time by
           kernel, and the device's busy share of the forward
@@ -58,7 +64,8 @@ for _var in ("ATLASPATCH_SAM2_CHECKPOINT", "ATLASPATCH_WEIGHTS_DIR", "ATLASPATCH
              "ATLASPATCH_DEVICE_MASK_RESIZE", "ATLASPATCH_THUMB_QUANT", "ATLASPATCH_GELU_TANH"):
     os.environ.pop(_var, None)
 
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; FP32 CUDA cores
+# dense bf16 tensor core; FP32 CUDA cores; dense TF32 tensor core (3xTF32 takes three passes)
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 H100_BYTES_PER_S = 3.35e12
 # The record covers both libraries of the kernel: 9 of a --fast forward's 12
 # calls run the wgmma body, 3 the mma.sync body of flash_attn.cu.
@@ -110,6 +117,14 @@ def attention_bound(shape, dtype_name: str) -> tuple[float, float]:
     return 1e3 * flops / H100_PEAK_FLOPS[dtype_name], 1e3 * nbytes / H100_BYTES_PER_S
 
 
+def tf32x3_bound(shape) -> float:
+    """ms of one float32 call on the tensor cores as 3xTF32: three TF32
+    passes of its flops at the TF32 peak, or its bytes if they take longer."""
+    n, h, tq, tk, d = shape
+    return max(1e3 * 3 * 4.0 * n * h * tq * tk * d / H100_PEAK_FLOPS["tf32"],
+               attention_bound(shape, "float32")[1])
+
+
 def planted_faults(q, k, v, scale, want, limit) -> dict:
     """Max |fault - plain| / limit of two faults of a bfloat16 body, emulated
     in plain PyTorch on the same inputs: P rounded to fp8 (e4m3) in place of
@@ -126,6 +141,20 @@ def planted_faults(q, k, v, scale, want, limit) -> dict:
     }
     return {name: ((out.to(torch.bfloat16).float() - want).abs() / limit).max().item()
             for name, out in faults.items()}
+
+
+def planted_tf32_fault(q, k, v, scale, want, limit) -> dict:
+    """Max |fault - plain| (max-abs) and max |fault - plain| / limit of a
+    float32 body with one uncompensated TF32 pass, emulated in plain PyTorch:
+    q * scale, k, v and P rounded to TF32 once (to nearest, by bit mask)."""
+    import torch
+
+    def tf32(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", tf32(q * scale), tf32(k)), dim=-1)
+    err = (torch.einsum("bhqk,bhkd->bhqd", tf32(p), tf32(v)) - want).abs()
+    return {"max_abs": err.max().item(), "err/limit": (err / limit).max().item()}
 
 
 def phase_env(state):
@@ -149,7 +178,7 @@ def _ptxas_by_body(log: str) -> dict:
     registers and the instantiations (head dim first) with stack or spills."""
     bodies: dict = {}
     for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
-        kind = re.search(r"flash_fwd_(wgmma|bf16|f32)_kernel", name).group(1)
+        kind = re.search(r"flash_fwd_(wgmma|bf16|f32|tf32x3)_kernel", name).group(1)
         kind = {"bf16": "mma"}.get(kind, kind)
         entry = bodies.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
         entry["kernels"] += 1
@@ -179,20 +208,32 @@ def phase_build(state):
         (wgmma_lib, wgmma_s), (flash_lib, flash_s), (_, contours_s) = (j.result() for j in jobs)
     bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
               **_ptxas_by_body(build_log(Path(flash_lib._name)))}
-    if any(s.startswith("D=96") for s in bodies["wgmma"]["spilling"]):
-        raise AssertionError(f"the wgmma body spills at D = 96: {bodies['wgmma']['spilling']}")
+    for body in ("wgmma", "tf32x3"):
+        if body not in bodies or any(s.startswith("D=96") for s in bodies[body]["spilling"]):
+            raise AssertionError(f"the {body} body is missing or spills at D = 96: {bodies.get(body)}")
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", wgmma_lib._name], capture_output=True, text=True,
-                          check=True).stdout
-    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+
+    def sass(lib):
+        return subprocess.run([str(cuobjdump), "-sass", lib._name], capture_output=True, text=True,
+                              check=True).stdout
+
+    wgmma_sass, flash_sass = sass(wgmma_lib), sass(flash_lib)
+    ops = {op: wgmma_sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
     if not ops["HGMMA"] or not ops["UTMALDG"]:
         raise AssertionError(f"the wgmma library's SASS lacks HGMMA or UTMALDG: {ops}")
+    hmma = Counter(re.findall(r"HMMA\.[\w.]+", flash_sass))
+    if not any("TF32" in op for op in hmma):
+        raise AssertionError(f"flash_attn.so's SASS has no TF32 HMMA: {dict(hmma)}")
+    ctas = flash_lib.atlas_flash_attn_tf32x3_ctas_per_sm()
+    if ctas < 1:
+        raise AssertionError(f"the tf32x3 body fits no CTA on an SM (cudaError {-ctas})")
     log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s and flash_attn.so {flash_s:.1f}s (nvcc sm_90a), "
         f"atlas_contours.so {contours_s:.1f}s (g++), wall {time.perf_counter() - t0:.1f}s")
     for kind, entry in bodies.items():
         log(f"build ptxas {kind}: {entry['kernels']} kernels, max registers {entry['max_registers']}, "
             f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
-    log(f"build wgmma SASS: {ops}")
+    log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; tf32x3 at D = 96: {ctas} CTAs "
+        f"of 128 threads per SM")
 
 
 def phase_kernel(state):
@@ -215,7 +256,8 @@ def phase_kernel(state):
         ((8, 4, 2304, 2304, 96), "float32", "global 2304 in f32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, worst, worst_ratio, faults = [], 0.0, 0.0, None
+    rows, worst, faults, tf32_fault = [], 0.0, None, None
+    worst_ratio = {"bfloat16": 0.0, "float32": 0.0}
     for shape, dtype_name, label in checks:
         n, h, tq, tk, d = shape
         dtype = getattr(torch, dtype_name)
@@ -225,23 +267,24 @@ def phase_kernel(state):
         scale = d**-0.5
         variant = A.kernel_variant(dtype, tq, tk, d)
         got = A.flash_attention(q, k, v, scale)
-        if dtype == torch.bfloat16:
-            want, limit = A.bf16_error_limit(q, k, v, scale)
-        else:
-            want, limit = A.reference_attention(q, k, v, scale), None
+        error_limit = A.bf16_error_limit if dtype == torch.bfloat16 else A.f32_error_limit
+        want, limit = error_limit(q, k, v, scale)
         torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
-        ratio = None if limit is None else ((got.float() - want).abs() / limit).max().item()
-        if not (err <= TOL[dtype_name] and (ratio is None or ratio <= 1.0)):
+        ratio = ((got.float() - want).abs() / limit).max().item()
+        if not (err <= TOL[dtype_name] and ratio <= 1.0):
             raise AssertionError(f"kernel disagrees at {label} {shape} {dtype_name}: max abs "
                                  f"{err}, max err/limit {ratio}")
         worst = max(worst, err)
-        if ratio is not None:
-            worst_ratio = max(worst_ratio, ratio)
-            if faults is None and tq == tk == 2304:
-                faults = planted_faults(q, k, v, scale, want, limit)
-                if not min(faults.values()) > 1.0:
-                    raise AssertionError(f"a planted fault passes the bfloat16 limit: {faults}")
+        worst_ratio[dtype_name] = max(worst_ratio[dtype_name], ratio)
+        if faults is None and dtype == torch.bfloat16 and tq == tk == 2304:
+            faults = planted_faults(q, k, v, scale, want, limit)
+            if not min(faults.values()) > 1.0:
+                raise AssertionError(f"a planted fault passes the bfloat16 limit: {faults}")
+        if tf32_fault is None and dtype == torch.float32 and tq == tk == 4096:
+            tf32_fault = planted_tf32_fault(q, k, v, scale, want, limit)
+            if not tf32_fault["err/limit"] > 1.0:
+                raise AssertionError(f"a single TF32 pass passes the float32 limit: {tf32_fault}")
         del got, want, limit
         ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: A.reference_attention(q, k, v, scale))
@@ -251,11 +294,11 @@ def phase_kernel(state):
                    library_ms=library_ms, op_ms=op_ms, byte_ms=byte_ms)
         rows.append(row)
         log(f"kernel {label:18s} (BH={n}x{h}, Tq={tq}, Tkv={tk}, D={d}) {dtype_name:8s} "
-            f"{variant:10s} max_abs_err={err:.3g}"
-            + ("" if ratio is None else f" err/limit={ratio:.3g}")
-            + f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"sdpa_ms={library_ms:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
-            f"({'operations' if op_ms >= byte_ms else 'bytes'}) [{state['card']}]")
+            f"{variant:10s} max_abs_err={err:.3g} err/limit={ratio:.3g} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
+            f"({'operations' if op_ms >= byte_ms else 'bytes'})"
+            + (f" tf32x3_bound_ms={tf32x3_bound(shape):.4f}" if dtype_name == "float32" else "")
+            + f" [{state['card']}]")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -277,14 +320,19 @@ def phase_kernel(state):
         "bound_by": "operations" if op >= byte else "bytes",
         "library_ms": sum(r["library_ms"] for r in fast_rows),
     }
-    log(f"kernel ok: {len(rows)} shapes, max_abs_err {worst:.3g}; bfloat16 max err/limit "
-        f"{worst_ratio:.3g}, planted faults at the global block err/limit "
-        f"{ {k_: round(v_, 3) for k_, v_ in faults.items()} } [{state['card']}]")
+    log(f"kernel ok: {len(rows)} shapes, max_abs_err {worst:.3g}; max err/limit bfloat16 "
+        f"{worst_ratio['bfloat16']:.3g}, float32 {worst_ratio['float32']:.3g}; planted faults at "
+        f"the global blocks: bfloat16 err/limit {({k_: round(v_, 3) for k_, v_ in faults.items()})}, "
+        f"one TF32 pass in float32 max abs {tf32_fault['max_abs']:.3g} err/limit "
+        f"{tf32_fault['err/limit']:.3g} [{state['card']}]")
     for name, group in (("--fast", fast_rows), ("float32", rows[len(fast) : len(fast) + len(default)])):
         log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms, "
             f"plain {sum(r['plain_ms'] for r in group):.3f} ms, sdpa "
             f"{sum(r['library_ms'] for r in group):.3f} ms, bound "
-            f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms [{state['card']}]")
+            f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms"
+            + (f" (3xTF32 bound {sum(tf32x3_bound(r['shape']) for r in group):.3f} ms)"
+               if name == "float32" else "")
+            + f" [{state['card']}]")
 
 
 def _thumbnails(shapes_wh, per_shape, seed0=0):
@@ -345,7 +393,9 @@ def phase_seg(state):
     for dtype, size, batch, n in ((torch.bfloat16, 768, 8, 2), (torch.float32, 1024, 1, 2)):
         for _, _, tq, tk, d in trunk_attention_shapes(cfg, size, batch):
             want[A.kernel_variant(dtype, tq, tk, d)] += n
-    if variants != dict(want) or want["wgmma_m192"] != 3 * 2:  # the global blocks of (a)
+    # (a): the global blocks on the 192-row wgmma tile; (b): 9 tf32x3 and 3 f32 per forward
+    if (variants != dict(want) or want["wgmma_m192"] != 3 * 2 or want["tf32x3"] != 9 * 2
+            or want["f32"] != 3 * 2):
         raise AssertionError(f"kernel variants launched {variants}, want {dict(want)}")
     state["launches"] = launches
     stages = perf.report()

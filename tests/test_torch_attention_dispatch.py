@@ -1,14 +1,18 @@
 """Which attention kernel the port launches, what the wgmma body's TMA maps are
-handed, and the limit the bfloat16 bodies are held to.
+handed, and the limits the bodies are held to.
 
 CPU only: ``kernel_variant`` and the stride rules are pure Python, so they are
 held here at every shape the main path hands the kernel (Hiera-tiny, the
 ``--fast`` preset and the float32 default) and on the q/k/v views that the
 trunk's attention hands over. ``bf16_error_limit`` is held against a bfloat16
-body emulated in float64, sound and with planted faults. The kernels
+body emulated in float64, sound and with planted faults; ``f32_error_limit``
+against the 3xTF32 body emulated in float64 (TF32 rounding by bit mask,
+small * small dropped) and against one uncompensated TF32 pass. The kernels
 themselves are held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -44,10 +48,22 @@ def test_fast_preset_blocks_get_their_variant(block):
     assert A.kernel_variant(torch.bfloat16, tq, tk, d) == BF16_BLOCKS[block][1]
 
 
+# The float32 default's 12 blocks: T_q > 16 on the 3xTF32 body, the q-pool and
+# stage-1 blocks (T_q = 16 and 4) on the FMA body.
+F32_BLOCKS = ["tf32x3", "f32", "f32", "f32"] + ["tf32x3"] * 8
+
+
 @pytest.mark.parametrize("block", range(12))
 def test_float32_default_blocks_take_the_float32_body(block):
     n, h, tq, tk, d = trunk_attention_shapes(SAM2Config.tiny(), 1024, 1)[block]
-    assert A.kernel_variant(torch.float32, tq, tk, d) == "f32"
+    assert A.kernel_variant(torch.float32, tq, tk, d) == F32_BLOCKS[block]
+
+
+def test_float32_default_launches_per_forward():
+    shapes = trunk_attention_shapes(SAM2Config.tiny(), 1024, 1)
+    variants = [A.kernel_variant(torch.float32, tq, tk, d) for _, _, tq, tk, d in shapes]
+    assert variants.count("tf32x3") == 9 and variants.count("f32") == 3
+    assert [v for (n, h, tq, tk, d), v in zip(shapes, variants) if tq == 4096] == ["tf32x3"] * 3
 
 
 def test_fast_preset_wgmma_launches_per_forward():
@@ -72,12 +88,27 @@ def test_fast_preset_wgmma_launches_per_forward():
         (torch.bfloat16, 2304, 128, "wgmma_m128"),
         (torch.bfloat16, 2304, 80, "mma"),
         (torch.bfloat16, 300, 40, "mma"),
-        (torch.float32, 2304, 96, "f32"),
+        (torch.float32, 2304, 96, "tf32x3"),
         (torch.float32, 4, 96, "f32"),
+        (torch.float32, 16, 96, "f32"),
+        (torch.float32, 17, 96, "tf32x3"),
+        (torch.float32, 16, 64, "f32"),
+        (torch.float32, 17, 64, "tf32x3"),
+        (torch.float32, 2304, 128, "f32"),  # the tf32x3 body spills at D = 128
+        (torch.float32, 2304, 80, "f32"),
+        (torch.float32, 300, 40, "f32"),
     ],
 )
 def test_variant_edges(dtype, tq, d, want):
     assert A.kernel_variant(dtype, tq, 196, d) == want
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_only_float32_takes_the_tf32x3_body(d):
+    for tq in (1, 4, 16, 17, 49, 64, 65, 196, 2304, 4096):
+        assert A.kernel_variant(torch.bfloat16, tq, tq, d) != "tf32x3"
+        want = "tf32x3" if d in A.TF32X3_HEAD_DIMS and tq > 16 else "f32"
+        assert A.kernel_variant(torch.float32, tq, tq, d) == want
 
 
 def _bf16_body(q, k, v, scale, p_dtype=torch.bfloat16, skip=0):
@@ -123,6 +154,86 @@ def test_bf16_limit_catches_planted_faults(shape, fault):
     several times over (6.8x at least at these shapes)."""
     kw = {"p_dtype": torch.float8_e4m3fn} if fault == "p_fp8" else {"skip": 64}
     assert _limit_ratio(shape, **kw) > 3.0
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit mask: the tf32x3 body's rounding."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """einsum of float32 a and b in float64 as the body's mma computes it:
+    each operand split into TF32 big + small, and small*big + big*small +
+    big*big (passes=3); or big*big of operands rounded once (passes=1)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    prod = lambda x, y: torch.einsum(eq, x.double(), y.double())  # noqa: E731
+    if passes == 1:
+        return prod(a_big, b_big)
+    return prod(a_small, b_big) + prod(a_big, b_small) + prod(a_big, b_big)
+
+
+def _tf32x3_body(q, k, v, scale, passes=3):
+    """The tf32x3 body emulated in float64: q times scale * log2(e) in
+    float32, scores in log2 units, P in float32, both products as
+    ``_tf32_product`` takes them. ``passes=1`` plants a fault: one TF32 pass
+    with no compensation (operands and P rounded to TF32 once)."""
+    s = _tf32_product("bhqd,bhkd->bhqk", q * torch.tensor(scale * math.log2(math.e)), k, passes)
+    p = torch.exp2(s - s.amax(-1, keepdim=True)).float()
+    return (_tf32_product("bhqk,bhkd->bhqd", p, v, passes) / p.double().sum(-1, keepdim=True)).float()
+
+
+def _f32_inputs(shape, scale_sign):
+    b, h, tq, tk, d = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d), np.float32)) for t in (tq, tk, tk))
+    return q, k, v, scale_sign * d**-0.5
+
+
+def _f32_limit_ratio(shape, scale_sign=1, passes=3):
+    """max |body - plain| / f32_error_limit over the output, seeded inputs."""
+    q, k, v, scale = _f32_inputs(shape, scale_sign)
+    want, limit = A.f32_error_limit(q, k, v, scale)
+    return ((_tf32x3_body(q, k, v, scale, passes) - want).abs() / limit).max().item()
+
+
+# (B, H, T_q, T_kv, D): a global block's rows at small B*H and Q length, the
+# 49/196 q-pool, a ragged D = 64 case, and a stage-2 window's Q tiles.
+F32_LIMIT_SHAPES = [(1, 2, 256, 2304, 96), (2, 2, 49, 196, 96), (2, 2, 17, 300, 64), (1, 2, 100, 196, 96)]
+
+
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("shape", F32_LIMIT_SHAPES)
+def test_f32_limit_holds_a_sound_tf32x3_body(shape, scale_sign):
+    """The 3xTF32 body stays far inside the limit (at most 0.072 of it at
+    these shapes; the card reads up to 0.16, its sums truncated)."""
+    assert _f32_limit_ratio(shape, scale_sign) <= 0.15
+
+
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("shape", F32_LIMIT_SHAPES)
+def test_f32_limit_catches_a_single_tf32_pass(shape, scale_sign):
+    """One TF32 pass with no compensation exceeds the limit (12x at least at
+    these shapes), where the flat 1e-4 may not tell it from a sound body."""
+    assert _f32_limit_ratio(shape, scale_sign, passes=1) > 6.0
+
+
+@pytest.mark.parametrize("shape", F32_LIMIT_SHAPES[1:])
+def test_tf32x3_body_within_the_limit_of_the_jax_reference(shape):
+    """The emulated 3xTF32 body against the JAX package's reference_attention
+    (float32 on the CPU) on the same numpy inputs, at the float32 bars."""
+    import jax.numpy as jnp
+
+    from atlaspatch_tpu.ops.attention import reference_attention as jax_reference
+
+    q, k, v, scale = _f32_inputs(shape, 1)
+    want = torch.from_numpy(np.array(jax_reference(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                                     sm_scale=scale)))
+    got = _tf32x3_body(q, k, v, scale)
+    _, limit = A.f32_error_limit(q, k, v, scale)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert ((got - want).abs() / limit).max().item() <= 0.15
 
 
 def _trunk_views(dim, dim_out, heads, query_stride, monkeypatch):

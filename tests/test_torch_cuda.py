@@ -7,10 +7,11 @@ is installed. Run it on a machine with an H100 and nvcc:
 
 (``--noconftest``: tests/conftest.py configures JAX.) Each kernel body is
 held against the plain version on the same inputs, computed in float32 on the
-card: max-abs 1e-4 for float32 inputs; for bfloat16 max-abs 2e-2 and, element
-by element, ``bf16_error_limit`` (the kernel rounds p and its float32 result
-to bfloat16; inputs are unit-normal). The bfloat16 cases assert which body
-launched, by the wrapper's per-variant counts.
+card (TF32 off): for float32 inputs max-abs 1e-4 and, element by element,
+``f32_error_limit`` (the 3xTF32 body's split products); for bfloat16 max-abs
+2e-2 and, element by element, ``bf16_error_limit`` (the kernel rounds p and
+its float32 result to bfloat16; inputs are unit-normal). The cases that
+name a body assert which one launched, by the wrapper's per-variant counts.
 """
 
 import pytest
@@ -41,13 +42,10 @@ def _qkv(card, b, h, tq, tk, d, dtype, seed=0):
 
 def _assert_close(got, q, k, v, sm_scale=None):
     """got against the plain version in float32, as the docstring says."""
-    if got.dtype == torch.float32:
-        want = A.reference_attention(q, k, v, sm_scale)
-        assert (got - want).abs().max().item() <= TOL[torch.float32]
-        return
-    want, limit = A.bf16_error_limit(q, k, v, sm_scale)
+    error_limit = A.f32_error_limit if got.dtype == torch.float32 else A.bf16_error_limit
+    want, limit = error_limit(q, k, v, sm_scale)
     err = (got.float() - want).abs()
-    assert err.max().item() <= TOL[torch.bfloat16]
+    assert err.max().item() <= TOL[got.dtype]
     assert (err <= limit).all(), f"max err/limit {(err / limit).max().item()}"
 
 
@@ -137,6 +135,37 @@ def test_negative_scale(card, shape, variant):
     _assert_close(got, q, k, v, -0.125)
 
 
+TF32X3_SHAPES = [(2, 4, 64, 64, 96), (2, 4, 196, 196, 96), (1, 1, 17, 300, 64)]
+
+
+@pytest.mark.parametrize("sm_scale", [None, -0.125])
+@pytest.mark.parametrize("shape", TF32X3_SHAPES)
+def test_tf32x3_body_matches_plain(card, shape, sm_scale):
+    """float32 with D in {64, 96} and T_q > 16 launches the 3xTF32 body; a
+    negative scale reverses the scores, and the masked keys of a ragged tile
+    must still get no weight."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32, seed=5)
+    got, launched = _launched(lambda: A.flash_attention(q, k, v, sm_scale))
+    torch.cuda.synchronize()
+    assert launched == "tf32x3" and torch.isfinite(got).all()
+    _assert_close(got, q, k, v, sm_scale)
+
+
+@pytest.mark.parametrize("shape", TF32X3_SHAPES)
+def test_float32_bodies_agree(card, shape):
+    """The FMA and the 3xTF32 body, forced on the same inputs, agree."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32, seed=6)
+    fma, fma_variant = _launched(lambda: A._launch("f32", q, k, v))
+    tc, tc_variant = _launched(lambda: A._launch("tf32x3", q, k, v))
+    torch.cuda.synchronize()
+    assert (fma_variant, tc_variant) == ("f32", "tf32x3")
+    assert (fma - tc).abs().max().item() <= TOL[torch.float32]
+    _assert_close(fma, q, k, v)
+    _assert_close(tc, q, k, v)
+
+
 @pytest.mark.parametrize(
     "dtype,d,variant,error",
     [
@@ -144,6 +173,8 @@ def test_negative_scale(card, shape, variant):
         (torch.bfloat16, 128, "wgmma_m192", RuntimeError),  # and 192 rows only to D = 96
         (torch.float32, 96, "wgmma_m64", ValueError),
         (torch.float32, 96, "mma", ValueError),
+        (torch.bfloat16, 96, "tf32x3", ValueError),
+        (torch.float32, 128, "tf32x3", RuntimeError),  # built for D = 64 and 96 only
     ],
 )
 def test_forced_variant_refused(card, dtype, d, variant, error):
@@ -174,7 +205,7 @@ def test_strided_views_of_a_fused_projection(card, dtype, misaligned):
     q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
     got, variant = _launched(lambda: A.flash_attention(q, k, v))
     torch.cuda.synchronize()
-    assert variant == ("wgmma_m192" if dtype == torch.bfloat16 else "f32")
+    assert variant == ("wgmma_m192" if dtype == torch.bfloat16 else "tf32x3")
     assert got.shape == (b, h, t, d) and got.transpose(1, 2).is_contiguous()
     _assert_close(got, q, k, v)
 
