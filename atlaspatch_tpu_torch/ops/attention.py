@@ -15,8 +15,14 @@ sm_90a at first use and loaded with ctypes. ``kernel_variant`` picks it:
   products), which keeps float32 accuracy at the TF32 tensor-core rate. It is
   bound by those operations (3 x 4 T_q T_kv D flop at 495 TFLOP/s) at the
   global blocks, where SDPA's float32 route runs the same scheme;
+- ``f32_win``: ``csrc/flash_attn_f32win.cu``, the other float32 windows of up
+  to F32WIN_MAX_T query and key rows (the 16/64 and 4/16 q-pool blocks and
+  the stage-1 window): each (window, head) whole in shared memory behind a
+  cp.async ring of persistent CTAs, one softmax pass in exact float32 FMA;
+  bound by bytes;
 - ``f32``: the float32 body of ``csrc/flash_attn.cu`` on the CUDA cores (FMA,
-  bound by the 67 TFLOP/s FP32 rate), for T_q <= 16 and the other head dims.
+  bound by the 67 TFLOP/s FP32 rate), for the rest: longer windows at
+  T_q <= 16 or at head dims other than 64 and 96.
 
 ``reference_attention`` is the plain PyTorch version of the same function.
 ``attention`` dispatches on the tensor's device: the plain version for a CPU
@@ -55,6 +61,10 @@ _SOURCES = {
         "flash_attn_wgmma.cu", "atlas_flash_attn_wgmma_fwd",
         [_INT] * 5 + [_STRIDES, _INT, ctypes.c_float, _PTR],
     ),
+    "atlas_flash_attn_f32win": (
+        "flash_attn_f32win.cu", "atlas_flash_attn_f32win_fwd",
+        [_INT] * 5 + [_STRIDES, ctypes.c_float, _PTR],
+    ),
 }
 _LOCKS = {name: threading.Lock() for name in _SOURCES}  # one per library: they build in parallel
 WGMMA_HEAD_DIMS = (64, 96, 128)
@@ -62,7 +72,9 @@ M192_HEAD_DIMS = (64, 96)  # three consumer warpgroups fit their registers witho
 # wgmma variant -> Q rows of its tile (K/V rows 64, 128 and 64: flash_attn_wgmma.cu)
 WGMMA_TILES = {"wgmma_m64": 64, "wgmma_m128": 128, "wgmma_m192": 192}
 TF32X3_HEAD_DIMS = (64, 96)  # flash_attn.cu builds the tf32x3 body for these (at 128 it spills)
-_VARIANT_DTYPES = {"f32": torch.float32, "tf32x3": torch.float32, "mma": torch.bfloat16,
+F32WIN_MAX_T = 64  # flash_attn_f32win.cu holds a window of up to 64 query and 64 key rows whole
+_VARIANT_DTYPES = {"f32": torch.float32, "tf32x3": torch.float32, "f32_win": torch.float32,
+                   "mma": torch.bfloat16,
                    **{name: torch.bfloat16 for name in WGMMA_TILES}}
 _ENCODE_FAILED, _NO_DRIVER_ENTRY = 1_000_000, 2_000_000  # flash_attn_wgmma.cu's error bases
 
@@ -92,23 +104,32 @@ def load_wgmma_library() -> ctypes.CDLL:
     return _load("atlas_flash_attn_wgmma")
 
 
+def load_f32win_library() -> ctypes.CDLL:
+    """The float32 small-window body, ``csrc/flash_attn_f32win.cu``."""
+    return _load("atlas_flash_attn_f32win")
+
+
 def kernel_variant(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
     """The kernel body ``flash_attention`` launches for these inputs: ``f32``,
-    ``tf32x3``, ``mma``, ``wgmma_m64``, ``wgmma_m128`` or ``wgmma_m192`` (see
-    the module docstring).
+    ``f32_win``, ``tf32x3``, ``mma``, ``wgmma_m64``, ``wgmma_m128`` or
+    ``wgmma_m192`` (see the module docstring).
 
     float32 with D in TF32X3_HEAD_DIMS and T_q > 16 takes the 3xTF32 body
-    (64-row Q tiles), the rest the FMA body.
+    (64-row Q tiles; on the card it is faster than the small-window body at
+    the 64/64 and 49/49 windows too); the rest takes the small-window body
+    where T_q and T_kv are at most F32WIN_MAX_T (the whole window on chip),
+    else the FMA body.
 
     bfloat16 with D in WGMMA_HEAD_DIMS and T_q > 16 takes the wgmma body: one
     consumer warpgroup (64 Q rows) up to T_q = 64; beyond, three (192 rows)
     where D allows it and the 192-row tiles pad T_q no more than 128-row tiles
     would (the global blocks: 2304 = 12 x 192), else two. T_q <= 16 (the q-pool
     and stage-1 blocks) stays on mma.sync, whose one-warp CTA does not spend a
-    64-row wgmma tile on 4 or 16 rows. ``tk`` does not decide."""
-    del tk
+    64-row wgmma tile on 4 or 16 rows. ``tk`` does not decide for bfloat16."""
     if dtype == torch.float32:
-        return "tf32x3" if d in TF32X3_HEAD_DIMS and tq > 16 else "f32"
+        if d in TF32X3_HEAD_DIMS and tq > 16:
+            return "tf32x3"
+        return "f32_win" if tq <= F32WIN_MAX_T and tk <= F32WIN_MAX_T else "f32"
     if d not in WGMMA_HEAD_DIMS or tq <= 16:
         return "mma"
     if tq <= 64:
@@ -183,11 +204,13 @@ def _launch(variant: str, q, k, v, sm_scale: float | None = None) -> torch.Tenso
     """Launch ``variant`` on inputs ``flash_attention`` has checked. The card
     tests call it to hold every body a shape fits against the plain version;
     a wgmma tile or a tf32x3 body the library does not build for this D
-    raises."""
+    raises, as does f32_win past F32WIN_MAX_T."""
     if _VARIANT_DTYPES.get(variant) != q.dtype:
         raise ValueError(f"variant {variant!r} does not take {q.dtype}")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
+    if variant == "f32_win" and max(Tq, Tk) > F32WIN_MAX_T:
+        raise ValueError(f"variant 'f32_win' takes T_q and T_kv up to {F32WIN_MAX_T}, got {Tq}, {Tk}")
     if sm_scale is None:
         sm_scale = D**-0.5
     q, k, v = _kernel_readable(q), _kernel_readable(k), _kernel_readable(v)
@@ -202,6 +225,10 @@ def _launch(variant: str, q, k, v, sm_scale: float | None = None) -> torch.Tenso
     if variant in WGMMA_TILES:
         err = load_wgmma_library().atlas_flash_attn_wgmma_fwd(
             *ptrs, B, H, Tq, Tk, D, strides, WGMMA_TILES[variant], float(sm_scale), stream
+        )
+    elif variant == "f32_win":
+        err = load_f32win_library().atlas_flash_attn_f32win_fwd(
+            *ptrs, B, H, Tq, Tk, D, strides, float(sm_scale), stream
         )
     else:
         err = load_flash_library().atlas_flash_attn_fwd(
@@ -271,8 +298,9 @@ def f32_error_limit(q, k, v, sm_scale=None):
     most 0.072 of the limit and one uncompensated TF32 pass 12x or more
     (tests/test_torch_attention_dispatch.py); on an H100, whose tensor cores
     truncate their sums, the body reads at most 0.30 and that fault 14.8x
-    at the global block. The FMA body rounds only in float32, so it is held
-    to the same limit. Returns (plain, limit), both float32."""
+    at the global block. The FMA and small-window bodies round only in
+    float32, so they are held to the same limit. Returns (plain, limit),
+    both float32."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     q, k, v = q.float(), k.float(), v.float()

@@ -6,20 +6,25 @@ Phases, one line each (any failure exits non-zero with no result line):
 
   env     torch / CUDA versions, the card's name and power limit, and which of
           Pillow / h5py / OpenCV import (for information only)
-  build   the attention kernel's two libraries (nvcc, sm_90a: the wgmma + TMA
-          bfloat16 body; the mma.sync bfloat16 body and the two float32
-          bodies, 3xTF32 on mma.sync and FMA) and the contour tracer (g++),
-          all from the sources in atlaspatch_tpu_torch/csrc, built in
-          parallel; registers and spills per body (none allowed at D = 96 in
-          the wgmma and tf32x3 bodies), the tf32x3 body's CTAs per SM, the
-          wgmma body's SASS checked for HGMMA and UTMALDG, flash_attn.so's
-          for TF32 HMMA
+  build   the attention kernel's three libraries (nvcc, sm_90a: the wgmma +
+          TMA bfloat16 body; the mma.sync bfloat16 body and two float32
+          bodies, 3xTF32 on mma.sync and FMA; the float32 small-window body)
+          and the contour tracer (g++), all from the sources in
+          atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
+          per body (none allowed at D = 96 in the wgmma, tf32x3 and f32_win
+          bodies), the tf32x3 and f32_win bodies' CTAs per SM, the wgmma
+          body's SASS checked for HGMMA and UTMALDG, flash_attn.so's for TF32
+          HMMA
   kernel  the attention kernel against its plain PyTorch version at the shapes
           the main path hands it (every trunk block of the --fast preset and
-          of the float32 default) plus ragged and q-pool checks; each line
-          gives the variant launched, the kernel's, the plain version's and
-          F.scaled_dot_product_attention's time and the bound (float32 rows:
-          the FP32-core and the 3xTF32 tensor-core bound). float32 is held to
+          of the float32 default) plus ragged, q-pool and FMA-body checks;
+          each line gives the variant launched, the kernel's time by CUDA
+          events and its device time per call by torch.profiler, the plain
+          version's and F.scaled_dot_product_attention's time and the bound
+          (float32 rows: the FP32-core and the 3xTF32 tensor-core bound); an
+          float32 line whose shape both f32_win and another body take also
+          times the other one, forced on the same inputs (for f32_win rows the
+          body kernel_variant picked before f32_win). float32 is held to
           max-abs 1e-4 and, element by element, to attention.f32_error_limit,
           which a planted single TF32 pass on the global float32 block's
           inputs must exceed; bfloat16 to 2e-2 and, element by element, to
@@ -31,7 +36,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           thumbnails. The kernel must have launched 12 times per forward, each
           variant as often as kernel_variant picks it at the trunk's shapes
           (the 3 global blocks of each forward of (a) on the wgmma body's
-          192-row tile; 9 tf32x3 and 3 f32 launches per forward of (b)).
+          192-row tile; 9 tf32x3 and 3 f32_win launches per forward of (b),
+          none on the FMA body).
           (b)'s logits are held against the same model on the CPU.
   profile one forward of (a) and of (b) under torch.profiler: device time by
           kernel, and the device's busy share of the forward
@@ -67,9 +73,11 @@ for _var in ("ATLASPATCH_SAM2_CHECKPOINT", "ATLASPATCH_WEIGHTS_DIR", "ATLASPATCH
 # dense bf16 tensor core; FP32 CUDA cores; dense TF32 tensor core (3xTF32 takes three passes)
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 H100_BYTES_PER_S = 3.35e12
-# The record covers both libraries of the kernel: 9 of a --fast forward's 12
-# calls run the wgmma body, 3 the mma.sync body of flash_attn.cu.
-KERNEL_SOURCES = ["atlaspatch_tpu_torch/csrc/flash_attn_wgmma.cu", "atlaspatch_tpu_torch/csrc/flash_attn.cu"]
+# The record covers the kernel's three libraries: 9 of a --fast forward's 12
+# calls run the wgmma body, 3 the mma.sync body of flash_attn.cu; a float32
+# forward runs flash_attn.cu's tf32x3 body and flash_attn_f32win.cu.
+KERNEL_SOURCES = ["atlaspatch_tpu_torch/csrc/flash_attn_wgmma.cu", "atlaspatch_tpu_torch/csrc/flash_attn.cu",
+                  "atlaspatch_tpu_torch/csrc/flash_attn_f32win.cu"]
 KERNEL_REPLACES = "atlaspatch_tpu/ops/attention.py:23"  # _flash_kernel
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -105,6 +113,45 @@ def cuda_ms(fn, min_total_ms: float = 60.0, max_reps: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """Mean device time in ms of the attention kernel that each fn() launches,
+    by torch.profiler: the flash_fwd kernels' self device time over the
+    launches it recorded of ``reps`` calls, after a warm-up (host time between
+    launches is not counted). The profiler may drop some of a burst of
+    launches, or now and then all of them: the mean is over those it kept,
+    and a window that kept none is run again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd" in e.key]
+        count = sum(e.count for e in events)
+        if 0 < count <= reps:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+    raise AssertionError(f"the profiler saw {[(e.key, e.count) for e in events]} of {reps} launches "
+                         f"in each of {tries} windows")
+
+
+def other_float32_body(variant: str, tq: int, tk: int, d: int) -> str | None:
+    """The body a float32 row is timed against: for f32_win, the one
+    kernel_variant picked before f32_win took the windows; for tf32x3 at a
+    window f32_win could take, f32_win; else None."""
+    from atlaspatch_tpu_torch.ops.attention import F32WIN_MAX_T, TF32X3_HEAD_DIMS
+
+    if variant == "f32_win":
+        return "tf32x3" if d in TF32X3_HEAD_DIMS and tq > 16 else "f32"
+    if variant == "tf32x3" and max(tq, tk) <= F32WIN_MAX_T:
+        return "f32_win"
+    return None
 
 
 def attention_bound(shape, dtype_name: str) -> tuple[float, float]:
@@ -174,12 +221,12 @@ def phase_env(state):
 
 
 def _ptxas_by_body(log: str) -> dict:
-    """ptxas -v of a kernel library: per body (wgmma / mma / f32), the most
+    """ptxas -v of a kernel library: per body (wgmma / mma / f32 / ...), the most
     registers and the instantiations (head dim first) with stack or spills."""
     bodies: dict = {}
     for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
-        kind = re.search(r"flash_fwd_(wgmma|bf16|f32|tf32x3)_kernel", name).group(1)
-        kind = {"bf16": "mma"}.get(kind, kind)
+        kind = re.search(r"flash_fwd_(wgmma|bf16|f32win|f32|tf32x3)_kernel", name).group(1)
+        kind = {"bf16": "mma", "f32win": "f32_win"}.get(kind, kind)
         entry = bodies.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
         entry["kernels"] += 1
         registers = int(re.search(r"Used (\d+) registers", body).group(1))
@@ -194,7 +241,7 @@ def _ptxas_by_body(log: str) -> dict:
 def phase_build(state):
     from atlaspatch_tpu_torch.build import build_log, nvcc_path
     from atlaspatch_tpu_torch.io.native import load_contours_library
-    from atlaspatch_tpu_torch.ops.attention import load_flash_library, load_wgmma_library
+    from atlaspatch_tpu_torch.ops.attention import load_f32win_library, load_flash_library, load_wgmma_library
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -202,13 +249,15 @@ def phase_build(state):
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        jobs = [pool.submit(timed, fn)
-                for fn in (load_wgmma_library, load_flash_library, load_contours_library)]
-        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (_, contours_s) = (j.result() for j in jobs)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(timed, fn) for fn in
+                (load_wgmma_library, load_flash_library, load_f32win_library, load_contours_library)]
+        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (_, contours_s) = (
+            j.result() for j in jobs)
     bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
-              **_ptxas_by_body(build_log(Path(flash_lib._name)))}
-    for body in ("wgmma", "tf32x3"):
+              **_ptxas_by_body(build_log(Path(flash_lib._name))),
+              **_ptxas_by_body(build_log(Path(win_lib._name)))}
+    for body in ("wgmma", "tf32x3", "f32_win"):
         if body not in bodies or any(s.startswith("D=96") for s in bodies[body]["spilling"]):
             raise AssertionError(f"the {body} body is missing or spills at D = 96: {bodies.get(body)}")
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
@@ -227,13 +276,17 @@ def phase_build(state):
     ctas = flash_lib.atlas_flash_attn_tf32x3_ctas_per_sm()
     if ctas < 1:
         raise AssertionError(f"the tf32x3 body fits no CTA on an SM (cudaError {-ctas})")
-    log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s and flash_attn.so {flash_s:.1f}s (nvcc sm_90a), "
-        f"atlas_contours.so {contours_s:.1f}s (g++), wall {time.perf_counter() - t0:.1f}s")
+    win_ctas = win_lib.atlas_flash_attn_f32win_ctas_per_sm()
+    if win_ctas < 1:
+        raise AssertionError(f"the f32_win body fits no CTA on an SM (cudaError {-win_ctas})")
+    log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s and "
+        f"flash_attn_f32win.so {win_s:.1f}s (nvcc sm_90a), atlas_contours.so {contours_s:.1f}s (g++), "
+        f"wall {time.perf_counter() - t0:.1f}s")
     for kind, entry in bodies.items():
         log(f"build ptxas {kind}: {entry['kernels']} kernels, max registers {entry['max_registers']}, "
             f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
-    log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; tf32x3 at D = 96: {ctas} CTAs "
-        f"of 128 threads per SM")
+    log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; at D = 96: tf32x3 {ctas} CTAs "
+        f"of 128 threads per SM, f32_win {win_ctas} CTAs of 384 threads (8 consumer, 4 producer warps) per SM")
 
 
 def phase_kernel(state):
@@ -254,6 +307,7 @@ def phase_kernel(state):
         ((1024, 8, 49, 196, 96), "float32", "q-pool 49/196"),
         ((9216, 2, 16, 64, 96), "float32", "q-pool 16/64"),
         ((8, 4, 2304, 2304, 96), "float32", "global 2304 in f32"),
+        ((2, 1, 300, 300, 128), "float32", "FMA body D=128"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, worst, faults, tf32_fault = [], 0.0, None, None
@@ -287,18 +341,26 @@ def phase_kernel(state):
                 raise AssertionError(f"a single TF32 pass passes the float32 limit: {tf32_fault}")
         del got, want, limit
         ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale))
+        dev_ms = device_ms(lambda: A.flash_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: A.reference_attention(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         op_ms, byte_ms = attention_bound(shape, dtype_name)
-        row = dict(label=label, shape=shape, dtype=dtype_name, err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, op_ms=op_ms, byte_ms=byte_ms)
+        row = dict(label=label, shape=shape, dtype=dtype_name, variant=variant, err=err, ms=ms,
+                   dev_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, op_ms=op_ms, byte_ms=byte_ms)
+        other = other_float32_body(variant, tq, tk, d) if dtype == torch.float32 else None
+        if other:
+            row["other"] = other
+            row["other_ms"] = cuda_ms(lambda: A._launch(other, q, k, v, scale))
+            row["other_dev_ms"] = device_ms(lambda: A._launch(other, q, k, v, scale))
+            other = (f" other={other} ms={row['other_ms']:.4f} dev_ms={row['other_dev_ms']:.4f} "
+                     f"({'faster' if dev_ms < row['other_dev_ms'] else 'NOT faster'} by device time)")
         rows.append(row)
         log(f"kernel {label:18s} (BH={n}x{h}, Tq={tq}, Tkv={tk}, D={d}) {dtype_name:8s} "
-            f"{variant:10s} max_abs_err={err:.3g} err/limit={ratio:.3g} ms={ms:.4f} "
+            f"{variant:10s} max_abs_err={err:.3g} err/limit={ratio:.3g} ms={ms:.4f} dev_ms={dev_ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
             f"({'operations' if op_ms >= byte_ms else 'bytes'})"
             + (f" tf32x3_bound_ms={tf32x3_bound(shape):.4f}" if dtype_name == "float32" else "")
-            + f" [{state['card']}]")
+            + (other or "") + f" [{state['card']}]")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -325,14 +387,24 @@ def phase_kernel(state):
         f"the global blocks: bfloat16 err/limit {({k_: round(v_, 3) for k_, v_ in faults.items()})}, "
         f"one TF32 pass in float32 max abs {tf32_fault['max_abs']:.3g} err/limit "
         f"{tf32_fault['err/limit']:.3g} [{state['card']}]")
-    for name, group in (("--fast", fast_rows), ("float32", rows[len(fast) : len(fast) + len(default)])):
-        log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms, "
+    f32_rows = rows[len(fast) : len(fast) + len(default)]
+    for name, group in (("--fast", fast_rows), ("float32", f32_rows)):
+        log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms "
+            f"(device {sum(r['dev_ms'] for r in group):.3f}), "
             f"plain {sum(r['plain_ms'] for r in group):.3f} ms, sdpa "
             f"{sum(r['library_ms'] for r in group):.3f} ms, bound "
             f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms"
             + (f" (3xTF32 bound {sum(tf32x3_bound(r['shape']) for r in group):.3f} ms)"
                if name == "float32" else "")
             + f" [{state['card']}]")
+    win = [r for r in f32_rows if r["variant"] == "f32_win"]
+    log(f"kernel the float32 forward's {len(win)} f32_win calls: {sum(r['ms'] for r in win):.4f} ms "
+        f"(device {sum(r['dev_ms'] for r in win):.4f}); the bodies before, forced: "
+        f"{sum(r['other_ms'] for r in win):.4f} ms (device {sum(r['other_dev_ms'] for r in win):.4f}); "
+        f"sdpa {sum(r['library_ms'] for r in win):.4f} ms; bound "
+        f"{sum(max(r['op_ms'], r['byte_ms']) for r in win):.4f} ms [{state['card']}]")
+    if not any(r["variant"] == "f32" for r in rows):
+        raise AssertionError("no kernel row ran on the FMA body")
 
 
 def _thumbnails(shapes_wh, per_shape, seed0=0):
@@ -393,9 +465,10 @@ def phase_seg(state):
     for dtype, size, batch, n in ((torch.bfloat16, 768, 8, 2), (torch.float32, 1024, 1, 2)):
         for _, _, tq, tk, d in trunk_attention_shapes(cfg, size, batch):
             want[A.kernel_variant(dtype, tq, tk, d)] += n
-    # (a): the global blocks on the 192-row wgmma tile; (b): 9 tf32x3 and 3 f32 per forward
+    # (a): the global blocks on the 192-row wgmma tile; (b): 9 tf32x3 and 3
+    # f32_win per forward, none on the FMA body
     if (variants != dict(want) or want["wgmma_m192"] != 3 * 2 or want["tf32x3"] != 9 * 2
-            or want["f32"] != 3 * 2):
+            or want["f32_win"] != 3 * 2 or "f32" in want):
         raise AssertionError(f"kernel variants launched {variants}, want {dict(want)}")
     state["launches"] = launches
     stages = perf.report()

@@ -7,7 +7,9 @@ held here at every shape the main path hands the kernel (Hiera-tiny, the
 trunk's attention hands over. ``bf16_error_limit`` is held against a bfloat16
 body emulated in float64, sound and with planted faults; ``f32_error_limit``
 against the 3xTF32 body emulated in float64 (TF32 rounding by bit mask,
-small * small dropped) and against one uncompensated TF32 pass. The kernels
+small * small dropped) and against one uncompensated TF32 pass; the
+small-window body's float32 arithmetic, emulated in float32, against the JAX
+package's reference at the float32 default's window shapes. The kernels
 themselves are held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -49,8 +51,8 @@ def test_fast_preset_blocks_get_their_variant(block):
 
 
 # The float32 default's 12 blocks: T_q > 16 on the 3xTF32 body, the q-pool and
-# stage-1 blocks (T_q = 16 and 4) on the FMA body.
-F32_BLOCKS = ["tf32x3", "f32", "f32", "f32"] + ["tf32x3"] * 8
+# stage-1 blocks (T_q = 16 and 4, T_kv = 64 and 16) on the small-window body.
+F32_BLOCKS = ["tf32x3", "f32_win", "f32_win", "f32_win"] + ["tf32x3"] * 8
 
 
 @pytest.mark.parametrize("block", range(12))
@@ -62,7 +64,8 @@ def test_float32_default_blocks_take_the_float32_body(block):
 def test_float32_default_launches_per_forward():
     shapes = trunk_attention_shapes(SAM2Config.tiny(), 1024, 1)
     variants = [A.kernel_variant(torch.float32, tq, tk, d) for _, _, tq, tk, d in shapes]
-    assert variants.count("tf32x3") == 9 and variants.count("f32") == 3
+    assert variants.count("tf32x3") == 9 and variants.count("f32_win") == 3
+    assert "f32" not in variants
     assert [v for (n, h, tq, tk, d), v in zip(shapes, variants) if tq == 4096] == ["tf32x3"] * 3
 
 
@@ -107,8 +110,47 @@ def test_variant_edges(dtype, tq, d, want):
 def test_only_float32_takes_the_tf32x3_body(d):
     for tq in (1, 4, 16, 17, 49, 64, 65, 196, 2304, 4096):
         assert A.kernel_variant(torch.bfloat16, tq, tq, d) != "tf32x3"
-        want = "tf32x3" if d in A.TF32X3_HEAD_DIMS and tq > 16 else "f32"
+        if d in A.TF32X3_HEAD_DIMS and tq > 16:
+            want = "tf32x3"
+        else:
+            want = "f32_win" if tq <= A.F32WIN_MAX_T else "f32"
         assert A.kernel_variant(torch.float32, tq, tq, d) == want
+
+
+@pytest.mark.parametrize(
+    "tq,tk,d,want",
+    [
+        (64, 64, 96, "tf32x3"),  # stage-0 window
+        (65, 64, 96, "tf32x3"),
+        (64, 65, 96, "tf32x3"),
+        (17, 64, 96, "tf32x3"),
+        (16, 64, 96, "f32_win"),  # q-pool 16/64
+        (16, 65, 96, "f32"),
+        (16, 16, 96, "f32_win"),  # stage-1 window
+        (4, 16, 96, "f32_win"),  # q-pool 4/16
+        (49, 49, 96, "tf32x3"),  # stage-3 window
+        (49, 196, 96, "tf32x3"),  # q-pool 49/196
+        (16, 64, 64, "f32_win"),
+        (17, 17, 64, "tf32x3"),
+        (1, 1, 96, "f32_win"),
+        (64, 64, 128, "f32_win"),
+        (65, 65, 128, "f32"),
+        (64, 64, 40, "f32_win"),
+        (64, 65, 40, "f32"),
+        (64, 64, 8, "f32_win"),
+    ],
+)
+def test_f32win_edges(tq, tk, d, want):
+    """float32 takes the small-window body up to 64 query and 64 key rows
+    where the 3xTF32 body (D 64 or 96, T_q > 16) does not."""
+    assert A.kernel_variant(torch.float32, tq, tk, d) == want
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_bf16_never_takes_the_f32win_body(d):
+    for tq in (1, 4, 16, 17, 49, 64, 65, 196):
+        for tk in (1, 16, 49, 64, 65, 196):
+            assert A.kernel_variant(torch.bfloat16, tq, tk, d) != "f32_win"
 
 
 def _bf16_body(q, k, v, scale, p_dtype=torch.bfloat16, skip=0):
@@ -232,6 +274,42 @@ def test_tf32x3_body_within_the_limit_of_the_jax_reference(shape):
                                                      sm_scale=scale)))
     got = _tf32x3_body(q, k, v, scale)
     _, limit = A.f32_error_limit(q, k, v, scale)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert ((got - want).abs() / limit).max().item() <= 0.15
+
+
+def _f32win_body(q, k, v, scale):
+    """The small-window body's arithmetic in float32: scores summed over D,
+    times scale * log2(e) (one float32 product, as the launch folds it), the
+    keys' max, exp2, the row sum, P V, and one division at the end."""
+    fold = torch.tensor(scale, dtype=torch.float32) * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * fold
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    return torch.einsum("bhqk,bhkd->bhqd", p, v) / p.sum(-1, keepdim=True)
+
+
+# (B, H, T_q, T_kv, D): the float32 default's five window shapes at B*H <= 8:
+# stage-0, the 16/64 q-pool, stage-1, the 4/16 q-pool, stage-3.
+F32WIN_SHAPES = [(2, 1, 64, 64, 96), (2, 2, 16, 64, 96), (2, 2, 16, 16, 96), (2, 4, 4, 16, 96),
+                 (2, 4, 49, 49, 96)]
+
+
+@pytest.mark.parametrize("scale_sign", [1, -1])
+@pytest.mark.parametrize("shape", F32WIN_SHAPES)
+def test_f32win_body_within_the_limit_of_the_jax_reference(shape, scale_sign):
+    """The small-window body emulated in float32 against the JAX package's
+    reference_attention (float32 on the CPU) on the same numpy inputs:
+    max-abs 1e-4 and at most 0.15 of f32_error_limit."""
+    import jax.numpy as jnp
+
+    from atlaspatch_tpu.ops.attention import reference_attention as jax_reference
+
+    q, k, v, scale = _f32_inputs(shape, scale_sign)
+    want = torch.from_numpy(np.array(jax_reference(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                                     sm_scale=scale)))
+    got = _f32win_body(q, k, v, scale)
+    _, limit = A.f32_error_limit(q, k, v, scale)
+    assert got.dtype == torch.float32
     assert (got - want).abs().max().item() <= 1e-4
     assert ((got - want).abs() / limit).max().item() <= 0.15
 

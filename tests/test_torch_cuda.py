@@ -8,7 +8,8 @@ is installed. Run it on a machine with an H100 and nvcc:
 (``--noconftest``: tests/conftest.py configures JAX.) Each kernel body is
 held against the plain version on the same inputs, computed in float32 on the
 card (TF32 off): for float32 inputs max-abs 1e-4 and, element by element,
-``f32_error_limit`` (the 3xTF32 body's split products); for bfloat16 max-abs
+``f32_error_limit`` (the 3xTF32 body's split products; the FMA and
+small-window bodies round only in float32); for bfloat16 max-abs
 2e-2 and, element by element, ``bf16_error_limit`` (the kernel rounds p and
 its float32 result to bfloat16; inputs are unit-normal). The cases that
 name a body assert which one launched, by the wrapper's per-variant counts.
@@ -141,12 +142,16 @@ TF32X3_SHAPES = [(2, 4, 64, 64, 96), (2, 4, 196, 196, 96), (1, 1, 17, 300, 64)]
 @pytest.mark.parametrize("sm_scale", [None, -0.125])
 @pytest.mark.parametrize("shape", TF32X3_SHAPES)
 def test_tf32x3_body_matches_plain(card, shape, sm_scale):
-    """float32 with D in {64, 96} and T_q > 16 launches the 3xTF32 body; a
+    """float32 with D in {64, 96}, T_q > 16 and a window past 64 rows launches
+    the 3xTF32 body (the 64/64 window, which f32_win takes, forces it); a
     negative scale reverses the scores, and the masked keys of a ragged tile
     must still get no weight."""
     b, h, tq, tk, d = shape
     q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32, seed=5)
-    got, launched = _launched(lambda: A.flash_attention(q, k, v, sm_scale))
+    if A.kernel_variant(torch.float32, tq, tk, d) == "tf32x3":
+        got, launched = _launched(lambda: A.flash_attention(q, k, v, sm_scale))
+    else:
+        got, launched = _launched(lambda: A._launch("tf32x3", q, k, v, sm_scale))
     torch.cuda.synchronize()
     assert launched == "tf32x3" and torch.isfinite(got).all()
     _assert_close(got, q, k, v, sm_scale)
@@ -175,6 +180,8 @@ def test_float32_bodies_agree(card, shape):
         (torch.float32, 96, "mma", ValueError),
         (torch.bfloat16, 96, "tf32x3", ValueError),
         (torch.float32, 128, "tf32x3", RuntimeError),  # built for D = 64 and 96 only
+        (torch.bfloat16, 96, "f32_win", ValueError),
+        (torch.float32, 96, "f32_win", ValueError),  # T_q = T_kv = 128 > 64
     ],
 )
 def test_forced_variant_refused(card, dtype, d, variant, error):
@@ -207,6 +214,83 @@ def test_strided_views_of_a_fused_projection(card, dtype, misaligned):
     torch.cuda.synchronize()
     assert variant == ("wgmma_m192" if dtype == torch.bfloat16 else "tf32x3")
     assert got.shape == (b, h, t, d) and got.transpose(1, 2).is_contiguous()
+    _assert_close(got, q, k, v)
+
+
+# (B, H, T_q, T_kv, D): the float32 default's five window shapes at small B*H,
+# ragged T_q and T_kv, and head dims off the Hiera width.
+F32WIN_SHAPES = [
+    (2, 1, 64, 64, 96),  # stage-0 window
+    (2, 2, 16, 64, 96),  # q-pool from 8x8 windows
+    (2, 2, 16, 16, 96),  # stage-1 window
+    (2, 4, 4, 16, 96),  # q-pool from 4x4 windows
+    (2, 4, 49, 49, 96),  # stage-3 window
+    *[(1, 3, tq, tk, 96) for tq in (1, 9, 49) for tk in (1, 17, 63, 64)],
+    *[(2, 2, 33, 40, d) for d in (8, 40, 128)],
+    (67, 3, 4, 16, 96),  # more heads than a stage's units, a ragged last group
+]
+
+
+@pytest.mark.parametrize("sm_scale", [None, -0.125])
+@pytest.mark.parametrize("shape", F32WIN_SHAPES)
+def test_f32win_body_matches_plain(card, shape, sm_scale):
+    """float32 with T_q and T_kv up to 64, where the 3xTF32 body does not take
+    it, launches the small-window body (the other shapes force it); a negative
+    scale reverses the scores, and the keys past T_kv must still get no
+    weight."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32, seed=7)
+    if A.kernel_variant(torch.float32, tq, tk, d) == "f32_win":
+        got, launched = _launched(lambda: A.flash_attention(q, k, v, sm_scale))
+    else:
+        got, launched = _launched(lambda: A._launch("f32_win", q, k, v, sm_scale))
+    torch.cuda.synchronize()
+    assert launched == "f32_win" and torch.isfinite(got).all()
+    _assert_close(got, q, k, v, sm_scale)
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 4, 64, 64, 96), (2, 4, 49, 49, 96), (2, 2, 16, 64, 96), (1, 2, 33, 40, 64),
+              (2, 2, 20, 64, 128)]
+)
+def test_f32win_agrees_with_the_other_float32_bodies(card, shape):
+    """f32_win, the FMA body and (D 64/96, T_q > 16) the 3xTF32 body, forced
+    on the same inputs, agree."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32, seed=8)
+    bodies = ["f32_win", "f32"] + (["tf32x3"] if d in A.TF32X3_HEAD_DIMS and tq > 16 else [])
+    outs = {}
+    for body in bodies:
+        outs[body], launched = _launched(lambda: A._launch(body, q, k, v))
+        assert launched == body
+    torch.cuda.synchronize()
+    for body in bodies[1:]:
+        assert (outs["f32_win"] - outs[body]).abs().max().item() <= TOL[torch.float32]
+    for out in outs.values():
+        _assert_close(out, q, k, v)
+
+
+@pytest.mark.parametrize("tq,tk", [(16, 65), (65, 16), (65, 65)])
+def test_f32win_refuses_longer_windows(card, tq, tk):
+    q, k, v = _qkv(card, 1, 2, tq, tk, 96, torch.float32)
+    with pytest.raises(ValueError, match="f32_win"):
+        A._launch("f32_win", q, k, v)
+
+
+@pytest.mark.parametrize("tq", [4, 16])
+def test_f32win_reads_a_fused_projection_in_place(card, tq):
+    """q, k, v as a window of the trunk hands them over (the stage-1 window:
+    16 rows): views of one (B, T, 3, H, D) projection, rows 3 H D floats
+    apart, read without a copy."""
+    b, h, d = 3, 2, 96
+    gen = torch.Generator(device=card).manual_seed(2)
+    qkv = torch.randn(b, tq, 3, h, d, device=card, generator=gen)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    assert all(A._kernel_readable(t) is t for t in (q, k, v))
+    got, variant = _launched(lambda: A.flash_attention(q, k, v))
+    torch.cuda.synchronize()
+    assert variant == "f32_win"
+    assert got.shape == (b, h, tq, d) and got.transpose(1, 2).is_contiguous()
     _assert_close(got, q, k, v)
 
 
