@@ -1,1 +1,2 @@
-"""Slide access: WSI abstraction, synthetic slide, native geometry bindings."""
+"""Slide access: WSI abstraction, plain-image and synthetic slides, backend
+factory, native geometry bindings."""

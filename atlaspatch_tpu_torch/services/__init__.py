@@ -1,6 +1,16 @@
-"""Service layer: SAM2 segmentation and patch-coordinate extraction."""
+"""Service layer: SAM2 segmentation, patch-coordinate extraction and storage,
+slide loading and MPP overrides."""
 
 from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+from atlaspatch_tpu_torch.services.mpp import CSVMPPResolver
 from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
+from atlaspatch_tpu_torch.services.storage import H5PatchWriter
+from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
 
-__all__ = ["PatchExtractionService", "SAM2SegmentationService"]
+__all__ = [
+    "CSVMPPResolver",
+    "DefaultWSILoader",
+    "H5PatchWriter",
+    "PatchExtractionService",
+    "SAM2SegmentationService",
+]

@@ -12,19 +12,22 @@ Coordinate parity contract (reference: atlas_patch/services/extraction.py:22-197
     keeps anchors passing the 4-probe containment test outside holes.
 
 The scan is one vectorized containment evaluation per contour
-(ops/contours.py), yielding entries in the reference's order. This module
-holds the geometry (contours, level/size geometry, coordinates); the H5
-writer and ``extract()`` are not ported yet.
+(ops/contours.py), yielding entries in the reference's order; ``extract()``
+writes them, with the slide's file attrs, to ``patches/<stem>.h5`` through
+services/storage.py.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Sequence
+from pathlib import Path
+from typing import Iterable, Sequence
 
 import numpy as np
 
 from atlaspatch_tpu_torch.core.config import ExtractionConfig, OutputConfig
+from atlaspatch_tpu_torch.core.models import ExtractionResult, Slide
+from atlaspatch_tpu_torch.core.paths import RunLayout, build_run_root, images_dir, patch_h5_path
 from atlaspatch_tpu_torch.io.iwsi import IWSI
 from atlaspatch_tpu_torch.ops.contours import (
     containment_mask,
@@ -32,13 +35,27 @@ from atlaspatch_tpu_torch.ops.contours import (
     mask_to_contours,
     scale_contours,
 )
+from atlaspatch_tpu_torch.services.interfaces import ExtractionService
+from atlaspatch_tpu_torch.services.storage import Entry, H5PatchWriter
 from atlaspatch_tpu_torch.utils import perf
+from atlaspatch_tpu_torch.utils.image import is_black_patch, is_white_patch
 
 logger = logging.getLogger("atlaspatch_tpu_torch.extraction_service")
 
 
-class PatchExtractionService:
-    """Computes patch coordinates from WSIs given a tissue mask."""
+def _resize_patch(patch: np.ndarray, size: int) -> np.ndarray:
+    """Host resize to the output patch size (cv2 INTER_LINEAR default, matching
+    the reference's cv2.resize call at extraction.py:113)."""
+    import cv2
+
+    return cv2.resize(patch, (size, size))
+
+
+class PatchExtractionService(ExtractionService):
+    """Extracts patch coordinates (and optional images) from WSIs given a tissue mask.
+
+    ``output_cfg`` may be left out by callers that only compute coordinates;
+    ``extract()`` needs it."""
 
     def __init__(
         self, extraction_cfg: ExtractionConfig, output_cfg: OutputConfig | None = None
@@ -105,3 +122,122 @@ class PatchExtractionService:
             if not accepted:
                 return np.empty((0, 2), dtype=np.int64)
             return np.concatenate(accepted, axis=0)
+
+    def _iter_patch_entries(
+        self,
+        wsi: IWSI,
+        tissue_contours: Sequence[np.ndarray],
+        holes_contours: Sequence[Sequence[np.ndarray]],
+        *,
+        include_patch: bool,
+        geometry: tuple | None = None,
+    ) -> Iterable[Entry]:
+        """Yield (x, y, read_w, read_h, level, patch_or_none) per accepted anchor.
+
+        `geometry` is _prepare_geometry(wsi)'s tuple when the caller already
+        computed it — extract() derives the H5 attrs from the same values, so
+        sharing one derivation keeps them from ever disagreeing."""
+        if geometry is None:
+            geometry = self._prepare_geometry(wsi)
+        level, (read_w, read_h), patch_size_src, step_src, _ = geometry
+        coords = self.compute_coords(
+            tissue_contours,
+            holes_contours,
+            patch_size_src=patch_size_src,
+            step_src=step_src,
+        )
+        fast_no_pixels = self.cfg.fast_mode and not include_patch
+        for x, y in coords:
+            x, y = int(x), int(y)
+            if fast_no_pixels:
+                yield x, y, int(read_w), int(read_h), int(level), None
+                continue
+
+            patch_any = wsi.extract((x, y), lv=level, wh=(read_w, read_h), mode="array")
+            if not isinstance(patch_any, np.ndarray):
+                continue
+            patch = patch_any
+            if patch.shape[0] != self.cfg.patch_size or patch.shape[1] != self.cfg.patch_size:
+                patch = _resize_patch(patch, self.cfg.patch_size)
+
+            if not self.cfg.fast_mode:
+                if is_black_patch(patch, rgb_thresh=self.cfg.black_threshold):
+                    continue
+                if is_white_patch(patch, sat_thresh=self.cfg.white_threshold):
+                    continue
+
+            yield x, y, int(read_w), int(read_h), int(level), (patch if include_patch else None)
+
+    # --- public API -----------------------------------------------------------------
+    def extract(self, wsi: IWSI, mask: np.ndarray, *, slide: Slide) -> ExtractionResult:
+        if self.output_cfg is None:
+            raise ValueError("extract() needs an OutputConfig: construct the service with one")
+        tissue_contours, holes_contours = self._prepare_contours(mask, wsi)
+
+        run_root = build_run_root(self.output_cfg, self.cfg)
+        RunLayout(run_root).patches.mkdir(parents=True, exist_ok=True)
+        out_h5 = patch_h5_path(slide, self.output_cfg, self.cfg)
+
+        img_dir: Path | None = None
+        if self.output_cfg.save_images:
+            img_dir = images_dir(slide, self.output_cfg, self.cfg)
+            img_dir.mkdir(parents=True, exist_ok=True)
+
+        logger.debug("Extracting patches for %s to %s", slide.path.name, out_h5)
+
+        geometry = self._prepare_geometry(wsi)
+        patch_size_level0 = geometry[4]
+        level0_width, level0_height = wsi.get_size(lv=0)
+        step = self.cfg.step_size or self.cfg.patch_size
+        overlap = max(0, int(self.cfg.patch_size) - int(step))
+
+        extra_attrs = {"filename": slide.path.name}
+        extra_attrs.update(wsi.metadata_attrs())
+
+        writer = H5PatchWriter(
+            chunk_rows=self.cfg.write_batch,
+            patch_size=self.cfg.patch_size,
+            patch_size_level0=patch_size_level0,
+            level0_mag=int(wsi.mag) if wsi.mag is not None else 0,
+            target_mag=self.cfg.target_magnification,
+            level0_wh=(int(level0_width), int(level0_height)),
+            overlap=overlap,
+            slide_stem=slide.stem,
+            wsi_path=str(wsi.path),
+            extra_file_attrs=extra_attrs,
+        )
+
+        entries = self._iter_patch_entries(
+            wsi=wsi,
+            tissue_contours=tissue_contours,
+            holes_contours=holes_contours,
+            include_patch=bool(img_dir),
+            geometry=geometry,
+        )
+
+        # collect the (N,2) xy array so grid visualization reuses it instead
+        # of re-opening the just-written H5 to read every coordinate back
+        if img_dir is None:
+            total, coords_xy = writer.write_coords(
+                output_path=out_h5,
+                entries=entries,
+                batch=self.cfg.write_batch,
+                collect_coords=True,
+            )
+        else:
+            total, coords_xy = writer.write_coords_and_images(
+                output_path=out_h5,
+                entries=entries,
+                image_dir=img_dir,
+                batch=self.cfg.write_batch,
+                collect_coords=True,
+            )
+
+        return ExtractionResult(
+            slide=slide,
+            h5_path=out_h5,
+            num_patches=int(total),
+            image_dir=img_dir,
+            coords=coords_xy,
+            patch_size_level0=patch_size_level0,
+        )

@@ -20,7 +20,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           of the float32 default) plus ragged, q-pool and FMA-body checks;
           each line gives the variant launched, the kernel's time by CUDA
           events and its device time per call by torch.profiler, the plain
-          version's and F.scaled_dot_product_attention's time and the bound
+          version's and F.scaled_dot_product_attention's time (bfloat16 rows:
+          SDPA's device time too, which SDPA is only timed for) and the bound
           (float32 rows: the FP32-core and the 3xTF32 tensor-core bound); an
           float32 line whose shape both f32_win and another body take also
           times the other one, forced on the same inputs (for f32_win rows the
@@ -43,9 +44,29 @@ Phases, one line each (any failure exits non-zero with no result line):
           kernel, and the device's busy share of the forward
   coords  the masks of (a) → contours → patch coordinates on a 4096x3072
           synthetic slide (native containment checked against numpy)
+  runner  segment-and-get-coords through the port's ProcessingRunner on
+          bench.py's seg_coords_synthetic corpus: 28 SyntheticWSI slides of
+          4096x3072 (3 levels, mpp 0.5; four make_tissue_canvas canvases,
+          seeds 0-3, round-robin) behind empty .svs placeholders, the --fast
+          service (bfloat16, input 768, batch 8; pend depth 3 and the
+          remainder batch of 4 both run), patch 256 at 20x. Random-weight
+          masks have no structure, so, as bench.py's BenchSegmentation does,
+          the real device step runs and its masks are waited for, and then
+          extraction gets the thumbnail thresholded at < 220. Checks: 12
+          kernel launches per forward with kernel_variant's counts; 28 results
+          and no failures; each H5 at patch_h5_path, read back by the port's
+          read_h5: coords byte for byte the rows _iter_patch_entries yields
+          for the mask handed to extraction, num_patches, passports that
+          parse back to their coords, every file attr; no .lock or .stage-*
+          file left; the H5 write not the stage with the most host time; a
+          second run with skip_existing skips all 28 with no kernel launch
+          and no file rewritten. Prints slides/s by host clock (a liveness
+          figure), the stage counters and the H5 write's ms per slide
 
-Then one JSON line with the kernel record, the card's name and power limit,
-and last the result line. Needs no network and no JAX.
+Then one JSON line with the kernel record (``launches``: the seg phase's;
+``runner_launches``: the runner phase's), the card's name and power limit,
+and last the result line. Needs no network, no JAX and no h5py: the H5 files
+are written and read by the port's own HDF5 code.
 """
 
 from __future__ import annotations
@@ -54,6 +75,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,13 +137,17 @@ def cuda_ms(fn, min_total_ms: float = 60.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
-    """Mean device time in ms of the attention kernel that each fn() launches,
-    by torch.profiler: the flash_fwd kernels' self device time over the
-    launches it recorded of ``reps`` calls, after a warm-up (host time between
-    launches is not counted). The profiler may drop some of a burst of
-    launches, or now and then all of them: the mean is over those it kept,
-    and a window that kept none is run again, up to ``tries`` times."""
+def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fwd") -> float:
+    """Mean device time in ms of one fn() call, by torch.profiler, after a
+    warm-up (host time between launches is not counted).
+
+    With ``kernel`` (the attention kernel's flash_fwd bodies): those kernels'
+    self device time over the launches it recorded of ``reps`` calls. With
+    ``kernel=None`` (a library call that may launch several kernels): every
+    kernel's device time, over the launches of the most-launched one. The
+    profiler may drop some of a burst of launches, or now and then all of
+    them: the mean is over those it kept, and a window that kept none is run
+    again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,8 +159,12 @@ def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and "flash_fwd" in e.key]
-        count = sum(e.count for e in events)
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                  and (kernel is None or kernel in e.key)]
+        if kernel is None:
+            count = max((e.count for e in events), default=0)
+        else:
+            count = sum(e.count for e in events)
         if 0 < count <= reps:
             return sum(e.self_device_time_total for e in events) / 1e3 / count
     raise AssertionError(f"the profiler saw {[(e.key, e.count) for e in events]} of {reps} launches "
@@ -344,9 +374,14 @@ def phase_kernel(state):
         dev_ms = device_ms(lambda: A.flash_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: A.reference_attention(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        # SDPA is timed only, never called by the port; by device time at the
+        # bf16 rows, where CUDA events read mostly host time
+        sdpa_dev_ms = (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), kernel=None)
+                       if dtype == torch.bfloat16 else None)
         op_ms, byte_ms = attention_bound(shape, dtype_name)
         row = dict(label=label, shape=shape, dtype=dtype_name, variant=variant, err=err, ms=ms,
-                   dev_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, op_ms=op_ms, byte_ms=byte_ms)
+                   dev_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, sdpa_dev_ms=sdpa_dev_ms,
+                   op_ms=op_ms, byte_ms=byte_ms)
         other = other_float32_body(variant, tq, tk, d) if dtype == torch.float32 else None
         if other:
             row["other"] = other
@@ -357,7 +392,10 @@ def phase_kernel(state):
         rows.append(row)
         log(f"kernel {label:18s} (BH={n}x{h}, Tq={tq}, Tkv={tk}, D={d}) {dtype_name:8s} "
             f"{variant:10s} max_abs_err={err:.3g} err/limit={ratio:.3g} ms={ms:.4f} dev_ms={dev_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+            + (f"sdpa_dev_ms={sdpa_dev_ms:.4f} ({'kernel faster' if dev_ms < sdpa_dev_ms else 'SDPA faster'} "
+               f"by device time) " if sdpa_dev_ms is not None else "")
+            + f"bound_ms={max(op_ms, byte_ms):.4f} "
             f"({'operations' if op_ms >= byte_ms else 'bytes'})"
             + (f" tf32x3_bound_ms={tf32x3_bound(shape):.4f}" if dtype_name == "float32" else "")
             + (other or "") + f" [{state['card']}]")
@@ -392,7 +430,9 @@ def phase_kernel(state):
         log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms "
             f"(device {sum(r['dev_ms'] for r in group):.3f}), "
             f"plain {sum(r['plain_ms'] for r in group):.3f} ms, sdpa "
-            f"{sum(r['library_ms'] for r in group):.3f} ms, bound "
+            f"{sum(r['library_ms'] for r in group):.3f} ms"
+            + (f" (device {sum(r['sdpa_dev_ms'] for r in group):.3f})" if name == "--fast" else "")
+            + ", bound "
             f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms"
             + (f" (3xTF32 bound {sum(tf32x3_bound(r['shape']) for r in group):.3f} ms)"
                if name == "float32" else "")
@@ -575,6 +615,200 @@ def phase_coords(state):
         f"{counts}; host ms per slide mean {np.mean(host_ms):.2f} max {np.max(host_ms):.2f}")
 
 
+RUNNER_SLIDES, RUNNER_WH = 28, (4096, 3072)  # bench.py's seg_coords_synthetic corpus
+
+
+def _thresholding_service(cfg):
+    """The port's SAM2 service with bench.py's BenchSegmentation twist: the
+    real device step runs and its masks are waited for, but extraction gets
+    the thumbnail thresholded at < 220, since random-weight masks have no
+    structure to extract patches from."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.core.models import Mask
+    from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
+
+    class ThresholdingSegmentation(SAM2SegmentationService):
+        def segment_thumbnails_async(self, thumbs):
+            device_resolve = super().segment_thumbnails_async(thumbs)
+            tissue = [(np.asarray(t.convert("L"), np.float32) < 220).astype(np.float32) for t in thumbs]
+
+            def resolve():
+                device_resolve()  # the real masks, fetched from the card
+                return [Mask(data=m, source_shape=m.shape) for m in tissue]
+
+            return resolve
+
+    return ThresholdingSegmentation(cfg)
+
+
+def phase_runner(state):
+    """segment-and-get-coords through the port's ProcessingRunner: 28 synthetic
+    slides in batches of 8 (pend depth 3 and the remainder batch both run) on
+    the --fast preset, one atomic H5 per slide by the port's own writer, then
+    a second run that must skip every slide."""
+    import tempfile
+
+    from atlaspatch_tpu_torch.core.config import SegmentationConfig
+    from atlaspatch_tpu_torch.io.synthetic_wsi import SyntheticWSI, make_tissue_canvas
+
+    canvases = [make_tissue_canvas(*RUNNER_WH, seed=s, n_blobs=3) for s in range(4)]
+    stems = [f"slide{i:03d}" for i in range(RUNNER_SLIDES)]
+    wsis = {stem: SyntheticWSI(path=f"/virtual/{stem}.svs", mpp=0.5, level0=canvases[i % 4], levels=3)
+            for i, stem in enumerate(stems)}
+    seg_cfg = SegmentationConfig(device="cuda", precision="bfloat16", input_size=768, batch_size=8)
+    seg = _thresholding_service(seg_cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
+    try:
+        _drive_runner(state, seg, seg_cfg, wsis, stems, tmp)
+    finally:
+        seg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if state["runner_launches"] != 12 * state["runner_forwards"]:
+        raise AssertionError(f"runner: {state['runner_launches']} kernel launches in "
+                             f"{state['runner_forwards']} forwards, want 12 each")
+
+
+def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.core.config import AppConfig, ExtractionConfig, OutputConfig, ProcessingConfig
+    from atlaspatch_tpu_torch.core.paths import patch_h5_path
+    from atlaspatch_tpu_torch.models.sam2.hiera import trunk_attention_shapes
+    from atlaspatch_tpu_torch.ops import attention as A
+    from atlaspatch_tpu_torch.orchestration.runner import ProcessingRunner
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.storage import H5PatchWriter
+    from atlaspatch_tpu_torch.utils import perf
+    from atlaspatch_tpu_torch.utils.h5 import read_h5
+
+    class Loader:
+        def open(self, slide):
+            with perf.stage("wsi_open"):  # as DefaultWSILoader times it
+                wsi = wsis[slide.stem]
+                wsi._loaded = False  # fresh open semantics
+                return wsi
+
+    class NullResolver:
+        def resolve(self, slide):
+            return None
+
+    masks: dict = {}
+
+    class RecordingExtraction(PatchExtractionService):
+        def extract(self, wsi, mask, *, slide):
+            masks[slide.stem] = mask
+            return super().extract(wsi, mask, slide=slide)
+
+    in_dir = tmp / "slides"
+    in_dir.mkdir()
+    for stem in stems:
+        (in_dir / f"{stem}.svs").touch()  # discovery placeholders
+    cfg = AppConfig(
+        processing=ProcessingConfig(input_path=in_dir),
+        segmentation=seg_cfg,
+        extraction=ExtractionConfig(patch_size=256, target_magnification=20, tissue_threshold=0.0),
+        output=OutputConfig(output_root=tmp / "out", skip_existing=True),
+        device="cuda",
+    )
+
+    def runner():
+        return ProcessingRunner(config=cfg, segmentation=seg,
+                                extractor=RecordingExtraction(cfg.extraction, cfg.output),
+                                visualizer=None, mpp_resolver=NullResolver(), wsi_loader=Loader())
+
+    # warm-up outside the counted run: both batch sizes, every slide's pyramid
+    for n in (seg_cfg.batch_size, len(stems) % seg_cfg.batch_size):
+        seg.segment_thumbnails_async(seg.prepare_thumbnails([wsis[s] for s in stems[:n]]))()
+    torch.cuda.synchronize()
+
+    perf.reset()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, failures = runner().run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, variants = A.flash_attention.launches, dict(A.flash_attention.variant_launches)
+    stages = perf.report()
+    state["runner_launches"] = launches
+
+    forwards = -(-len(stems) // seg_cfg.batch_size)
+    shapes = trunk_attention_shapes(seg.predictor.model.cfg, seg_cfg.input_size, seg_cfg.batch_size)
+    want = Counter()
+    for _, _, tq, tk, d in shapes:
+        want[A.kernel_variant(torch.bfloat16, tq, tk, d)] += forwards
+    state["runner_forwards"] = forwards
+    if launches != len(shapes) * forwards or variants != dict(want):
+        raise AssertionError(f"runner: kernel launched {launches} times by variant {variants} in "
+                             f"{forwards} forwards, want {len(shapes)} each: {dict(want)}")
+    if failures or len(results) != len(stems):
+        raise AssertionError(f"runner: {len(results)} results, failures {failures}")
+
+    extraction = PatchExtractionService(cfg.extraction, cfg.output)
+    names = set(H5PatchWriter(chunk_rows=1, patch_size=1, patch_size_level0=1, level0_mag=1, target_mag=1,
+                              level0_wh=(1, 1), overlap=0, slide_stem="x", wsi_path="x")._file_attrs())
+    passport = re.compile(r"(.+)__x(\d+)_y(\d+)_rw(\d+)_rh(\d+)_lv(\d+)_mag(\w+)_tmag(\w+)_total(\d+)")
+    counts, read_ms = [], []
+    for res in results:
+        stem, wsi = res.slide.stem, wsis[res.slide.stem]
+        path = patch_h5_path(res.slide, cfg.output, cfg.extraction)
+        if res.h5_path != path:
+            raise AssertionError(f"runner: {stem} written to {res.h5_path}, want {path}")
+        t1 = time.perf_counter()
+        datasets, attrs = read_h5(path)
+        read_ms.append(1e3 * (time.perf_counter() - t1))
+        entries = extraction._iter_patch_entries(wsi, *extraction._prepare_contours(masks[stem], wsi),
+                                                 include_patch=False)
+        want_coords = np.asarray([e[:5] for e in entries], dtype=np.int32).reshape(-1, 5)
+        coords = datasets["coords"]
+        n = coords.shape[0]
+        if coords.dtype != np.int32 or coords.tobytes() != want_coords.tobytes():
+            raise AssertionError(f"runner: {stem} coords differ from its extraction's rows")
+        if attrs["num_patches"] != n or res.num_patches != n:
+            raise AssertionError(f"runner: {stem} num_patches {attrs['num_patches']} for {n} rows")
+        missing = (names | {"num_patches"}) - set(attrs)
+        if missing:
+            raise AssertionError(f"runner: {stem} lacks file attrs {sorted(missing)}")
+        for row, text in zip(coords, datasets["passports"]):
+            m = passport.fullmatch(text.decode("ascii"))
+            if not m or m.group(1) != stem or [int(g) for g in m.groups()[1:6]] != row.tolist() \
+                    or int(m.group(9)) != n:
+                raise AssertionError(f"runner: {stem} passport {text!r} does not parse to {row}")
+        counts.append(n)
+    if not max(counts) > 0:
+        raise AssertionError("runner: no slide has a patch")
+    leftovers = [p.name for p in (tmp / "out" / "patches").iterdir() if not p.name.endswith(".h5")]
+    if leftovers or len(list((tmp / "out" / "patches").glob("*.h5"))) != len(stems):
+        raise AssertionError(f"runner: lock or stage files left behind: {leftovers}")
+
+    # the skip pass: same output, skip_existing, nothing launched or rewritten
+    mtimes = {p: p.stat().st_mtime_ns for p in (tmp / "out" / "patches").iterdir()}
+    A.reset_launch_counts()
+    results2, failures2 = runner().run()
+    torch.cuda.synchronize()
+    if results2 or failures2 or A.flash_attention.launches:
+        raise AssertionError(f"runner: the skip pass gave {len(results2)} results, {failures2}, "
+                             f"{A.flash_attention.launches} kernel launches")
+    if {p: p.stat().st_mtime_ns for p in (tmp / "out" / "patches").iterdir()} != mtimes:
+        raise AssertionError("runner: the skip pass rewrote files")
+
+    h5 = stages.get("h5_write", {})
+    slowest = max(stages, key=lambda k: stages[k]["total_s"])
+    log(f"runner {len(stems)} slides of {RUNNER_WH[0]}x{RUNNER_WH[1]} (--fast bf16 768 batch 8, "
+        f"patch 256 at 20x): {wall_s:.3f} s = {len(stems) / wall_s:.2f} slides/s by host clock; "
+        f"kernel launches {launches} in {forwards} forwards, by variant {variants}; patches per slide "
+        f"{counts} [{state['card']}]")
+    log(f"runner h5 write {h5.get('mean_ms', float('nan')):.3f} ms per slide (cpu "
+        f"{1e3 * h5.get('cpu_s', 0) / max(1, h5.get('count', 1)):.3f} ms), read_h5 back "
+        f"{np.mean(read_ms):.3f} ms per slide; the stage that takes most host time: {slowest} "
+        f"[{state['card']}]")
+    log("runner stages " + json.dumps(stages) + f" [{state['card']}]")
+    if slowest == "h5_write":
+        raise AssertionError(f"runner: the H5 writer is the slowest stage: {stages}")
+    log("runner skip pass: 0 results, 0 failures, 0 kernel launches, no file rewritten")
+
+
 def main() -> int:
     import torch
 
@@ -586,7 +820,8 @@ def main() -> int:
     state: dict = {}
     t_all = time.perf_counter()
     for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
-                        ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords)):
+                        ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
+                        ("runner", phase_runner)):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -594,9 +829,9 @@ def main() -> int:
             print(f"phase {name} FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
             raise
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
-    record = dict(state["kernel_record"], launches=state["launches"])
-    keys = ("name", "route", "source", "sources", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"])
+    keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

@@ -307,3 +307,87 @@ def test_kernel_refuses(card, kind):
         k = k.cpu()
     with pytest.raises(ValueError):
         A.flash_attention(q, k, v)
+
+
+def test_runner_on_the_card(card, tmp_path, monkeypatch):
+    """One ProcessingRunner run of 8 synthetic slides through the --fast
+    SAM2 service on the card (random weights; extraction gets the thumbnail
+    thresholded at < 220, as chip_smoke.py's runner phase does): 12 kernel
+    launches in the one forward, and each H5 read back by ``read_h5`` holds
+    the coordinates extraction yields for its mask."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.core.config import (
+        AppConfig, ExtractionConfig, OutputConfig, ProcessingConfig, SegmentationConfig,
+    )
+    from atlaspatch_tpu_torch.core.models import Mask
+    from atlaspatch_tpu_torch.io.synthetic_wsi import SyntheticWSI
+    from atlaspatch_tpu_torch.orchestration.runner import ProcessingRunner
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
+    from atlaspatch_tpu_torch.utils.h5 import read_h5
+
+    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "no-hf"))
+    monkeypatch.delenv("ATLASPATCH_SAM2_CHECKPOINT", raising=False)
+    monkeypatch.delenv("ATLASPATCH_WEIGHTS_DIR", raising=False)
+
+    class Thresholding(SAM2SegmentationService):
+        def segment_thumbnails_async(self, thumbs):
+            device_resolve = super().segment_thumbnails_async(thumbs)
+
+            def resolve():
+                device_resolve()
+                tissue = [(np.asarray(t.convert("L"), np.float32) < 220).astype(np.float32) for t in thumbs]
+                return [Mask(data=m, source_shape=m.shape) for m in tissue]
+
+            return resolve
+
+    wsis = {f"s{i}": SyntheticWSI(path=f"/virtual/s{i}.svs", mpp=0.5, size=(2048, 1536), seed=i)
+            for i in range(8)}
+    masks = {}
+
+    class Recording(PatchExtractionService):
+        def extract(self, wsi, mask, *, slide):
+            masks[slide.stem] = mask
+            return super().extract(wsi, mask, slide=slide)
+
+    class Loader:
+        def open(self, slide):
+            return wsis[slide.stem]
+
+    class NoMpp:
+        def resolve(self, slide):
+            return None
+
+    in_dir = tmp_path / "slides"
+    in_dir.mkdir()
+    for stem in wsis:
+        (in_dir / f"{stem}.svs").touch()
+    seg_cfg = SegmentationConfig(device="cuda", precision="bfloat16", input_size=768, batch_size=8)
+    cfg = AppConfig(
+        processing=ProcessingConfig(input_path=in_dir), segmentation=seg_cfg,
+        extraction=ExtractionConfig(patch_size=256, target_magnification=20, tissue_threshold=0.0),
+        output=OutputConfig(output_root=tmp_path / "out"), device="cuda",
+    )
+    extraction = Recording(cfg.extraction, cfg.output)
+    runner = ProcessingRunner(config=cfg, segmentation=Thresholding(seg_cfg), extractor=extraction,
+                              visualizer=None, mpp_resolver=NoMpp(), wsi_loader=Loader())
+    A.reset_launch_counts()
+    results, failures = runner.run()
+    torch.cuda.synchronize()
+    assert failures == [] and len(results) == 8
+    assert A.flash_attention.launches == 12  # one forward of 8 thumbnails
+    total = 0
+    for res in results:
+        wsi = wsis[res.slide.stem]
+        datasets, attrs = read_h5(res.h5_path)
+        entries = extraction._iter_patch_entries(
+            wsi, *extraction._prepare_contours(masks[res.slide.stem], wsi), include_patch=False
+        )
+        want = np.asarray([e[:5] for e in entries], dtype=np.int32).reshape(-1, 5)
+        assert datasets["coords"].tobytes() == want.tobytes()
+        assert attrs["num_patches"] == res.num_patches == want.shape[0]
+        total += res.num_patches
+    assert total > 0
+    assert sorted(p.name for p in (tmp_path / "out" / "patches").iterdir()) == [f"s{i}.h5" for i in range(8)]

@@ -40,3 +40,37 @@ def port_model(params: dict, cfg=CFG) -> SAM2ImageModel:
     model = SAM2ImageModel(cfg)
     load_into(model, flax_to_torch(params, cfg))
     return model.eval()
+
+
+def h5_view(path, skip=("creation_date",)) -> tuple[dict, dict]:
+    """What h5py reads from an H5 file: {dataset: (dtype, shape, bytes)} and
+    {attr: (python type, dtype or None, value)}, leaving out the attrs named
+    in ``skip``."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        datasets = {}
+        for name, obj in f.items():
+            assert isinstance(obj, h5py.Dataset), name
+            arr = obj[()]
+            datasets[name] = (arr.dtype, arr.shape, arr.tobytes())
+        attrs = {}
+        for key in f.attrs:
+            if key in skip:
+                continue
+            value = f.attrs[key]
+            attrs[key] = (type(value), getattr(value, "dtype", None), value)
+    return datasets, attrs
+
+
+def assert_creation_dates_utc(*paths) -> None:
+    """Each file's creation_date attr parses as an ISO-8601 time in UTC."""
+    from datetime import datetime, timedelta
+
+    import h5py
+
+    for path in paths:
+        with h5py.File(path, "r") as f:
+            stamp = f.attrs["creation_date"]
+        assert isinstance(stamp, str)
+        assert datetime.fromisoformat(stamp).utcoffset() == timedelta(0)
