@@ -1,0 +1,9 @@
+"""Patch encoders: the registry, the ViT family, the batched engine and the zoo."""
+
+from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
+from atlaspatch_tpu_torch.models.encoders.zoo import build_default_registry
+
+__all__ = [
+    "PatchFeatureExtractorRegistry",
+    "build_default_registry",
+]

@@ -1,0 +1,279 @@
+"""Batched inference engine for patch encoders on one CUDA card (or the CPU).
+
+The port of ``atlaspatch_tpu/models/encoders/engine.py``:
+
+  host: per-patch PIL resize/crop to the encoder's input size (byte-identical
+        to the JAX package's, kept on the host for parity with torchvision /
+        transformers preprocessing) on a thread pool, overlapping device work;
+  device: uint8 → float32 normalize → compute dtype → encoder forward →
+        features, returned to the host as float32.
+
+Batches are padded to power-of-two buckets ≤ ``max_batch`` (``_bucket``), as
+the reference does so that it compiles few programs; here it keeps the
+kernels' shapes few. Params live on the device once. In bfloat16 mode every
+float32 param is cast to bfloat16 (else the matmuls would run in float32 or
+mixed); in float32 mode on the card the engine turns TF32 off for cuBLAS and
+cuDNN itself (process-wide, as the segmenter's float32 mode does), so float32
+features are float32-exact.
+
+The knobs are the reference's, with its names and meanings:
+``ATLASPATCH_H2D_DEPTH`` (dispatches in flight, default 2),
+``ATLASPATCH_DEFERRED_FETCH`` (default 1: device→host copies start at once
+into pinned buffers and complete by a CUDA event; 0: blocking fetches),
+``ATLASPATCH_DEFERRED_MAX_CHUNKS`` (the deferred window, default 64) and
+``ATLASPATCH_FEATURE_D2H_BF16`` (features cross the link as bfloat16 and are
+cast back to float32). Host stages: ``embed_prep``, ``embed_dispatch``,
+``embed_d2h_start``, ``embed_fetch``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from atlaspatch_tpu_torch.models.encoders.registry import FeatureExtractor
+from atlaspatch_tpu_torch.utils import perf
+
+logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders")
+
+_PIL_INTERP = ("bilinear", "bicubic", "nearest", "lanczos")
+
+
+@dataclass(frozen=True)
+class PreprocessSpec:
+    """Host-side geometric preprocessing + normalization constants.
+
+    mode "square": resize directly to (crop, crop) — HF image-processor style.
+    mode "shortest": resize shorter side to `resize` then center-crop `crop` —
+    torchvision classification-preset / CLIP style.
+    """
+
+    crop: int = 224
+    resize: int = 224
+    mode: str = "square"
+    interpolation: str = "bilinear"
+    mean: tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: tuple[float, float, float] = (0.229, 0.224, 0.225)
+    rescale: float = 1.0 / 255.0
+
+    def apply_host(self, patch) -> np.ndarray:
+        from PIL import Image
+
+        img = patch if isinstance(patch, Image.Image) else Image.fromarray(patch)
+        if img.mode != "RGB":
+            img = img.convert("RGB")
+        if self.interpolation not in _PIL_INTERP:
+            raise KeyError(self.interpolation)
+        interp = getattr(Image.Resampling, self.interpolation.upper())
+        if self.mode == "square":
+            if img.size != (self.crop, self.crop):
+                img = img.resize((self.crop, self.crop), interp)
+        elif self.mode == "shortest":
+            # torchvision-exact geometry: the long side TRUNCATES
+            # (int(size*long/short), _compute_resized_output_size) and the
+            # crop offset uses python round() (F.center_crop)
+            w, h = img.size
+            short, long = (w, h) if w <= h else (h, w)
+            if short != self.resize:
+                new_long = max(1, int(self.resize * long / short))
+                nw, nh = (self.resize, new_long) if w <= h else (new_long, self.resize)
+                img = img.resize((nw, nh), interp)
+            w, h = img.size
+            left = int(round((w - self.crop) / 2.0))
+            top = int(round((h - self.crop) / 2.0))
+            img = img.crop((left, top, left + self.crop, top + self.crop))
+        else:
+            raise ValueError(f"unknown preprocess mode {self.mode}")
+        return np.asarray(img, dtype=np.uint8)
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+        if b >= max_batch:
+            return max_batch
+    return b
+
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def require_device(name: str, device: str) -> torch.device:
+    """``device`` as a torch device; a CUDA request without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"feature extractor {name!r} asked for device {device!r}, but CUDA is "
+            "not available; pass device='cpu' to run on the CPU."
+        )
+    return dev
+
+
+class TorchFeatureExtractor(FeatureExtractor):
+    """Runs an encoder ``nn.Module`` over preprocessed patch batches on one device.
+
+    ``model(images)`` maps (N, S, S, 3) normalized images in the compute dtype
+    to (N, D) features. ``device`` is a torch device string; "cuda" without a
+    card raises. int8 (ROADMAP queue 1, item 8) is not ported and raises.
+    """
+
+    def __init__(
+        self,
+        *,
+        name: str,
+        embedding_dim: int,
+        spec: PreprocessSpec,
+        model: nn.Module,
+        device: str = "cuda",
+        compute_dtype: str = "float32",
+        max_batch: int = 256,
+        prep_workers: int = 8,
+    ) -> None:
+        if compute_dtype == "int8":
+            raise NotImplementedError(
+                f"{name}: the int8 serving mode is not ported to atlaspatch_tpu_torch yet "
+                "(ROADMAP queue 1, item 8)"
+            )
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute dtype {compute_dtype!r}")
+        self.name = name
+        self.embedding_dim = int(embedding_dim)
+        self.spec = spec
+        self.compute_dtype = compute_dtype
+        self.max_batch = int(max_batch)
+        self.prep_workers = int(prep_workers)
+        self.device = require_device(name, device)
+        if self.device.type == "cuda" and compute_dtype == "float32":
+            # float32 features are float32-exact: no TF32 in cuBLAS, nor in
+            # cuDNN (its default) for the patch-embed convolution
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        # Read once, as the reference does (its jit cache is keyed by shape only).
+        self._fetch_bf16 = os.environ.get("ATLASPATCH_FEATURE_D2H_BF16", "0") == "1"
+        self._dtype = _COMPUTE_DTYPES[compute_dtype]
+        model = model.eval().requires_grad_(False)
+        self.model = model.to(device=self.device, dtype=self._dtype)
+        self._mean = torch.tensor(spec.mean, dtype=torch.float32, device=self.device)
+        self._std = torch.tensor(spec.std, dtype=torch.float32, device=self.device)
+
+    # --- device ------------------------------------------------------------------
+    def forward_device(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """(N, S, S, 3) uint8 on the device → (N, D) features on the device,
+        float32 (bfloat16 with ATLASPATCH_FEATURE_D2H_BF16=1)."""
+        with torch.inference_mode():
+            x = images_u8.to(torch.float32) * self.spec.rescale
+            x = ((x - self._mean) / self._std).to(self._dtype)
+            out = self.model(x)
+            return out.to(torch.bfloat16 if self._fetch_bf16 else torch.float32)
+
+    def _forward_async(self, images_u8: np.ndarray) -> torch.Tensor:
+        """Upload one padded batch and enqueue its forward; returns the device
+        tensor (not fetched)."""
+        with perf.stage("embed_dispatch"):
+            host = torch.from_numpy(images_u8)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            return self.forward_device(host.to(self.device, non_blocking=True))
+
+    def _start_fetch(self, dev_out: torch.Tensor):
+        """Start the device→host copy into a pinned buffer; returns what
+        ``_materialize_f32`` completes."""
+        if self.device.type != "cuda":
+            return dev_out, None
+        host = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+        host.copy_(dev_out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _materialize_f32(fetch) -> np.ndarray:
+        """Wait for a started fetch; float32 rows on the host."""
+        host, event = fetch
+        if event is not None:
+            event.synchronize()
+        return host.float().numpy() if host.dtype != torch.float32 else host.numpy()
+
+    # --- host pipeline -------------------------------------------------------------
+    def extract_batch(
+        self, patches: Sequence[np.ndarray], *, batch_size: int | None = None
+    ) -> np.ndarray:
+        if not len(patches):
+            return np.empty((0, self.embedding_dim), dtype=np.float32)
+        bs = min(self.max_batch, batch_size or len(patches))
+
+        # Software pipeline: (a) per-chunk host preprocessing parallelized over
+        # the thread pool, (b) forwards dispatched from `depth` threads, (c)
+        # each chunk's device→host copy started as soon as its dispatch
+        # returns, and waited for at the end (or when the window fills).
+        def prep_chunk(ex: ThreadPoolExecutor, chunk) -> np.ndarray:
+            if len(chunk) >= 4 and self.prep_workers > 1:
+                slices = np.array_split(np.arange(len(chunk)), self.prep_workers)
+                parts = ex.map(
+                    lambda idx: [self.spec.apply_host(chunk[i]) for i in idx],
+                    [s for s in slices if len(s)],
+                )
+                flat = [img for part in parts for img in part]
+            else:
+                flat = [self.spec.apply_host(p) for p in chunk]
+            return np.stack(flat)
+
+        chunks = [patches[i : i + bs] for i in range(0, len(patches), bs)]
+        outputs: list[np.ndarray] = []
+        depth = max(1, int(os.environ.get("ATLASPATCH_H2D_DEPTH", "2")))
+        deferred = os.environ.get("ATLASPATCH_DEFERRED_FETCH", "1") == "1"
+        # the window bounds the device memory of enqueued, unfetched chunks
+        max_deferred = max(1, int(os.environ.get("ATLASPATCH_DEFERRED_MAX_CHUNKS", "64")))
+
+        pending: deque[tuple] = deque()  # (dispatch future, n_valid)
+        done: deque[tuple] = deque()  # (started fetch, n_valid)
+
+        def _drain_one() -> None:
+            fut, k = pending.popleft()
+            if deferred:
+                with perf.stage("embed_d2h_start"):
+                    done.append((self._start_fetch(fut.result()), k))
+                if len(done) > max_deferred:
+                    fetch, k0 = done.popleft()
+                    with perf.stage("embed_fetch"):
+                        outputs.append(self._materialize_f32(fetch)[:k0])
+            else:
+                with perf.stage("embed_fetch"):
+                    outputs.append(self._materialize_f32((fut.result().cpu(), None))[:k])
+
+        with ThreadPoolExecutor(max_workers=self.prep_workers) as ex, ThreadPoolExecutor(
+            max_workers=depth, thread_name_prefix="h2d-dispatch"
+        ) as dispatcher:
+            for chunk in chunks:
+                with perf.stage("embed_prep"):
+                    imgs = prep_chunk(ex, chunk)
+                n = imgs.shape[0]
+                padded = _bucket(n, bs)
+                if padded != n:
+                    imgs = np.concatenate(
+                        [imgs, np.zeros((padded - n, *imgs.shape[1:]), imgs.dtype)]
+                    )
+                # drain BEFORE submitting so at most `depth` dispatches are outstanding
+                while len(pending) >= depth:
+                    _drain_one()
+                pending.append((dispatcher.submit(self._forward_async, imgs), n))
+            while pending:
+                _drain_one()
+            for fetch, k in done:
+                with perf.stage("embed_fetch"):
+                    outputs.append(self._materialize_f32(fetch)[:k])
+        return np.concatenate(outputs, axis=0)
+
+    def cleanup(self) -> None:
+        self.model = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()

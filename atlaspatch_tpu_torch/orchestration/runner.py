@@ -11,10 +11,12 @@ a multi-host run, slides are statically sharded round-robin across hosts
 before processing — each host's reads stay local, no cross-host tensor
 traffic.
 
-Features are not ported yet: a config with ``features.extractors`` set
-raises ``NotImplementedError`` in ``run()`` before any slide is touched, and
-the reuse of existing coordinates for missing features (which reads H5
-feature datasets) waits for the encoder slice.
+With ``features.extractors`` set, a slide whose H5 exists is reused when
+features are missing (its result is handed on for embedding, with no
+segmentation) and skipped when they are complete. An H5 the port's reader
+cannot read is reprocessed, as the JAX package reprocesses a file h5py cannot
+read. A requested zoo encoder whose tower is not ported raises
+``NotImplementedError`` in ``run()`` before any slide is touched.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from atlaspatch_tpu_torch.orchestration.parallel import (
     PatchExtractionExecutor,
 )
 from atlaspatch_tpu_torch.parallel.multihost import host_shard
+from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES, PENDING_NOTE
 from atlaspatch_tpu_torch.services.interfaces import (
     ExtractionService,
     MPPResolver,
@@ -42,6 +45,8 @@ from atlaspatch_tpu_torch.services.interfaces import (
     VisualizationService,
     WSILoader,
 )
+from atlaspatch_tpu_torch.utils.features import missing_features
+from atlaspatch_tpu_torch.utils.h5 import read_h5_tree
 from atlaspatch_tpu_torch.utils.params import get_wsi_files
 from atlaspatch_tpu_torch.utils.progress import ProgressBar
 
@@ -107,14 +112,67 @@ class ProcessingRunner:
         ]
 
     # --- skip / reuse --------------------------------------------------------------
+    def _build_existing_result(self, slide: Slide, h5_path: Path) -> ExtractionResult | None:
+        num_patches: int | None = None
+        patch_size_level0: int | None = None
+        try:
+            tree = read_h5_tree(h5_path, data=False)
+            num_attr = tree.attrs.get("num_patches")
+            if num_attr is not None:
+                num_patches = int(num_attr)
+            elif "coords" in tree.datasets:
+                num_patches = int(tree.datasets["coords"].shape[0])
+            ps = tree.attrs.get("patch_size_level0")
+            if ps is not None:
+                patch_size_level0 = int(ps)
+        except Exception as e:  # noqa: BLE001
+            logger.warning(
+                "Failed to read existing output for %s; will reprocess. Error: %s",
+                slide.path.name,
+                e,
+            )
+            return None
+        if num_patches is None or num_patches <= 0:
+            return None
+        return ExtractionResult(
+            slide=slide,
+            h5_path=h5_path,
+            num_patches=num_patches,
+            patch_size_level0=patch_size_level0,
+        )
+
     def _handle_existing_slide(self, slide: Slide, results: list, progress) -> bool:
-        """True when the slide is fully handled by skip (its H5 is on disk)."""
+        """True when the slide is fully handled by skip/reuse."""
         if not self.config.output.skip_existing:
             return False
         existing_path = find_existing_patch(slide, self.config.output, self.config.extraction)
         if existing_path is None:
             return False
-        logger.info("Skipping %s (already processed).", slide.path.name)
+
+        feat_cfg = self.config.features
+        if feat_cfg is None or not feat_cfg.extractors:
+            logger.info("Skipping %s (already processed).", slide.path.name)
+            if progress:
+                progress.update(1)
+            return True
+
+        existing_result = self._build_existing_result(slide, existing_path)
+        if existing_result is None:
+            logger.info("Existing output invalid for %s; reprocessing.", slide.path.name)
+            return False
+
+        missing = missing_features(
+            existing_path, feat_cfg.extractors, expected_total=existing_result.num_patches
+        )
+        if not missing:
+            logger.info("Skipping %s (features complete).", slide.path.name)
+        else:
+            results.append(existing_result)
+            logger.info(
+                "Reusing existing patches for %s; missing features: %s",
+                slide.path.name,
+                ", ".join(missing),
+            )
         if progress:
             progress.update(1)
         return True
@@ -280,10 +338,13 @@ class ProcessingRunner:
         from concurrent.futures import ThreadPoolExecutor
 
         feat_cfg = self.config.features
-        if feat_cfg is not None and feat_cfg.extractors:
+        unported = [
+            n for n in (feat_cfg.extractors if feat_cfg is not None else [])
+            if str(n).lower() in ENTRIES and not ENTRIES[str(n).lower()].implemented
+        ]
+        if unported:
             raise NotImplementedError(
-                "feature extraction is not ported to atlaspatch_tpu_torch yet; run "
-                "segment-and-get-coords (no features.extractors)"
+                f"feature extractor(s) {unported}: {PENDING_NOTE}; nothing was processed"
             )
         slides = self._attach_mpp(self.discover_slides())
         if not slides:

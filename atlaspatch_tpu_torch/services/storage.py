@@ -12,10 +12,15 @@ target_magnification, overlap, level0_width/height, wsi_path, passport_format,
 passport_version=2, creation_date, num_patches, plus slide metadata
 (filename, mpp, magnification, vendor, institution, stain when known).
 
+Feature datasets: features/<name> (N, D) float32 with attrs name and
+embedding_dim.
+
 Files are written by the port's own HDF5 writer (utils/h5.py), one atomic
 write per slide. Coordinate writing keeps the two-pass count-then-write shape
-so passports embed the final total. The ``features/<name>`` appends wait for
-the encoder slice.
+so passports embed the final total. Feature appends collect each feature's
+rows on the host and add them to the published file in one atomic rewrite
+(utils/h5.py ``add_datasets``), where the JAX package grows ``__tmp_<name>``
+datasets in place and renames them.
 """
 
 from __future__ import annotations
@@ -26,12 +31,12 @@ import os
 from collections import deque
 from datetime import datetime, timezone
 from pathlib import Path
-from typing import Any, Iterable, Mapping
+from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 
 from atlaspatch_tpu_torch.utils import perf
-from atlaspatch_tpu_torch.utils.h5 import AtomicH5
+from atlaspatch_tpu_torch.utils.h5 import AtomicH5, add_datasets, read_h5_tree
 
 logger = logging.getLogger("atlaspatch_tpu_torch.storage")
 
@@ -211,3 +216,132 @@ class H5PatchWriter:
             else None
         )
         return total, coords_arr
+
+    # --- features ------------------------------------------------------------------
+    def append_features(
+        self,
+        *,
+        output_path: Path,
+        feature_name: str,
+        feature_fn: Callable[[int, int], np.ndarray],
+        num_rows: int,
+        feature_batch: int,
+        feature_attrs: Mapping[str, int | str] | None = None,
+        expected_total: int | None = None,
+    ) -> int:
+        """Append `features/<name>` by pulling row blocks from feature_fn(start, stop).
+
+        The dataset appears only when all rows were produced and the count
+        matches expected_total, preserving the reference's crash/resume safety
+        (reference: services/storage.py:250-337). One-name delegate to
+        `append_features_multi`, which holds the one implementation.
+        """
+        written = self.append_features_multi(
+            output_path=output_path,
+            feature_names=[feature_name],
+            block_fn=lambda start, stop: {feature_name: feature_fn(start, stop)},
+            num_rows=num_rows,
+            feature_batch=feature_batch,
+            feature_attrs={feature_name: feature_attrs or {}},
+            expected_total=expected_total,
+        )
+        return int(written.get(feature_name, 0))
+
+    def append_features_multi(
+        self,
+        *,
+        output_path: Path,
+        feature_names: Iterable[str],
+        block_fn: Callable[[int, int], Mapping[str, np.ndarray]],
+        num_rows: int,
+        feature_batch: int,
+        feature_attrs: Mapping[str, Mapping[str, int | str]] | None = None,
+        expected_total: int | None = None,
+    ) -> dict[str, int]:
+        """Append several `features/<name>` datasets from ONE pass over the rows.
+
+        `block_fn(start, stop)` returns `{name: rows}` for every extractor
+        still active, so the caller reads each pixel block from the slide once
+        and fans it out to all encoders (reference:
+        atlas_patch/services/feature_embedding.py:81-96 re-reads per
+        extractor).
+
+        Fault isolation: `block_fn` may DROP a name from later blocks (an
+        encoder raised on this slide); the dropped name leaves nothing and is
+        excluded from the result, the survivors still land. The key set must
+        never grow mid-stream. A survivor lands only when its row count matches
+        `expected_total`. Rows stay on the host until every block is in, and all
+        survivors are added to the file in one atomic rewrite: any error leaves
+        the file as it was.
+        """
+        names = [str(n) for n in feature_names]
+        if len(set(names)) != len(names):
+            raise ValueError(f"Duplicate feature names requested: {names}")
+        if not names:
+            return {}
+        present = read_h5_tree(output_path, data=False).datasets
+        for name in names:
+            if f"features/{name}" in present:
+                raise ValueError(f"Feature dataset '{name}' already exists in {output_path}.")
+        batch_size = max(1, int(feature_batch))
+        blocks: dict[str, list[np.ndarray]] = {name: [] for name in names}
+        written: dict[str, int] = {name: 0 for name in names}
+        active = list(names)
+
+        for start in range(0, int(num_rows), batch_size):
+            stop = min(start + batch_size, int(num_rows))
+            block = block_fn(start, stop)
+            unknown = set(block) - set(active)
+            if unknown:
+                raise ValueError(
+                    f"block_fn returned rows for unknown/dropped features "
+                    f"{sorted(unknown)} (active: {active})"
+                )
+            for name in [n for n in active if n not in block]:
+                active.remove(name)
+                del blocks[name], written[name]
+            if not active:
+                break
+            for name in active:
+                arr = np.asarray(block[name], dtype=np.float32)
+                if arr.ndim != 2:
+                    raise ValueError(
+                        f"Feature extractor '{name}' must return a 2D array, got shape {arr.shape}"
+                    )
+                if arr.shape[0] != stop - start:
+                    raise ValueError(
+                        f"Feature extractor '{name}' returned {arr.shape[0]} "
+                        f"rows for request of {stop - start}."
+                    )
+                if blocks[name] and blocks[name][0].shape[1] != arr.shape[1]:
+                    raise ValueError(
+                        f"Feature dim mismatch for '{name}': "
+                        f"existing {blocks[name][0].shape[1]}, new {arr.shape[1]}"
+                    )
+                blocks[name].append(arr)
+                written[name] += int(arr.shape[0])
+
+        rows: dict[str, np.ndarray] = {}
+        for name in active:
+            if blocks[name]:
+                rows[name] = np.concatenate(blocks[name])
+            else:
+                emb_dim = int(((feature_attrs or {}).get(name) or {}).get("embedding_dim", 0))
+                if emb_dim <= 0:
+                    raise ValueError(
+                        f"Feature extractor '{name}' missing valid embedding_dim "
+                        "to create dataset."
+                    )
+                rows[name] = np.empty((0, emb_dim), np.float32)
+            if expected_total is not None and written[name] != int(expected_total):
+                raise ValueError(
+                    f"Feature rows written for '{name}' ({written[name]}) do not "
+                    f"match expected coords ({expected_total})"
+                )
+        if rows:
+            with perf.stage("h5_append"):
+                add_datasets(
+                    output_path, rows, group="features",
+                    attrs={name: (feature_attrs or {}).get(name) or {} for name in rows},
+                )
+        return {name: int(written[name]) for name in active}

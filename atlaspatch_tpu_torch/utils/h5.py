@@ -6,10 +6,12 @@ the coordinate path writes (the JAX package's ``utils/h5.py`` ``put_all`` and
 scalar-attribute paths), and h5py reads every file back with the same
 datasets, dtypes, values, attribute names, values and read-back types:
 
-  * datasets: flat ASCII names; numpy integer / float (any byte order) or
+  * datasets: ASCII names, at the root or in a group one level below it
+    (``features/<name>``); numpy integer / float (any byte order) or
     fixed-length ``S{w}`` bytes (ASCII, NULLPAD); any rank; contiguous layout,
     written whole. An empty dataset has the undefined address and size 0, as
-    h5py leaves it when nothing is written.
+    h5py leaves it when nothing is written. A dataset may carry scalar
+    attributes of the same kinds as the file's.
   * file attributes: ``str`` as variable-length UTF-8 (reads back ``str``),
     ``int`` as int64, ``float`` as float64, numpy scalars of kind i/u/f in
     their own dtype; ``dict`` as JSON and ``None`` as ``"None"`` through
@@ -17,20 +19,27 @@ datasets, dtypes, values, attribute names, values and read-back types:
 
 The file: a version-2 superblock; variable-length strings in one global heap
 collection; the root group as a version-2 object header holding Link Info,
-Group Info, Attribute Info, one Link message per dataset and one version-3
-Attribute message per attribute; one version-2 object header per dataset
-(Dataspace, Datatype, Fill Value v3, Data Layout v3); then the raw data.
+Group Info, one Link message per dataset or group, Attribute Info and one
+version-3 Attribute message per attribute; one such header per group (no
+attributes); one version-2 object header per dataset (Dataspace, Datatype,
+Fill Value v3, Data Layout v3, then Attribute Info and its attributes when it
+has any); then the raw data.
 The superblock and every object header carry Jenkins lookup3 checksums.
 
 ``AtomicH5`` keeps the staging lifecycle of the JAX package's class: a
 ``.stage-{pid:x}-{token}-{name}`` sibling file, ``os.replace`` onto the
 target on publish, discard on exception, and a failed write or close
 discards the stage and never publishes it. The whole file is built in memory
-and written with one ``os.write`` at publish. Growable chunked datasets
-(``put_rows``) serve only the feature path and are not written here.
+and written with one ``os.write`` at publish.
 
-:func:`read_h5` reads back what this writer writes and raises ``ValueError``
-on any other layout.
+The format is write-once, so :func:`add_datasets` adds datasets to a
+published file by writing the old file's every dataset and attribute, with the
+new datasets, into one new staged file that replaces it (the JAX package
+appends in place through h5py, with ``__tmp_*`` datasets it renames). A crash
+leaves the old file whole.
+
+:func:`read_h5` and :func:`read_h5_tree` read back what this writer writes and
+raise ``ValueError`` on any other layout.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import secrets
 import struct
 import sys
 from pathlib import Path
-from typing import Any, Mapping, MutableMapping, Optional
+from typing import Any, Mapping, MutableMapping, NamedTuple, Optional
 
 import numpy as np
 
@@ -145,7 +154,7 @@ def write_attrs(target: MutableMapping[str, Any], attrs: Mapping[str, Any]) -> N
 def _check_name(name: str) -> None:
     if (not isinstance(name, str) or not name or "/" in name or "\0" in name or name == "."
             or not name.isascii()):
-        raise ValueError(f"dataset names must be flat ASCII, got {name!r}")
+        raise ValueError(f"dataset and group names must be flat ASCII, got {name!r}")
 
 
 # --- messages -----------------------------------------------------------------------
@@ -255,53 +264,84 @@ class _GlobalHeap:
 
 
 def _encode(
-    datasets: Mapping[str, np.ndarray], attrs: Mapping[str, tuple[Any, bytes | str]]
+    datasets: Mapping[str, np.ndarray],
+    attrs: Mapping[str, tuple[Any, bytes | str]],
+    dataset_attrs: Mapping[str, Mapping[str, tuple[Any, bytes | str]]] | None = None,
 ) -> bytearray:
-    """The bytes of a whole file holding ``datasets`` and root ``attrs``.
+    """The bytes of a whole file holding ``datasets`` (by path: ``name`` or
+    ``group/name``), the root ``attrs`` and each dataset's attributes.
 
-    Layout: superblock, global heap, root group, dataset headers, raw data.
-    The heap comes first so that its address is known before the attribute
-    messages that point into it are built; every other message is of fixed
-    width, so each header is sized before the addresses it holds are known
-    and built once."""
+    Layout: superblock, global heap, root group, group headers, dataset
+    headers, raw data. The heap comes first so that its address is known
+    before the attribute messages that point into it are built; every other
+    message is of fixed width, so each header is sized before the addresses it
+    holds are known and built once."""
     heap = _GlobalHeap(_SUPERBLOCK_SIZE)
-    attr_msgs = [(_ATTRIBUTE, _attribute(k, t, p, heap)) for k, (t, p) in attrs.items()]
+
+    def attribute_msgs(encoded):
+        return [(_ATTRIBUTE, _attribute(k, t, p, heap)) for k, (t, p) in encoded.items()]
+
+    attr_msgs = attribute_msgs(attrs)
+    ds_attr_msgs = {path: attribute_msgs(a) for path, a in (dataset_attrs or {}).items() if a}
     heap_bytes = heap.encode()
     info = b"\0\0" + struct.pack("<QQ", _UNDEF, _UNDEF)  # compact storage, no index
 
-    def root_msgs(ds_addrs):
+    # root entries in order of first appearance: a dataset, or a group's members
+    root: dict[str, list[str] | None] = {}
+    for path in datasets:
+        head, _, tail = path.partition("/")
+        if tail:
+            root.setdefault(head, []).append(path)
+        else:
+            root[head] = None
+    groups = [name for name, members in root.items() if members is not None]
+
+    def group_msgs(links, extra):
         return (
             [(_LINK_INFO, info), (_GROUP_INFO, b"\0\0")]
-            + [(_LINK, _link(n.encode("ascii"), a)) for n, a in zip(datasets, ds_addrs)]
+            + [(_LINK, _link(n.encode("ascii"), a)) for n, a in links]
             + [(_ATTR_INFO, info)]
-            + attr_msgs
+            + extra
         )
 
-    def ds_msgs(arr, addr):
-        return [
+    def ds_msgs(path, addr):
+        arr = datasets[path]
+        msgs = [
             (_DATASPACE, _dataspace(arr.shape)),
             (_DATATYPE, _datatype(arr.dtype)),
             (_FILL, b"\x03\x0a"),  # fill v3: late allocation, write if set
             (_LAYOUT, b"\x03\x01" + struct.pack("<QQ", addr, arr.nbytes)),
         ]
+        if path in ds_attr_msgs:
+            msgs += [(_ATTR_INFO, info)] + ds_attr_msgs[path]
+        return msgs
 
+    def links_of(names, addrs):
+        return [(n.rpartition("/")[2], addrs[n]) for n in names]
+
+    zeros: dict = {p: 0 for p in list(datasets) + groups}
     root_addr = _SUPERBLOCK_SIZE + len(heap_bytes)
-    at = root_addr + _header_size(root_msgs([0] * len(datasets)))
-    ds_addrs = []
-    for arr in datasets.values():
-        ds_addrs.append(at)
-        at += _header_size(ds_msgs(arr, 0))
-    data_addrs = []
-    for arr in datasets.values():
-        data_addrs.append(at if arr.nbytes else _UNDEF)
+    at = root_addr + _header_size(group_msgs(links_of(root, zeros), attr_msgs))
+    addrs: dict[str, int] = {}
+    for g in groups:
+        addrs[g] = at
+        at += _header_size(group_msgs(links_of(root[g], zeros), []))
+    for path in datasets:
+        addrs[path] = at
+        at += _header_size(ds_msgs(path, 0))
+    data_addrs = {}
+    for path, arr in datasets.items():
+        data_addrs[path] = at if arr.nbytes else _UNDEF
         at += arr.nbytes
 
     sb = _SIGNATURE + bytes((2, 8, 8, 0)) + struct.pack("<QQQQ", 0, _UNDEF, at, root_addr)
     out = bytearray(sb + struct.pack("<I", lookup3(sb)))
     out += heap_bytes
-    out += _object_header(root_msgs(ds_addrs))
-    for arr, addr in zip(datasets.values(), data_addrs):
-        out += _object_header(ds_msgs(arr, addr))
+    out += _object_header(group_msgs(links_of(root, addrs), attr_msgs))
+    for g in groups:
+        out += _object_header(group_msgs(links_of(root[g], addrs), []))
+    for path in datasets:
+        out += _object_header(ds_msgs(path, data_addrs[path]))
     for arr in datasets.values():
         out += arr.tobytes()
     assert len(out) == at
@@ -321,15 +361,35 @@ class AtomicH5:
         )
         self._datasets: dict[str, np.ndarray] = {}
         self._attrs: dict[str, tuple[Any, bytes | str]] = {}
+        self._dataset_attrs: dict[str, dict[str, tuple[Any, bytes | str]]] = {}
 
-    def put_all(self, name: str, array: np.ndarray) -> None:
-        """Add ``name`` at its final size; it is written whole at publish."""
+    def put_all(
+        self,
+        name: str,
+        array: np.ndarray,
+        attrs: Mapping[str, Any] | None = None,
+        *,
+        group: str | None = None,
+    ) -> None:
+        """Add ``name`` (in ``group`` when given, e.g. ``features``) at its
+        final size, with its attributes; it is written whole at publish."""
         _check_name(name)
-        if name in self._datasets:
-            raise ValueError(f"dataset {name!r} already exists")
+        if group is not None:
+            _check_name(group)
+        path = name if group is None else f"{group}/{name}"
+        top = path.partition("/")[0]
+        if path in self._datasets or (
+            top in self._datasets if group is not None
+            else any(p.startswith(f"{name}/") for p in self._datasets)
+        ):
+            raise ValueError(f"dataset {path!r} already exists")
         arr = np.ascontiguousarray(array)
         _datatype(arr.dtype)
-        self._datasets[name] = arr
+        encoded: dict[str, tuple[Any, bytes | str]] = {}
+        write_attrs(encoded, attrs or {})
+        self._datasets[path] = arr
+        if encoded:
+            self._dataset_attrs[path] = encoded
 
     def set_attrs(self, attrs: Mapping[str, Any]) -> None:
         write_attrs(self._attrs, attrs)
@@ -342,7 +402,7 @@ class AtomicH5:
     def _write_and_close(self) -> None:
         fd, self._fd = self._fd, None
         try:
-            view = memoryview(_encode(self._datasets, self._attrs))
+            view = memoryview(_encode(self._datasets, self._attrs, self._dataset_attrs))
             while view:
                 view = view[os.write(fd, view):]
         finally:
@@ -488,10 +548,10 @@ class _Reader:
             return name, self.heap_object(addr, index, length).decode("utf-8")
         return name, np.frombuffer(m, dtype, 1, p)[0]
 
-    def dataset(self, addr: int) -> np.ndarray:
-        msgs = self.object_header(addr)
-        if [t for t, _ in msgs] != [_DATASPACE, _DATATYPE, _FILL, _LAYOUT] or msgs[2][1] != b"\x03\x0a":
+    def dataset(self, msgs: list[tuple[int, bytes]], addr: int, data: bool) -> tuple[np.ndarray, dict]:
+        if [t for t, _ in msgs[:4]] != [_DATASPACE, _DATATYPE, _FILL, _LAYOUT] or msgs[2][1] != b"\x03\x0a":
             self.fail(f"dataset header at {addr}")
+        attrs = self.attributes(msgs[4:], f"dataset header at {addr}")
         shape, _ = self.dataspace(msgs[0][1])
         dtype, _ = self.datatype(msgs[1][1])
         if dtype is _VLEN_STR:
@@ -503,19 +563,77 @@ class _Reader:
         count = int(np.prod(shape, dtype=np.int64))
         if nbytes != count * dtype.itemsize:
             self.fail("data size")
-        if nbytes == 0:
-            return np.empty(shape, dtype)
-        if data_addr + nbytes > len(self.buf):
+        if nbytes and data_addr + nbytes > len(self.buf):
             self.fail("data beyond the end of the file")
-        return np.frombuffer(self.buf, dtype, count, data_addr).reshape(shape).copy()
+        if not data:  # shape and dtype only, no memory behind it
+            return np.broadcast_to(np.zeros((), dtype), shape), attrs
+        if nbytes == 0:
+            return np.empty(shape, dtype), attrs
+        return np.frombuffer(self.buf, dtype, count, data_addr).reshape(shape).copy(), attrs
+
+    def attributes(self, msgs: list[tuple[int, bytes]], where: str) -> dict[str, Any]:
+        """The attributes of an Attribute Info message and the Attribute
+        messages after it (or of no message at all)."""
+        if not msgs:
+            return {}
+        if msgs[0] != (_ATTR_INFO, b"\0\0" + struct.pack("<QQ", _UNDEF, _UNDEF)):
+            self.fail(where)
+        attrs = {}
+        for mtype, m in msgs[1:]:
+            if mtype != _ATTRIBUTE:
+                self.fail(where)
+            key, value = self.attribute(m)
+            attrs[key] = value
+        return attrs
+
+    def group(self, msgs: list[tuple[int, bytes]], addr: int, prefix: str, tree: "H5Tree",
+              data: bool) -> dict[str, Any]:
+        """Read a group's members into ``tree``; return its attributes."""
+        if [t for t, _ in msgs[:2]] != [_LINK_INFO, _GROUP_INFO] \
+                or msgs[0][1] != b"\0\0" + struct.pack("<QQ", _UNDEF, _UNDEF):
+            self.fail(f"group at {addr}")
+        i = 2
+        while i < len(msgs) and msgs[i][0] == _LINK:
+            m = msgs[i][1]
+            if m[0] != 1 or m[1] not in (0, 1):
+                self.fail("link message")
+            w = 1 << m[1]
+            n = int.from_bytes(m[2 : 2 + w], "little")
+            name = m[2 + w : 2 + w + n].decode("ascii")
+            target = struct.unpack_from("<Q", m, 2 + w + n)[0]
+            child = self.object_header(target)
+            if child and child[0][0] == _LINK_INFO:
+                if prefix:
+                    self.fail(f"group {prefix}{name} below a group")
+                if self.group(child, target, f"{name}/", tree, data):
+                    self.fail(f"attributes on group {name}")
+            else:
+                arr, attrs = self.dataset(child, target, data)
+                tree.datasets[prefix + name] = arr
+                if attrs:
+                    tree.dataset_attrs[prefix + name] = attrs
+            i += 1
+        return self.attributes(msgs[i:], f"group at {addr}")
 
 
-def read_h5(path: str | os.PathLike) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
-    """(datasets, file attributes) of a file this module wrote.
+class H5Tree(NamedTuple):
+    """What :func:`read_h5_tree` reads: datasets by path (``coords``,
+    ``features/<name>``), the file's attributes, and each dataset's attributes
+    by path (datasets without any are left out)."""
+
+    datasets: dict[str, np.ndarray]
+    attrs: dict[str, Any]
+    dataset_attrs: dict[str, dict[str, Any]]
+
+
+def read_h5_tree(path: str | os.PathLike, *, data: bool = True) -> H5Tree:
+    """Everything in a file this module wrote.
 
     Values read back as h5py reads them: datasets as numpy arrays, str
     attributes as ``str``, numeric attributes as numpy scalars of their
-    stored dtype. Raises ``ValueError`` on any other layout."""
+    stored dtype. With ``data=False`` each dataset is a read-only array of
+    its shape and dtype with no values behind it (for presence checks).
+    Raises ``ValueError`` on any other layout."""
     buf = Path(path).read_bytes()
     r = _Reader(buf)
     if len(buf) < _SUPERBLOCK_SIZE or buf[:12] != _SIGNATURE + bytes((2, 8, 8, 0)):
@@ -525,23 +643,37 @@ def read_h5(path: str | os.PathLike) -> tuple[dict[str, np.ndarray], dict[str, A
         r.fail("superblock checksum")
     if base != 0 or ext != _UNDEF or eof != len(buf):
         r.fail("superblock addresses")
-    msgs = r.object_header(root)
-    types = [t for t, _ in msgs]
-    if types[:2] != [_LINK_INFO, _GROUP_INFO] or msgs[0][1] != b"\0\0" + struct.pack("<QQ", _UNDEF, _UNDEF):
-        r.fail("root group")
-    datasets: dict[str, np.ndarray] = {}
-    attrs: dict[str, Any] = {}
-    for mtype, m in msgs[2:]:
-        if mtype == _LINK:
-            if m[0] != 1 or m[1] not in (0, 1):
-                r.fail("link message")
-            w = 1 << m[1]
-            n = int.from_bytes(m[2 : 2 + w], "little")
-            name = m[2 + w : 2 + w + n].decode("ascii")
-            datasets[name] = r.dataset(struct.unpack_from("<Q", m, 2 + w + n)[0])
-        elif mtype == _ATTRIBUTE:
-            key, value = r.attribute(m)
-            attrs[key] = value
-        elif mtype != _ATTR_INFO:
-            r.fail(f"root message type {mtype:#x}")
-    return datasets, attrs
+    tree = H5Tree({}, {}, {})
+    tree.attrs.update(r.group(r.object_header(root), root, "", tree, data))
+    return tree
+
+
+def read_h5(path: str | os.PathLike) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
+    """(datasets by path, file attributes) of a file this module wrote; see
+    :func:`read_h5_tree`."""
+    tree = read_h5_tree(path)
+    return tree.datasets, tree.attrs
+
+
+def add_datasets(
+    target: str | os.PathLike,
+    datasets: Mapping[str, np.ndarray],
+    *,
+    group: str | None = None,
+    attrs: Mapping[str, Mapping[str, Any]] | None = None,
+) -> None:
+    """Add ``datasets`` (in ``group`` when given), each with ``attrs[name]``,
+    to the published file at ``target``.
+
+    The old file's every dataset and attribute and the new datasets go into one
+    staged file that replaces the target at once; a name already present, or
+    any other failure, discards the stage and leaves the target as it was.
+    Costs the old file's size in host memory and one rewrite of it."""
+    old = read_h5_tree(target)
+    with AtomicH5(target) as store:
+        for path, arr in old.datasets.items():
+            head, _, name = path.rpartition("/")
+            store.put_all(name, arr, old.dataset_attrs.get(path), group=head or None)
+        store.set_attrs(old.attrs)
+        for name, arr in datasets.items():
+            store.put_all(name, arr, (attrs or {}).get(name), group=group)

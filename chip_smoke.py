@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords path on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -62,9 +62,37 @@ Phases, one line each (any failure exits non-zero with no result line):
           second run with skip_existing skips all 28 with no kernel launch
           and no file rewritten. Prints slides/s by host clock (a liveness
           figure), the stage counters and the H5 write's ms per slide
+  embed   vit_l_16 from the port's registry at full width (dim 1024, depth
+          24, 16 heads, 224 px, patch 16) with random weights, on the card.
+          Checks: full width at depth 2 in float32 on the card (built with
+          TF32 switched on, which the engine must switch off) against the
+          same weights on the CPU, max-abs <= 1e-4; the full model in bfloat16
+          against float32 on 16 patches, per-row cosine > 0.995; every param
+          of the bfloat16 extractor bfloat16 on the card. Rates: bench.py's
+          setting (512 random 256x256 uint8 patches through extract_batch at
+          batch 32, one warm and 3 timed passes: median patches/s and the
+          stage totals), the same at batch 256, the device-resident rate (the
+          forward over a batch already on the card), the share of the bf16
+          dense bound (the forward's FLOPs per patch over 989 TFLOP/s), the
+          device busy share of one extract_batch by torch.profiler with its
+          largest device operations, and the peak memory allocated
+  process the runner phase's 28 slides through ProcessingRunner.run() and
+          then PatchFeatureEmbeddingService.embed_all with vit_l_16 in
+          bfloat16 (batch 32), as the JAX CLI's process composes them.
+          Checks: every H5 holds features/vit_l_16 (num_patches x 1024
+          float32, attrs name and embedding_dim) by read_h5, coords and file
+          attrs unchanged by the append; one slide's features equal
+          extract_batch on its patches read directly (per-row cosine >
+          0.999); feature_sets == ["vit_l_16"]; no lock or stage file; a
+          second embed_all runs no forward and rewrites no file; a
+          configuration asking also for vit_b_16, through the runner with
+          skip_existing, reuses every slide's coordinates (no segmentation
+          launch) and embeds only vit_b_16. Prints patches/s and the stage
+          totals (patch_read, embed_*, h5_append ms per slide)
 
 Then one JSON line with the kernel record (``launches``: the seg phase's;
-``runner_launches``: the runner phase's), the card's name and power limit,
+``runner_launches``: the runner phase's; ``process_launches``: the process
+phase's; the encoder path holds no TPU kernel of its own), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -618,6 +646,37 @@ def phase_coords(state):
 RUNNER_SLIDES, RUNNER_WH = 28, (4096, 3072)  # bench.py's seg_coords_synthetic corpus
 
 
+def _runner_corpus():
+    """bench.py's seg_coords_synthetic corpus: (stems, {stem: SyntheticWSI})."""
+    from atlaspatch_tpu_torch.io.synthetic_wsi import SyntheticWSI, make_tissue_canvas
+
+    canvases = [make_tissue_canvas(*RUNNER_WH, seed=s, n_blobs=3) for s in range(4)]
+    stems = [f"slide{i:03d}" for i in range(RUNNER_SLIDES)]
+    wsis = {stem: SyntheticWSI(path=f"/virtual/{stem}.svs", mpp=0.5, level0=canvases[i % 4], levels=3)
+            for i, stem in enumerate(stems)}
+    return stems, wsis
+
+
+class _Loader:
+    """The corpus's slides by stem, reopened fresh, timed as DefaultWSILoader times it."""
+
+    def __init__(self, wsis):
+        self.wsis = wsis
+
+    def open(self, slide):
+        from atlaspatch_tpu_torch.utils import perf
+
+        with perf.stage("wsi_open"):
+            wsi = self.wsis[slide.stem]
+            wsi._loaded = False  # fresh open semantics
+            return wsi
+
+
+class _NullResolver:
+    def resolve(self, slide):
+        return None
+
+
 def _thresholding_service(cfg):
     """The port's SAM2 service with bench.py's BenchSegmentation twist: the
     real device step runs and its masks are waited for, but extraction gets
@@ -650,12 +709,8 @@ def phase_runner(state):
     import tempfile
 
     from atlaspatch_tpu_torch.core.config import SegmentationConfig
-    from atlaspatch_tpu_torch.io.synthetic_wsi import SyntheticWSI, make_tissue_canvas
 
-    canvases = [make_tissue_canvas(*RUNNER_WH, seed=s, n_blobs=3) for s in range(4)]
-    stems = [f"slide{i:03d}" for i in range(RUNNER_SLIDES)]
-    wsis = {stem: SyntheticWSI(path=f"/virtual/{stem}.svs", mpp=0.5, level0=canvases[i % 4], levels=3)
-            for i, stem in enumerate(stems)}
+    stems, wsis = _runner_corpus()
     seg_cfg = SegmentationConfig(device="cuda", precision="bfloat16", input_size=768, batch_size=8)
     seg = _thresholding_service(seg_cfg)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
@@ -683,17 +738,6 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     from atlaspatch_tpu_torch.utils import perf
     from atlaspatch_tpu_torch.utils.h5 import read_h5
 
-    class Loader:
-        def open(self, slide):
-            with perf.stage("wsi_open"):  # as DefaultWSILoader times it
-                wsi = wsis[slide.stem]
-                wsi._loaded = False  # fresh open semantics
-                return wsi
-
-    class NullResolver:
-        def resolve(self, slide):
-            return None
-
     masks: dict = {}
 
     class RecordingExtraction(PatchExtractionService):
@@ -716,7 +760,7 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     def runner():
         return ProcessingRunner(config=cfg, segmentation=seg,
                                 extractor=RecordingExtraction(cfg.extraction, cfg.output),
-                                visualizer=None, mpp_resolver=NullResolver(), wsi_loader=Loader())
+                                visualizer=None, mpp_resolver=_NullResolver(), wsi_loader=_Loader(wsis))
 
     # warm-up outside the counted run: both batch sizes, every slide's pyramid
     for n in (seg_cfg.batch_size, len(stems) % seg_cfg.batch_size):
@@ -809,6 +853,321 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     log("runner skip pass: 0 results, 0 failures, 0 kernel launches, no file rewritten")
 
 
+EMBED_PATCHES, EMBED_PASSES = 512, 3  # bench.py's bench_embed_vitl setting
+
+
+def vit_flops_per_patch(spec) -> float:
+    """FLOPs of one ViT forward per image: the patch-embed convolution, and per
+    block the qkv, projection and MLP products and QK^T and PV (2 per MAC)."""
+    n = spec.tokens
+    t = n + spec.prefix_tokens
+    d, hidden = spec.dim, spec.hidden_dim
+    block = t * (3 * d * d + d * d + 2 * d * hidden) + 2 * t * t * d
+    return 2.0 * (n * 3 * spec.patch_size**2 * d + spec.depth * block)
+
+
+def _cos_rows(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def _timed_passes(ext, patches, batch, passes=EMBED_PASSES):
+    """One warm pass, then ``passes`` timed ones: (median s, stage report of the timed ones)."""
+    import statistics
+
+    import torch
+
+    from atlaspatch_tpu_torch.utils import perf
+
+    ext.extract_batch(patches, batch_size=batch)
+    torch.cuda.synchronize()
+    perf.reset()
+    times = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        out = ext.extract_batch(patches, batch_size=batch)
+        times.append(time.perf_counter() - t0)
+    assert out.shape == (len(patches), ext.embedding_dim)
+    return statistics.median(times), perf.report()
+
+
+def phase_embed(state):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor
+    from atlaspatch_tpu_torch.models.encoders.vit import ViT, init_vit_
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+
+    entry = ENTRIES["vit_l_16"]
+    spec = entry.spec
+    if (spec.dim, spec.depth, spec.heads, spec.img_size, spec.patch_size) != (1024, 24, 16, 224, 16):
+        raise AssertionError(f"vit_l_16 is not at full width: {spec}")
+    rng = np.random.default_rng(0)
+    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(EMBED_PATCHES)]
+
+    # float32 at full width, depth 2: the card (built with TF32 on, which the
+    # engine must turn off) against the CPU on the same weights
+    shallow = init_vit_(ViT(dataclasses.replace(spec, depth=2)), seed=0)
+    cpu = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                model=copy.deepcopy(shallow), device="cpu")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    card = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                 model=shallow, device="cuda")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the float32 extractor left TF32 on")
+    f32_err = float(np.abs(card.extract_batch(patches[:4]) - cpu.extract_batch(patches[:4])).max())
+    if not f32_err <= 1e-4:
+        raise AssertionError(f"embed: float32 card vs CPU at depth 2 differ by {f32_err}")
+    card.cleanup()
+    del cpu, card, shallow
+
+    # the full model from the registry, float32 and bfloat16 (same seed, same weights)
+    t0 = time.perf_counter()
+    f32 = build_default_registry(device="cuda", dtype="float32").create("vit_l_16")
+    bf16 = build_default_registry(device="cuda", dtype="bfloat16").create("vit_l_16")
+    build_s = time.perf_counter() - t0
+    params = list(bf16.model.parameters())
+    if not params or not all(p.dtype == torch.bfloat16 and p.is_cuda for p in params):
+        raise AssertionError("embed: a param of the bfloat16 extractor is not bfloat16 on the card")
+    w32, w16 = f32.model.blocks[0].attn.qkv.weight, bf16.model.blocks[0].attn.qkv.weight
+    if not torch.equal(w32.to(torch.bfloat16), w16):
+        raise AssertionError("embed: the float32 and bfloat16 extractors hold different weights")
+    ref = f32.extract_batch(patches[:16])
+    got = bf16.extract_batch(patches[:16])
+    cos = _cos_rows(ref, got)
+    if not (np.isfinite(got).all() and got.shape == (16, 1024) and cos.min() > 0.995):
+        raise AssertionError(f"embed: bf16 vs float32 per-row cosine {cos.min()}")
+    f32.cleanup()
+    del f32
+    log(f"embed vit_l_16 (dim 1024, depth 24, 16 heads, 224 px, patch 16; random weights, two "
+        f"registry builds {build_s:.1f} s): float32 card vs CPU at depth 2 max-abs {f32_err:.3g} (<= 1e-4, "
+        f"TF32 off); bf16 vs float32 on 16 patches per-row cosine min {cos.min():.6f} (> 0.995); "
+        f"{len(params)} params all bfloat16 on the card")
+
+    flops = vit_flops_per_patch(spec)
+    bound_pps = H100_PEAK_FLOPS["bfloat16"] / flops
+    torch.cuda.reset_peak_memory_stats()
+    rates = {}
+    for batch in (32, 256):
+        med_s, stages = _timed_passes(bf16, patches, batch)
+        rates[batch] = len(patches) / med_s
+        log(f"embed extract_batch {len(patches)} patches at batch {batch}: median {med_s:.4f} s of "
+            f"{EMBED_PASSES} = {rates[batch]:.1f} patches/s ({100 * rates[batch] / bound_pps:.1f}% of the "
+            f"{bound_pps:.0f} patches/s bf16 bound) [{state['card']}]")
+        log(f"embed stages at batch {batch} (3 passes) " + json.dumps(stages))
+    for batch in (32, 256):
+        u8 = torch.from_numpy(np.stack([entry.preprocess.apply_host(p) for p in patches[:batch]])).cuda()
+        ms = cuda_ms(lambda: bf16.forward_device(u8), min_total_ms=300.0)
+        rates[f"resident_{batch}"] = 1e3 * batch / ms
+        log(f"embed resident forward at batch {batch}: {ms:.3f} ms = {rates[f'resident_{batch}']:.1f} "
+            f"patches/s ({100 * rates[f'resident_{batch}'] / bound_pps:.1f}% of the bf16 bound; "
+            f"{flops / 1e9:.2f} GFLOP per patch) [{state['card']}]")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    wall_s, _ = _timed_passes(bf16, patches, 32, passes=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bf16.extract_batch(patches, batch_size=32)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us == 0:
+        raise AssertionError("embed: the profiler recorded no device time")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    log(f"embed profile: one extract_batch of {len(patches)} at batch 32, {1e3 * wall_s:.1f} ms host clock "
+        f"(without the profiler), device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall_s:.1f}%); "
+        f"peak memory allocated {peak_gib:.2f} GiB [{state['card']}]")
+    for e in rows[:10]:
+        us = e.self_device_time_total
+        log(f"embed profile   {us / 1e3:8.2f} ms {100 * us / busy_us:5.1f}% x{e.count:<5d} {e.key[:100]}")
+    bf16.cleanup()
+    state["embed"] = dict(rates, bound_pps=bound_pps, busy=busy_us / 1e6 / wall_s)
+
+
+def phase_process(state):
+    """process below the CLI: the runner phase's slides through
+    ProcessingRunner.run() and then embed_all with vit_l_16 in bfloat16, as the
+    JAX CLI composes them (atlaspatch_tpu/cli.py:313-347)."""
+    import tempfile
+
+    from atlaspatch_tpu_torch.core.config import SegmentationConfig
+
+    stems, wsis = _runner_corpus()
+    seg_cfg = SegmentationConfig(device="cuda", precision="bfloat16", input_size=768, batch_size=8)
+    seg = _thresholding_service(seg_cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_process_"))
+    try:
+        _drive_process(state, seg, seg_cfg, wsis, stems, tmp)
+    finally:
+        seg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _drive_process(state, seg, seg_cfg, wsis, stems, tmp):
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.core.config import (
+        AppConfig, ExtractionConfig, FeatureExtractionConfig, OutputConfig, ProcessingConfig,
+    )
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.ops import attention as A
+    from atlaspatch_tpu_torch.orchestration.runner import ProcessingRunner
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.feature_embedding import PatchFeatureEmbeddingService
+    from atlaspatch_tpu_torch.utils import perf
+    from atlaspatch_tpu_torch.utils.h5 import read_h5, read_h5_tree
+
+    in_dir = tmp / "slides"
+    in_dir.mkdir()
+    for stem in stems:
+        (in_dir / f"{stem}.svs").touch()
+    out = tmp / "out"
+
+    def config(extractors):
+        return AppConfig(
+            processing=ProcessingConfig(input_path=in_dir),
+            segmentation=seg_cfg,
+            extraction=ExtractionConfig(patch_size=256, target_magnification=20, tissue_threshold=0.0),
+            output=OutputConfig(output_root=out, skip_existing=True),
+            features=FeatureExtractionConfig(extractors=extractors, batch_size=32, device="cuda",
+                                             precision="bfloat16"),
+            device="cuda",
+        )
+
+    def run_process(cfg):
+        runner = ProcessingRunner(config=cfg, segmentation=seg,
+                                  extractor=PatchExtractionService(cfg.extraction, cfg.output),
+                                  visualizer=None, mpp_resolver=_NullResolver(), wsi_loader=_Loader(wsis))
+        results, failures = runner.run()
+        torch.cuda.synchronize()
+        if failures or len(results) != len(stems):
+            raise AssertionError(f"process: the runner gave {len(results)} results, {failures}")
+        before = {r.slide.stem: read_h5(r.h5_path) for r in results}
+        svc = PatchFeatureEmbeddingService(cfg.extraction, cfg.output, cfg.features)
+        perf.reset()
+        t0 = time.perf_counter()
+        fails = svc.embed_all(results, wsi_loader=_Loader(wsis))
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        if fails:
+            raise AssertionError(f"process: embed_all failed: {fails}")
+        return sorted(results, key=lambda r: r.slide.stem), before, embed_s, perf.report()
+
+    def features_of(results, name):
+        got = {}
+        for res in results:
+            tree = read_h5_tree(res.h5_path)
+            feats = tree.datasets.get(f"features/{name}")
+            if feats is None or feats.shape != (res.num_patches, 1024 if name == "vit_l_16" else 768) \
+                    or feats.dtype != np.float32 or not np.isfinite(feats).all():
+                raise AssertionError(f"process: {res.slide.stem} features/{name} is "
+                                     f"{None if feats is None else (feats.shape, feats.dtype)}")
+            if tree.dataset_attrs.get(f"features/{name}") != {"name": name,
+                                                              "embedding_dim": feats.shape[1]}:
+                raise AssertionError(f"process: {res.slide.stem} features/{name} attrs "
+                                     f"{tree.dataset_attrs.get(f'features/{name}')}")
+            got[res.slide.stem] = (tree, feats)
+        return got
+
+    def unchanged(results, before, trees):
+        for res in results:
+            (old_data, old_attrs), tree = before[res.slide.stem], trees[res.slide.stem][0]
+            for key, arr in old_data.items():
+                if tree.datasets[key].tobytes() != arr.tobytes() or tree.datasets[key].dtype != arr.dtype:
+                    raise AssertionError(f"process: {res.slide.stem} {key} changed by the append")
+            if set(tree.attrs) != set(old_attrs) or any(
+                    type(tree.attrs[k]) is not type(v) or tree.attrs[k] != v for k, v in old_attrs.items()):
+                raise AssertionError(f"process: {res.slide.stem} file attrs changed by the append")
+
+    patches_dir = out / "patches"
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, before, embed_s, stages = run_process(config(["vit_l_16"]))
+    wall_s = time.perf_counter() - t0
+    launches = A.flash_attention.launches
+    state["process_launches"] = launches
+    forwards = -(-len(stems) // seg_cfg.batch_size)
+    if launches != 12 * forwards:
+        raise AssertionError(f"process: {launches} kernel launches in {forwards} segmentation forwards")
+    trees = features_of(results, "vit_l_16")
+    unchanged(results, before, trees)
+    if any(r.metadata.get("feature_sets") != ["vit_l_16"] for r in results):
+        raise AssertionError(f"process: feature_sets {[r.metadata.get('feature_sets') for r in results]}")
+    leftovers = [p.name for p in patches_dir.iterdir() if not p.name.endswith(".h5")]
+    if leftovers:
+        raise AssertionError(f"process: lock or stage files left behind: {leftovers}")
+    total = sum(r.num_patches for r in results)
+    if not total:
+        raise AssertionError("process: no patch to embed")
+
+    # one slide's features against extract_batch on its patches read directly
+    probe = max(results, key=lambda r: r.num_patches)
+    wsi = wsis[probe.slide.stem]
+    coords = trees[probe.slide.stem][0].datasets["coords"]
+    direct = [wsi.extract((int(x), int(y)), lv=int(lv), wh=(int(rw), int(rh)), mode="array")
+              for x, y, rw, rh, lv in coords]
+    if any(p.shape[:2] != (256, 256) for p in direct):
+        import cv2
+
+        direct = [p if p.shape[:2] == (256, 256) else cv2.resize(p, (256, 256)) for p in direct]
+    ext = build_default_registry(device="cuda", dtype="bfloat16").create("vit_l_16")
+    want = ext.extract_batch(direct, batch_size=32)
+    ext.cleanup()
+    got = trees[probe.slide.stem][1]
+    cos = _cos_rows(got, want)
+    if not cos.min() > 0.999:
+        raise AssertionError(f"process: {probe.slide.stem} features vs extract_batch per-row cosine {cos.min()}")
+    probe_err = float(np.abs(got - want).max())
+
+    # a second embed_all: nothing to do, no file rewritten
+    mtimes = {p: p.stat().st_mtime_ns for p in patches_dir.iterdir()}
+    cfg = config(["vit_l_16"])
+    perf.reset()
+    svc = PatchFeatureEmbeddingService(cfg.extraction, cfg.output, cfg.features)
+    if svc.embed_all(results, wsi_loader=_Loader(wsis)):
+        raise AssertionError("process: the second embed_all failed")
+    again = perf.report()
+    if any(k.startswith("embed_") or k == "h5_append" for k in again):
+        raise AssertionError(f"process: the second embed_all ran {again}")
+    if {p: p.stat().st_mtime_ns for p in patches_dir.iterdir()} != mtimes:
+        raise AssertionError("process: the second embed_all rewrote files")
+
+    # one more encoder: the runner reuses every slide's coordinates, only vit_b_16 is embedded
+    A.reset_launch_counts()
+    results2, before2, _, stages2 = run_process(config(["vit_l_16", "vit_b_16"]))
+    if A.flash_attention.launches:
+        raise AssertionError(f"process: the reuse pass segmented ({A.flash_attention.launches} launches)")
+    trees2 = features_of(results2, "vit_b_16")
+    unchanged(results2, before2, trees2)
+    for res in results2:
+        if trees2[res.slide.stem][0].datasets["features/vit_l_16"].tobytes() != trees[res.slide.stem][1].tobytes():
+            raise AssertionError(f"process: {res.slide.stem} vit_l_16 re-embedded")
+        if res.metadata.get("feature_sets") != ["vit_b_16", "vit_l_16"]:
+            raise AssertionError(f"process: feature_sets {res.metadata.get('feature_sets')}")
+    if stages2.get("h5_append", {}).get("count") != len(stems):
+        raise AssertionError(f"process: the reuse pass appended {stages2.get('h5_append')}")
+
+    append = stages.get("h5_append", {})
+    log(f"process {len(stems)} slides, {total} patches: runner + embed_all {wall_s:.3f} s, embed_all "
+        f"{embed_s:.3f} s = {total / embed_s:.1f} patches/s (vit_l_16 bf16 batch 32) by host clock; "
+        f"{launches} attention kernel launches in {forwards} segmentation forwards [{state['card']}]")
+    log(f"process h5 append {append.get('mean_ms', float('nan')):.3f} ms per slide (cpu "
+        f"{1e3 * append.get('cpu_s', 0) / max(1, append.get('count', 1)):.3f} ms); {probe.slide.stem} "
+        f"({probe.num_patches} patches) vs extract_batch read directly: per-row cosine min {cos.min():.6f}, "
+        f"max-abs {probe_err:.3g} [{state['card']}]")
+    log("process stages " + json.dumps(stages) + f" [{state['card']}]")
+    log("process second embed_all: no forward, no file rewritten; reuse pass with vit_b_16: 0 "
+        f"segmentation launches, {len(stems)} appends of vit_b_16 only; stages " + json.dumps(stages2))
+
+
 def main() -> int:
     import torch
 
@@ -821,7 +1180,7 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
                         ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
-                        ("runner", phase_runner)):
+                        ("runner", phase_runner), ("embed", phase_embed), ("process", phase_process)):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -829,9 +1188,10 @@ def main() -> int:
             print(f"phase {name} FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
             raise
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
-    record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"])
-    keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
+                  process_launches=state["process_launches"])
+    keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "process_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

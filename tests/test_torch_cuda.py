@@ -391,3 +391,141 @@ def test_runner_on_the_card(card, tmp_path, monkeypatch):
         total += res.num_patches
     assert total > 0
     assert sorted(p.name for p in (tmp_path / "out" / "patches").iterdir()) == [f"s{i}.h5" for i in range(8)]
+
+
+# --- the embedding engine (vit_b_16's width, depth cut to 2) --------------------------
+def _vit_entry(depth: int = 2):
+    import dataclasses
+
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+
+    entry = ENTRIES["vit_b_16"]
+    return dataclasses.replace(entry, spec=dataclasses.replace(entry.spec, depth=depth))
+
+
+def _extractor(monkeypatch, tmp_path, **kw):
+    from atlaspatch_tpu_torch.models.encoders.zoo import build_extractor
+
+    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "no-hf"))
+    monkeypatch.delenv("ATLASPATCH_WEIGHTS_DIR", raising=False)
+    return build_extractor(_vit_entry(), **kw)
+
+
+def _patches(n, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def test_bf16_extractor_params_are_bfloat16_on_the_card(card, monkeypatch, tmp_path):
+    ext = _extractor(monkeypatch, tmp_path, device="cuda", compute_dtype="bfloat16")
+    params = list(ext.model.parameters())
+    assert params and all(p.dtype == torch.bfloat16 and p.is_cuda for p in params)
+    out = ext.extract_batch(_patches(5), batch_size=4)
+    assert out.shape == (5, 768) and out.dtype.name == "float32"
+
+
+def test_float32_extractor_turns_tf32_off_and_matches_the_cpu(card, monkeypatch, tmp_path):
+    import copy
+
+    import numpy as np
+
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    cpu = _extractor(monkeypatch, tmp_path, device="cpu")
+    gpu = TorchFeatureExtractor(name="vit_b_16", embedding_dim=768, spec=cpu.spec,
+                                model=copy.deepcopy(cpu.model), device="cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    patches = _patches(4, seed=1)
+    got, want = gpu.extract_batch(patches), cpu.extract_batch(patches)
+    assert np.abs(got - want).max() <= 1e-4
+
+
+def test_deferred_and_blocking_fetches_agree_at_a_ragged_size(card, monkeypatch, tmp_path):
+    import numpy as np
+
+    ext = _extractor(monkeypatch, tmp_path, device="cuda", compute_dtype="bfloat16")
+    patches = _patches(37, seed=2)
+    monkeypatch.setenv("ATLASPATCH_DEFERRED_MAX_CHUNKS", "2")
+    deferred = ext.extract_batch(patches, batch_size=8)
+    monkeypatch.setenv("ATLASPATCH_DEFERRED_FETCH", "0")
+    blocking = ext.extract_batch(patches, batch_size=8)
+    assert deferred.shape == (37, 768)
+    np.testing.assert_array_equal(deferred, blocking)
+
+
+def test_embed_all_on_the_card(card, monkeypatch, tmp_path):
+    """4 synthetic slides: coordinates by the runner (thumbnail thresholded
+    on the host), then embed_all with vit_b_16 at depth 2 in bfloat16 on the
+    card; read_h5 returns features/vit_b_16 of (num_patches, 768)."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.core.config import (
+        AppConfig, ExtractionConfig, FeatureExtractionConfig, OutputConfig, ProcessingConfig,
+        SegmentationConfig,
+    )
+    from atlaspatch_tpu_torch.core.models import Mask
+    from atlaspatch_tpu_torch.io.synthetic_wsi import SyntheticWSI
+    from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
+    from atlaspatch_tpu_torch.models.encoders.zoo import build_extractor
+    from atlaspatch_tpu_torch.orchestration.runner import ProcessingRunner
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.feature_embedding import PatchFeatureEmbeddingService
+    from atlaspatch_tpu_torch.utils.h5 import read_h5_tree
+
+    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "no-hf"))
+    monkeypatch.delenv("ATLASPATCH_WEIGHTS_DIR", raising=False)
+    wsis = {f"s{i}": SyntheticWSI(path=f"/virtual/s{i}.svs", mpp=0.5, size=(2048, 1536), seed=i)
+            for i in range(4)}
+
+    class Thresholding:
+        def segment_thumbnail(self, wsi):
+            arr = np.asarray(wsi.get_thumb((256, 256)).convert("L"), np.float32)
+            m = (arr < 220).astype(np.float32)
+            return Mask(data=m, source_shape=m.shape)
+
+        def segment_batch(self, batch):
+            return [self.segment_thumbnail(w) for w in batch]
+
+    class Loader:
+        def open(self, slide):
+            return wsis[slide.stem]
+
+    class NoMpp:
+        def resolve(self, slide):
+            return None
+
+    in_dir = tmp_path / "slides"
+    in_dir.mkdir()
+    for stem in wsis:
+        (in_dir / f"{stem}.svs").touch()
+    features = FeatureExtractionConfig(extractors=["vit_b_16"], batch_size=32, device="cuda",
+                                       precision="bfloat16")
+    cfg = AppConfig(
+        processing=ProcessingConfig(input_path=in_dir),
+        segmentation=SegmentationConfig(device="cuda", batch_size=4),
+        extraction=ExtractionConfig(patch_size=256, target_magnification=20, tissue_threshold=0.0),
+        output=OutputConfig(output_root=tmp_path / "out"), features=features, device="cuda",
+    )
+    runner = ProcessingRunner(config=cfg, segmentation=Thresholding(),
+                              extractor=PatchExtractionService(cfg.extraction, cfg.output),
+                              visualizer=None, mpp_resolver=NoMpp(), wsi_loader=Loader())
+    results, failures = runner.run()
+    assert failures == [] and len(results) == 4
+    registry = PatchFeatureExtractorRegistry()
+    registry.register("vit_b_16", lambda: build_extractor(_vit_entry(), device="cuda",
+                                                          compute_dtype="bfloat16"))
+    svc = PatchFeatureEmbeddingService(cfg.extraction, cfg.output, features, registry=registry)
+    assert svc.embed_all(results, wsi_loader=Loader()) == []
+    for res in results:
+        tree = read_h5_tree(res.h5_path)
+        feats = tree.datasets["features/vit_b_16"]
+        assert feats.shape == (res.num_patches, 768) and feats.dtype.name == "float32"
+        assert np.isfinite(feats).all()
+        assert tree.dataset_attrs["features/vit_b_16"] == {"name": "vit_b_16", "embedding_dim": 768}
+        assert res.metadata["feature_sets"] == ["vit_b_16"]

@@ -6,6 +6,9 @@ they must agree exactly: dataset names, dtypes, shapes and bytes; attribute
 names, Python types, dtypes and values (tolerance: none, every comparison is
 exact). ``read_h5`` must read the port's files as h5py does. The staging
 lifecycle is held to what tests/test_storage.py requires of the JAX class.
+Datasets in a group (``features/<name>``) with attributes are held against
+the JAX class's nested ``put_all``, and ``add_datasets`` (a dataset added to a
+published file by one staged rewrite) to h5py's reading of the file before.
 """
 
 import os
@@ -20,7 +23,7 @@ from hypothesis import strategies as st
 
 from atlaspatch_tpu.utils.h5 import AtomicH5 as JaxAtomicH5
 from atlaspatch_tpu_torch.utils import h5 as port_h5
-from atlaspatch_tpu_torch.utils.h5 import AtomicH5, encode_attr, lookup3, read_h5
+from atlaspatch_tpu_torch.utils.h5 import AtomicH5, add_datasets, encode_attr, lookup3, read_h5, read_h5_tree
 from torch_port_helpers import h5_view
 
 # every value kind the JAX writer's scalar fast path (_write_attr_fast) handles,
@@ -379,3 +382,166 @@ def test_random_shapes_and_attr_sets_match_the_jax_writer(tmp_path_factory, attr
     jax_path, port_path = _write_both(tmp, datasets, attrs)
     _assert_same_files(jax_path, port_path)
     _assert_read_h5_agrees(port_path)
+
+
+# --- groups, dataset attributes and adding to a published file ---------------------
+def h5_tree_view(path) -> dict:
+    """Every dataset (dtype, shape, bytes, attrs) and group by path, and the
+    file attrs, as h5py reads them."""
+    out: dict = {}
+    with h5py.File(path, "r") as f:
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                attrs = {k: (type(v), getattr(v, "dtype", None), v) for k, v in obj.attrs.items()}
+                out[name] = (obj.dtype, obj.shape, obj[()].tobytes(), attrs)
+            else:
+                out[name] = "group"
+        f.visititems(visit)
+        out["/"] = {k: (type(v), getattr(v, "dtype", None), v) for k, v in f.attrs.items()}
+    return out
+
+
+FEATURE_ATTRS = {"name": "vit_l_16", "embedding_dim": 1024, "scale": np.float32(0.5), "note": None}
+
+
+def _write_nested(store, rng):
+    """Into the port's store: what the JAX test writes as features/<name> paths."""
+    store.put_all("coords", rng.integers(0, 9, (6, 5)).astype(np.int32))
+    store.put_all("vit_l_16", rng.normal(size=(6, 4)).astype(np.float32), FEATURE_ATTRS, group="features")
+    store.put_all("empty", np.zeros((0, 7), np.float32), {"embedding_dim": 7}, group="features")
+    store.set_attrs({"num_patches": 6, "creation_date": "2026-01-01T00:00:00+00:00"})
+
+
+def test_groups_and_dataset_attrs_match_the_jax_writer(tmp_path):
+    jax_path, port_path = tmp_path / "jax.h5", tmp_path / "port.h5"
+    with JaxAtomicH5(jax_path) as store:
+        rng = np.random.default_rng(0)
+        store.put_all("coords", rng.integers(0, 9, (6, 5)).astype(np.int32))
+        store.put_all("features/vit_l_16", rng.normal(size=(6, 4)).astype(np.float32), FEATURE_ATTRS)
+        store.put_all("features/empty", np.zeros((0, 7), np.float32), {"embedding_dim": 7})
+        store.set_attrs({"num_patches": 6, "creation_date": "2026-01-01T00:00:00+00:00"})
+    with AtomicH5(port_path) as store:
+        _write_nested(store, np.random.default_rng(0))
+    jax_view, port_view = h5_tree_view(jax_path), h5_tree_view(port_path)
+    assert jax_view.keys() == port_view.keys() == {"/", "coords", "features", "features/vit_l_16",
+                                                   "features/empty"}
+    for key in jax_view:
+        if key == "/" or jax_view[key] == "group":
+            assert key == "/" or port_view[key] == "group", key
+            continue
+        (jd, js, jb, ja), (pd, ps, pb, pa) = jax_view[key], port_view[key]
+        assert (jd, js, jb) == (pd, ps, pb), key
+        _same_attr_values(ja, pa)
+    _same_attr_values(jax_view["/"], port_view["/"])
+    tree = read_h5_tree(port_path)
+    assert list(tree.datasets) == ["coords", "features/vit_l_16", "features/empty"]
+    assert tree.dataset_attrs["features/vit_l_16"]["embedding_dim"] == 1024
+    assert "features/empty" in tree.dataset_attrs and "coords" not in tree.dataset_attrs
+    shapes = read_h5_tree(port_path, data=False).datasets
+    assert {k: (v.shape, v.dtype) for k, v in shapes.items()} == {
+        k: (v.shape, v.dtype) for k, v in tree.datasets.items()}
+
+
+def test_group_names_are_checked(tmp_path):
+    store = AtomicH5(tmp_path / "out.h5")
+    store.put_all("coords", np.arange(3))
+    for group in ("a/b", "", "ünï"):
+        with pytest.raises(ValueError):
+            store.put_all("x", np.arange(3), group=group)
+    with pytest.raises(ValueError, match="already exists"):
+        store.put_all("x", np.arange(3), group="coords")  # a dataset of that name
+    store.put_all("x", np.arange(3), group="g")
+    with pytest.raises(ValueError, match="already exists"):
+        store.put_all("g", np.arange(3))  # a group of that name
+    with pytest.raises(ValueError, match="already exists"):
+        store.put_all("x", np.arange(3), group="g")
+    store.discard()
+
+
+def test_add_datasets_keeps_everything_and_publishes_once(tmp_path):
+    target = tmp_path / "slide.h5"
+    with AtomicH5(target) as store:
+        _write_nested(store, np.random.default_rng(1))
+        store.set_attrs(ATTRS)
+    before = h5_tree_view(target)
+    new = np.random.default_rng(2).normal(size=(6, 3)).astype(np.float32)
+    add_datasets(target, {"toy": new}, group="features", attrs={"toy": {"name": "toy", "embedding_dim": 3}})
+    after = h5_tree_view(target)
+    assert set(after) == set(before) | {"features/toy"}
+    for key in before:
+        if key == "/":
+            _same_attr_values(before[key], after[key])
+        elif before[key] == "group":
+            assert after[key] == "group"
+        else:
+            assert before[key][:3] == after[key][:3], key
+            _same_attr_values(before[key][3], after[key][3])
+    assert after["features/toy"][2] == new.tobytes()
+    assert list(tmp_path.iterdir()) == [target]
+    _assert_no_diagnostic(target)
+
+
+def _assert_no_diagnostic(path):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with h5py.File(path, "r") as f:
+            f.visit(lambda name: None)
+
+
+def test_add_datasets_refusal_leaves_the_file_as_it_was(tmp_path, monkeypatch):
+    target = tmp_path / "slide.h5"
+    with AtomicH5(target) as store:
+        _write_nested(store, np.random.default_rng(3))
+    before = target.read_bytes()
+    with pytest.raises(ValueError, match="already exists"):
+        add_datasets(target, {"ok": np.ones((6, 2), np.float32), "vit_l_16": np.ones((6, 2), np.float32)},
+                     group="features")
+    with pytest.raises(TypeError):
+        add_datasets(target, {"bad": np.ones(2, np.complex64)}, group="features")
+
+    def failing(fd, *args):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(port_h5.os, "write", failing)
+    with pytest.raises(OSError):
+        add_datasets(target, {"ok": np.ones((6, 2), np.float32)}, group="features")
+    monkeypatch.undo()
+    assert target.read_bytes() == before
+    assert list(tmp_path.iterdir()) == [target]
+
+
+def test_add_datasets_to_a_file_of_another_writer_raises(tmp_path):
+    lib = tmp_path / "lib.h5"
+    with h5py.File(lib, "w") as f:
+        f.create_dataset("coords", data=np.zeros((2, 5), np.int32))
+    before = lib.read_bytes()
+    with pytest.raises(ValueError, match="not a file of this HDF5 writer"):
+        add_datasets(lib, {"x": np.ones((2, 2), np.float32)}, group="features")
+    assert lib.read_bytes() == before and list(tmp_path.iterdir()) == [lib]
+
+
+@settings(max_examples=15, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(attrs=_attr_sets, arrays=st.lists(_arrays, min_size=1, max_size=3), ds_attrs=_attr_sets)
+def test_random_groups_round_trip_through_read_h5_tree(tmp_path_factory, attrs, arrays, ds_attrs):
+    tmp = tmp_path_factory.mktemp("h5g")
+    jax_path, port_path = tmp / "jax.h5", tmp / "port.h5"
+    with JaxAtomicH5(jax_path) as jstore, AtomicH5(port_path) as pstore:
+        for i, (shape, dtype, seed) in enumerate(arrays):
+            rng = np.random.default_rng(seed)
+            arr = rng.integers(32, 127, size=shape).astype("S1" if dtype.startswith("S") else dtype)
+            group = "features" if i % 2 else None
+            jstore.put_all(f"{group}/d{i}" if group else f"d{i}", arr, ds_attrs)
+            pstore.put_all(f"d{i}", arr, ds_attrs, group=group)
+        jstore.set_attrs(attrs)
+        pstore.set_attrs(attrs)
+    jview, pview = h5_tree_view(jax_path), h5_tree_view(port_path)
+    assert jview.keys() == pview.keys()
+    for key in jview:
+        if key == "/":
+            _same_attr_values(jview[key], pview[key])
+        elif jview[key] != "group":
+            assert jview[key][:3] == pview[key][:3]
+            _same_attr_values(jview[key][3], pview[key][3])
+    tree = read_h5_tree(port_path)
+    for key, arr in tree.datasets.items():
+        assert pview[key][:3] == (arr.dtype, arr.shape, arr.tobytes())

@@ -35,6 +35,21 @@ def shared_flax_params(seed: int = 0, cfg=JAX_CFG) -> dict:
     return params
 
 
+def shared_vit_params(spec, seed: int = 0) -> dict:
+    """Flax-initialized params of the JAX ViT of ``spec`` as numpy arrays, with
+    N(0, 0.05) noise added to every leaf (so zero-initialized tokens, biases
+    and unit LayerNorms carry values)."""
+    import jax.numpy as jnp
+
+    from atlaspatch_tpu.models.encoders.vit import ViT as JaxViT
+
+    dummy = jnp.zeros((1, spec.img_size, spec.img_size, 3), jnp.float32)
+    init = jax.jit(lambda key: JaxViT(spec).init(key, dummy)["params"])
+    params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 1)
+    return jax.tree.map(lambda a: (a + rng.normal(0.0, 0.05, a.shape)).astype(np.float32), params)
+
+
 def port_model(params: dict, cfg=CFG) -> SAM2ImageModel:
     """The port's float32 CPU model holding ``params``."""
     model = SAM2ImageModel(cfg)
