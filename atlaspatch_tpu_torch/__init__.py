@@ -7,8 +7,10 @@ patch feature embedding into them (below the CLI, which is not ported yet):
 
   core/           config dataclasses (torch device strings), domain models,
                   the output-path contract
-  io/             WSI abstraction, plain-image and synthetic slides, backend
-                  factory, native contour bindings
+  io/             WSI abstraction, backend factory, the slide readers (native
+                  TIFF/SVS/NDPI/SCN/BIF decode, MIRAX, Hamamatsu VMS/VMU,
+                  DICOM WSI), plain-image and synthetic slides, native
+                  decode and contour bindings
   ops/            attention (hand-written CUDA kernel + plain version),
                   polygon containment, contours
   models/sam2     SAM2 hiera-tiny in torch + checkpoint / Flax-tree converter
@@ -22,7 +24,8 @@ patch feature embedding into them (below the CLI, which is not ported yet):
                   extraction thread pool
   utils/          the port's own HDF5 writer and reader, stage counters,
                   discovery, content filters, feature-completeness probes
-  csrc/           CUDA and C++ sources, built at first use into _build/
+  csrc/           CUDA and C++ sources (and vendored libjpeg headers), built
+                  at first use into _build/
 
 Entry points run on the card (device "cuda") unless the caller asks for "cpu".
 """

@@ -1,10 +1,8 @@
 """Extension → backend registry (reference: atlas_patch/core/wsi/wsi_factory.py:12-141).
 
-The JAX package routes pyramidal formats to its native TIFF decoder and its
-MIRAX, Hamamatsu and DICOM readers, and plain images to ImageWSI. The port
-has ImageWSI only so far: the other backends keep their names and
-extensions, and opening one raises :class:`UnsupportedFormatError` naming the
-reader as not yet ported (the runner records that as the slide's failure).
+Pyramidal formats route to the native TIFF backend (the port's C++ decoder,
+io/tiff_wsi.py) instead of OpenSlide, and MIRAX, Hamamatsu VMS/VMU and DICOM
+WSI to their first-party readers; plain-image formats route to ImageWSI.
 Runtime registration of new backends/extensions is preserved.
 """
 
@@ -19,24 +17,38 @@ from atlaspatch_tpu_torch.io.iwsi import IWSI
 
 
 class UnsupportedFormatError(ValueError):
-    """The file's container format is recognized but not decodable by the port."""
+    """The file's container format is recognized but not decodable natively."""
 
 
-def _not_ported(backend: str, reader: str):
-    def factory():
-        raise UnsupportedFormatError(
-            f"the {backend} backend ({reader} in the JAX package) is not yet ported to "
-            "atlaspatch_tpu_torch; register a custom backend via WSIFactory.register()"
-        )
+def _tiff_backend():
+    from atlaspatch_tpu_torch.io.tiff_wsi import TiffWSI
 
-    return factory
+    return TiffWSI
 
 
-_tiff_backend = _not_ported("tiff", "io/tiff_wsi.py")
-_mirax_backend = _not_ported("mirax", "io/mirax_wsi.py")
-_vms_backend = _not_ported("vms", "io/hamamatsu_wsi.py")
-_vmu_backend = _not_ported("vmu", "io/hamamatsu_wsi.py")
-_dicom_backend = _not_ported("dicom", "io/dicom_wsi.py")
+def _mirax_backend():
+    from atlaspatch_tpu_torch.io.mirax_wsi import MiraxWSI
+
+    return MiraxWSI
+
+
+def _vms_backend():
+    from atlaspatch_tpu_torch.io.hamamatsu_wsi import HamamatsuVMSWSI
+
+    return HamamatsuVMSWSI
+
+
+def _vmu_backend():
+    from atlaspatch_tpu_torch.io.hamamatsu_wsi import HamamatsuVMUWSI
+
+    return HamamatsuVMUWSI
+
+
+def _dicom_backend():
+    from atlaspatch_tpu_torch.io.dicom_wsi import DicomWSI
+
+    return DicomWSI
+
 
 class WSIFactory:
     """WSI loader with backend selection."""
@@ -52,10 +64,10 @@ class WSIFactory:
     }
     _lazy = {_tiff_backend, _mirax_backend, _vms_backend, _vmu_backend, _dicom_backend}
 
-    # TIFF-container formats (classic TIFF / BigTIFF internals): Aperio .svs,
-    # Hamamatsu .ndpi, Leica .scn, Ventana .bif/.biff, Trestle/plain/OME .tif.
-    # Non-TIFF containers: MIRAX (.mrxs), Hamamatsu map files (.vms/.vmu),
-    # DICOM WSI (.dcm).
+    # TIFF-container formats (classic TIFF / BigTIFF internals) decode via the
+    # native C++ decoder: Aperio .svs, Hamamatsu .ndpi, Leica .scn, Ventana
+    # .bif/.biff, Trestle/plain/OME .tif. Non-TIFF containers have first-party
+    # readers: MIRAX (.mrxs), Hamamatsu map files (.vms/.vmu), DICOM WSI (.dcm).
     _formats = {
         ".svs": "tiff",
         ".tif": "tiff",
@@ -76,6 +88,11 @@ class WSIFactory:
         ".webp": "image",
         ".gif": "image",
     }
+
+    # Containers recognized but not decoded get a clear error instead of a
+    # misleading parse failure. Empty, as in the JAX factory, whose refusal
+    # this mirrors; see ROADMAP.md for removing it from both.
+    _known_unsupported: dict[str, str] = {}
 
     @classmethod
     def _resolve(cls, name: str):
@@ -110,6 +127,14 @@ class WSIFactory:
         if backend is None:
             backend = cls.detect(path)
             if backend is None:
+                ext = Path(path).suffix.lower()
+                if ext in cls._known_unsupported:
+                    raise UnsupportedFormatError(
+                        f"{ext} — {cls._known_unsupported[ext]} — is not supported "
+                        "by the native decoder (no OpenSlide in this build). "
+                        "Convert the slide to a TIFF-family format (.svs/.tiff) "
+                        "or register a custom backend via WSIFactory.register()."
+                    )
                 raise ValueError(f"No backend found for: {path}")
         elif backend not in cls._registry:
             raise ValueError(f"Unknown backend: {backend}")

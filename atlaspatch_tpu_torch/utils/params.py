@@ -7,7 +7,6 @@ CLI layer translates them to user-facing messages.
 
 from __future__ import annotations
 
-import configparser
 import csv
 import logging
 from pathlib import Path
@@ -15,9 +14,9 @@ from typing import Dict, Optional
 
 logger = logging.getLogger("atlaspatch_tpu_torch.utils")
 
-# The JAX package's extension set: TIFF-family WSI containers, MIRAX,
-# Hamamatsu VMS/VMU and DICOM WSI, plus plain images. The port opens plain
-# images; io/factory.py refuses the others as not yet ported.
+# TIFF-family WSI containers decodable by the native layer, first-party
+# non-TIFF container readers (MIRAX, Hamamatsu VMS/VMU, DICOM WSI — see
+# io/mirax_wsi.py, io/hamamatsu_wsi.py, io/dicom_wsi.py), plus plain images.
 SUPPORTED_EXTS = {
     ".svs",
     ".tif",
@@ -38,16 +37,6 @@ SUPPORTED_EXTS = {
     ".webp",
     ".gif",
 }
-
-
-def _read_map_file(path: Path) -> configparser.ConfigParser:
-    """A Hamamatsu .vms/.vmu map file, parsed as tolerantly as the JAX
-    package's Hamamatsu reader parses it (io/hamamatsu_wsi.py ``_read_ini``)."""
-    cp = configparser.ConfigParser(interpolation=None, strict=False)
-    cp.optionxform = str  # type: ignore[method-assign]
-    with open(path, encoding="utf-8-sig") as f:
-        cp.read_file(f)
-    return cp
 
 
 def get_wsi_files(path: str, *, recursive: bool = False) -> list[str]:
@@ -76,7 +65,12 @@ def get_wsi_files(path: str, *, recursive: bool = False) -> list[str]:
         if f.suffix.lower() not in (".vms", ".vmu"):
             continue
         try:
-            cp = _read_map_file(f)
+            # The same tolerant INI parse the Hamamatsu backend uses — a
+            # hand-rolled splitter would accept a different dialect than
+            # the reader that actually opens the slide.
+            from atlaspatch_tpu_torch.io.hamamatsu_wsi import _read_ini
+
+            cp = _read_ini(f)
         except Exception:  # noqa: BLE001 — unparseable map file: nothing to exclude
             continue
         for section in cp.sections():
@@ -89,9 +83,32 @@ def get_wsi_files(path: str, *, recursive: bool = False) -> list[str]:
                 ):
                     companions.add(f.parent / value)
 
-    # The JAX package keeps one entry per DICOM series (its base instance);
-    # that needs the DICOM reader, which is not ported yet, so every .dcm
-    # file is listed here and each fails to open as unsupported.
+    # DICOM WSI pyramids are usually stored as one file PER LEVEL plus
+    # LABEL/OVERVIEW instances. Keep one entry per series — the base
+    # (largest VOLUME) instance — so the pyramid is processed once, not once
+    # per file; associated-image instances are companions like VMS maps.
+    # Unparseable .dcm files stay listed so opening them fails loudly.
+    dcm_files = [f for f in files_set if f.suffix.lower() in (".dcm", ".dicom")]
+    if len(dcm_files) > 1:
+        from atlaspatch_tpu_torch.io.dicom_wsi import dicom_instance_info
+
+        info: dict[Path, tuple] = {}
+        for f in dcm_files:
+            try:
+                info[f] = dicom_instance_info(f)
+            except Exception:  # noqa: BLE001 — not a readable WSI instance
+                continue
+        best: dict[str, tuple[int, Path]] = {}
+        for f, (uid, area, pyramid) in info.items():
+            if pyramid and uid:
+                cur = best.get(uid)
+                if cur is None or (area, str(f)) > (cur[0], str(cur[1])):
+                    best[uid] = (area, f)
+        for f, (uid, area, pyramid) in info.items():
+            if not pyramid:
+                companions.add(f)
+            elif uid and best[uid][1] != f:
+                companions.add(f)
 
     files = sorted(files_set - companions)
     if not files:

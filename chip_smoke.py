@@ -8,8 +8,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           Pillow / h5py / OpenCV import (for information only)
   build   the attention kernel's three libraries (nvcc, sm_90a: the wgmma +
           TMA bfloat16 body; the mma.sync bfloat16 body and two float32
-          bodies, 3xTF32 on mma.sync and FMA; the float32 small-window body)
-          and the contour tracer (g++), all from the sources in
+          bodies, 3xTF32 on mma.sync and FMA; the float32 small-window body),
+          the contour tracer and the slide decoder (g++), all from the sources in
           atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
           per body (none allowed at D = 96 in the wgmma, tf32x3 and f32_win
           bodies), the tf32x3 and f32_win bodies' CTAs per SM, the wgmma
@@ -20,8 +20,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           of the float32 default) plus ragged, q-pool and FMA-body checks;
           each line gives the variant launched, the kernel's time by CUDA
           events and its device time per call by torch.profiler, the plain
-          version's and F.scaled_dot_product_attention's time (bfloat16 rows:
-          SDPA's device time too, which SDPA is only timed for) and the bound
+          version's and F.scaled_dot_product_attention's time (SDPA's device
+          time too, which SDPA is only timed for) and the bound
           (float32 rows: the FP32-core and the 3xTF32 tensor-core bound); an
           float32 line whose shape both f32_win and another body take also
           times the other one, forced on the same inputs (for f32_win rows the
@@ -62,6 +62,31 @@ Phases, one line each (any failure exits non-zero with no result line):
           second run with skip_existing skips all 28 with no kernel launch
           and no file rewritten. Prints slides/s by host clock (a liveness
           figure), the stage counters and the H5 write's ms per slide
+  tiff    segment-and-get-coords and process from slide files on disk,
+          through DefaultWSILoader, the factory and the native decoder
+          (atlas_tiff, g++ at build). Writes, on the card's host, with
+          tests/tiff_builder.py and tests/container_builders.py: (f1)
+          bench.py's real-TIFF corpus (28 JPEG SVS of 4096x3072, 3 levels,
+          tile 256, AppMag 20, MPP 0.5; canvases seeds 100-103), (f2) one SVS
+          of 16384x12288 (4 levels), (f3) an NDPI (single-strip restart JPEG
+          with zeroed SOF dims), a MIRAX, a VMS, a VMU and a 2-level DICOM
+          series with a label. Prints the decoder's build (g++, the libjpeg
+          headers used, ldd, the libjpeg and libopenjp2 loaded) and holds it
+          against Pillow's decode of the same bytes (a level-0 region, the
+          --fast thumbnail of an (f1) slide by IDCT scaling, a 33003 J2K
+          tile): max-abs 0, as tests/test_torch_native_tiff.py measures on
+          the CPU. On the card both sides load Pillow's bundled libjpeg, so
+          this holds the TIFF walk, tile assembly and J2K colour maths; the
+          check across two libjpegs is the CPU test
+          test_vendored_libjpeg_route_matches. Runs the runner's checks over (f1)+(f3) on the --fast
+          thresholding service (12 launches per forward, every slide an H5,
+          a skip pass), prints slides/s beside the runner phase's and the
+          per-slide stage ms; then (f2) and two (f1) slides through the
+          runner and embed_all (vit_l_16 bfloat16, batch 32): (f2)'s
+          coordinates equal the CPU geometry over the same reader's
+          thumbnail, 64 of its features match extract_batch on wsi.extract
+          reads (per-row cosine > 0.999); prints (f2)'s thumbnail ms,
+          patch_read ms per patch, patches/s and the device busy share
   embed   vit_l_16 from the port's registry at full width (dim 1024, depth
           24, 16 heads, 224 px, patch 16) with random weights, on the card.
           Checks: full width at depth 2 in float32 on the card (built with
@@ -91,8 +116,9 @@ Phases, one line each (any failure exits non-zero with no result line):
           totals (patch_read, embed_*, h5_append ms per slide)
 
 Then one JSON line with the kernel record (``launches``: the seg phase's;
-``runner_launches``: the runner phase's; ``process_launches``: the process
-phase's; the encoder path holds no TPU kernel of its own), the card's name and power limit,
+``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
+(f1)+(f3) runner pass; ``process_launches``: the process phase's; the
+encoder path holds no TPU kernel of its own), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -298,7 +324,7 @@ def _ptxas_by_body(log: str) -> dict:
 
 def phase_build(state):
     from atlaspatch_tpu_torch.build import build_log, nvcc_path
-    from atlaspatch_tpu_torch.io.native import load_contours_library
+    from atlaspatch_tpu_torch.io.native import load_contours_library, load_tiff_library
     from atlaspatch_tpu_torch.ops.attention import load_f32win_library, load_flash_library, load_wgmma_library
 
     def timed(fn):
@@ -307,10 +333,10 @@ def phase_build(state):
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        jobs = [pool.submit(timed, fn) for fn in
-                (load_wgmma_library, load_flash_library, load_f32win_library, load_contours_library)]
-        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (_, contours_s) = (
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        jobs = [pool.submit(timed, fn) for fn in (load_wgmma_library, load_flash_library, load_f32win_library,
+                                                  load_contours_library, load_tiff_library)]
+        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (_, contours_s), (_, tiff_s) = (
             j.result() for j in jobs)
     bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
               **_ptxas_by_body(build_log(Path(flash_lib._name))),
@@ -338,7 +364,8 @@ def phase_build(state):
     if win_ctas < 1:
         raise AssertionError(f"the f32_win body fits no CTA on an SM (cudaError {-win_ctas})")
     log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s and "
-        f"flash_attn_f32win.so {win_s:.1f}s (nvcc sm_90a), atlas_contours.so {contours_s:.1f}s (g++), "
+        f"flash_attn_f32win.so {win_s:.1f}s (nvcc sm_90a), atlas_contours.so {contours_s:.1f}s and "
+        f"atlas_tiff.so {tiff_s:.1f}s (g++), "
         f"wall {time.perf_counter() - t0:.1f}s")
     for kind, entry in bodies.items():
         log(f"build ptxas {kind}: {entry['kernels']} kernels, max registers {entry['max_registers']}, "
@@ -402,10 +429,9 @@ def phase_kernel(state):
         dev_ms = device_ms(lambda: A.flash_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: A.reference_attention(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        # SDPA is timed only, never called by the port; by device time at the
-        # bf16 rows, where CUDA events read mostly host time
-        sdpa_dev_ms = (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), kernel=None)
-                       if dtype == torch.bfloat16 else None)
+        # SDPA is timed only, never called by the port; by device time too,
+        # since CUDA events read mostly host time for calls under ~0.05 ms
+        sdpa_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), kernel=None)
         op_ms, byte_ms = attention_bound(shape, dtype_name)
         row = dict(label=label, shape=shape, dtype=dtype_name, variant=variant, err=err, ms=ms,
                    dev_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, sdpa_dev_ms=sdpa_dev_ms,
@@ -420,10 +446,9 @@ def phase_kernel(state):
         rows.append(row)
         log(f"kernel {label:18s} (BH={n}x{h}, Tq={tq}, Tkv={tk}, D={d}) {dtype_name:8s} "
             f"{variant:10s} max_abs_err={err:.3g} err/limit={ratio:.3g} ms={ms:.4f} dev_ms={dev_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-            + (f"sdpa_dev_ms={sdpa_dev_ms:.4f} ({'kernel faster' if dev_ms < sdpa_dev_ms else 'SDPA faster'} "
-               f"by device time) " if sdpa_dev_ms is not None else "")
-            + f"bound_ms={max(op_ms, byte_ms):.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_dev_ms={sdpa_dev_ms:.4f} "
+            f"({'kernel faster' if dev_ms < sdpa_dev_ms else 'SDPA faster'} by device time) "
+            f"bound_ms={max(op_ms, byte_ms):.4f} "
             f"({'operations' if op_ms >= byte_ms else 'bytes'})"
             + (f" tf32x3_bound_ms={tf32x3_bound(shape):.4f}" if dtype_name == "float32" else "")
             + (other or "") + f" [{state['card']}]")
@@ -458,9 +483,8 @@ def phase_kernel(state):
         log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms "
             f"(device {sum(r['dev_ms'] for r in group):.3f}), "
             f"plain {sum(r['plain_ms'] for r in group):.3f} ms, sdpa "
-            f"{sum(r['library_ms'] for r in group):.3f} ms"
-            + (f" (device {sum(r['sdpa_dev_ms'] for r in group):.3f})" if name == "--fast" else "")
-            + ", bound "
+            f"{sum(r['library_ms'] for r in group):.3f} ms (device {sum(r['sdpa_dev_ms'] for r in group):.3f})"
+            ", bound "
             f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms"
             + (f" (3xTF32 bound {sum(tf32x3_bound(r['shape']) for r in group):.3f} ms)"
                if name == "float32" else "")
@@ -469,7 +493,7 @@ def phase_kernel(state):
     log(f"kernel the float32 forward's {len(win)} f32_win calls: {sum(r['ms'] for r in win):.4f} ms "
         f"(device {sum(r['dev_ms'] for r in win):.4f}); the bodies before, forced: "
         f"{sum(r['other_ms'] for r in win):.4f} ms (device {sum(r['other_dev_ms'] for r in win):.4f}); "
-        f"sdpa {sum(r['library_ms'] for r in win):.4f} ms; bound "
+        f"sdpa {sum(r['library_ms'] for r in win):.4f} ms (device {sum(r['sdpa_dev_ms'] for r in win):.4f}); bound "
         f"{sum(max(r['op_ms'], r['byte_ms']) for r in win):.4f} ms [{state['card']}]")
     if not any(r["variant"] == "f32" for r in rows):
         raise AssertionError("no kernel row ran on the FMA body")
@@ -715,7 +739,8 @@ def phase_runner(state):
     seg = _thresholding_service(seg_cfg)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
     try:
-        _drive_runner(state, seg, seg_cfg, wsis, stems, tmp)
+        _drive_runner(state, seg, seg_cfg, stems, tmp, loader=_Loader(wsis), open_wsi=wsis.__getitem__,
+                      what=f"{len(stems)} slides of {RUNNER_WH[0]}x{RUNNER_WH[1]}")
     finally:
         seg.close()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -724,7 +749,12 @@ def phase_runner(state):
                              f"{state['runner_forwards']} forwards, want 12 each")
 
 
-def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
+def _drive_runner(state, seg, seg_cfg, stems, tmp, *, loader, open_wsi, what, in_dir=None, name="runner"):
+    """One counted ProcessingRunner pass over ``stems`` (slides opened by
+    ``loader``; ``open_wsi(stem)`` opens one again for the checks), its
+    checks, and a skip pass. ``in_dir``: the slides' directory, else empty
+    placeholders are written. Records ``<name>_launches``, ``_forwards``,
+    ``_rate`` (slides/s) and ``_stages`` in ``state``."""
     import numpy as np
     import torch
 
@@ -745,10 +775,11 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
             masks[slide.stem] = mask
             return super().extract(wsi, mask, slide=slide)
 
-    in_dir = tmp / "slides"
-    in_dir.mkdir()
-    for stem in stems:
-        (in_dir / f"{stem}.svs").touch()  # discovery placeholders
+    if in_dir is None:
+        in_dir = tmp / "slides"
+        in_dir.mkdir()
+        for stem in stems:
+            (in_dir / f"{stem}.svs").touch()  # discovery placeholders
     cfg = AppConfig(
         processing=ProcessingConfig(input_path=in_dir),
         segmentation=seg_cfg,
@@ -760,13 +791,14 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     def runner():
         return ProcessingRunner(config=cfg, segmentation=seg,
                                 extractor=RecordingExtraction(cfg.extraction, cfg.output),
-                                visualizer=None, mpp_resolver=_NullResolver(), wsi_loader=_Loader(wsis))
+                                visualizer=None, mpp_resolver=_NullResolver(), wsi_loader=loader)
 
-    # warm-up outside the counted run: both batch sizes, every slide's pyramid
+    # warm-up outside the counted run: both batch sizes
     for n in (seg_cfg.batch_size, len(stems) % seg_cfg.batch_size):
-        seg.segment_thumbnails_async(seg.prepare_thumbnails([wsis[s] for s in stems[:n]]))()
+        seg.segment_thumbnails_async(seg.prepare_thumbnails([open_wsi(s) for s in stems[:n]]))()
     torch.cuda.synchronize()
 
+    order = [s.stem for s in runner().discover_slides()]  # the runner's batches, in order
     perf.reset()
     A.reset_launch_counts()
     t0 = time.perf_counter()
@@ -775,19 +807,22 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     wall_s = time.perf_counter() - t0
     launches, variants = A.flash_attention.launches, dict(A.flash_attention.variant_launches)
     stages = perf.report()
-    state["runner_launches"] = launches
+    state.update({f"{name}_launches": launches, f"{name}_rate": len(stems) / wall_s, f"{name}_stages": stages})
 
-    forwards = -(-len(stems) // seg_cfg.batch_size)
+    # the service runs one forward per thumbnail shape in each batch
+    batch = seg_cfg.batch_size
+    forwards = sum(len({masks[s].shape for s in order[i : i + batch] if s in masks})
+                   for i in range(0, len(order), batch))
     shapes = trunk_attention_shapes(seg.predictor.model.cfg, seg_cfg.input_size, seg_cfg.batch_size)
     want = Counter()
     for _, _, tq, tk, d in shapes:
         want[A.kernel_variant(torch.bfloat16, tq, tk, d)] += forwards
-    state["runner_forwards"] = forwards
+    state[f"{name}_forwards"] = forwards
     if launches != len(shapes) * forwards or variants != dict(want):
-        raise AssertionError(f"runner: kernel launched {launches} times by variant {variants} in "
+        raise AssertionError(f"{name}: kernel launched {launches} times by variant {variants} in "
                              f"{forwards} forwards, want {len(shapes)} each: {dict(want)}")
-    if failures or len(results) != len(stems):
-        raise AssertionError(f"runner: {len(results)} results, failures {failures}")
+    if failures or sorted(r.slide.stem for r in results) != sorted(stems):
+        raise AssertionError(f"{name}: {len(results)} results, failures {failures}")
 
     extraction = PatchExtractionService(cfg.extraction, cfg.output)
     names = set(H5PatchWriter(chunk_rows=1, patch_size=1, patch_size_level0=1, level0_mag=1, target_mag=1,
@@ -795,10 +830,10 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     passport = re.compile(r"(.+)__x(\d+)_y(\d+)_rw(\d+)_rh(\d+)_lv(\d+)_mag(\w+)_tmag(\w+)_total(\d+)")
     counts, read_ms = [], []
     for res in results:
-        stem, wsi = res.slide.stem, wsis[res.slide.stem]
+        stem, wsi = res.slide.stem, open_wsi(res.slide.stem)
         path = patch_h5_path(res.slide, cfg.output, cfg.extraction)
         if res.h5_path != path:
-            raise AssertionError(f"runner: {stem} written to {res.h5_path}, want {path}")
+            raise AssertionError(f"{name}: {stem} written to {res.h5_path}, want {path}")
         t1 = time.perf_counter()
         datasets, attrs = read_h5(path)
         read_ms.append(1e3 * (time.perf_counter() - t1))
@@ -808,23 +843,23 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
         coords = datasets["coords"]
         n = coords.shape[0]
         if coords.dtype != np.int32 or coords.tobytes() != want_coords.tobytes():
-            raise AssertionError(f"runner: {stem} coords differ from its extraction's rows")
+            raise AssertionError(f"{name}: {stem} coords differ from its extraction's rows")
         if attrs["num_patches"] != n or res.num_patches != n:
-            raise AssertionError(f"runner: {stem} num_patches {attrs['num_patches']} for {n} rows")
+            raise AssertionError(f"{name}: {stem} num_patches {attrs['num_patches']} for {n} rows")
         missing = (names | {"num_patches"}) - set(attrs)
         if missing:
-            raise AssertionError(f"runner: {stem} lacks file attrs {sorted(missing)}")
+            raise AssertionError(f"{name}: {stem} lacks file attrs {sorted(missing)}")
         for row, text in zip(coords, datasets["passports"]):
             m = passport.fullmatch(text.decode("ascii"))
             if not m or m.group(1) != stem or [int(g) for g in m.groups()[1:6]] != row.tolist() \
                     or int(m.group(9)) != n:
-                raise AssertionError(f"runner: {stem} passport {text!r} does not parse to {row}")
+                raise AssertionError(f"{name}: {stem} passport {text!r} does not parse to {row}")
         counts.append(n)
     if not max(counts) > 0:
-        raise AssertionError("runner: no slide has a patch")
+        raise AssertionError(f"{name}: no slide has a patch")
     leftovers = [p.name for p in (tmp / "out" / "patches").iterdir() if not p.name.endswith(".h5")]
     if leftovers or len(list((tmp / "out" / "patches").glob("*.h5"))) != len(stems):
-        raise AssertionError(f"runner: lock or stage files left behind: {leftovers}")
+        raise AssertionError(f"{name}: lock or stage files left behind: {leftovers}")
 
     # the skip pass: same output, skip_existing, nothing launched or rewritten
     mtimes = {p: p.stat().st_mtime_ns for p in (tmp / "out" / "patches").iterdir()}
@@ -832,25 +867,364 @@ def _drive_runner(state, seg, seg_cfg, wsis, stems, tmp):
     results2, failures2 = runner().run()
     torch.cuda.synchronize()
     if results2 or failures2 or A.flash_attention.launches:
-        raise AssertionError(f"runner: the skip pass gave {len(results2)} results, {failures2}, "
+        raise AssertionError(f"{name}: the skip pass gave {len(results2)} results, {failures2}, "
                              f"{A.flash_attention.launches} kernel launches")
     if {p: p.stat().st_mtime_ns for p in (tmp / "out" / "patches").iterdir()} != mtimes:
-        raise AssertionError("runner: the skip pass rewrote files")
+        raise AssertionError(f"{name}: the skip pass rewrote files")
 
     h5 = stages.get("h5_write", {})
     slowest = max(stages, key=lambda k: stages[k]["total_s"])
-    log(f"runner {len(stems)} slides of {RUNNER_WH[0]}x{RUNNER_WH[1]} (--fast bf16 768 batch 8, "
+    log(f"{name} {what} (--fast bf16 768 batch 8, "
         f"patch 256 at 20x): {wall_s:.3f} s = {len(stems) / wall_s:.2f} slides/s by host clock; "
         f"kernel launches {launches} in {forwards} forwards, by variant {variants}; patches per slide "
         f"{counts} [{state['card']}]")
-    log(f"runner h5 write {h5.get('mean_ms', float('nan')):.3f} ms per slide (cpu "
+    log(f"{name} h5 write {h5.get('mean_ms', float('nan')):.3f} ms per slide (cpu "
         f"{1e3 * h5.get('cpu_s', 0) / max(1, h5.get('count', 1)):.3f} ms), read_h5 back "
         f"{np.mean(read_ms):.3f} ms per slide; the stage that takes most host time: {slowest} "
         f"[{state['card']}]")
-    log("runner stages " + json.dumps(stages) + f" [{state['card']}]")
+    log(f"{name} stages " + json.dumps(stages) + f" [{state['card']}]")
     if slowest == "h5_write":
-        raise AssertionError(f"runner: the H5 writer is the slowest stage: {stages}")
-    log("runner skip pass: 0 results, 0 failures, 0 kernel launches, no file rewritten")
+        raise AssertionError(f"{name}: the H5 writer is the slowest stage: {stages}")
+    log(f"{name} skip pass: 0 results, 0 failures, 0 kernel launches, no file rewritten")
+
+
+# The tiff phase's corpus, written on the card's host by the repo's own
+# writers (tests/tiff_builder.py, tests/container_builders.py):
+# (f1) bench.py's write_tiff_corpus setting (bench.py:251-274), (f2) one
+# slide of a 20x biopsy scan's size, (f3) one slide of each other container.
+TIFF_SLIDES, TIFF_WH = 28, (4096, 3072)
+BIG_WH, CONTAINER_WH = (16384, 12288), (2048, 1536)
+APERIO_DESC = "Aperio Image Library v12\r\n{}x{} | AppMag = 20 | MPP = 0.5"
+EMBED_CHECK_PATCHES = 64
+
+
+def _builders():
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import container_builders
+    import tiff_builder
+
+    return tiff_builder, container_builders
+
+
+def _write_svs(path: str, wh, seed: int, levels: int) -> str:
+    """A JPEG-tiled Aperio pyramid (tile 256, compression 7) of a
+    make_tissue_canvas canvas (runs in a worker process)."""
+    from atlaspatch_tpu_torch.io.synthetic_wsi import make_tissue_canvas
+
+    tiff_builder, _ = _builders()
+    tiff_builder.write_pyramid(path, make_tissue_canvas(*wh, seed=seed, n_blobs=3), levels=levels, tile=256,
+                               compression=7, description=APERIO_DESC.format(*wh))
+    return path
+
+
+def _zero_sof_dims(jpeg: bytes) -> bytes:
+    """Zero the JPEG SOF height and width, as NDPI writers do past 65,535 px."""
+    data = bytearray(jpeg)
+    i = data.find(b"\xff\xc0")
+    data[i + 5 : i + 9] = b"\x00\x00\x00\x00"
+    return bytes(data)
+
+
+def _write_containers(d: str) -> dict:
+    """(f3): an NDPI (a single-strip restart-marker JPEG of zeroed SOF
+    dimensions at 20x, a 5x level), a 3-level MIRAX, a 2x2 Hamamatsu VMS, a
+    VMU and a 2-level DICOM series with a label instance; {stem: path}."""
+    import io
+
+    from PIL import Image
+
+    from atlaspatch_tpu_torch.io.synthetic_wsi import make_tissue_canvas
+
+    tiff_builder, cb = _builders()
+    d = Path(d)
+    w, h = CONTAINER_WH
+    canvas = {k: make_tissue_canvas(w, h, seed=200 + i, n_blobs=3)
+              for i, k in enumerate(("ndpi", "mirax", "vms", "vmu", "dicom"))}
+    ndpi = [(65420, tiff_builder.TYPE_LONG, [1]), (65421, tiff_builder.TYPE_FLOAT, [20.0])]
+    buf = io.BytesIO()
+    Image.fromarray(canvas["ndpi"]).save(buf, "JPEG", quality=90, subsampling=0, restart_marker_rows=1)
+    writer = tiff_builder.TiffWriter()
+    writer.add_level_raw_strips([_zero_sof_dims(buf.getvalue())], width=w, height=h, rows_per_strip=h,
+                                extra_tags=ndpi, resolution=(20000.0, 20000.0, 3))
+    writer.add_level(canvas["ndpi"][::4, ::4].copy(),
+                     extra_tags=[ndpi[0], (65421, tiff_builder.TYPE_FLOAT, [5.0])])
+    writer.save(d / "ndpi.ndpi")
+    cb.write_mirax(d / "mirax.mrxs", canvas["mirax"], tile_w=256, tile_h=192, n_levels=3, mpp=0.5, objective=20)
+    cb.write_vms(d / "vms.vms", canvas["vms"], cols=2, rows=2, mpp=0.5, lens=20)
+    cb.write_vmu(d / "vmu.vmu", canvas["vmu"], column_width=256, mpp=0.5, lens=20)
+    base = cb.write_dicom_pyramid(d, canvas["dicom"], n_levels=2, tile=256, mpp=0.5)
+    return {"ndpi": d / "ndpi.ndpi", "mirax": d / "mirax.mrxs", "vms": d / "vms.vms", "vmu": d / "vmu.vmu",
+            base.stem: base}
+
+
+def _write_j2k(path: str) -> str:
+    """An Aperio 33003 (YCbCr J2K) level of 512x512, tile 256."""
+    from atlaspatch_tpu_torch.io.synthetic_wsi import make_tissue_canvas
+
+    tiff_builder, _ = _builders()
+    ycc = tiff_builder.rgb_to_full_range_ycbcr(make_tissue_canvas(512, 512, seed=300, n_blobs=2))
+    tiff_builder.write_pyramid(path, ycc, levels=1, tile=256, compression=33003)
+    return path
+
+
+def _write_tiff_corpus(root: Path) -> dict:
+    """Write the corpus with one spawned process per distinct file; the other
+    24 (f1) slides are byte copies of the four canvases' files, as
+    write_pyramid would write them again."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    f1, f3, big = root / "f1", root / "f3", root / "big"
+    for d in (f1, f3, big):
+        d.mkdir()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=7, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {
+            "big": pool.submit(_write_svs, str(big / "big.svs"), BIG_WH, 400, 4),
+            "f1": [pool.submit(_write_svs, str(f1 / f"tslide{s:03d}.svs"), TIFF_WH, 100 + s, 3) for s in range(4)],
+            "f3": pool.submit(_write_containers, str(f3)),
+            "j2k": pool.submit(_write_j2k, str(root / "j2k.svs")),
+        }
+        f3_paths = jobs["f3"].result()
+        big_path = Path(jobs["big"].result())
+        for job in jobs["f1"]:
+            job.result()
+        j2k = Path(jobs["j2k"].result())
+    for i in range(4, TIFF_SLIDES):
+        shutil.copyfile(f1 / f"tslide{i % 4:03d}.svs", f1 / f"tslide{i:03d}.svs")
+    # one runner input: the (f1) slides and the (f3) containers side by side
+    slides = root / "slides"
+    slides.mkdir()
+    paths = {}
+    for src in sorted(f1.iterdir()) + sorted(f3.iterdir()):
+        (slides / src.name).symlink_to(src)
+    for stem, src in f3_paths.items():
+        paths[stem] = slides / Path(src).name
+    for i in range(TIFF_SLIDES):
+        paths[f"tslide{i:03d}"] = slides / f"tslide{i:03d}.svs"
+    size = j2k.stat().st_size + sum(p.stat().st_size for d in (f1, f3, big) for p in d.rglob("*") if p.is_file())
+    return {"slides": slides, "paths": paths, "big": big_path, "j2k": j2k, "write_s": time.perf_counter() - t0,
+            "bytes": size}
+
+
+def _mapped(marker: str) -> list[str]:
+    """The shared objects mapped into this process whose path contains ``marker``."""
+    paths = {line.split()[-1] for line in Path("/proc/self/maps").read_text().splitlines()
+             if marker in line and line.split()[-1].startswith("/")}
+    return sorted(paths) or ["none"]
+
+
+def _turbo_version(library: str) -> str:
+    """The version string libjpeg-turbo embeds in its shared object."""
+    try:
+        m = re.search(rb"libjpeg-turbo version [0-9.]+", Path(library).read_bytes())
+    except OSError:
+        return "unreadable"
+    return m.group(0).decode() if m else "not found"
+
+
+def _tiff_probe(state, corpus):
+    """How the decoder was built and what it loaded, then the decoder against
+    Pillow's decode of the same bytes on this host."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.io import native
+    from atlaspatch_tpu_torch.io.factory import WSIFactory
+    from atlaspatch_tpu_torch.tools.pillow_check import j2k_ycbcr_tile, tiled_region
+
+    info = native.tiff_library_info()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout.splitlines()[0]
+    ldd = subprocess.run(["ldd", info["library"]], capture_output=True, text=True).stdout
+    header_dir = info["jpeg_headers"]
+    defines = (Path(header_dir) / "jconfig.h").read_text()
+    header_version = re.search(r"#define LIBJPEG_TURBO_VERSION\s+(\S+)", defines)
+    log(f"tiff probe: {gxx}; libjpeg headers {header_dir} (LIBJPEG_TURBO_VERSION "
+        f"{header_version.group(1) if header_version else 'absent'}); linked {info['libjpeg']}; "
+        f"libopenjp2 tried after the system sonames: {info['openjp2_fallback'] or 'none'}")
+    log("tiff probe: ldd " + info["library"] + "\n" + "\n".join("  " + ln.strip() for ln in ldd.splitlines()))
+    linked = re.search(r"libjpeg\S* => (\S+)", ldd)
+
+    # decoder vs Pillow: a level-0 region and the thumbnail of an (f1) slide,
+    # one 33003 J2K tile; the bar is tests/test_torch_native_tiff.py's: max-abs 0.
+    # Both sides decode JPEG with the same libjpeg here (Pillow's bundled one).
+    svs = corpus["paths"]["tslide000"]
+    wsi = WSIFactory.load(str(svs))
+    f = native.AtlasTiffFile(str(svs))
+    checks = {
+        "level-0 region 512x512 at (256, 256)": (f.read_region_level(0, 256, 256, 512, 512),
+                                                 tiled_region(svs, 0, 256, 256, 512, 512)),
+        "thumbnail at 1.25x, IDCT 1/4 (the --fast path)": (
+            np.asarray(wsi.get_thumbnail_at_power(power=1.25, scaled_decode=True)),
+            tiled_region(svs, 2, 0, 0, TIFF_WH[0] // 4, TIFF_WH[1] // 4, scale=4)),
+        "33003 J2K tile 256x256": (native.AtlasTiffFile(str(corpus["j2k"])).read_region_level(0, 256, 0, 256, 256),
+                                   j2k_ycbcr_tile(corpus["j2k"], 0, 1)),
+    }
+    f.close()
+    wsi.cleanup()
+    for label, (got, want) in checks.items():
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        log(f"tiff decoder vs Pillow, {label}: shape {got.shape}, max-abs {int(diff.max())}, "
+            f"mean-abs {float(diff.mean()):.6f}")
+        if got.shape != want.shape or diff.max() != 0:
+            raise AssertionError(f"tiff: the native decoder differs from Pillow on the {label}")
+    jpeg = linked.group(1) if linked else "unresolved"
+    log(f"tiff probe: the decoder's libjpeg {jpeg} ({_turbo_version(jpeg)}); libjpeg mapped {_mapped('libjpeg')}; "
+        f"libopenjp2 mapped after J2K decodes {_mapped('openjp2')} [{state['card']}]")
+
+
+def phase_tiff(state):
+    """segment-and-get-coords and process from slide files on disk, through
+    DefaultWSILoader, the factory and the native decoders."""
+    import tempfile
+
+    from atlaspatch_tpu_torch.core.config import SegmentationConfig
+    from atlaspatch_tpu_torch.core.models import Slide
+    from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tiff_"))
+    seg = None
+    try:
+        corpus = _write_tiff_corpus(tmp)
+        log(f"tiff corpus: {TIFF_SLIDES} JPEG SVS of {TIFF_WH[0]}x{TIFF_WH[1]} (f1), one of "
+            f"{BIG_WH[0]}x{BIG_WH[1]} (f2), NDPI, MIRAX, VMS, VMU and a DICOM series of "
+            f"{CONTAINER_WH[0]}x{CONTAINER_WH[1]} (f3): {corpus['bytes'] / 2**20:.1f} MiB written in "
+            f"{corpus['write_s']:.1f} s")
+        _tiff_probe(state, corpus)
+        seg_cfg = SegmentationConfig(device="cuda", precision="bfloat16", input_size=768, batch_size=8)
+        seg = _thresholding_service(seg_cfg)
+        loader = DefaultWSILoader()
+        paths = corpus["paths"]
+        stems = sorted(paths)
+        _drive_runner(state, seg, seg_cfg, stems, tmp / "runner", loader=loader,
+                      open_wsi=lambda stem: loader.open(Slide(path=paths[stem])), in_dir=corpus["slides"],
+                      what=f"{len(stems)} slide files (f1 + f3)", name="tiff")
+        stages = state["tiff_stages"]
+        per_slide = {k: stages[k]["mean_ms"] for k in ("wsi_open", "thumbnail", "contours", "grid_scan", "h5_write")
+                     if k in stages}
+        log(f"tiff runner: {state['tiff_rate']:.2f} slides/s from files vs {state['runner_rate']:.2f} "
+            f"slides/s on the runner phase's in-memory slides; per-slide stage ms {json.dumps(per_slide)} "
+            f"[{state['card']}]")
+        _tiff_process(state, seg, seg_cfg, corpus, tmp)
+    finally:
+        if seg is not None:
+            seg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if state["tiff_launches"] != 12 * state["tiff_forwards"]:
+        raise AssertionError(f"tiff: {state['tiff_launches']} kernel launches in {state['tiff_forwards']} forwards")
+
+
+def _tiff_process(state, seg, seg_cfg, corpus, tmp):
+    """(f2) and two (f1) slides through the runner and embed_all (vit_l_16,
+    bfloat16, batch 32): patches read by the native decoder."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atlaspatch_tpu_torch.core.config import (
+        AppConfig, ExtractionConfig, FeatureExtractionConfig, OutputConfig, ProcessingConfig,
+    )
+    from atlaspatch_tpu_torch.core.models import Slide
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.orchestration.runner import ProcessingRunner
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.feature_embedding import PatchFeatureEmbeddingService
+    from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
+    from atlaspatch_tpu_torch.utils import perf
+    from atlaspatch_tpu_torch.utils.h5 import read_h5_tree
+
+    in_dir = tmp / "process_slides"
+    in_dir.mkdir()
+    for src in (corpus["big"], corpus["paths"]["tslide000"], corpus["paths"]["tslide001"]):
+        (in_dir / src.name).symlink_to(src)
+    loader = DefaultWSILoader()
+    big = Slide(path=in_dir / corpus["big"].name)
+
+    # (f2)'s thumbnail on a fresh open, as the --fast service reads it
+    t0 = time.perf_counter()
+    fresh = loader.open(big)
+    thumb = seg.prepare_thumbnails([fresh])[0]
+    thumb_ms = 1e3 * (time.perf_counter() - t0)
+    fresh.cleanup()
+
+    def run(out):
+        cfg = AppConfig(
+            processing=ProcessingConfig(input_path=in_dir), segmentation=seg_cfg,
+            extraction=ExtractionConfig(patch_size=256, target_magnification=20, tissue_threshold=0.0),
+            output=OutputConfig(output_root=out, skip_existing=True),
+            features=FeatureExtractionConfig(extractors=["vit_l_16"], batch_size=32, device="cuda",
+                                             precision="bfloat16"),
+            device="cuda",
+        )
+        runner = ProcessingRunner(config=cfg, segmentation=seg,
+                                  extractor=PatchExtractionService(cfg.extraction, cfg.output),
+                                  visualizer=None, mpp_resolver=_NullResolver(), wsi_loader=loader)
+        results, failures = runner.run()
+        if failures or len(results) != 3:
+            raise AssertionError(f"tiff process: the runner gave {len(results)} results, {failures}")
+        return cfg, sorted(results, key=lambda r: r.slide.stem)
+
+    def embed(cfg, results):
+        svc = PatchFeatureEmbeddingService(cfg.extraction, cfg.output, cfg.features)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fails = svc.embed_all(results, wsi_loader=loader)
+        torch.cuda.synchronize()
+        if fails:
+            raise AssertionError(f"tiff process: embed_all failed: {fails}")
+        return time.perf_counter() - t1
+
+    cfg, results = run(tmp / "process_out")
+    perf.reset()
+    embed_s = embed(cfg, results)
+    stages = perf.report()
+    total = sum(r.num_patches for r in results)
+    res_big = next(r for r in results if r.slide.stem == big.path.stem)
+    tree = read_h5_tree(res_big.h5_path)
+    coords, feats = tree.datasets["coords"], tree.datasets.get("features/vit_l_16")
+    if feats is None or feats.shape != (res_big.num_patches, 1024) or not np.isfinite(feats).all():
+        raise AssertionError(f"tiff process: (f2) features {None if feats is None else feats.shape}")
+
+    # (f2)'s coordinates against the port's geometry on the CPU over the same
+    # reader's thumbnail, thresholded on the host as the service's masks are
+    wsi = loader.open(big)
+    mask = (np.asarray(seg.prepare_thumbnails([wsi])[0].convert("L"), np.float32) < 220).astype(np.float32)
+    extraction = PatchExtractionService(cfg.extraction, cfg.output)
+    entries = extraction._iter_patch_entries(wsi, *extraction._prepare_contours(mask, wsi), include_patch=False)
+    cpu_coords = np.asarray([e[:5] for e in entries], dtype=np.int32).reshape(-1, 5)
+    if cpu_coords.tobytes() != coords.tobytes():
+        raise AssertionError(f"tiff process: (f2) coordinates {coords.shape} differ from the CPU geometry's "
+                             f"{cpu_coords.shape}")
+
+    # 64 of (f2)'s features against extract_batch on the same patches read by wsi.extract
+    pick = np.linspace(0, len(coords) - 1, EMBED_CHECK_PATCHES).astype(int)
+    direct = [wsi.extract((int(x), int(y)), lv=int(lv), wh=(int(rw), int(rh)), mode="array")
+              for x, y, rw, rh, lv in coords[pick]]
+    ext = build_default_registry(device="cuda", dtype="bfloat16").create("vit_l_16")
+    want = ext.extract_batch(direct, batch_size=32)
+    ext.cleanup()
+    cos = _cos_rows(feats[pick], want)
+    if not cos.min() > 0.999:
+        raise AssertionError(f"tiff process: (f2) features vs extract_batch per-row cosine {cos.min()}")
+    wsi.cleanup()
+
+    # the device's busy share over embed_all: the same work again, under the profiler
+    cfg2, results2 = run(tmp / "process_out_profiled")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        embed(cfg2, results2)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    if busy_us == 0:
+        raise AssertionError("tiff process: the profiler recorded no device time")
+    read = stages.get("patch_read", {})
+    log(f"tiff process (f2) {BIG_WH[0]}x{BIG_WH[1]}: thumbnail {thumb_ms:.1f} ms on a fresh open "
+        f"({thumb.size[0]}x{thumb.size[1]}), {res_big.num_patches} patches; coordinates equal the CPU geometry's "
+        f"over the same thumbnail; {EMBED_CHECK_PATCHES} features vs extract_batch on wsi.extract reads: "
+        f"per-row cosine min {cos.min():.6f} [{state['card']}]")
+    log(f"tiff process embed_all over (f2) + 2 (f1): {total} patches in {embed_s:.3f} s = {total / embed_s:.1f} "
+        f"patches/s by host clock; patch_read {1e3 * read.get('total_s', 0) / max(1, total):.3f} ms per patch "
+        f"({read.get('count', 0)} blocks); device busy {busy_us / 1e3:.1f} ms = "
+        f"{100 * busy_us / 1e6 / embed_s:.1f}% of embed_all [{state['card']}]")
+    log("tiff process stages " + json.dumps(stages))
 
 
 EMBED_PATCHES, EMBED_PASSES = 512, 3  # bench.py's bench_embed_vitl setting
@@ -1180,7 +1554,8 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
                         ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
-                        ("runner", phase_runner), ("embed", phase_embed), ("process", phase_process)):
+                        ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
+                        ("process", phase_process)):
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -1189,9 +1564,9 @@ def main() -> int:
             raise
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
-                  process_launches=state["process_launches"])
-    keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "process_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                  tiff_launches=state["tiff_launches"], process_launches=state["process_launches"])
+    keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
+            "process_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

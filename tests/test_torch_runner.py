@@ -8,7 +8,7 @@ dataset, and every attr equal in value and read-back type except
 none). The same files are published, and failures and locks behave the same,
 in each scenario of tests/test_pipeline_e2e.py and
 tests/test_concurrency_faults.py that runs both packages here; the port's
-own refusals (features, unported slide formats) are tested on the port.
+own refusal of features is tested on the port.
 """
 
 import importlib
@@ -304,27 +304,64 @@ def test_features_raise_before_any_slide_is_touched(tmp_path):
 
 
 def test_unported_slide_format_is_a_per_slide_failure(tmp_path):
+    """A junk .svs (a reader's extension over a corrupt container) is a
+    per-slide failure in both runners, with the same error type; the other
+    slides complete. The name dates from before the readers were ported and
+    is kept so that the test's history stays one line."""
     slide_dir = _slides(tmp_path, n=2, size=(512, 512), prefix="s")
     (slide_dir / "t.svs").write_bytes(b"II*\x00not a real slide")
-    pkg = _pkg(PACKAGES[1])
-    cfg = _cfg(pkg, slide_dir, tmp_path / "out", patch_size=64)
-    results, failures = _runner(pkg, cfg).run()
-    assert sorted(r.slide.stem for r in results) == ["s0", "s1"]
-    assert [(s.stem, type(e).__name__) for s, e in failures] == [("t", "UnsupportedFormatError")]
-    assert "not yet ported" in str(failures[0][1])
-    assert sorted(p.name for p in (tmp_path / "out" / "patches").iterdir()) == ["s0.h5", "s1.h5"]
+    got = _run_both(tmp_path, slide_dir, patch_size=64)
+    (jax_outcome, _), (port_outcome, port_out) = got[PACKAGES[0]], got[PACKAGES[1]]
+    assert port_outcome == jax_outcome
+    assert [r[0] for r in port_outcome["results"]] == ["s0", "s1"]
+    assert port_outcome["failures"] == [("t", "RuntimeError")]
+    assert port_outcome["files"] == ["s0.h5", "s1.h5"]
+
+
+def _reader_fixture(tmp_path: Path, ext: str) -> Path:
+    """A real slide of each reader's container, as the JAX reader tests
+    write them."""
+    from tests.container_builders import write_dicom_level, write_mirax, write_vms, write_vmu
+    from tests.tiff_builder import write_pyramid
+
+    img = make_tissue_canvas(256, 192, seed=4, n_blobs=2)
+    path = tmp_path / f"x{ext}"
+    if ext in (".svs", ".tif"):
+        write_pyramid(path, img, levels=2, tile=64, compression=7 if ext == ".svs" else 8,
+                      description="Aperio Image Library\r\n256x192 | AppMag = 20 | MPP = 0.5")
+    elif ext == ".mrxs":
+        write_mirax(path, img, tile_w=64, tile_h=48, n_levels=2, mpp=0.5, objective=20)
+    elif ext == ".vms":
+        write_vms(path, img, cols=2, rows=1, mpp=0.5, lens=20)
+    elif ext == ".vmu":
+        write_vmu(path, img, column_width=32, mpp=0.5, lens=20)
+    else:
+        write_dicom_level(path, img, tile=64, mpp=0.5, objective=20.0)
+    return path
 
 
 @pytest.mark.parametrize("ext,backend", [(".svs", "tiff"), (".tif", "tiff"), (".mrxs", "mirax"),
                                          (".vms", "vms"), (".vmu", "vmu"), (".dcm", "dicom")])
 def test_factory_names_the_unported_backend(tmp_path, ext, backend):
-    from atlaspatch_tpu_torch.io.factory import UnsupportedFormatError, WSIFactory
+    """Each reader extension routes to its backend and opens a real fixture
+    to the JAX reader's class and geometry. The name dates from before the
+    readers were ported and is kept so that the test's history stays one
+    line."""
+    from atlaspatch_tpu.io.factory import WSIFactory as JaxFactory
+    from atlaspatch_tpu_torch.io.factory import WSIFactory
 
-    path = tmp_path / f"x{ext}"
-    path.write_bytes(b"\0" * 16)
-    assert WSIFactory.detect(str(path)) == backend
-    with pytest.raises(UnsupportedFormatError, match=f"the {backend} backend"):
-        WSIFactory.load(str(path), mpp=0.5)
+    path = _reader_fixture(tmp_path, ext)
+    assert WSIFactory.detect(str(path)) == JaxFactory.detect(str(path)) == backend
+    want, got = JaxFactory.load(str(path), mpp=0.5), WSIFactory.load(str(path), mpp=0.5)
+    want._ensure_loaded()
+    got._ensure_loaded()
+    assert type(got).__name__ == type(want).__name__
+    assert type(got).__module__.startswith("atlaspatch_tpu_torch.io.")
+    assert (got.w, got.h, got.nlvl, got.dims, got.ds, got.mpp, got.mag) == (
+        want.w, want.h, want.nlvl, want.dims, want.ds, want.mpp, want.mag
+    )
+    want.cleanup()
+    got.cleanup()
 
 
 def test_discovery_and_mpp_match_jax(tmp_path):
@@ -336,9 +373,18 @@ def test_discovery_and_mpp_match_jax(tmp_path):
     for name in ("a.PNG", "b.svs", "c.tiff", "d.txt", "sub/e.png", "f.vms", "tile0.jpg"):
         (d / name).write_bytes(b"")
     (d / "f.vms").write_text("[Virtual Microscope Specimen]\nImageFile=tile0.jpg\n")
+    # A multi-instance DICOM series (two levels and a label) lists once, by
+    # its base instance; an unreadable .dcm stays listed.
+    from tests.container_builders import write_dicom_pyramid
+
+    write_dicom_pyramid(d, np.zeros((64, 96, 3), np.uint8), n_levels=2, tile=32, encapsulated=False)
+    (d / "junk.dcm").write_bytes(b"")
     for recursive in (False, True):
         want = jax_params.get_wsi_files(str(d), recursive=recursive)
         assert port_params.get_wsi_files(str(d), recursive=recursive) == want
+        names = [Path(f).name for f in want]
+        assert "level0.dcm" in names and "junk.dcm" in names
+        assert "level1.dcm" not in names and "label.dcm" not in names
     csv = tmp_path / "mpp.csv"
     csv.write_text("wsi,mpp\na.png,0.25\nb.svs,bad\nc.tiff,-1\n,3\n")
     assert port_params.load_mpp_csv(str(csv)) == jax_params.load_mpp_csv(str(csv)) == {"a": 0.25}

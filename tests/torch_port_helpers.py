@@ -89,3 +89,92 @@ def assert_creation_dates_utc(*paths) -> None:
             stamp = f.attrs["creation_date"]
         assert isinstance(stamp, str)
         assert datetime.fromisoformat(stamp).utcoffset() == timedelta(0)
+
+
+# ------------------------------------------------------------ slide readers
+def outcome(fn):
+    """fn()'s result, or ("raised", exception type name, message)."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 — the refusal itself is compared
+        return ("raised", type(e).__name__, str(e))
+
+
+def _bounded(w: int, h: int, cap: int = 1024) -> tuple[int, int]:
+    return max(1, min(w, cap)), max(1, min(h, cap))
+
+
+def native_tiff_record(tiff_file_cls, path) -> dict:
+    """Everything a native pyramid file exposes: levels, properties, and the
+    pixels of whole-level, interior, edge and IDCT-scaled reads (each read's
+    refusal recorded in its place)."""
+    f = outcome(lambda: tiff_file_cls(str(path)))
+    if isinstance(f, tuple):
+        return {"open": f}
+    rec = {
+        "levels": f.level_count,
+        "dims": f.level_dimensions,
+        "ds": f.level_downsamples,
+        "props": f.properties,
+    }
+    for lv, (w, h) in enumerate(f.level_dimensions):
+        bw, bh = _bounded(w, h)
+        read = f.read_region_level
+        rec[lv, "whole"] = outcome(lambda: read(lv, 0, 0, bw, bh))
+        rec[lv, "inner"] = outcome(lambda: read(lv, w // 3, h // 3, 97, 61))
+        rec[lv, "edge"] = outcome(lambda: read(lv, w - 40, h - 30, 64, 64))
+        scaled = f.read_region_level_scaled
+        for s in (2, 3, 4, 8):
+            rec[lv, "scaled", s] = outcome(lambda: scaled(lv, 0, 0, bw, bh, s))
+            rec[lv, "scaled-sub", s] = outcome(lambda: scaled(lv, 64, 64, 128, 128, s))
+        rec[lv, "scaled-off-grid"] = outcome(lambda: scaled(lv, 3, 0, 64, 64, 4))
+    f.close()
+    return rec
+
+
+def wsi_record(wsi_cls, path, mpp=None) -> dict:
+    """What the runner and the embedder read from an IWSI reader: geometry,
+    mpp / magnification / metadata, thumbnails and level reads."""
+    wsi = outcome(lambda: wsi_cls(path=str(path), mpp=mpp))
+    opened = wsi if isinstance(wsi, tuple) else outcome(wsi._ensure_loaded)
+    if isinstance(opened, tuple):
+        return {"open": opened}
+    rec = {
+        "size": (wsi.w, wsi.h),
+        "levels": wsi.nlvl,
+        "dims": [tuple(d) for d in wsi.dims],
+        "ds": list(wsi.ds),
+        "mpp": wsi.mpp,
+        "mag": wsi.mag,
+        "meta": wsi.meta,
+        "attrs": outcome(wsi.metadata_attrs),
+        "thumb": outcome(lambda: np.asarray(wsi.get_thumb((96, 96)))),
+        "power": outcome(lambda: np.asarray(wsi.get_thumbnail_at_power(power=1.25))),
+        "power-scaled": outcome(
+            lambda: np.asarray(wsi.get_thumbnail_at_power(power=1.25, scaled_decode=True))
+        ),
+    }
+    for lv in range(wsi.nlvl):
+        rec["extract", lv] = outcome(lambda: wsi.extract((wsi.w // 4, wsi.h // 4), lv, (80, 72)))
+        rec["extract-edge", lv] = outcome(lambda: wsi.extract((wsi.w - 50, wsi.h - 40), lv, (64, 64)))
+        rec["extract-scaled", lv] = outcome(lambda: wsi.extract_scaled((0, 0), lv, _bounded(*wsi.dims[lv]), 4))
+    wsi.cleanup()
+    return rec
+
+
+def assert_same_record(want, got, where: str = "") -> None:
+    """Deep equality; arrays must agree in dtype, shape and every byte."""
+    if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        assert isinstance(want, np.ndarray) and isinstance(got, np.ndarray), where
+        assert (want.dtype, want.shape) == (got.dtype, got.shape), where
+        assert want.tobytes() == got.tobytes(), where
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and want.keys() == got.keys(), where
+        for key in want:
+            assert_same_record(want[key], got[key], f"{where}/{key}")
+    elif isinstance(want, (list, tuple)):
+        assert type(want) is type(got) and len(want) == len(got), (where, want, got)
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_same_record(a, b, f"{where}[{i}]")
+    else:
+        assert type(want) is type(got) and want == got, (where, want, got)
