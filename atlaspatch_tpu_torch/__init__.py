@@ -2,8 +2,9 @@
 
 The JAX package ``atlaspatch_tpu`` stays the reference; this package mirrors
 its layout module for module and imports nothing of it (nor of JAX/Flax).
-It covers ``segment-and-get-coords`` from slides to H5 files, and ``process``'s
-patch feature embedding into them (below the CLI, which is not ported yet):
+It covers the command line (``cli.py``: ``segment-and-get-coords``,
+``detect-tissue``, ``process`` and ``info``) from slides to H5 files, mask
+overlays and patch features:
 
   core/           config dataclasses (torch device strings), domain models,
                   the output-path contract
@@ -14,16 +15,18 @@ patch feature embedding into them (below the CLI, which is not ported yet):
   ops/            attention (hand-written CUDA kernel + plain version),
                   polygon containment, contours
   models/sam2     SAM2 hiera-tiny in torch + checkpoint / Flax-tree converter
-  models/encoders the encoder zoo (66 names; the ViT family builds), the
-                  batched embedding engine, converters
+  models/encoders the encoder zoo (66 names; the ViT, ResNet and ConvNeXt
+                  families build), the batched embedding engine, converters,
+                  the feature-plugin loader
   parallel/       multi-host work sharding
   services/       SAM2 segmentation, patch-coordinate extraction, H5 storage
-                  and feature appends, feature embedding, slide loading, MPP
-                  overrides
+                  and feature appends, feature embedding, overlays, slide
+                  loading, MPP overrides
   orchestration/  the runner: discovery, skip, locks, pipelined segmentation,
                   extraction thread pool
-  utils/          the port's own HDF5 writer and reader, stage counters,
-                  discovery, content filters, feature-completeness probes
+  utils/          the port's own HDF5 writer and reader, stage counters and
+                  the profiler hook, discovery, content filters,
+                  feature-completeness probes, overlay renderers
   csrc/           CUDA and C++ sources (and vendored libjpeg headers), built
                   at first use into _build/
 

@@ -1,4 +1,5 @@
-"""Patch encoders: the registry, the ViT family, the batched engine and the zoo."""
+"""Patch encoders: the registry, the ViT, ResNet and ConvNeXt families, the plugin
+loader, the batched engine and the zoo."""
 
 from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
 from atlaspatch_tpu_torch.models.encoders.zoo import build_default_registry

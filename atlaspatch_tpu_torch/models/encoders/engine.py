@@ -29,6 +29,7 @@ cast back to float32). Host stages: ``embed_prep``, ``embed_dispatch``,
 from __future__ import annotations
 
 import logging
+import math
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -93,6 +94,30 @@ class PreprocessSpec:
         else:
             raise ValueError(f"unknown preprocess mode {self.mode}")
         return np.asarray(img, dtype=np.uint8)
+
+
+@torch.no_grad()
+def init_random_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Deterministic random weights for a zoo tower (ViT, ResNet, ConvNeXt)
+    from ``seed``, drawn on the model's device (a device's generator gives
+    its own stream), with the Flax initializers' laws: truncated-normal
+    LeCun kernels (a depthwise kernel's fan-in is its window), zero biases,
+    unit LayerNorm / BatchNorm scales, LayerScales and layer scales, N(0,
+    0.02) positional embeddings and MAP probe, zero class and register
+    tokens. Buffers (BatchNorm running statistics) keep their values."""
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" and p.ndim >= 2:  # Linear / Conv kernel: fan_in of the input
+            std = math.sqrt(1.0 / (p[0].numel())) / 0.87962566103423978
+            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=gen)
+        elif leaf in ("pos_embed", "probe"):
+            p.normal_(0.0, 0.02, generator=gen)
+        elif leaf in ("weight", "ls1", "ls2", "layer_scale"):
+            p.fill_(1.0)
+        else:  # biases, class and register tokens
+            p.zero_()
+    return model
 
 
 def _bucket(n: int, max_batch: int) -> int:

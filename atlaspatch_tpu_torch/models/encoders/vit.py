@@ -305,28 +305,6 @@ class ViT(nn.Module):
         return out
 
 
-@torch.no_grad()
-def init_vit_(model: ViT, seed: int = 0) -> ViT:
-    """Deterministic random weights from ``seed``, drawn on the model's device
-    (a device's generator gives its own stream), with the Flax initializers'
-    laws: truncated-normal LeCun kernels, zero biases, unit LayerNorms and
-    LayerScales, N(0, 0.02) positional embeddings and MAP probe, zero class
-    and register tokens."""
-    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "weight" and p.ndim >= 2:  # Linear / Conv kernel: fan_in of the input
-            std = math.sqrt(1.0 / (p[0].numel())) / 0.87962566103423978
-            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=gen)
-        elif leaf in ("pos_embed", "probe"):
-            p.normal_(0.0, 0.02, generator=gen)
-        elif leaf in ("weight", "ls1", "ls2"):
-            p.fill_(1.0)
-        else:  # biases, class and register tokens
-            p.zero_()
-    return model
-
-
 def flax_vit_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX package's ViT param tree (numpy or jax arrays) → this module's
     state_dict: ``blocks_{i}`` → ``blocks.{i}``; Dense kernels (in, out) →

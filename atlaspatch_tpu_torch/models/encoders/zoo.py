@@ -4,15 +4,17 @@ The port of ``atlaspatch_tpu/models/encoders/zoo.py``. Every name the
 reference registers (reference: atlas_patch/models/patch/__init__.py:47-80)
 is here with its exact embedding dim and preprocessing, equal to the JAX
 package's table. The 45 ViT-family names build on the unified ViT
-(models/encoders/vit.py); the 21 others (resnet, convnext, swin,
-clip_modified_resnet, coca, conch, beit3) are registered but their towers are
-not ported yet, and ``create()`` raises ``NotImplementedError`` naming ROADMAP
-queue 1, item 7.
+(models/encoders/vit.py), the 8 ResNet names (torchvision's five and Lunit's
+three) on models/encoders/resnet.py and the 4 ConvNeXt names on
+models/encoders/convnext.py. The 9 others (swin, clip_modified_resnet, coca,
+conch, beit3) are registered but their towers are not ported yet, and
+``create()`` raises ``NotImplementedError`` naming ROADMAP queue 1, item 7.
 
 Weights policy: create() builds the model on its device and loads real weights when present (ATLASPATCH_WEIGHTS_DIR
 or the HF hub cache: ``.npz`` archives of the JAX param tree, or torch
-checkpoints through the per-source converters; of those only torchvision's ViT
-is ported); when absent it raises unless ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1,
+checkpoints through the per-source converters; of those torchvision's ViT,
+ResNet and ConvNeXt and timm's ResNet are ported); when absent it raises
+unless ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1,
 which deterministically random-inits the model (throughput benchmarking and
 smoke tests).
 
@@ -34,10 +36,23 @@ import numpy as np
 from atlaspatch_tpu_torch.models.encoders.engine import (
     PreprocessSpec,
     TorchFeatureExtractor,
+    init_random_weights_,
     require_device,
 )
+from atlaspatch_tpu_torch.models.encoders.convnext import (
+    CONVNEXT_SPECS,
+    ConvNeXt,
+    flax_convnext_to_torch,
+    torchvision_convnext_to_torch,
+)
 from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
-from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_vit_to_torch, init_vit_
+from atlaspatch_tpu_torch.models.encoders.resnet import (
+    RESNET_SPECS,
+    ResNet,
+    flax_resnet_to_torch,
+    torchvision_resnet_to_torch,
+)
+from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_vit_to_torch
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders.zoo")
 
@@ -49,12 +64,8 @@ HALF = dict(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
 HOPTIMUS_NORM = dict(mean=(0.707223, 0.578729, 0.703617), std=(0.211883, 0.230117, 0.177517))
 HIBOU_NORM = dict(mean=(0.7068, 0.5755, 0.722), std=(0.195, 0.2316, 0.1816))
 
-# Dims of the towers not ported yet (the JAX package's RESNET_SPECS,
-# CONVNEXT_SPECS and CLIP_RESNET_SPECS: embedding dim, and input size).
-RESNET_DIMS = {"resnet18": 512, "resnet34": 512, "resnet50": 2048, "resnet101": 2048,
-               "resnet152": 2048}
-CONVNEXT_DIMS = {"convnext_tiny": 768, "convnext_small": 768, "convnext_base": 1024,
-                 "convnext_large": 1536}
+# Dims of a tower not ported yet (the JAX package's CLIP_RESNET_SPECS:
+# embedding dim, and input size).
 CLIP_RESNET_DIMS = {"clip_rn50": (1024, 224), "clip_rn101": (512, 224),
                     "clip_rn50x4": (640, 288), "clip_rn50x16": (768, 384),
                     "clip_rn50x64": (1024, 448)}
@@ -169,16 +180,27 @@ def build_entries() -> list[EncoderEntry]:
     e: list[EncoderEntry] = []
 
     # --- torchvision CNNs / ViTs (reference: resnet.py, convnext.py, vit.py) -------
-    for name, dim in RESNET_DIMS.items():
+    for name, spec in RESNET_SPECS.items():
         e.append(
-            _pending(name, "resnet", dim, _pre(224, resize=256), f"torchvision {name} IMAGENET1K_V1")
+            EncoderEntry(
+                name,
+                "resnet",
+                spec.embedding_dim,
+                _pre(224, resize=256),
+                spec=spec,
+                source=f"torchvision {name} IMAGENET1K_V1",
+            )
         )
     tv_resize = {"convnext_tiny": 236, "convnext_small": 230, "convnext_base": 232, "convnext_large": 232}
-    for name, dim in CONVNEXT_DIMS.items():
+    for name, spec in CONVNEXT_SPECS.items():
         e.append(
-            _pending(
-                name, "convnext", dim, _pre(224, resize=tv_resize[name]),
-                f"torchvision {name} IMAGENET1K_V1",
+            EncoderEntry(
+                name,
+                "convnext",
+                spec.embedding_dim,
+                _pre(224, resize=tv_resize[name]),
+                spec=spec,
+                source=f"torchvision {name} IMAGENET1K_V1",
             )
         )
     tv_vits = {
@@ -417,9 +439,13 @@ def build_entries() -> list[EncoderEntry]:
     )
     for name in ("lunit_resnet50_bt", "lunit_resnet50_swav", "lunit_resnet50_mocov2"):
         e.append(
-            _pending(
-                name, "resnet", 2048, _pre(224, resize=256),
-                f"1aurent/resnet50.{name.split('_')[-1]}",
+            EncoderEntry(
+                name,
+                "resnet",
+                2048,
+                _pre(224, resize=256),
+                spec=RESNET_SPECS["resnet50"],
+                source=f"1aurent/resnet50.{name.split('_')[-1]}",
             )
         )
     e.append(
@@ -740,6 +766,10 @@ def _convert(entry: EncoderEntry, sd: dict) -> dict:
     sd = _strip_prefixes(sd)
     if entry.family == "torchvision_vit":
         return C.torchvision_vit_to_torch(sd, entry.spec)
+    if entry.family == "resnet":
+        return torchvision_resnet_to_torch(sd)
+    if entry.family == "convnext":
+        return torchvision_convnext_to_torch(sd)
     raise NotImplementedError(
         f"{entry.name}: the {entry.family} checkpoint converter is not yet ported to "
         "atlaspatch_tpu_torch (ROADMAP queue 1, item 7)"
@@ -758,6 +788,13 @@ _VIT_FAMILIES = (
     "clip_timm_tower",
 )
 
+# family → (module class, JAX param tree → state_dict)
+_TOWERS = {
+    **{family: (ViT, flax_vit_to_torch) for family in _VIT_FAMILIES},
+    "resnet": (ResNet, flax_resnet_to_torch),
+    "convnext": (ConvNeXt, flax_convnext_to_torch),
+}
+
 
 def build_extractor(
     entry: EncoderEntry,
@@ -768,7 +805,7 @@ def build_extractor(
     compute_dtype: str = "float32",
     max_batch: int = 256,
 ) -> TorchFeatureExtractor:
-    if not entry.implemented or entry.family not in _VIT_FAMILIES:
+    if not entry.implemented or entry.family not in _TOWERS:
         raise NotImplementedError(
             f"Encoder '{entry.name}' ({entry.family}) is registered but its {PENDING_NOTE}"
         )
@@ -777,19 +814,20 @@ def build_extractor(
             f"{entry.name}: data- and tensor-parallel embedding is not ported to "
             "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 9)"
         )
+    tower, from_flax = _TOWERS[entry.family]
     with require_device(entry.name, device):  # built (and random-initialized) in place
-        model = ViT(entry.spec)
+        model = tower(entry.spec)
     weights_path = _find_cached_weights(entry)
     if weights_path is not None:
         logger.info("Loading %s weights from %s", entry.name, weights_path)
         if weights_path.suffix == ".npz":
-            state = flax_vit_to_torch(unflatten(dict(np.load(weights_path))))
+            state = from_flax(unflatten(dict(np.load(weights_path))))
         else:
             state = _convert(entry, _load_state_dict(weights_path))
         model.load_state_dict(state, strict=True)
     elif os.environ.get("ATLASPATCH_ALLOW_RANDOM_WEIGHTS") == "1":
         logger.warning("No weights for %s; using deterministic random init.", entry.name)
-        init_vit_(model, seed=0)
+        init_random_weights_(model, seed=0)
     else:
         raise RuntimeError(
             f"No cached weights found for encoder '{entry.name}' (source: {entry.source}). "

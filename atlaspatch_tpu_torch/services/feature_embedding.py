@@ -14,9 +14,10 @@ rows by index range (services/storage.py), so pixels never accumulate in
 memory (feature rows do, until the slide's one H5 rewrite).
 
 The port of ``atlaspatch_tpu/services/feature_embedding.py``. H5 files are read
-by the port's own reader (utils/h5.py). Not ported yet: feature plugins
-(``feature_cfg.plugins``, ROADMAP queue 1, item 7) and the int8 precision
-(item 8); both raise ``NotImplementedError`` when the service is built.
+by the port's own reader (utils/h5.py). Feature plugins
+(``feature_cfg.plugins``) register into the service's own registry, as in the
+JAX package. Not ported yet: the int8 precision (ROADMAP queue 1, item 8),
+which raises ``NotImplementedError`` when the service is built.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from atlaspatch_tpu_torch.core.models import ExtractionResult
 from atlaspatch_tpu_torch.core.paths import patch_lock_path
 from atlaspatch_tpu_torch.io.iwsi import IWSI
 from atlaspatch_tpu_torch.models.encoders import build_default_registry
+from atlaspatch_tpu_torch.models.encoders.custom import register_feature_extractors_from_module
 from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
 from atlaspatch_tpu_torch.services.interfaces import FeatureEmbeddingService
 from atlaspatch_tpu_torch.services.storage import H5PatchWriter
@@ -80,11 +82,6 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
                 "feature precision int8 is not ported to atlaspatch_tpu_torch yet "
                 "(ROADMAP queue 1, item 8)"
             )
-        if self.feature_cfg.plugins:
-            raise NotImplementedError(
-                "feature extractor plugins (models/encoders/custom.py) are not ported to "
-                "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 7)"
-            )
         self.compute_dtype = resolve_feature_dtype(
             self.feature_cfg.device, self.feature_cfg.precision
         )
@@ -94,6 +91,15 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
             num_workers=self.feature_cfg.num_workers,
             dtype=self.compute_dtype,
         )
+        if registry is None and self.feature_cfg.plugins:
+            for plugin_path in self.feature_cfg.plugins:
+                register_feature_extractors_from_module(
+                    plugin_path,
+                    registry=self.registry,
+                    device=self.feature_cfg.device,  # plugins honor the device too
+                    dtype=self.compute_dtype,
+                    num_workers=self.feature_cfg.num_workers,
+                )
         self.extractor_names = [n.lower() for n in self.feature_cfg.extractors]
         self._block_rows = self._io_block_rows()
         self._feature_cache: dict[Path, tuple[int | None, set[str]]] = {}

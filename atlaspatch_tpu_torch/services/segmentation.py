@@ -412,6 +412,21 @@ class SAM2SegmentationService(SegmentationService):
             )
         return self._thumb_pool_obj
 
+    def prepare_thumbnails_safe(self, wsis: Sequence[IWSI]) -> list:
+        """prepare_thumbnails with per-slide fault isolation: each element is
+        the thumbnail OR the exception that slide raised (bad metadata,
+        truncated pyramid, ...), so one poisoned slide cannot sink its whole
+        batch. (The reference fails the full batch here: reference
+        cli.py:384-391.)"""
+
+        def one(w: IWSI):
+            try:
+                return self._prepare_thumbnail(w)
+            except Exception as e:  # noqa: BLE001 — per-slide report
+                return e
+
+        return list(self._thumb_pool().map(one, wsis))
+
     def segment_thumbnails_async(self, thumbs: Sequence):
         """Dispatch the device stage; returns a zero-arg resolve() producing the
         masks, so a caller can overlap batch i+1's transfer+compute with batch

@@ -15,6 +15,7 @@ import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 
 logger = logging.getLogger("atlaspatch_tpu_torch.perf")
 
@@ -76,6 +77,33 @@ def reset() -> None:
         _totals.clear()
         _counts.clear()
         _cpu_totals.clear()
+
+
+@contextmanager
+def maybe_trace():
+    """Device timelines: when ATLASPATCH_TORCH_TRACE=<dir> is set, run the
+    wrapped code under torch.profiler (CPU ops, and CUDA kernels where a card
+    is present) and write a Chrome / Perfetto trace into that directory.
+    Complements the host-side stage counters above, which cannot see device
+    time."""
+    trace_dir = os.environ.get("ATLASPATCH_TORCH_TRACE")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    logger.warning("torch profiler trace capturing to %s", out)
+    with profile(activities=activities) as prof:
+        yield
+    path = out / f"trace-{os.getpid()}-{time.strftime('%Y%m%d-%H%M%S')}.json"
+    prof.export_chrome_trace(str(path))
+    logger.warning("torch profiler trace written to %s", path)
 
 
 def log_report() -> None:

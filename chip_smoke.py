@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths, and its command line, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -115,9 +115,36 @@ Phases, one line each (any failure exits non-zero with no result line):
           launch) and embeds only vit_b_16. Prints patches/s and the stage
           totals (patch_read, embed_*, h5_append ms per slide)
 
+  cli     the port's command line (atlaspatch_tpu_torch/cli.py) on the card
+          with random weights and no --device flag (the default device),
+          over the tiff phase's corpus, which stays until this phase ends.
+          In process, through cli.main(..., standalone_mode=False), each
+          command's attention launches and segmentation forwards counted
+          from zero: (1) segment-and-get-coords --fast --patch-size 256
+          --target-mag 20 with the grid, mask and contour overlays over
+          (f1)+(f3): "Completed 33 slide(s), failures: 0", 12 launches per
+          forward, every H5's coordinates byte for byte those that
+          PatchExtractionService computes from the masks of an in-process
+          --fast SAM2SegmentationService (same settings and seed, batched as
+          the runner batches), 4 overlay PNGs per slide that decode; (2)
+          detect-tissue --seg-batch-size 8 over the same files and a PNG with
+          no MPP: "Created 33 mask overlay(s), failures: 1", both PNGs for
+          every healthy slide; (3) process --fast --feature-extractors
+          "resnet50 vit_l_16" over the 28 (f1) slides on (1)'s coordinates:
+          no segmentation, features (n, 2048) and (n, 1024) finite, coords
+          and file attrs unchanged, patches/s per encoder (extract_batch by
+          host clock); resnet50 at full width float32 on the card against
+          the CPU (<= 1e-4 on 4 patches, TF32 switched on first) and bfloat16
+          against float32 (cosine > 0.995). Then a subprocess through the
+          real entry point: python -m atlaspatch_tpu_torch.cli info, and
+          segment-and-get-coords -v on 2 slides, whose log must name the
+          SAM2 device cuda. Prints each command's wall time, slides/s,
+          forwards and launches
+
 Then one JSON line with the kernel record (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
-(f1)+(f3) runner pass; ``process_launches``: the process phase's; the
+(f1)+(f3) runner pass; ``process_launches``: the process phase's;
+``cli_launches``: the cli phase's three in-process commands; the
 encoder path holds no TPU kernel of its own), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
@@ -1082,9 +1109,10 @@ def phase_tiff(state):
     from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tiff_"))
+    state["tiff_tmp"] = tmp  # the corpus stays for the cli phase, which removes it
     seg = None
     try:
-        corpus = _write_tiff_corpus(tmp)
+        corpus = state["tiff_corpus"] = _write_tiff_corpus(tmp)
         log(f"tiff corpus: {TIFF_SLIDES} JPEG SVS of {TIFF_WH[0]}x{TIFF_WH[1]} (f1), one of "
             f"{BIG_WH[0]}x{BIG_WH[1]} (f2), NDPI, MIRAX, VMS, VMU and a DICOM series of "
             f"{CONTAINER_WH[0]}x{CONTAINER_WH[1]} (f3): {corpus['bytes'] / 2**20:.1f} MiB written in "
@@ -1108,7 +1136,6 @@ def phase_tiff(state):
     finally:
         if seg is not None:
             seg.close()
-        shutil.rmtree(tmp, ignore_errors=True)
     if state["tiff_launches"] != 12 * state["tiff_forwards"]:
         raise AssertionError(f"tiff: {state['tiff_launches']} kernel launches in {state['tiff_forwards']} forwards")
 
@@ -1274,8 +1301,8 @@ def phase_embed(state):
     from torch.profiler import ProfilerActivity, profile
 
     from atlaspatch_tpu_torch.models.encoders import build_default_registry
-    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor
-    from atlaspatch_tpu_torch.models.encoders.vit import ViT, init_vit_
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import ViT
     from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
 
     entry = ENTRIES["vit_l_16"]
@@ -1287,7 +1314,7 @@ def phase_embed(state):
 
     # float32 at full width, depth 2: the card (built with TF32 on, which the
     # engine must turn off) against the CPU on the same weights
-    shallow = init_vit_(ViT(dataclasses.replace(spec, depth=2)), seed=0)
+    shallow = init_random_weights_(ViT(dataclasses.replace(spec, depth=2)), seed=0)
     cpu = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
                                 model=copy.deepcopy(shallow), device="cpu")
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -1542,6 +1569,302 @@ def _drive_process(state, seg, seg_cfg, wsis, stems, tmp):
         f"segmentation launches, {len(stems)} appends of vit_b_16 only; stages " + json.dumps(stages2))
 
 
+CLI_SEG_ARGS = ["--patch-size", "256", "--target-mag", "20"]
+
+
+def _cli_main(args, *, counted=True):
+    """One in-process command through atlaspatch_tpu_torch.cli.main (its
+    exceptions propagate); returns (stdout lines, wall s, attention launches,
+    segmentation forwards). The counts are zeroed just before the command."""
+    import contextlib
+    import io
+
+    import torch
+
+    from atlaspatch_tpu_torch import cli as cli_mod
+    from atlaspatch_tpu_torch.models.sam2 import model as sam2_model
+    from atlaspatch_tpu_torch.ops import attention as A
+
+    forwards = [0]
+    steps = {name: getattr(sam2_model, name) for name in
+             ("segment_step_packed_to_shape", "segment_step_packed_from_thumbs", "segment_step_packed")}
+
+    def counting(step):
+        def wrapped(*a, **k):
+            forwards[0] += 1
+            return step(*a, **k)
+        return wrapped
+
+    out = io.StringIO()
+    for name, step in steps.items():
+        setattr(sam2_model, name, counting(step))
+    try:
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli_mod.main([str(a) for a in args], standalone_mode=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = A.flash_attention.launches
+    finally:
+        for name, step in steps.items():
+            setattr(sam2_model, name, step)
+    lines = out.getvalue().splitlines()
+    log(f"cli $ atlaspatch-tpu-torch {' '.join(str(a) for a in args[:1])} ...: " + " | ".join(lines[-2:]))
+    return lines, wall, launches, forwards[0]
+
+
+def _in_process_coords(slides_dir: Path) -> dict:
+    """{stem: coords} from an in-process --fast SAM2SegmentationService (the
+    same settings and random-weight seed as the CLI's) and the port's
+    PatchExtractionService, batched as the runner batches the slides."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.core.config import ExtractionConfig, OutputConfig, SegmentationConfig
+    from atlaspatch_tpu_torch.core.models import Slide
+    from atlaspatch_tpu_torch.services.extraction import PatchExtractionService
+    from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
+    from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
+    from atlaspatch_tpu_torch.utils.params import get_wsi_files
+
+    seg = SAM2SegmentationService(SegmentationConfig(device="cuda", precision="bfloat16", input_size=768,
+                                                     input_size_preset=True, batch_size=8))
+    extraction = PatchExtractionService(ExtractionConfig(patch_size=256, target_magnification=20,
+                                                         tissue_threshold=0.0),
+                                        OutputConfig(output_root=slides_dir.parent / "unused"))
+    loader = DefaultWSILoader()
+    slides = [Slide(path=Path(p)) for p in get_wsi_files(str(slides_dir))]
+    coords = {}
+    try:
+        for i in range(0, len(slides), 8):
+            batch = slides[i : i + 8]
+            wsis = [loader.open(s) for s in batch]
+            masks = seg.segment_thumbnails(seg.prepare_thumbnails(wsis))
+            for slide, wsi, mask in zip(batch, wsis, masks):
+                entries = extraction._iter_patch_entries(wsi, *extraction._prepare_contours(mask.data, wsi),
+                                                         include_patch=False)
+                coords[slide.stem] = np.asarray([e[:5] for e in entries], dtype=np.int32).reshape(-1, 5)
+                wsi.cleanup()
+    finally:
+        seg.close()
+    return coords
+
+
+def _decodes(path: Path) -> bool:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.load()
+        return im.format == "PNG" and im.size[0] > 0 and im.size[1] > 0
+
+
+def phase_cli(state):
+    """The port's command line on the card, in-process and as a subprocess,
+    over the tiff phase's corpus, with the default device (no --device)."""
+    try:
+        _drive_cli(state, state["tiff_tmp"])
+    finally:
+        shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
+
+
+def _drive_cli(state, root):
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.io.synthetic_wsi import make_tissue_canvas
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.resnet import ResNet
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.utils.h5 import read_h5, read_h5_tree
+
+    corpus = state["tiff_corpus"]
+    slides = corpus["slides"]
+    n_slides = len(corpus["paths"])
+    out = root / "cli_out"
+    cli_counts = {}
+
+    # 1. segment-and-get-coords --fast with the three overlays, no --device
+    lines, wall, launches, forwards = _cli_main(
+        ["segment-and-get-coords", slides, "--output", out, *CLI_SEG_ARGS, "--fast",
+         "--visualize-grids", "--visualize-mask", "--visualize-contours"])
+    cli_counts["segment-and-get-coords"] = (wall, n_slides, forwards, launches)
+    if f"Completed {n_slides} slide(s), failures: 0" not in lines:
+        raise AssertionError(f"cli segment-and-get-coords printed {lines}")
+    if not forwards or launches != 12 * forwards:
+        raise AssertionError(f"cli segment-and-get-coords: {launches} attention launches in {forwards} forwards")
+    want = _in_process_coords(slides)
+    h5s = sorted((out / "patches").glob("*.h5"))
+    if sorted(p.stem for p in h5s) != sorted(want):
+        raise AssertionError(f"cli: H5 files {[p.stem for p in h5s]} for slides {sorted(want)}")
+    per_slide = []
+    for path in h5s:
+        coords = read_h5(path)[0]["coords"]
+        if coords.dtype != np.int32 or coords.tobytes() != want[path.stem].tobytes():
+            raise AssertionError(f"cli: {path.stem} coords {coords.shape} differ from the in-process "
+                                 f"service's {want[path.stem].shape}")
+        per_slide.append(int(coords.shape[0]))
+    vis = out / "visualization"
+    pngs = sorted(vis.glob("*.png"))
+    if len(pngs) != 4 * n_slides or not all(_decodes(p) for p in pngs):
+        raise AssertionError(f"cli: {len(pngs)} overlay PNGs for {n_slides} slides, want 4 each that decode")
+    for stem in (s for s in corpus["paths"] if s.startswith("tslide")):
+        missing = [f for f in (f"{stem}.png", f"{stem}_mask.png", f"{stem}_contours.png") if not (vis / f).exists()]
+        if missing:
+            raise AssertionError(f"cli: {stem} lacks overlays {missing}")
+    log(f"cli segment-and-get-coords --fast over {n_slides} slide files (f1 + f3): {wall:.3f} s = "
+        f"{n_slides / wall:.2f} slides/s by host clock with 3 overlays per slide; {forwards} forwards, "
+        f"{launches} attention launches; coordinates equal the in-process service's byte for byte; patches "
+        f"per slide {per_slide} [{state['card']}]")
+
+    # 2. detect-tissue over the same files plus one PNG with no MPP
+    detect_in = root / "detect_in"
+    detect_in.mkdir()
+    for src in slides.iterdir():
+        (detect_in / src.name).symlink_to(src.resolve())
+    from PIL import Image
+
+    Image.fromarray(make_tissue_canvas(1024, 768, seed=500, n_blobs=2)).save(detect_in / "nompp.png")
+    detect_out = root / "detect_out"
+    lines, wall, launches, forwards = _cli_main(["detect-tissue", detect_in, "--output", detect_out,
+                                                 "--seg-batch-size", "8"])
+    cli_counts["detect-tissue"] = (wall, n_slides + 1, forwards, launches)
+    if f"Created {n_slides} mask overlay(s), failures: 1" not in lines:
+        raise AssertionError(f"cli detect-tissue printed {lines}")
+    if not forwards or launches != 12 * forwards:
+        raise AssertionError(f"cli detect-tissue: {launches} attention launches in {forwards} forwards")
+    for suffix in ("_mask.png", "_mask_bw.png"):
+        found = sorted((detect_out / "visualization").glob(f"*{suffix}"))
+        if len(found) != n_slides or any(p.name.startswith("nompp") for p in found) \
+                or not all(_decodes(p) for p in found):
+            raise AssertionError(f"cli detect-tissue: {len(found)} {suffix} files for {n_slides} healthy slides")
+    log(f"cli detect-tissue (float32, 1024, batch 8) over {n_slides} slides + a PNG with no MPP: {wall:.3f} s; "
+        f"{forwards} forwards, {launches} attention launches; the poisoned slide failed alone [{state['card']}]")
+
+    # 3. process --fast with resnet50 and vit_l_16 over the 28 (f1) slides, on step 1's coordinates
+    f1 = slides.parent / "f1"
+    stems = sorted(p.stem for p in f1.glob("*.svs"))
+    before = {s: read_h5(out / "patches" / f"{s}.h5") for s in stems}
+    timing: dict = {}
+    real_extract = TorchFeatureExtractor.extract_batch
+
+    def timed_extract(self, patches, *, batch_size=None):
+        t0 = time.perf_counter()
+        rows = real_extract(self, patches, batch_size=batch_size)
+        entry = timing.setdefault(self.name, [0.0, 0])
+        entry[0] += time.perf_counter() - t0
+        entry[1] += len(rows)
+        return rows
+
+    TorchFeatureExtractor.extract_batch = timed_extract
+    try:
+        lines, wall, launches, forwards = _cli_main(
+            ["process", f1, "--output", out, *CLI_SEG_ARGS, "--fast", "--feature-extractors", "resnet50 vit_l_16"])
+    finally:
+        TorchFeatureExtractor.extract_batch = real_extract
+    cli_counts["process"] = (wall, len(stems), forwards, launches)
+    if f"Completed {len(stems)} slide(s), failures: 0" not in lines:
+        raise AssertionError(f"cli process printed {lines}")
+    if forwards or launches:
+        raise AssertionError(f"cli process segmented again ({forwards} forwards) on existing coordinates")
+    total = 0
+    for stem in stems:
+        tree = read_h5_tree(out / "patches" / f"{stem}.h5")
+        (old_data, old_attrs), n = before[stem], before[stem][0]["coords"].shape[0]
+        for name, dim in (("resnet50", 2048), ("vit_l_16", 1024)):
+            feats = tree.datasets.get(f"features/{name}")
+            if feats is None or feats.shape != (n, dim) or feats.dtype != np.float32 or not np.isfinite(feats).all():
+                raise AssertionError(f"cli process: {stem} features/{name} is "
+                                     f"{None if feats is None else (feats.shape, feats.dtype)}")
+        for key, arr in old_data.items():
+            if tree.datasets[key].tobytes() != arr.tobytes():
+                raise AssertionError(f"cli process: {stem} {key} changed")
+        if {k: v for k, v in tree.attrs.items()} != old_attrs:
+            raise AssertionError(f"cli process: {stem} file attrs changed")
+        total += n
+    rates = {name: count / secs for name, (secs, count) in timing.items()}
+    if set(rates) != {"resnet50", "vit_l_16"} or any(timing[k][1] != total for k in timing):
+        raise AssertionError(f"cli process: embedded {timing} for {total} patches")
+
+    # resnet50 at full width: float32 on the card against the CPU on the same weights
+    # (built with TF32 on, which the engine must turn off), and bfloat16 against float32
+    entry = ENTRIES["resnet50"]
+    model = init_random_weights_(ResNet(entry.spec), seed=0)
+    rng = np.random.default_rng(1)
+    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(4)]
+    cpu = TorchFeatureExtractor(name="resnet50", embedding_dim=2048, spec=entry.preprocess,
+                                model=copy.deepcopy(model), device="cpu")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    card = TorchFeatureExtractor(name="resnet50", embedding_dim=2048, spec=entry.preprocess,
+                                 model=copy.deepcopy(model), device="cuda")
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the float32 resnet50 extractor left cuDNN's TF32 on")
+    f32 = card.extract_batch(patches)
+    f32_err = float(np.abs(f32 - cpu.extract_batch(patches)).max())
+    bf16 = TorchFeatureExtractor(name="resnet50", embedding_dim=2048, spec=entry.preprocess,
+                                 model=model, device="cuda", compute_dtype="bfloat16")
+    if any(p.dtype != torch.bfloat16 for p in bf16.model.parameters()):
+        raise AssertionError("a bfloat16 resnet50 param is not bfloat16")
+    cos = _cos_rows(bf16.extract_batch(patches), f32)
+    if not f32_err <= 1e-4 or not cos.min() > 0.995:
+        raise AssertionError(f"cli resnet50: card vs CPU max-abs {f32_err}, bf16 vs f32 cosine {cos.min()}")
+    # the bf16 extractor's rate on 256 patches at batch 32: its first such call, then warm
+    many = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(256)]
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bf16.extract_batch(many, batch_size=32)
+        passes.append(len(many) / (time.perf_counter() - t0))
+    # one forward at a batch no earlier call used (64), twice: a first call
+    # per shape builds cuDNN's plans for every convolution
+    unseen = torch.zeros((64, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    unseen_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16.forward_device(unseen)
+        torch.cuda.synchronize()
+        unseen_ms.append(1e3 * (time.perf_counter() - t0))
+    for ext in (card, bf16):
+        ext.cleanup()
+    log(f"cli process --fast resnet50 + vit_l_16 (bf16, batch 32) over {len(stems)} (f1) slides, {total} patches "
+        f"on step 1's coordinates: {wall:.3f} s; extract_batch host clock resnet50 {rates['resnet50']:.1f} "
+        f"patches/s, vit_l_16 {rates['vit_l_16']:.1f} patches/s; features (n, 2048) and (n, 1024) finite, coords "
+        f"and attrs unchanged; resnet50 float32 card vs CPU max-abs {f32_err:.3g} on 4 patches, bf16 vs float32 "
+        f"cosine min {cos.min():.6f}; resnet50 bf16 extract_batch on 256 patches at batch 32: first call "
+        f"{passes[0]:.1f}, then {passes[1]:.1f} and {passes[2]:.1f} patches/s; a forward at batch 64 (a new shape) "
+        f"{unseen_ms[0]:.1f} ms, again {unseen_ms[1]:.1f} ms [{state['card']}]")
+
+    # the real entry point in a subprocess: info, then segment-and-get-coords -v on 2 slides, no --device
+    two = root / "two"
+    two.mkdir()
+    for stem in stems[:2]:
+        (two / f"{stem}.svs").symlink_to((f1 / f"{stem}.svs").resolve())
+    repo = Path(__file__).resolve().parent
+    runs = {}
+    for args in (["info"], ["segment-and-get-coords", two, "--output", root / "sub_out", *CLI_SEG_ARGS, "-v"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "atlaspatch_tpu_torch.cli", *map(str, args)], cwd=repo,
+                              capture_output=True, text=True, timeout=300)
+        runs[args[0]] = (proc, time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli subprocess {args[0]}: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+    info, seg = runs["info"][0], runs["segment-and-get-coords"][0]
+    if "Feature extractors (" not in info.stdout or "resnet50" not in info.stdout:
+        raise AssertionError(f"cli info printed {info.stdout}")
+    device = re.search(r"SAM2 predictor device: (\S+)", seg.stderr)
+    if device is None or device.group(1) != "cuda" or "Completed 2 slide(s), failures: 0" not in seg.stdout:
+        raise AssertionError(f"cli subprocess: SAM2 device {device and device.group(1)}; {seg.stdout[-500:]}")
+    log(f"cli subprocess: python -m atlaspatch_tpu_torch.cli info rc 0 in {runs['info'][1]:.1f} s; "
+        f"segment-and-get-coords -v on 2 slides rc 0 in {runs['segment-and-get-coords'][1]:.1f} s, SAM2 device "
+        f"{device.group(1)}")
+    for command, (wall, n, forwards, launches) in cli_counts.items():
+        log(f"cli {command}: {wall:.3f} s, {n / wall:.2f} slides/s, {forwards} forwards, {launches} attention "
+            f"launches [{state['card']}]")
+    state["cli_launches"] = sum(c[3] for c in cli_counts.values())
+    state["cli_rates"] = rates
+
+
 def main() -> int:
     import torch
 
@@ -1552,21 +1875,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     state: dict = {}
     t_all = time.perf_counter()
-    for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
-                        ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
-                        ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
-                        ("process", phase_process)):
-        t0 = time.perf_counter()
-        try:
-            phase(state)
-        except BaseException as e:  # noqa: BLE001 — report the phase, then fail
-            print(f"phase {name} FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
-            raise
-        log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+    try:
+        for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
+                            ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
+                            ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
+                            ("process", phase_process), ("cli", phase_cli)):
+            t0 = time.perf_counter()
+            try:
+                phase(state)
+            except BaseException as e:  # noqa: BLE001 — report the phase, then fail
+                print(f"phase {name} FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+                raise
+            log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        if "tiff_tmp" in state:  # a phase between tiff and cli failed
+            shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
-                  tiff_launches=state["tiff_launches"], process_launches=state["process_launches"])
+                  tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
+                  cli_launches=state["cli_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
-            "process_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "process_launches", "cli_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

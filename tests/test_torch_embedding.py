@@ -310,7 +310,8 @@ def test_service_refusals(tmp_path, slide_dir):
     plugin = tmp_path / "plugin.py"
     plugin.write_text("")
     plugins = PORT.config.FeatureExtractionConfig(extractors=["toy"], device="cpu", plugins=[plugin])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # plugins load now; a module without the registration hook is refused
+    with pytest.raises(AttributeError, match="register_feature_extractors"):
         PORT.embedding.PatchFeatureEmbeddingService(cfg.extraction, cfg.output, plugins)
 
 

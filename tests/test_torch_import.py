@@ -3,7 +3,8 @@
 ``atlaspatch_tpu_torch`` starts with ``atlaspatch_tpu``, so the checks match
 the top-level module name exactly, never by prefix. Pillow, OpenCV, h5py and
 click may be absent where the port runs on the card, so every port module
-must also import without them.
+must also import without them; the command line (``atlaspatch_tpu_torch.cli``)
+is built of click commands, so it alone may import click.
 """
 
 import ast
@@ -17,6 +18,7 @@ PORT = Path(__file__).resolve().parent.parent / "atlaspatch_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "atlaspatch_tpu"}
 # modules the device and geometry path must not need at import time
 ABSENT_ON_CARD = {"PIL", "cv2", "h5py", "click"}
+CLI = "atlaspatch_tpu_torch.cli"  # imports click, and nothing else of ABSENT_ON_CARD
 
 
 def _port_modules() -> list[str]:
@@ -63,8 +65,12 @@ sys.meta_path.insert(0, Refuse())
 # any later import goes through the finder
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
-for mod in {_port_modules()!r}:
+for mod in {[m for m in _port_modules() if m != CLI]!r}:
     importlib.import_module(mod)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+BLOCKED.remove("click")
+importlib.import_module({CLI!r})
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ok")

@@ -293,7 +293,7 @@ def test_abnormal_exit_releases_every_lock(tmp_path):
 def test_features_raise_before_any_slide_is_touched(tmp_path):
     slide_dir = _slides(tmp_path, n=2, size=(256, 256))
     pkg = _pkg(PACKAGES[1])
-    features = pkg.config.FeatureExtractionConfig(extractors=["resnet50"], device="cpu")
+    features = pkg.config.FeatureExtractionConfig(extractors=["clip_rn50"], device="cpu")
     cfg = _cfg(pkg, slide_dir, tmp_path / "out", features=features)
     runner = _runner(pkg, cfg)
     touched = []

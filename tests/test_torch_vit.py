@@ -21,7 +21,8 @@ from atlaspatch_tpu.models.encoders import convert as jax_convert
 from atlaspatch_tpu.models.encoders.vit import ViT as JaxViT
 from atlaspatch_tpu.models.encoders.vit import ViTSpec as JaxViTSpec
 from atlaspatch_tpu_torch.models.encoders import convert as port_convert
-from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_vit_to_torch, init_vit_
+from atlaspatch_tpu_torch.models.encoders.engine import init_random_weights_
+from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_vit_to_torch
 from tests.upstream_layouts import torchvision_vit_sd
 from torch_port_helpers import shared_vit_params as flax_params
 
@@ -135,7 +136,7 @@ def test_torchvision_converter_matches_the_jax_converter():
 
 def test_random_init_is_deterministic_and_follows_the_flax_laws():
     spec = ViTSpec(**TINY, layerscale=True, pool="map")
-    a, b = init_vit_(ViT(spec), seed=0), init_vit_(ViT(spec), seed=0)
+    a, b = init_random_weights_(ViT(spec), seed=0), init_random_weights_(ViT(spec), seed=0)
     for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(p, q), name
     sd = a.state_dict()

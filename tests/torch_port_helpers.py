@@ -178,3 +178,109 @@ def assert_same_record(want, got, where: str = "") -> None:
             assert_same_record(a, b, f"{where}[{i}]")
     else:
         assert type(want) is type(got) and want == got, (where, want, got)
+
+
+# ------------------------------------------------------------ command lines
+CLI_PACKAGES = ("atlaspatch_tpu", "atlaspatch_tpu_torch")
+
+
+def write_png_slides(root, seeds: dict, mpp: dict):
+    """``{stem: canvas seed}`` as 768x512 PNG slides under ``root/slides``,
+    and an MPP CSV listing the stems in ``mpp`` (a stem left out has no MPP);
+    returns (slide dir, csv path)."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from atlaspatch_tpu_torch.io.synthetic_wsi import make_tissue_canvas
+
+    root = Path(root)
+    slides = root / "slides"
+    slides.mkdir()
+    for stem, seed in seeds.items():
+        Image.fromarray(make_tissue_canvas(768, 512, seed=seed, n_blobs=2)).save(slides / f"{stem}.png")
+    csv = root / "mpp.csv"
+    csv.write_text("wsi,mpp\n" + "".join(f"{stem}.png,{v}\n" for stem, v in mpp.items()))
+    return slides, csv
+
+
+def shared_cli_weights(mp, root) -> None:
+    """Both packages' SAM2 at the miniature config, both reading one weight
+    archive (the JAX package's ``.npz`` format, shared_flax_params(0)) from
+    ATLASPATCH_WEIGHTS_DIR; no random-weights fallback, no other checkpoint."""
+    from pathlib import Path
+
+    from atlaspatch_tpu.tools.convert_weights import _flatten
+
+    weights = Path(root) / "weights"
+    weights.mkdir()
+    np.savez(weights / "sam2_hiera_tiny.npz", **_flatten(shared_flax_params(0)))
+    mp.setattr(JaxSAM2Config, "tiny", JaxSAM2Config.test_tiny)
+    mp.setattr(SAM2Config, "tiny", SAM2Config.test_tiny)
+    mp.setenv("ATLASPATCH_WEIGHTS_DIR", str(weights))
+    mp.setenv("HF_HOME", str(Path(root) / "empty-hf"))
+    for var in ("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "ATLASPATCH_SAM2_CHECKPOINT", "ATLASPATCH_HOST_RESIZE",
+                "ATLASPATCH_TORCH_TRACE", "ATLASPATCH_JAX_TRACE"):
+        mp.delenv(var, raising=False)
+
+
+def invoke_cli(pkg: str, args, **kw):
+    """``pkg``'s click group on ``args`` in this process (click.testing)."""
+    import importlib
+
+    from click.testing import CliRunner
+
+    cli = importlib.import_module(f"{pkg}.cli").cli
+    return CliRunner().invoke(cli, [str(a) for a in args], **kw)
+
+
+def stdout_lines(result, out) -> list[str]:
+    """The command's stdout lines, with the output root written as <out>."""
+    return result.stdout.replace(str(out), "<out>").splitlines()
+
+
+def png_array(path) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+# ------------------------------------------------------------ CNN encoders
+def torchvision_cnn_sd(family: str, jax_spec, size: int = 224, seed: int = 0) -> dict:
+    """A torchvision-layout ResNet or ConvNeXt state_dict of ``jax_spec``,
+    every tensor drawn from numpy: kernels N(0, 1/fan_in), scales /
+    variances / layer scales in [0.5, 1.5], the rest N(0, 0.1); the
+    ``fc`` / ``classifier`` head and BatchNorm ``num_batches_tracked``
+    counters included, as torchvision saves them."""
+    import math
+
+    import jax.numpy as jnp
+    import torch
+
+    from atlaspatch_tpu.models.encoders.convnext import ConvNeXt
+    from atlaspatch_tpu.models.encoders.resnet import ResNet
+    from tests.upstream_layouts import torchvision_convnext_sd, torchvision_resnet_sd
+
+    tower, make_sd = (ResNet, torchvision_resnet_sd) if family == "resnet" else \
+        (ConvNeXt, torchvision_convnext_sd)
+    shapes = jax.eval_shape(lambda: tower(jax_spec).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)))["params"])
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, zero in make_sd(jax_spec, shapes).items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf in ("running_var", "layer_scale") or (leaf == "weight" and zero.ndim == 1):
+            value = rng.uniform(0.5, 1.5, zero.shape)
+        elif zero.ndim >= 2:
+            value = rng.normal(0.0, math.sqrt(1.0 / np.prod(zero.shape[1:])), zero.shape)
+        else:
+            value = rng.normal(0.0, 0.1, zero.shape)
+        sd[key] = torch.from_numpy(value.astype(np.float32))
+        if leaf == "running_mean":
+            sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(11)
+    if family == "convnext":  # torchvision's classifier: LayerNorm2d + Flatten + Linear
+        dim = jax_spec.embedding_dim
+        sd.update({"classifier.0.weight": torch.ones(dim), "classifier.0.bias": torch.zeros(dim),
+                   "classifier.2.weight": torch.zeros(1000, dim), "classifier.2.bias": torch.zeros(1000)})
+    return sd
