@@ -10,9 +10,9 @@ CLI never falls back to the CPU by itself.
 
 Multi-GPU segmentation and embedding (``--seg-data-parallel``,
 ``--feature-parallel``) are not ported: with one visible card they log a
-warning and run on it, with more they are refused. The JAX package's
-``finetune-sam2``, ``evaluate-masks`` and ``verify-weights`` commands are not
-registered here.
+warning and run on it, with more they are refused. ``verify-weights``
+preflights checkpoints (the port's ``tools/verify_weights.py``); the JAX
+package's ``finetune-sam2`` and ``evaluate-masks`` are not registered here.
 
     python -m atlaspatch_tpu_torch.cli segment-and-get-coords SLIDES -o OUT \\
         --patch-size 256 --target-mag 20 [--device cpu]
@@ -612,6 +612,44 @@ def info():
                + ", ".join(ZOO_STATUS["implemented"]))
     if ZOO_STATUS["pending"]:
         click.echo("Registered, tower pending: " + ", ".join(ZOO_STATUS["pending"]))
+
+
+@cli.command("verify-weights")
+@click.argument("weights_dir", type=click.Path(exists=True, file_okay=False))
+@click.option("--names", default=None,
+              help="Comma-separated encoder names (default: all 66).")
+@click.option("--smoke/--no-smoke", default=True, show_default=True,
+              help="Run a 1-image forward per checkpoint on --device (slow for "
+                   "giant towers); --no-smoke stops at converter + shape checks.")
+@click.option("--no-sam2", is_flag=True, help="Skip SAM2 checkpoint detection.")
+@click.option("--device", type=str, default="cuda", show_default=True,
+              callback=_validate_device, help="Device of the forward smoke (cuda, cuda:0, cpu).")
+def verify_weights_cmd(weights_dir, names, smoke, no_sam2, device):
+    """Preflight checkpoints: converter → shape check → forward smoke.
+
+    One PASS/FAIL/SKIP line per encoder found under WEIGHTS_DIR (or the HF
+    cache). Run this the moment real weights land so layout drift surfaces
+    before a cohort job, not mid-run (the reference loads lazily at embed
+    time: reference feature_embedding.py:277-310). Exits non-zero if any
+    checkpoint FAILs; SKIPs (no checkpoint) are informational.
+    """
+    from atlaspatch_tpu_torch.tools.verify_weights import run_preflight
+
+    _require_devices(device)
+    name_list = [n.strip() for n in names.split(",") if n.strip()] if names else None
+    try:
+        results = run_preflight(
+            Path(weights_dir),
+            names=name_list,
+            smoke=smoke,
+            include_sam2=not no_sam2,
+            device=device,
+            report=click.echo,
+        )
+    except ValueError as e:
+        raise click.ClickException(str(e)) from e
+    if any(r.status == "FAIL" for r in results):
+        sys.exit(1)
 
 
 def main(argv: list[str] | None = None, standalone_mode: bool = True):

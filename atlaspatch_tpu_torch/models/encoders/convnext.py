@@ -113,6 +113,44 @@ def torchvision_convnext_to_torch(sd: Mapping[str, Any]) -> dict[str, torch.Tens
     return {k: torch.as_tensor(v).float() for k, v in sd.items() if not k.startswith("classifier.")}
 
 
+def torchvision_convnext_to_flax(sd, spec: ConvNeXtSpec) -> dict:
+    """torchvision convnext state dict → the JAX package's Flax params: the
+    JAX converter's copy, for ``tools/convert_weights.py``."""
+    from atlaspatch_tpu_torch.models.encoders.convert import _np as np_
+
+    def conv(key):
+        return {
+            "kernel": np_(sd[f"{key}.weight"]).transpose(2, 3, 1, 0),
+            "bias": np_(sd[f"{key}.bias"]),
+        }
+
+    def ln(key):
+        return {"scale": np_(sd[f"{key}.weight"]), "bias": np_(sd[f"{key}.bias"])}
+
+    def lin(key):
+        return {"kernel": np_(sd[f"{key}.weight"]).T, "bias": np_(sd[f"{key}.bias"])}
+
+    params: dict = {
+        "stem_conv": conv("features.0.0"),
+        "stem_norm": ln("features.0.1"),
+    }
+    for stage in range(4):
+        feat_idx = 1 + 2 * stage
+        if stage > 0:
+            params[f"down{stage}_norm"] = ln(f"features.{feat_idx - 1}.0")
+            params[f"down{stage}_conv"] = conv(f"features.{feat_idx - 1}.1")
+        for b in range(spec.depths[stage]):
+            src = f"features.{feat_idx}.{b}.block"
+            params[f"stage{stage}_block{b}"] = {
+                "dwconv": conv(f"{src}.0"),  # (C, 1, 7, 7) → (7, 7, 1, C)
+                "norm": ln(f"{src}.2"),
+                "pw1": lin(f"{src}.3"),
+                "pw2": lin(f"{src}.5"),
+                "gamma": np_(sd[f"features.{feat_idx}.{b}.layer_scale"]).reshape(-1),
+            }
+    return params
+
+
 def flax_convnext_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX package's ConvNeXt param tree (numpy or jax arrays) → this
     module's state_dict. Conv kernels (kh, kw, in, out) → weight (out, in,

@@ -98,21 +98,25 @@ class PreprocessSpec:
 
 @torch.no_grad()
 def init_random_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Deterministic random weights for a zoo tower (ViT, ResNet, ConvNeXt)
-    from ``seed``, drawn on the model's device (a device's generator gives
-    its own stream), with the Flax initializers' laws: truncated-normal
-    LeCun kernels (a depthwise kernel's fan-in is its window), zero biases,
-    unit LayerNorm / BatchNorm scales, LayerScales and layer scales, N(0,
-    0.02) positional embeddings and MAP probe, zero class and register
-    tokens. Buffers (BatchNorm running statistics) keep their values."""
+    """Deterministic random weights for a zoo tower from ``seed``, drawn on
+    the model's device (a device's generator gives its own stream), with the
+    Flax initializers' laws: truncated-normal LeCun kernels (a depthwise
+    kernel's fan-in is its window), zero biases, unit LayerNorm / BatchNorm
+    scales, LayerScales and layer scales, N(0, 0.02) positional embeddings,
+    MAP probe, Swin position-bias tables and CoCa pooler queries, N(0, 1/C)
+    for the CLIP attention pool's positional embedding, zero class and
+    register tokens. Buffers (BatchNorm running statistics) keep their
+    values."""
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "weight" and p.ndim >= 2:  # Linear / Conv kernel: fan_in of the input
             std = math.sqrt(1.0 / (p[0].numel())) / 0.87962566103423978
             nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=gen)
-        elif leaf in ("pos_embed", "probe"):
+        elif leaf in ("pos_embed", "probe", "rel_pos_table", "query"):
             p.normal_(0.0, 0.02, generator=gen)
+        elif leaf == "positional_embedding":
+            p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
         elif leaf in ("weight", "ls1", "ls2", "layer_scale"):
             p.fill_(1.0)
         else:  # biases, class and register tokens

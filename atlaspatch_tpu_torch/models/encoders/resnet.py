@@ -153,6 +153,38 @@ def torchvision_resnet_to_torch(sd: Mapping[str, Any]) -> dict[str, torch.Tensor
     }
 
 
+def torchvision_resnet_to_flax(sd, spec: ResNetSpec) -> dict:
+    """torchvision resnet state dict → the JAX package's Flax params (fc head
+    dropped): the JAX converter's copy, for ``tools/convert_weights.py``."""
+    from atlaspatch_tpu_torch.models.encoders.convert import _np as np_
+
+    def conv(key):
+        return {"kernel": np_(sd[f"{key}.weight"]).transpose(2, 3, 1, 0)}
+
+    def bn(key):
+        return {
+            "scale": np_(sd[f"{key}.weight"]),
+            "bias": np_(sd[f"{key}.bias"]),
+            "mean": np_(sd[f"{key}.running_mean"]),
+            "var": np_(sd[f"{key}.running_var"]),
+        }
+
+    params: dict = {"conv1": conv("conv1"), "bn1": bn("bn1")}
+    n_convs = 3 if spec.bottleneck else 2
+    for stage, n_blocks in enumerate(spec.layers):
+        for b in range(n_blocks):
+            src = f"layer{stage + 1}.{b}"
+            block: dict = {}
+            for c in range(1, n_convs + 1):
+                block[f"conv{c}"] = conv(f"{src}.conv{c}")
+                block[f"bn{c}"] = bn(f"{src}.bn{c}")
+            if f"{src}.downsample.0.weight" in sd:
+                block["downsample_conv"] = conv(f"{src}.downsample.0")
+                block["downsample_bn"] = bn(f"{src}.downsample.1")
+            params[f"layer{stage + 1}_{b}"] = block
+    return params
+
+
 def flax_resnet_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX package's ResNet param tree (numpy or jax arrays) → this
     module's state_dict: ``layer{i}_{b}`` → ``layer{i}.{b}``,

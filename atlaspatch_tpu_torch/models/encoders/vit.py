@@ -305,11 +305,19 @@ class ViT(nn.Module):
         return out
 
 
-def flax_vit_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The JAX package's ViT param tree (numpy or jax arrays) → this module's
-    state_dict: ``blocks_{i}`` → ``blocks.{i}``; Dense kernels (in, out) →
-    weight (out, in); Conv kernels (kh, kw, in, out) → weight (out, in, kh,
-    kw); LayerNorm ``scale`` → ``weight``; everything else as it is."""
+def flax_tree_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A param tree of the JAX package's (numpy or jax arrays) → the
+    state_dict of the module that mirrors its names: ``blocks_{i}`` →
+    ``blocks.{i}``; Dense kernels (in, out) → weight (out, in); Conv kernels
+    (kh, kw, in, out) → weight (out, in, kh, kw); LayerNorm and BatchNorm
+    ``scale`` → ``weight``; BatchNorm ``mean`` / ``var`` → ``running_mean`` /
+    ``running_var``; everything else as it is. The ViT and the other towers
+    of the zoo (Swin, CLIP ModifiedResNet, CoCa, BEiT3) use it.
+
+    float32 leaves are not copied: a kernel's weight is a transposed view of
+    it (``load_state_dict`` copies into the module), so a tree that is itself
+    a view of a checkpoint (``convert._lin``) costs no memory of its own."""
+    renames = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -321,13 +329,16 @@ def flax_vit_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 walk(value, path + [key])
             return
         arr = np.asarray(node, dtype=np.float32)
+        if not arr.flags.writeable:  # a jax array's view: torch wants its own
+            arr = arr.copy()
         leaf = path[-1]
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             leaf = "weight"
-        elif leaf == "scale":
-            leaf = "weight"
-        out[".".join(path[:-1] + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[".".join(path[:-1] + [renames.get(leaf, leaf)])] = torch.from_numpy(arr)
 
     walk(params, [])
     return out
+
+
+flax_vit_to_torch = flax_tree_to_torch

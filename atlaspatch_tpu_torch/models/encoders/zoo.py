@@ -5,18 +5,18 @@ reference registers (reference: atlas_patch/models/patch/__init__.py:47-80)
 is here with its exact embedding dim and preprocessing, equal to the JAX
 package's table. The 45 ViT-family names build on the unified ViT
 (models/encoders/vit.py), the 8 ResNet names (torchvision's five and Lunit's
-three) on models/encoders/resnet.py and the 4 ConvNeXt names on
-models/encoders/convnext.py. The 9 others (swin, clip_modified_resnet, coca,
-conch, beit3) are registered but their towers are not ported yet, and
-``create()`` raises ``NotImplementedError`` naming ROADMAP queue 1, item 7.
+three) on models/encoders/resnet.py, the 4 ConvNeXt names on
+models/encoders/convnext.py, the 5 CLIP ModifiedResNets on clip_resnet.py,
+conch_v1 and omiclip on coca.py, musk on beit3.py (its multi-scale forward)
+and chief-ctranspath on swin.py.
 
-Weights policy: create() builds the model on its device and loads real weights when present (ATLASPATCH_WEIGHTS_DIR
-or the HF hub cache: ``.npz`` archives of the JAX param tree, or torch
-checkpoints through the per-source converters; of those torchvision's ViT,
-ResNet and ConvNeXt and timm's ResNet are ported); when absent it raises
-unless ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1,
-which deterministically random-inits the model (throughput benchmarking and
-smoke tests).
+Weights policy: create() builds the model on its device and loads real
+weights when present (ATLASPATCH_WEIGHTS_DIR or the HF hub cache): ``.npz``
+archives of the JAX param tree, or source checkpoints (``.safetensors``,
+read by the port's own reader, or torch ``.pt`` / ``.pth`` / ``.bin``)
+through the per-source converters; when absent it raises unless
+ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1, which deterministically random-inits the
+model (throughput benchmarking and smoke tests).
 
 Devices: "cuda" (the default) or "cpu". A CUDA request without a card raises;
 there is no fallback to the CPU.
@@ -33,6 +33,27 @@ from typing import Any
 
 import numpy as np
 
+from atlaspatch_tpu_torch.models.encoders import convert as C
+from atlaspatch_tpu_torch.models.encoders.beit3 import (
+    Beit3Spec,
+    MuskMsAug,
+    flax_beit3_to_torch,
+    musk_beit3_to_flax,
+)
+from atlaspatch_tpu_torch.models.encoders.clip_resnet import (
+    CLIP_RESNET_SPECS,
+    ClipModifiedResNet,
+    flax_clip_resnet_to_torch,
+    open_clip_resnet_to_flax,
+)
+from atlaspatch_tpu_torch.models.encoders.coca import (
+    CoCaVisual,
+    coca_vit_l14_spec,
+    conch_v1_spec,
+    conch_v1_to_flax,
+    flax_coca_to_torch,
+    open_clip_coca_to_flax,
+)
 from atlaspatch_tpu_torch.models.encoders.engine import (
     PreprocessSpec,
     TorchFeatureExtractor,
@@ -43,6 +64,7 @@ from atlaspatch_tpu_torch.models.encoders.convnext import (
     CONVNEXT_SPECS,
     ConvNeXt,
     flax_convnext_to_torch,
+    torchvision_convnext_to_flax,
     torchvision_convnext_to_torch,
 )
 from atlaspatch_tpu_torch.models.encoders.registry import PatchFeatureExtractorRegistry
@@ -50,9 +72,18 @@ from atlaspatch_tpu_torch.models.encoders.resnet import (
     RESNET_SPECS,
     ResNet,
     flax_resnet_to_torch,
+    torchvision_resnet_to_flax,
     torchvision_resnet_to_torch,
 )
-from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_vit_to_torch
+from atlaspatch_tpu_torch.models.encoders.swin import (
+    SwinNet,
+    SwinSpec,
+    flax_swin_to_torch,
+    hf_swin_to_flax,
+    timm_swin_to_flax,
+)
+from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_tree_to_torch
+from atlaspatch_tpu_torch.utils import safetensors
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders.zoo")
 
@@ -64,29 +95,17 @@ HALF = dict(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
 HOPTIMUS_NORM = dict(mean=(0.707223, 0.578729, 0.703617), std=(0.211883, 0.230117, 0.177517))
 HIBOU_NORM = dict(mean=(0.7068, 0.5755, 0.722), std=(0.195, 0.2316, 0.1816))
 
-# Dims of a tower not ported yet (the JAX package's CLIP_RESNET_SPECS:
-# embedding dim, and input size).
-CLIP_RESNET_DIMS = {"clip_rn50": (1024, 224), "clip_rn101": (512, 224),
-                    "clip_rn50x4": (640, 288), "clip_rn50x16": (768, 384),
-                    "clip_rn50x64": (1024, 448)}
-PENDING_NOTE = "tower not ported to atlaspatch_tpu_torch yet (ROADMAP queue 1, item 7)"
-
 
 @dataclass(frozen=True)
 class EncoderEntry:
     name: str
-    family: str  # torchvision_vit | dinov2 | dinov3 | clip_hf | clip_openclip | siglip | timm_vit | ...
+    family: str  # vit | dinov2 | clip_hf | clip_openclip | siglip | resnet | convnext | timm_vit | torchvision_vit | swin | coca | conch | beit3 | clip_modified_resnet
     embedding_dim: int
     preprocess: PreprocessSpec
     spec: Any = None
     source: str = ""  # upstream weight source (documentation / cache lookup)
     implemented: bool = True
     notes: str = ""
-
-
-def _pending(name, family, dim, pre, source) -> EncoderEntry:
-    return EncoderEntry(name, family, dim, pre, source=source, implemented=False,
-                        notes=PENDING_NOTE)
 
 
 def _vit(
@@ -304,20 +323,29 @@ def build_entries() -> list[EncoderEntry]:
                 source=f"open_clip openai {name}",
             )
         )
-    for name, (dim, size) in CLIP_RESNET_DIMS.items():
+    for name, spec in CLIP_RESNET_SPECS.items():
         e.append(
-            _pending(
-                name, "clip_modified_resnet", dim,
-                _pre(size, resize=size, interp="bicubic", norm=OPENAI_CLIP),
-                f"open_clip openai {name}",
+            EncoderEntry(
+                name,
+                "clip_modified_resnet",
+                spec.embed_dim,
+                _pre(spec.image_size, resize=spec.image_size, interp="bicubic", norm=OPENAI_CLIP),
+                spec=spec,
+                source=f"open_clip openai {name}",
             )
         )
 
     # --- CONCH / OmiCLIP / Quilt / PLIP / BiomedCLIP / MedSigLIP -------------------
     e.append(
-        _pending(
-            "conch_v1", "conch", 512, _pre(224, interp="bicubic", norm=OPENAI_CLIP),
-            "MahmoodLab/conch conch_ViT-B-16",
+        EncoderEntry(
+            "conch_v1",
+            "conch",
+            512,
+            _pre(224, interp="bicubic", norm=OPENAI_CLIP),
+            spec=conch_v1_spec(),
+            source="MahmoodLab/conch conch_ViT-B-16",
+            notes="encode_image(proj_contrast=False, normalize=False) semantics "
+            "(reference conch.py:20-65); checkpoint naming verified at load",
         )
     )
     e.append(
@@ -333,9 +361,14 @@ def build_entries() -> list[EncoderEntry]:
         )
     )
     e.append(
-        _pending(
-            "omiclip", "coca", 768, _pre(224, interp="bicubic", norm=OPENAI_CLIP),
-            "WangGuangyuLab/Loki coca_ViT-L-14",
+        EncoderEntry(
+            "omiclip",
+            "coca",
+            768,
+            _pre(224, interp="bicubic", norm=OPENAI_CLIP),
+            spec=coca_vit_l14_spec(),
+            source="WangGuangyuLab/Loki coca_ViT-L-14",
+            notes="token-0 latent of the attentional pooler (open_clip CoCa)",
         )
     )
     for name in ("quilt_b_32", "quilt_b_16"):
@@ -644,15 +677,30 @@ def build_entries() -> list[EncoderEntry]:
     )
 
     # --- remaining special towers --------------------------------------------------
-    # musk: Resize(384) shortest-edge bicubic + CenterCrop(384), Inception norm
-    # (reference musk.py:16-27); ms_aug multi-scale TTA concatenated → 2048-d
     e.append(
-        _pending("musk", "beit3", 2048, _pre(384, interp="bicubic", norm=HALF), "xiangjx/musk")
+        EncoderEntry(
+            "musk",
+            "beit3",
+            2048,
+            # Resize(384) shortest-edge bicubic + CenterCrop(384), Inception
+            # norm = (0.5, 0.5, 0.5) (reference musk.py:16-27)
+            _pre(384, interp="bicubic", norm=HALF),
+            spec=Beit3Spec(),  # BEiT3-large @384, Inception norm (musk.py:12-85)
+            source="xiangjx/musk",
+            notes="ms_aug multi-scale TTA (scales 1+2): mean CLS per scale, "
+            "concatenated → 2048-d as actually stored by the reference "
+            "(its declared 1024 is only the empty-batch fallback)",
+        )
     )
     e.append(
-        _pending(
-            "chief-ctranspath", "swin", 768, _pre(224, mode="square"),
-            "CHIEF CTransPath (Swin-tiny + ConvStem)",
+        EncoderEntry(
+            "chief-ctranspath",
+            "swin",
+            768,
+            _pre(224, mode="square"),
+            spec=SwinSpec(),  # swin-tiny + CHIEF ConvStem, spatial-mean pooled
+            source="CHIEF CTransPath (Swin-tiny + ConvStem)",
+            notes="NHWC spatial mean-pool forward (reference chief_ctranspath.py:180-186)",
         )
     )
     return e
@@ -716,19 +764,16 @@ def _shard_group(path: Path) -> list[Path]:
 
 
 def _load_state_dict(path: Path) -> dict:
+    """One checkpoint's tensors by name, the shards of a multi-shard one
+    merged. ``.safetensors`` files are read by the port's own reader (CPU
+    views of a map of the file); torch files by ``torch.load``, unwrapped
+    from a ``model`` / ``state_dict`` / ``teacher`` entry."""
     import torch
 
     out: dict = {}
     for shard in _shard_group(path):
         if shard.suffix == ".safetensors":
-            try:
-                from safetensors.torch import load_file
-            except ImportError as e:
-                raise ImportError(
-                    f"{shard.name}: reading .safetensors needs the safetensors module, which "
-                    "is not installed (ROADMAP queue 1, item 7)"
-                ) from e
-            out.update(load_file(str(shard)))
+            out.update(safetensors.load_file(shard))
             continue
         ckpt = torch.load(str(shard), map_location="cpu", weights_only=False)
         for key in ("model", "state_dict", "teacher"):
@@ -759,21 +804,67 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
-def _convert(entry: EncoderEntry, sd: dict) -> dict:
-    """A source checkpoint's state_dict → this package's state_dict."""
-    from atlaspatch_tpu_torch.models.encoders import convert as C
-
+def _convert_flax(entry: EncoderEntry, sd: dict) -> dict:
+    """A source checkpoint's state_dict → the JAX package's param tree for
+    ``entry`` (numpy arrays): the JAX ``zoo._convert``, family by family."""
     sd = _strip_prefixes(sd)
-    if entry.family == "torchvision_vit":
-        return C.torchvision_vit_to_torch(sd, entry.spec)
+    family = entry.family
+    if family in ("timm_vit",):
+        params = C.timm_vit_to_flax(sd, entry.spec)
+        if getattr(entry.spec, "proj_dim", None) and "proj" not in params:
+            raise KeyError(
+                f"{entry.name}: spec declares a {entry.spec.proj_dim}-d projection "
+                "but the checkpoint has neither 'proj' nor 'proj.weight' — "
+                "upstream naming changed; update convert.timm_vit_to_flax"
+            )
+        return params
+    if family == "hf_vit":
+        prefix = "vit." if any(k.startswith("vit.") for k in sd) else ""
+        return C.hf_vit_to_flax(sd, entry.spec, prefix=prefix)
+    if family == "dinov2":
+        prefix = "dinov2." if any(k.startswith("dinov2.") for k in sd) else ""
+        return C.hf_dinov2_to_flax(sd, entry.spec, prefix=prefix)
+    if family == "dinov3":
+        return C.hf_dinov3_to_flax(sd, entry.spec)
+    if family == "clip_hf":
+        return C.hf_clip_to_flax(sd, entry.spec)
+    if family == "clip_openclip":
+        return C.open_clip_vit_to_flax(sd, entry.spec)
+    if family == "clip_timm_tower":
+        return C.open_clip_timm_tower_to_flax(sd, entry.spec)
+    if family == "siglip":
+        return C.hf_siglip_to_flax(sd, entry.spec)
+    if family == "torchvision_vit":
+        return C.torchvision_vit_to_flax(sd, entry.spec)
+    if family == "resnet":
+        return torchvision_resnet_to_flax(sd, entry.spec)
+    if family == "convnext":
+        return torchvision_convnext_to_flax(sd, entry.spec)
+    if family == "clip_modified_resnet":
+        return open_clip_resnet_to_flax(sd, entry.spec)
+    if family == "swin":
+        if any("patch_embed.proj" in k for k in sd):
+            return timm_swin_to_flax(sd, entry.spec)
+        return hf_swin_to_flax(sd, entry.spec)
+    if family == "coca":
+        return open_clip_coca_to_flax(sd, entry.spec)
+    if family == "conch":
+        return conch_v1_to_flax(sd, entry.spec)
+    if family == "beit3":
+        return musk_beit3_to_flax(sd, entry.spec)
+    raise NotImplementedError(f"no converter for family {family}")
+
+
+def _convert(entry: EncoderEntry, sd: dict) -> dict:
+    """A source checkpoint's state_dict → this package's state_dict for
+    ``entry``: torchvision's ResNet and ConvNeXt keys as they are (the port's
+    modules carry them), every other family through :func:`_convert_flax`
+    and its tower's ``flax_*_to_torch``."""
     if entry.family == "resnet":
-        return torchvision_resnet_to_torch(sd)
+        return torchvision_resnet_to_torch(_strip_prefixes(sd))
     if entry.family == "convnext":
-        return torchvision_convnext_to_torch(sd)
-    raise NotImplementedError(
-        f"{entry.name}: the {entry.family} checkpoint converter is not yet ported to "
-        "atlaspatch_tpu_torch (ROADMAP queue 1, item 7)"
-    )
+        return torchvision_convnext_to_torch(_strip_prefixes(sd))
+    return _TOWERS[entry.family][1](_convert_flax(entry, sd))
 
 
 _VIT_FAMILIES = (
@@ -788,11 +879,17 @@ _VIT_FAMILIES = (
     "clip_timm_tower",
 )
 
-# family → (module class, JAX param tree → state_dict)
+# family → (module class, JAX param tree → state_dict); the JAX _model_for.
+# musk runs the MUSK wrapper's multi-scale forward (its stored 2048-d width).
 _TOWERS = {
-    **{family: (ViT, flax_vit_to_torch) for family in _VIT_FAMILIES},
+    **{family: (ViT, flax_tree_to_torch) for family in _VIT_FAMILIES},
     "resnet": (ResNet, flax_resnet_to_torch),
     "convnext": (ConvNeXt, flax_convnext_to_torch),
+    "clip_modified_resnet": (ClipModifiedResNet, flax_clip_resnet_to_torch),
+    "swin": (SwinNet, flax_swin_to_torch),
+    "coca": (CoCaVisual, flax_coca_to_torch),
+    "conch": (CoCaVisual, flax_coca_to_torch),
+    "beit3": (MuskMsAug, flax_beit3_to_torch),
 }
 
 
@@ -805,9 +902,10 @@ def build_extractor(
     compute_dtype: str = "float32",
     max_batch: int = 256,
 ) -> TorchFeatureExtractor:
-    if not entry.implemented or entry.family not in _TOWERS:
+    if not entry.implemented:
         raise NotImplementedError(
-            f"Encoder '{entry.name}' ({entry.family}) is registered but its {PENDING_NOTE}"
+            f"Encoder '{entry.name}' ({entry.family}) is registered but its tower is "
+            f"not yet implemented in this build: {entry.notes}"
         )
     if mesh is not None or tensor_parallel:
         raise NotImplementedError(

@@ -138,6 +138,121 @@ def flax_to_torch(params: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
     return out
 
 
+# --- the other way: a transformers-layout state dict → the JAX param tree ----------
+def _np(t: Any) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _flax_linear(sd, prefix):
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T, "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_conv(sd, prefix):
+    return {"kernel": _np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_conv_transpose(sd, prefix):
+    w = _np(sd[f"{prefix}.weight"])  # (I, O, kh, kw)
+    kernel = w.transpose(2, 3, 0, 1)[::-1, ::-1]  # (kh, kw, I, O), flipped
+    return {"kernel": np.ascontiguousarray(kernel), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_norm(sd, prefix):
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_feedforward(sd, prefix, num_layers):
+    out = {
+        "proj_in": _flax_linear(sd, f"{prefix}.proj_in"),
+        "proj_out": _flax_linear(sd, f"{prefix}.proj_out"),
+    }
+    for i in range(num_layers - 2):
+        out[f"layers_{i}"] = _flax_linear(sd, f"{prefix}.layers.{i}")
+    return out
+
+
+def _flax_decoder_attention(sd, prefix):
+    return {name: _flax_linear(sd, f"{prefix}.{name}") for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
+
+
+def hf_to_flax(sd: Mapping[str, Any], cfg) -> dict:
+    """A transformers ``Sam2Model`` state dict (the port's own layout) → the
+    JAX package's SAM2ImageModel param tree: the JAX ``hf_to_flax``'s copy,
+    for ``tools/convert_weights.py``'s archives. :func:`flax_to_torch` is
+    its inverse."""
+    backbone: dict[str, Any] = {
+        "patch_embed": _flax_conv(sd, "vision_encoder.backbone.patch_embed.projection"),
+        "pos_embed": _np(sd["vision_encoder.backbone.pos_embed"]).transpose(0, 2, 3, 1),
+        "pos_embed_window": _np(sd["vision_encoder.backbone.pos_embed_window"]).transpose(0, 2, 3, 1),
+    }
+    for i in range(sum(cfg.blocks_per_stage)):
+        p = f"vision_encoder.backbone.blocks.{i}"
+        block = {
+            "layer_norm1": _flax_norm(sd, f"{p}.layer_norm1"),
+            "layer_norm2": _flax_norm(sd, f"{p}.layer_norm2"),
+            "attn": {
+                "qkv": _flax_linear(sd, f"{p}.attn.qkv"),
+                "proj": _flax_linear(sd, f"{p}.attn.proj"),
+            },
+            "mlp": _flax_feedforward(sd, f"{p}.mlp", 2),
+        }
+        if f"{p}.proj.weight" in sd:
+            block["proj"] = _flax_linear(sd, f"{p}.proj")
+        backbone[f"blocks_{i}"] = block
+
+    neck = {
+        f"convs_{i}": _flax_conv(sd, f"vision_encoder.neck.convs.{i}")
+        for i in range(len(cfg.backbone_channel_list))
+    }
+    prompt_encoder = {
+        "shared_embedding": {
+            "positional_embedding": _np(sd.get(_TIED_PE[0], sd.get(_TIED_PE[1])))
+        },
+        "point_embed": _np(sd["prompt_encoder.point_embed.weight"]),
+        "not_a_point_embed": _np(sd["prompt_encoder.not_a_point_embed.weight"]),
+        "no_mask_embed": _np(sd["prompt_encoder.no_mask_embed.weight"]),
+    }
+    transformer: dict[str, Any] = {}
+    for i in range(cfg.decoder_num_layers):
+        p = f"mask_decoder.transformer.layers.{i}"
+        transformer[f"layers_{i}"] = {
+            "self_attn": _flax_decoder_attention(sd, f"{p}.self_attn"),
+            "cross_attn_token_to_image": _flax_decoder_attention(sd, f"{p}.cross_attn_token_to_image"),
+            "cross_attn_image_to_token": _flax_decoder_attention(sd, f"{p}.cross_attn_image_to_token"),
+            "mlp": _flax_feedforward(sd, f"{p}.mlp", 2),  # block MLP is always lin1/lin2
+            **{f"layer_norm{n}": _flax_norm(sd, f"{p}.layer_norm{n}") for n in range(1, 5)},
+        }
+    transformer["final_attn_token_to_image"] = _flax_decoder_attention(
+        sd, "mask_decoder.transformer.final_attn_token_to_image")
+    transformer["layer_norm_final_attn"] = _flax_norm(sd, "mask_decoder.transformer.layer_norm_final_attn")
+
+    mask_decoder: dict[str, Any] = {
+        "obj_score_token": _np(sd["mask_decoder.obj_score_token.weight"]),
+        "iou_token": _np(sd["mask_decoder.iou_token.weight"]),
+        "mask_tokens": _np(sd["mask_decoder.mask_tokens.weight"]),
+        "transformer": transformer,
+        "upscale_conv1": _flax_conv_transpose(sd, "mask_decoder.upscale_conv1"),
+        "upscale_conv2": _flax_conv_transpose(sd, "mask_decoder.upscale_conv2"),
+        "upscale_layer_norm": _flax_norm(sd, "mask_decoder.upscale_layer_norm"),
+        "iou_prediction_head": _flax_feedforward(sd, "mask_decoder.iou_prediction_head", cfg.iou_head_depth),
+        "pred_obj_score_head": _flax_feedforward(sd, "mask_decoder.pred_obj_score_head", 3),
+    }
+    for i in range(cfg.num_multimask_outputs + 1):
+        mask_decoder[f"output_hypernetworks_mlps_{i}"] = _flax_feedforward(
+            sd, f"mask_decoder.output_hypernetworks_mlps.{i}", 3)
+    return {
+        "backbone": backbone,
+        "neck": neck,
+        "prompt_encoder": prompt_encoder,
+        "mask_decoder": mask_decoder,
+        "conv_s0": _flax_conv(sd, "mask_decoder.conv_s0"),
+        "conv_s1": _flax_conv(sd, "mask_decoder.conv_s1"),
+        "no_memory_embedding": _np(sd["no_memory_embedding"]),
+    }
+
+
 def unflatten(flat: Mapping[str, Any]) -> dict:
     """'a/b/c'-keyed arrays (the JAX package's .npz archives) → nested tree."""
     tree: dict = {}

@@ -15,7 +15,7 @@ With ``features.extractors`` set, a slide whose H5 exists is reused when
 features are missing (its result is handed on for embedding, with no
 segmentation) and skipped when they are complete. An H5 the port's reader
 cannot read is reprocessed, as the JAX package reprocesses a file h5py cannot
-read. A requested zoo encoder whose tower is not ported raises
+read. A requested zoo encoder whose entry is not implemented raises
 ``NotImplementedError`` in ``run()`` before any slide is touched.
 """
 
@@ -37,7 +37,7 @@ from atlaspatch_tpu_torch.orchestration.parallel import (
     PatchExtractionExecutor,
 )
 from atlaspatch_tpu_torch.parallel.multihost import host_shard
-from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES, PENDING_NOTE
+from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
 from atlaspatch_tpu_torch.services.interfaces import (
     ExtractionService,
     MPPResolver,
@@ -344,7 +344,8 @@ class ProcessingRunner:
         ]
         if unported:
             raise NotImplementedError(
-                f"feature extractor(s) {unported}: {PENDING_NOTE}; nothing was processed"
+                f"feature extractor(s) {unported}: tower not implemented in this build; "
+                "nothing was processed"
             )
         slides = self._attach_mpp(self.discover_slides())
         if not slides:

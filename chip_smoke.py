@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths, and its command line, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths, its command line and its checkpoint loading, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -139,13 +139,45 @@ Phases, one line each (any failure exits non-zero with no result line):
           real entry point: python -m atlaspatch_tpu_torch.cli info, and
           segment-and-get-coords -v on 2 slides, whose log must name the
           SAM2 device cuda. Prints each command's wall time, slides/s,
-          forwards and launches
+          forwards and launches. The corpus stays for the weights phase
+  weights every new encoder tower from its published checkpoint layout, with
+          seeded values (no network, no JAX): each port tower's Flax-layout
+          shapes → tests/upstream_layouts.py's upstream layout → values by
+          tests/upstream_values.py, written as the source ships it: (h1)
+          uni_v1.safetensors (timm ViT-L/16 at full width, 303 M params,
+          F32), (h2) conch_v1.bin (CONCH layout, ViT-B/16 trunk),
+          chief-ctranspath.pth (CHIEF's old layout, Swin-T + ConvStem),
+          musk.safetensors (BEiT3-large at 384, BF16, the values rounded to
+          bf16 first), clip_rn50.pt (open_clip layout); (h3) dinov2_small as
+          two .safetensors shards in the HF hub cache layout (HF_HUB_CACHE
+          at the phase's temp dir); .safetensors written by the script's
+          own few lines. Checks: each file found by the zoo's lookup, and
+          zoo._convert of what the port's reader / torch.load gives equal,
+          tensor for tensor (max-abs 0), to flax_*_to_torch of the Flax tree
+          converted from the dict in memory (dinov2_small from the merged
+          shards); verify-weights <dir> --no-sam2 in process (default
+          device): 6 PASS and "preflight: 6 PASS, 0 FAIL, 60 SKIP"; a
+          second dir whose uni_v1 has one tensor's shape cut: FAIL naming
+          the key, exit 1; process --fast --feature-extractors "uni_v1
+          conch_v1 chief-ctranspath musk clip_rn50" over four (f1) slides
+          on the cli phase's coordinates: no segmentation launch,
+          features/<name> of widths 1024/512/768/2048/1024 finite, coords
+          and file attrs unchanged; for the five towers float32 on the
+          card against the CPU <= 1e-4 on 4 patches (TF32 switched on
+          before the build; uni_v1 and musk at depth 2, the rest whole),
+          bf16 against float32 per-row cosine > 0.995 on 16, every param
+          and floating buffer of the bf16 extractor bf16. Prints the
+          reader's GB/s on uni_v1 and musk (page cache), each checkpoint's
+          load + convert s, extract_batch bf16 patches/s at batch 32 (warm,
+          median of 3 over 128 patches) per encoder and the peak memory,
+          each beside the card's name and power limit
 
 Then one JSON line with the kernel record (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
 (f1)+(f3) runner pass; ``process_launches``: the process phase's;
-``cli_launches``: the cli phase's three in-process commands; the
-encoder path holds no TPU kernel of its own), the card's name and power limit,
+``cli_launches``: the cli phase's three in-process commands;
+``weights_launches``: the weights phase's process, on existing coordinates;
+the encoder path holds no TPU kernel of its own), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -1109,7 +1141,7 @@ def phase_tiff(state):
     from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tiff_"))
-    state["tiff_tmp"] = tmp  # the corpus stays for the cli phase, which removes it
+    state["tiff_tmp"] = tmp  # the corpus stays for the cli and weights phases; weights removes it
     seg = None
     try:
         corpus = state["tiff_corpus"] = _write_tiff_corpus(tmp)
@@ -1660,11 +1692,9 @@ def _decodes(path: Path) -> bool:
 
 def phase_cli(state):
     """The port's command line on the card, in-process and as a subprocess,
-    over the tiff phase's corpus, with the default device (no --device)."""
-    try:
-        _drive_cli(state, state["tiff_tmp"])
-    finally:
-        shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
+    over the tiff phase's corpus, with the default device (no --device). The
+    corpus and the command's H5 files stay for the weights phase."""
+    _drive_cli(state, state["tiff_tmp"])
 
 
 def _drive_cli(state, root):
@@ -1865,6 +1895,279 @@ def _drive_cli(state, root):
     state["cli_rates"] = rates
 
 
+# --- the weights phase: published checkpoint layouts on the card ---------------------
+# name → checkpoint file as its source ships it (h1: uni_v1; h2: the four new towers)
+WEIGHT_FILES = {"uni_v1": "uni_v1.safetensors", "conch_v1": "conch_v1.bin",
+                "chief-ctranspath": "chief-ctranspath.pth", "musk": "musk.safetensors",
+                "clip_rn50": "clip_rn50.pt"}
+WEIGHT_WIDTHS = {"uni_v1": 1024, "conch_v1": 512, "chief-ctranspath": 768, "musk": 2048, "clip_rn50": 1024}
+SHALLOW = {"uni_v1": 2, "musk": 2}  # depth of the float32 card-vs-CPU check; the others run whole
+ST_DTYPES = {"float32": "F32", "bfloat16": "BF16"}
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A .safetensors file of CPU tensors (the safetensors module is absent on
+    the card's host): u64 header length, the JSON header padded to 8 bytes,
+    the raw bytes."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype).split(".")[1]], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def _tower_shapes(entry) -> dict:
+    import torch
+
+    from atlaspatch_tpu_torch.models.encoders.zoo import _TOWERS
+
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in _TOWERS[entry.family][0](entry.spec).state_dict().items()}
+
+
+def _same_state(got: dict, want: dict) -> float:
+    """max-abs between two state_dicts with the same keys and shapes."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"weights: keys differ: {sorted(set(got) ^ set(want))[:5]}")
+    err = 0.0
+    for k, v in want.items():
+        if got[k].shape != v.shape:
+            raise AssertionError(f"weights: {k} is {tuple(got[k].shape)}, want {tuple(v.shape)}")
+        err = max(err, float((got[k].float() - v.float()).abs().max()) if v.numel() else 0.0)
+    return err
+
+
+def phase_weights(state):
+    """Every new tower's published checkpoint layout, from files on the card's
+    host, through the reader, the converters, verify-weights and process."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    try:
+        _drive_weights(state, tmp, state["tiff_tmp"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
+
+
+def _drive_weights(state, tmp, tiff_root):
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from upstream_values import upstream_checkpoint
+
+    from atlaspatch_tpu_torch import cli as cli_mod
+    from atlaspatch_tpu_torch.models.encoders import zoo
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor
+    from atlaspatch_tpu_torch.utils import safetensors as st
+    from atlaspatch_tpu_torch.utils.h5 import read_h5, read_h5_tree
+
+    card = state["card"]
+    wdir = tmp / "weights"
+    wdir.mkdir()
+    states, sizes, load_s, gbps = {}, {}, {}, {}
+
+    # (h1) + (h2): a numpy Flax-layout tree's shapes from each port tower, the
+    # upstream layout by tests/upstream_layouts.py, seeded values; saved as shipped
+    t_make = time.perf_counter()
+    for seed, (name, fname) in enumerate(WEIGHT_FILES.items()):
+        entry = zoo.ENTRIES[name]
+        sd = upstream_checkpoint(entry, _tower_shapes(entry), seed=100 + seed)
+        tensors = {k: torch.from_numpy(v) for k, v in sd.items()}
+        if name == "musk":  # stored in BF16: the tree is rounded to bf16 values first
+            tensors = {k: v.bfloat16() for k, v in tensors.items()}
+            sd = {k: v.float().numpy() for k, v in tensors.items()}
+        states[name] = zoo._TOWERS[entry.family][1](zoo._convert_flax(entry, sd))  # the tree's state_dict
+        path = wdir / fname
+        if fname.endswith(".safetensors"):
+            _write_safetensors(path, tensors)
+        else:
+            torch.save({"model": tensors} if name == "chief-ctranspath" else tensors, path)
+        sizes[name] = path.stat().st_size
+    # (h3) dinov2_small as two shards in the HF hub cache layout
+    hub = tmp / "hub"
+    snap = hub / "models--facebook--dinov2-small" / "snapshots" / "0123456789abcdef"
+    snap.mkdir(parents=True)
+    entry = zoo.ENTRIES["dinov2_small"]
+    sd = upstream_checkpoint(entry, _tower_shapes(entry), seed=200)
+    states["dinov2_small"] = zoo._TOWERS[entry.family][1](zoo._convert_flax(entry, sd))
+    keys = sorted(sd)
+    for i, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2 :]), 1):
+        _write_safetensors(snap / f"model-0000{i}-of-00002.safetensors", {k: torch.from_numpy(sd[k]) for k in part})
+    sizes["dinov2_small"] = sum(p.stat().st_size for p in snap.iterdir())
+    make_s = time.perf_counter() - t_make
+
+    # the reader's rate (page cache: the files were just written) and each
+    # checkpoint's load + convert, whose state_dict must equal the tree's
+    env = {"ATLASPATCH_WEIGHTS_DIR": str(wdir), "HF_HUB_CACHE": str(hub)}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for name in ("uni_v1", "musk"):
+            t0 = time.perf_counter()
+            for t in st.load_file(wdir / WEIGHT_FILES[name]).values():  # map, then touch every byte
+                if t.numel():
+                    t.reshape(-1).view(torch.uint8).max()
+            gbps[name] = sizes[name] / (time.perf_counter() - t0) / 1e9
+        errs = {}
+        for name in (*WEIGHT_FILES, "dinov2_small"):
+            entry = zoo.ENTRIES[name]
+            path = zoo._find_cached_weights(entry)
+            want_path = snap / "model-00001-of-00002.safetensors" if name == "dinov2_small" else wdir / WEIGHT_FILES[name]
+            if path != want_path:
+                raise AssertionError(f"weights: {name} found {path}, want {want_path}")
+            t0 = time.perf_counter()
+            got = zoo._convert(entry, zoo._load_state_dict(path))
+            load_s[name] = time.perf_counter() - t0
+            errs[name] = _same_state(got, states[name])
+            if errs[name] != 0.0:
+                raise AssertionError(f"weights: {name}'s state_dict from {path.name} differs by {errs[name]}")
+        log(f"weights checkpoints (seeded values in the upstream layouts, made and written in {make_s:.1f} s): "
+            + "; ".join(f"{n} {sizes[n] / 2**20:.1f} MiB" for n in sizes)
+            + f"; reader from the page cache: uni_v1 {gbps['uni_v1']:.2f} GB/s, musk (BF16) {gbps['musk']:.2f} GB/s; "
+            f"load + convert s: " + ", ".join(f"{n} {s:.3f}" for n, s in load_s.items())
+            + f"; every state_dict equal to the tree's (max-abs 0; dinov2_small from 2 shards) [{card}]")
+
+        # verify-weights over the dir, default device; then a dir whose uni_v1 has one shape wrong
+        def verify(args):
+            out = io.StringIO()
+            code = 0
+            with contextlib.redirect_stdout(out):
+                try:
+                    cli_mod.main([str(a) for a in args], standalone_mode=False)
+                except SystemExit as e:
+                    code = e.code
+            return out.getvalue().splitlines(), code
+
+        t0 = time.perf_counter()
+        lines, code = verify(["verify-weights", wdir, "--no-sam2"])
+        verify_s = time.perf_counter() - t0
+        passed = sorted(ln.split()[1] for ln in lines if ln.startswith("PASS"))
+        if code or passed != sorted([*WEIGHT_FILES, "dinov2_small"]) or \
+                lines[-1] != "preflight: 6 PASS, 0 FAIL, 60 SKIP":
+            raise AssertionError(f"weights: verify-weights rc {code}, PASS {passed}, last line {lines[-1:]}")
+        bad_dir = tmp / "bad"
+        bad_dir.mkdir()
+        bad = st.load_file(wdir / "uni_v1.safetensors")
+        bad_key = "blocks.5.attn.qkv.weight"
+        bad = {k: (v[:, :-8] if k == bad_key else v) for k, v in bad.items()}
+        _write_safetensors(bad_dir / "uni_v1.safetensors", bad)
+        bad_lines, bad_code = verify(["verify-weights", bad_dir, "--names", "uni_v1", "--no-sam2"])
+        fail = [ln for ln in bad_lines if ln.startswith("FAIL")]
+        if bad_code != 1 or len(fail) != 1 or bad_key not in fail[0]:
+            raise AssertionError(f"weights: the bad dir gave rc {bad_code}: {bad_lines}")
+        log(f"weights verify-weights (default device, forward smoke): {verify_s:.1f} s, "
+            + " | ".join(ln for ln in lines if ln.startswith("PASS")) + f" | {lines[-1]}; the bad dir: rc 1, "
+            f"{fail[0][:160]} [{card}]")
+
+        # process over four (f1) slides on the cli phase's coordinates
+        f1 = tiff_root / "f1"
+        stems = sorted(p.stem for p in f1.glob("*.svs"))[:4]
+        slides, out = tmp / "slides", tmp / "out"
+        (out / "patches").mkdir(parents=True)
+        slides.mkdir()
+        for stem in stems:
+            (slides / f"{stem}.svs").symlink_to((f1 / f"{stem}.svs").resolve())
+            shutil.copy(tiff_root / "cli_out" / "patches" / f"{stem}.h5", out / "patches" / f"{stem}.h5")
+        before = {s: read_h5(out / "patches" / f"{s}.h5") for s in stems}
+        lines, wall, launches, forwards = _cli_main(
+            ["process", slides, "--output", out, *CLI_SEG_ARGS, "--fast", "--feature-extractors",
+             " ".join(WEIGHT_FILES)])
+        if f"Completed {len(stems)} slide(s), failures: 0" not in lines or forwards or launches:
+            raise AssertionError(f"weights process: {forwards} forwards, {launches} launches; {lines[-3:]}")
+        n_total = 0
+        for stem in stems:
+            tree = read_h5_tree(out / "patches" / f"{stem}.h5")
+            (old_data, old_attrs), n = before[stem], before[stem][0]["coords"].shape[0]
+            for name, dim in WEIGHT_WIDTHS.items():
+                feats = tree.datasets.get(f"features/{name}")
+                if feats is None or feats.shape != (n, dim) or not np.isfinite(feats).all():
+                    raise AssertionError(f"weights process: {stem} features/{name} is "
+                                         f"{None if feats is None else feats.shape}")
+            for key, arr in old_data.items():
+                if tree.datasets[key].tobytes() != arr.tobytes():
+                    raise AssertionError(f"weights process: {stem} {key} changed")
+            if dict(tree.attrs) != old_attrs:
+                raise AssertionError(f"weights process: {stem} file attrs changed")
+            n_total += n
+        state["weights_launches"] = launches
+        log(f"weights process --fast over {len(stems)} (f1) slides, {n_total} patches on the cli phase's "
+            f"coordinates, 5 encoders from their checkpoint files: {wall:.3f} s, {forwards} segmentation forwards, "
+            f"{launches} attention launches; features (n, 1024/512/768/2048/1024) finite, coords and attrs "
+            f"unchanged [{card}]")
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # numerics of the four new towers and uni_v1, on the loaded weights
+    rng = np.random.default_rng(5)
+    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(128)]
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    for name in WEIGHT_FILES:
+        entry = zoo.ENTRIES[name]
+        tower = zoo._TOWERS[entry.family][0]
+        spec = entry.spec
+        if name in SHALLOW:
+            spec = dataclasses.replace(spec, depth=SHALLOW[name])
+        shallow = tower(spec)
+        shallow.load_state_dict({k: states[name][k] for k in shallow.state_dict()}, strict=True)
+        cpu = TorchFeatureExtractor(name=name, embedding_dim=WEIGHT_WIDTHS[name], spec=entry.preprocess,
+                                    model=copy.deepcopy(shallow), device="cpu")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        f32 = TorchFeatureExtractor(name=name, embedding_dim=WEIGHT_WIDTHS[name], spec=entry.preprocess,
+                                    model=shallow, device="cuda")
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError(f"weights: the float32 {name} extractor left TF32 on")
+        f32_err = float(np.abs(f32.extract_batch(patches[:4]) - cpu.extract_batch(patches[:4])).max())
+        f32.cleanup()
+        del cpu, f32, shallow
+        full = tower(entry.spec)
+        full.load_state_dict(states[name], strict=True)
+        f32 = TorchFeatureExtractor(name=name, embedding_dim=WEIGHT_WIDTHS[name], spec=entry.preprocess,
+                                    model=copy.deepcopy(full), device="cuda")
+        bf16 = TorchFeatureExtractor(name=name, embedding_dim=WEIGHT_WIDTHS[name], spec=entry.preprocess,
+                                     model=full, device="cuda", compute_dtype="bfloat16")
+        tensors = [*bf16.model.parameters(), *(b for b in bf16.model.buffers() if b.is_floating_point())]
+        if not all(t.dtype == torch.bfloat16 and t.is_cuda for t in tensors):
+            raise AssertionError(f"weights: a param or buffer of the bfloat16 {name} extractor is not bfloat16")
+        cos = _cos_rows(f32.extract_batch(patches[:16]), bf16.extract_batch(patches[:16]))
+        f32.cleanup()
+        if not (f32_err <= 1e-4 and cos.min() > 0.995):
+            raise AssertionError(f"weights: {name} float32 card vs CPU {f32_err}, bf16 vs float32 cosine {cos.min()}")
+        med_s, _ = _timed_passes(bf16, patches, 32)
+        bf16.cleanup()
+        report[name] = (f32_err, float(cos.min()), len(patches) / med_s)
+        log(f"weights {name}: float32 card vs CPU max-abs {f32_err:.3g} on 4 patches "
+            f"({'depth ' + str(SHALLOW[name]) if name in SHALLOW else 'full depth'}, TF32 on before the build); "
+            f"bf16 vs float32 cosine min {cos.min():.6f} on 16; {len(tensors)} params and buffers bf16; "
+            f"extract_batch bf16 at batch 32 (warm, median of 3 over {len(patches)}) "
+            f"{len(patches) / med_s:.1f} patches/s [{card}]")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"weights peak memory allocated {peak_gib:.2f} GiB [{card}]")
+    state["weights"] = dict(report=report, gbps=gbps, load_s=load_s, peak_gib=peak_gib)
+
+
 def main() -> int:
     import torch
 
@@ -1879,7 +2182,7 @@ def main() -> int:
         for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
                             ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
-                            ("process", phase_process), ("cli", phase_cli)):
+                            ("process", phase_process), ("cli", phase_cli), ("weights", phase_weights)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -1888,14 +2191,14 @@ def main() -> int:
                 raise
             log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
     finally:
-        if "tiff_tmp" in state:  # a phase between tiff and cli failed
+        if "tiff_tmp" in state:  # a phase between tiff and weights failed
             shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
                   tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
-                  cli_launches=state["cli_launches"])
+                  cli_launches=state["cli_launches"], weights_launches=state["weights_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
-            "process_launches", "cli_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "process_launches", "cli_launches", "weights_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

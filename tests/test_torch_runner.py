@@ -290,7 +290,13 @@ def test_abnormal_exit_releases_every_lock(tmp_path):
         assert list((out / "patches").glob(".stage-*")) == []
 
 
-def test_features_raise_before_any_slide_is_touched(tmp_path):
+def test_features_raise_before_any_slide_is_touched(tmp_path, monkeypatch):
+    # every zoo tower is ported now: an entry marked not implemented stands in
+    import dataclasses
+
+    from atlaspatch_tpu_torch.models.encoders import zoo
+
+    monkeypatch.setitem(zoo.ENTRIES, "clip_rn50", dataclasses.replace(zoo.ENTRIES["clip_rn50"], implemented=False))
     slide_dir = _slides(tmp_path, n=2, size=(256, 256))
     pkg = _pkg(PACKAGES[1])
     features = pkg.config.FeatureExtractionConfig(extractors=["clip_rn50"], device="cpu")

@@ -1,12 +1,16 @@
 """The port's encoder zoo (atlaspatch_tpu_torch/models/encoders/zoo.py)
 against the JAX package's.
 
-All 66 names with the JAX table's families, dims, sources and preprocessing;
-the ViT, ResNet and ConvNeXt specs equal field by field (tolerance: none).
-The 9 towers not ported raise at ``create()``. Weights load from ``.npz`` archives of the JAX
-param tree and from torchvision ``.pth`` checkpoints, and give the JAX
-package's features on the same file (max-abs 1e-4, float32, CPU); missing
-weights raise without the random-weights switch.
+All 66 names with the JAX table's families, dims, sources, preprocessing
+and specs, equal field by field (tolerance: none); all 66 build. The 9 towers
+ported last (Swin, CLIP ModifiedResNet, CoCa/CONCH, BEiT3/MUSK) load a
+seeded checkpoint in their upstream layout (``tests/upstream_values.py``)
+from ATLASPATCH_WEIGHTS_DIR in both zoos, at depth ≤ 3 (CLIP ResNets one
+bottleneck per stage), and give the JAX package's features. Weights load
+from ``.npz`` archives of the JAX param tree, torchvision ``.pth`` and
+``.safetensors`` checkpoints (read without the safetensors module), and give
+the JAX package's features on the same file (max-abs 1e-4, float32, CPU);
+missing weights raise without the random-weights switch.
 """
 
 import dataclasses
@@ -19,10 +23,14 @@ import torch
 from atlaspatch_tpu.models.encoders import zoo as jax_zoo
 from atlaspatch_tpu.tools.convert_weights import _flatten
 from atlaspatch_tpu_torch.models.encoders import zoo
+from atlaspatch_tpu_torch.models.encoders.vit import ViT
 from tests.upstream_layouts import torchvision_vit_sd
+from upstream_values import upstream_checkpoint
 from torch_port_helpers import shared_vit_params
 
+# the families whose towers were ported last
 PENDING_FAMILIES = {"swin", "clip_modified_resnet", "coca", "conch", "beit3"}
+MAX_DEPTH = 3  # tests/test_converter_harness.py:28
 
 
 def test_all_66_names_in_the_jax_order():
@@ -35,27 +43,47 @@ def test_entry_matches_the_jax_entry(name):
     port, ref = zoo.ENTRIES[name], jax_zoo.ENTRIES[name]
     assert (port.family, port.embedding_dim, port.source) == (ref.family, ref.embedding_dim, ref.source)
     assert dataclasses.asdict(port.preprocess) == dataclasses.asdict(ref.preprocess)
-    if port.family in PENDING_FAMILIES:
-        assert not port.implemented and port.spec is None and "item 7" in port.notes
-    else:
-        assert port.implemented
-        assert dataclasses.asdict(port.spec) == dataclasses.asdict(ref.spec)
+    assert port.implemented and port.notes == ref.notes
+    assert type(port.spec).__name__ == type(ref.spec).__name__
+    assert dataclasses.asdict(port.spec) == dataclasses.asdict(ref.spec)
 
 
 def test_45_vit_names_build_and_21_wait():
-    # named when only the ViT family built: the 8 ResNet and 4 ConvNeXt names build now
-    assert len(zoo.ZOO_STATUS["implemented"]) == 45 + 12
-    assert len(zoo.ZOO_STATUS["pending"]) == 21 - 12
-    assert {zoo.ENTRIES[n].family for n in zoo.ZOO_STATUS["pending"]} == PENDING_FAMILIES
+    # named when only the ViT family built: all 66 names build now, none waits
+    assert zoo.ZOO_STATUS == jax_zoo.ZOO_STATUS
+    assert len(zoo.ZOO_STATUS["implemented"]) == 66
+    assert zoo.ZOO_STATUS["pending"] == []
+
+
+def _cut(spec):
+    """``spec`` at depth ≤ MAX_DEPTH; a CLIP ResNet at one bottleneck per stage."""
+    if hasattr(spec, "trunk"):  # CoCaSpec
+        return dataclasses.replace(spec, trunk=_cut(spec.trunk))
+    if hasattr(spec, "layers"):  # ClipResNetSpec
+        return dataclasses.replace(spec, layers=tuple(1 for _ in spec.layers))
+    if isinstance(getattr(spec, "depth", None), int) and spec.depth > MAX_DEPTH:
+        return dataclasses.replace(spec, depth=MAX_DEPTH)
+    return spec
 
 
 @pytest.mark.parametrize("name", sorted(n for n, e in jax_zoo.ENTRIES.items()
                                         if e.family in PENDING_FAMILIES))
-def test_pending_towers_raise_at_create(name, monkeypatch):
-    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
-    registry = zoo.build_default_registry(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        registry.create(name)
+def test_pending_towers_raise_at_create(name, tmp_path, monkeypatch):
+    """Named when these 9 towers raised at create(): each builds from a
+    checkpoint in its upstream layout and gives the JAX entry's features."""
+    entry = dataclasses.replace(zoo.ENTRIES[name], spec=_cut(zoo.ENTRIES[name].spec))
+    ref = dataclasses.replace(jax_zoo.ENTRIES[name], spec=_cut(jax_zoo.ENTRIES[name].spec))
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in zoo._TOWERS[entry.family][0](entry.spec).state_dict().items()}
+    sd = upstream_checkpoint(entry, shapes, seed=len(name))
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / f"{name}.pth")
+    monkeypatch.setenv("ATLASPATCH_WEIGHTS_DIR", str(tmp_path))
+    monkeypatch.delenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", raising=False)
+    patches = _patches(2)
+    got = zoo.build_extractor(entry, device="cpu", max_batch=2).extract_batch(patches)
+    want = jax_zoo.build_extractor(ref, device=jax.devices("cpu")[0], max_batch=2).extract_batch(patches)
+    assert got.shape == want.shape == (2, entry.embedding_dim)
+    assert np.abs(got - want).max() <= 1e-4
 
 
 def test_registry_is_lazy_and_case_insensitive(monkeypatch):
@@ -135,9 +163,13 @@ def test_missing_weights_raise_without_the_switch(monkeypatch, tmp_path):
 
 
 def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
-    entry = dataclasses.replace(zoo.ENTRIES["uni_v1"])
-    with pytest.raises(NotImplementedError, match="converter is not yet ported"):
-        zoo._convert(entry, {})
+    # named when uni_v1's timm converter was not ported: it converts now
+    entry = dataclasses.replace(zoo.ENTRIES["uni_v1"], spec=_cut(zoo.ENTRIES["uni_v1"].spec))
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in ViT(entry.spec).state_dict().items()}
+    sd = upstream_checkpoint(entry, shapes, seed=3)
+    state = zoo._convert(entry, sd)
+    assert sorted(state) == sorted(shapes) and "blocks.2.ls1" in state
     monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
     tiny, _ = _tiny_entry(monkeypatch)
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -149,8 +181,21 @@ def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
 
 
 def test_safetensors_without_the_module_raises(tmp_path, monkeypatch):
+    """Named when reading .safetensors needed the module: the port reads them
+    with its import blocked, and features match the JAX zoo's on the file."""
     import builtins
 
+    from safetensors.numpy import save_file
+
+    entry, ref = _tiny_entry(monkeypatch)
+    rng = np.random.default_rng(12)
+    sd = {k: rng.normal(0.0, 0.2, v.shape).astype(np.float32)
+          for k, v in torchvision_vit_sd(ref.spec, shared_vit_params(ref.spec)).items()}
+    save_file(sd, str(tmp_path / "vit_b_16.safetensors"))
+    monkeypatch.setenv("ATLASPATCH_WEIGHTS_DIR", str(tmp_path))
+    monkeypatch.delenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", raising=False)
+    want = jax_zoo.build_extractor(ref, device=jax.devices("cpu")[0], max_batch=4).extract_batch(
+        _patches(), batch_size=4)
     real = builtins.__import__
 
     def no_safetensors(name, *args, **kwargs):
@@ -158,10 +203,11 @@ def test_safetensors_without_the_module_raises(tmp_path, monkeypatch):
             raise ImportError("no safetensors here")
         return real(name, *args, **kwargs)
 
-    (tmp_path / "w.safetensors").write_bytes(b"")
     monkeypatch.setattr(builtins, "__import__", no_safetensors)
-    with pytest.raises(ImportError, match="safetensors module"):
-        zoo._load_state_dict(tmp_path / "w.safetensors")
+    got = zoo.build_extractor(entry, device="cpu", max_batch=4).extract_batch(_patches(), batch_size=4)
+    loaded = zoo._load_state_dict(tmp_path / "vit_b_16.safetensors")
+    assert sorted(loaded) == sorted(sd) and all(np.array_equal(loaded[k].numpy(), sd[k]) for k in sd)
+    assert np.abs(got - want).max() <= 1e-4
 
 
 def test_helpers_match_the_jax_zoo(tmp_path):
