@@ -3,16 +3,19 @@
 The port of ``atlaspatch_tpu/cli.py``, with the same command and flag surface
 as the reference CLI (reference: atlas_patch/cli.py:54-696):
 `segment-and-get-coords`, `detect-tissue`, `process` and `info`, with the same
-shared options. Device flags name torch devices: ``cuda`` (the default),
+shared options, and the JAX package's `finetune-sam2` (norms-only SAM2
+fine-tuning, whose ``sam2_finetuned.npz`` both packages' ``--sam2-checkpoint``
+load) and `evaluate-masks` (IoU / F1 / precision / recall of predicted masks
+against truth masks). Device flags name torch devices: ``cuda`` (the default),
 ``cuda:N`` or ``cpu``, with ``gpu`` an alias of ``cuda``. Without a card the
 default device stops the run with an error that names ``--device cpu``; the
 CLI never falls back to the CPU by itself.
 
 Multi-GPU segmentation and embedding (``--seg-data-parallel``,
 ``--feature-parallel``) are not ported: with one visible card they log a
-warning and run on it, with more they are refused. ``verify-weights``
-preflights checkpoints (the port's ``tools/verify_weights.py``); the JAX
-package's ``finetune-sam2`` and ``evaluate-masks`` are not registered here.
+warning and run on it, with more they are refused; `finetune-sam2` refuses
+``--data-parallel`` above 1. ``verify-weights`` preflights checkpoints (the
+port's ``tools/verify_weights.py``).
 
     python -m atlaspatch_tpu_torch.cli segment-and-get-coords SLIDES -o OUT \\
         --patch-size 256 --target-mag 20 [--device cpu]
@@ -612,6 +615,166 @@ def info():
                + ", ".join(ZOO_STATUS["implemented"]))
     if ZOO_STATUS["pending"]:
         click.echo("Registered, tower pending: " + ", ".join(ZOO_STATUS["pending"]))
+
+
+@cli.command("finetune-sam2")
+@click.argument("images_dir", type=click.Path(exists=True, file_okay=False))
+@click.option("--masks", "masks_dir", type=click.Path(exists=True, file_okay=False),
+              required=True,
+              help="Directory of binary masks matching images by stem "
+                   "(optional '_mask' suffix).")
+@click.option("--output", "-o", type=click.Path(), required=True,
+              help="Output directory for checkpoints and the final .npz.")
+@click.option("--epochs", type=click.IntRange(1, None), default=1, show_default=True)
+@click.option("--batch-size", type=click.IntRange(1, None), default=2, show_default=True)
+@click.option("--learning-rate", type=float, default=1e-4, show_default=True)
+@click.option("--sam2-checkpoint", type=click.Path(exists=True), default=None,
+              help="Initial SAM2 weights (.pth/.pt, or the JAX package's .npz); defaults "
+                   "to the auto-resolved checkpoint, or random init with "
+                   "ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1.")
+@click.option("--sam2-config", type=click.Path(exists=True), default=None,
+              help="SAM2 architecture YAML (reference hydra format).")
+@click.option("--image-size", type=click.IntRange(32, None), default=None,
+              help="Override model input size (small-scale experiments).")
+@click.option("--data-parallel", type=click.IntRange(1, None), default=1,
+              show_default=True,
+              help="Shard batches over N devices (not ported: refused above 1).")
+@click.option("--save-every", type=click.IntRange(0, None), default=0,
+              show_default=True, help="Save a checkpoint every N epochs.")
+@click.option("--val-fraction", type=click.FloatRange(0.0, 0.9), default=0.0,
+              show_default=True,
+              help="Hold out this fraction of pairs; report val loss/IoU per epoch.")
+@click.option("--resume", is_flag=True,
+              help="Resume from the latest checkpoint in the output dir.")
+@click.option("--lr-schedule", type=click.Choice(["constant", "cosine"]),
+              default="constant", show_default=True,
+              help="Learning-rate schedule (cosine decays over the full run).")
+@click.option("--warmup-steps", type=click.IntRange(0, None), default=0,
+              show_default=True, help="Linear LR warmup steps.")
+@click.option("--augment", is_flag=True,
+              help="Random horizontal/vertical flips (image+mask together).")
+@click.option("--trainable", type=click.Choice(["norms", "all"]), default="norms",
+              show_default=True,
+              help="'norms' freezes the backbone (the reference recipe for "
+                   "finetuning pretrained weights); 'all' trains every "
+                   "parameter (required when starting from random init).")
+@click.option("--seed", type=int, default=0, show_default=True)
+@click.option("--device", type=str, default="cuda", show_default=True,
+              callback=_validate_device, help="Training device (cuda, cuda:0, cpu).")
+@click.option("--verbose", "-v", is_flag=True, help="Enable debug logging.")
+def finetune_sam2_cmd(images_dir, masks_dir, output, epochs, batch_size,
+                      learning_rate, sam2_checkpoint, sam2_config, image_size,
+                      data_parallel, save_every, val_fraction, resume,
+                      lr_schedule, warmup_steps, augment, trainable, seed,
+                      device, verbose):
+    """Finetune SAM2 on (thumbnail, mask) pairs.
+
+    Default recipe matches the reference's published training (backbone
+    frozen, only normalization layers trained); --trainable all unlocks
+    full training for from-scratch runs. The final sam2_finetuned.npz
+    plugs straight into --sam2-checkpoint.
+    """
+    from atlaspatch_tpu_torch.models.train.loop import finetune_sam2
+
+    _require_devices(device)
+    configure_logging(verbose)
+    bar = ProgressBar(total=None, enabled=not verbose, desc="finetune")
+
+    def on_step(step: int, loss: float) -> None:
+        bar.update(1)
+        if verbose:
+            logger.debug("step %d: loss %.4f", step, loss)
+
+    try:
+        summary = finetune_sam2(
+            Path(images_dir),
+            Path(masks_dir),
+            Path(output),
+            epochs=epochs,
+            batch_size=batch_size,
+            learning_rate=learning_rate,
+            checkpoint=Path(sam2_checkpoint) if sam2_checkpoint else None,
+            config_path=Path(sam2_config) if sam2_config else None,
+            image_size=image_size,
+            data_parallel=data_parallel,
+            save_every=save_every,
+            val_fraction=val_fraction,
+            resume=resume,
+            lr_schedule=lr_schedule,
+            warmup_steps=warmup_steps,
+            augment=augment,
+            trainable=trainable,
+            seed=seed,
+            device=device,
+            on_step=on_step,
+        )
+    finally:
+        bar.close()
+    if summary["first_loss"] is None:
+        click.echo(
+            f"Nothing left to train (resumed at step {summary['steps']})."
+        )
+    else:
+        resumed = (
+            f" (resumed at step {summary['resumed_at']})"
+            if summary["resumed_at"]
+            else ""
+        )
+        click.echo(
+            f"Finetuned {summary['steps_this_run']} step(s) over "
+            f"{summary['pairs']} pair(s){resumed}: "
+            f"loss {summary['first_loss']:.4f} → {summary['final_loss']:.4f}"
+        )
+    if "val_loss" in summary:
+        click.echo(
+            f"Validation ({summary['val_pairs']} held-out pair(s)): "
+            f"loss {summary['val_loss']:.4f}, IoU {summary['val_iou']:.4f}"
+        )
+    click.echo(f"Checkpoint: {summary['checkpoint']}")
+
+
+@cli.command("evaluate-masks")
+@click.argument("pred_dir", type=click.Path(exists=True, file_okay=False))
+@click.option("--truth", "truth_dir", type=click.Path(exists=True, file_okay=False),
+              required=True,
+              help="Ground-truth binary masks, stem-matched to predictions.")
+@click.option("--threshold", type=click.IntRange(0, 255), default=127,
+              show_default=True, help="Grayscale > threshold counts as tissue.")
+@click.option("--csv", "csv_path", type=click.Path(), default=None,
+              help="Also write per-slide metrics as CSV.")
+def evaluate_masks(pred_dir, truth_dir, threshold, csv_path):
+    """Score predicted tissue masks against ground truth (IoU/F1/P/R).
+
+    Predictions are detect-tissue's <stem>_mask_bw.png (or any stem-matched
+    binary masks); truth masks match by stem with an optional '_mask'
+    suffix. Reproduces the reference's published quality comparison
+    (F1 vs baselines) on user annotations.
+    """
+    from atlaspatch_tpu_torch.utils.maskeval import score_mask_dirs
+
+    rows, summary = score_mask_dirs(
+        Path(pred_dir), Path(truth_dir), threshold=threshold
+    )
+    for r in rows:
+        click.echo(
+            f"{r['slide']}: IoU {r['iou']:.4f}  F1 {r['f1']:.4f}  "
+            f"P {r['precision']:.4f}  R {r['recall']:.4f}"
+        )
+    click.echo(
+        f"Mean over {summary['n']} slide(s): IoU {summary['iou']:.4f}  "
+        f"F1 {summary['f1']:.4f}  P {summary['precision']:.4f}  "
+        f"R {summary['recall']:.4f}"
+    )
+    if csv_path:
+        import csv as _csv
+
+        with open(csv_path, "w", newline="") as f:
+            writer = _csv.DictWriter(
+                f, fieldnames=["slide", "iou", "f1", "precision", "recall"]
+            )
+            writer.writeheader()
+            writer.writerows(rows)
+        click.echo(f"CSV: {csv_path}")
 
 
 @cli.command("verify-weights")

@@ -253,6 +253,67 @@ def hf_to_flax(sd: Mapping[str, Any], cfg) -> dict:
     }
 
 
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested tree → '/'-joined keys, as the JAX package's
+    ``tools/convert_weights.py::_flatten`` writes its ``.npz`` archives."""
+    out: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            out.update(flatten(value, path))
+        else:
+            out[path] = np.asarray(value)
+    return out
+
+
+def torch_to_flax_flat(model_or_state_dict: Any, cfg) -> dict[str, np.ndarray]:
+    """The port's SAM2ImageModel (or its state dict) → the JAX package's
+    parameter tree as '/'-joined float32 numpy arrays: the keys, shapes and
+    layouts of the JAX ``.npz`` archives, which both packages'
+    ``--sam2-checkpoint`` load. Inverse of :func:`flax_to_torch`."""
+    sd = model_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in flatten(hf_to_flax(sd, cfg)).items()}
+
+
+def flax_key_map(model: torch.nn.Module) -> dict[str, str]:
+    """{state-dict key of ``model``: the '/'-joined key of the JAX parameter
+    it converts to}, read off ``hf_to_flax`` itself: every tensor is stood in
+    for by a constant view of its shape holding its index, and each Flax leaf
+    names the index it came from. Keys with no JAX parameter (the mask prompt
+    encoder, the second name of the tied Fourier projection) are left out."""
+    sd = model.state_dict()
+    keys = list(sd)
+    stand_in = {k: np.broadcast_to(np.float32(i), tuple(sd[k].shape)) for i, k in enumerate(keys)}
+    return {keys[int(leaf.flat[0])]: path for path, leaf in flatten(hf_to_flax(stand_in, model.cfg)).items()}
+
+
+def _zeros_like_state(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    return {k: np.broadcast_to(np.float32(0), tuple(t.shape)) for k, t in model.state_dict().items()}
+
+
+def to_flax_layout(model: torch.nn.Module, tensors: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """{Flax key: tensor shaped like ``model``'s} (a gradient or an optimizer
+    moment) → {Flax key: float32 array in the JAX parameter's layout}: the
+    tensors ride through ``hf_to_flax`` in their parameters' places."""
+    port_of = {flax_key: key for key, flax_key in flax_key_map(model).items()}
+    sd: dict[str, Any] = _zeros_like_state(model)
+    sd.update({port_of[k]: v for k, v in tensors.items()})
+    flat = flatten(hf_to_flax(sd, model.cfg))
+    return {k: np.ascontiguousarray(flat[k], np.float32) for k in tensors}
+
+
+def from_flax_layout(model: torch.nn.Module, arrays: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`to_flax_layout`: {Flax key: array in the JAX
+    layout} → {Flax key: float32 CPU tensor shaped like ``model``'s}."""
+    port_of = {flax_key: key for key, flax_key in flax_key_map(model).items()}
+    flat = flatten(hf_to_flax(_zeros_like_state(model), model.cfg))
+    flat.update(arrays)
+    sd = flax_to_torch(unflatten(flat), model.cfg)
+    return {k: sd[port_of[k]] for k in arrays}
+
+
 def unflatten(flat: Mapping[str, Any]) -> dict:
     """'a/b/c'-keyed arrays (the JAX package's .npz archives) → nested tree."""
     tree: dict = {}

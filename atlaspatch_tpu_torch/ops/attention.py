@@ -25,10 +25,20 @@ sm_90a at first use and loaded with ctypes. ``kernel_variant`` picks it:
   T_q <= 16 or at head dims other than 64 and 96.
 
 ``reference_attention`` is the plain PyTorch version of the same function.
-``attention`` dispatches on the tensor's device: the plain version for a CPU
-tensor, a kernel for a CUDA tensor (or an error). There is no fallback from
-one kernel to another or to the plain version, and no switch that selects the
-plain version on the card.
+``attention`` dispatches on autograd state, then on the tensor's device:
+
+- a call that autograd records (grad mode on and q, k or v requiring a
+  gradient) runs ``reference_attention``, on any device, and adds one to
+  ``attention.plain_grad_calls``. The kernels are forward-only: their output
+  has no ``grad_fn``, and ``flash_attention`` refuses such inputs. The plain
+  products are also what the JAX package's train step differentiates, since
+  its Pallas kernel has no VJP;
+- any other call runs the plain version for a CPU tensor and a kernel for a
+  CUDA tensor (or an error).
+
+The choice is made from autograd state before any launch, never from a
+failure: a kernel that fails to build or launch raises. There is no switch
+that selects the plain version for a forward on the card.
 """
 
 from __future__ import annotations
@@ -182,7 +192,9 @@ def flash_attention(
     input dtype, as a (B, H, T_q, D) view of a (B, T_q, H, D) tensor, so the
     caller's merge of the heads is free. Launches the body ``kernel_variant``
     picks; ``flash_attention.launches`` counts kernel launches, and
-    ``flash_attention.variant_launches`` counts them by variant."""
+    ``flash_attention.variant_launches`` counts them by variant. Refuses
+    inputs that require a gradient while grad mode is on: the output has no
+    ``grad_fn``, so a backward pass would get no gradient through it."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected (B, H, T, D) tensors, got {q.shape}, {k.shape}, {v.shape}")
     B, H, Tq, D = q.shape
@@ -191,6 +203,11 @@ def flash_attention(
         raise ValueError(f"k/v shapes {k.shape}, {v.shape} do not match q {q.shape}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention needs CUDA tensors on one device, got {q.device}")
+    if _records_grad(q, k, v):
+        raise ValueError(
+            "flash_attention is forward-only and its output carries no gradient, but an input "
+            "requires one; differentiate reference_attention (attention() routes such calls)"
+        )
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if D % 8 or not 8 <= D <= 128:
@@ -252,9 +269,16 @@ flash_attention.variant_launches = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    """Zero ``flash_attention.launches`` and its per-variant counts."""
+    """Zero ``flash_attention.launches``, its per-variant counts and
+    ``attention.plain_grad_calls``."""
     flash_attention.launches = 0
     flash_attention.variant_launches.clear()
+    attention.plain_grad_calls = 0
+
+
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def reference_attention(q, k, v, sm_scale=None):
@@ -314,7 +338,15 @@ def f32_error_limit(q, k, v, sm_scale=None):
 
 
 def attention(q, k, v, sm_scale=None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """The plain version where autograd records the call (counted in
+    ``attention.plain_grad_calls``) or the tensors are on the CPU; else the
+    CUDA kernel."""
+    if _records_grad(q, k, v):
+        attention.plain_grad_calls += 1
+        return reference_attention(q, k, v, sm_scale)
     if q.device.type == "cpu":
         return reference_attention(q, k, v, sm_scale)
     return flash_attention(q, k, v, sm_scale)
+
+
+attention.plain_grad_calls = 0

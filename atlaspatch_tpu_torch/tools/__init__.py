@@ -1,1 +1,1 @@
-"""Measurement scripts for the port's kernels, run on the card by hand."""
+"""Command-line tools: weight conversion and preflight, the synthetic annotated corpus, and the measurement scripts for the port's kernels."""

@@ -21,17 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
-
-def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested param tree → ``/``-joined flat dict (the archive's keys)."""
-    out: dict[str, np.ndarray] = {}
-    for key, value in tree.items():
-        path = f"{prefix}/{key}" if prefix else str(key)
-        if isinstance(value, dict):
-            out.update(_flatten(value, path))
-        else:
-            out[path] = np.asarray(value)
-    return out
+from atlaspatch_tpu_torch.models.sam2.convert import flatten
 
 
 def convert_encoder(name: str, src: Path, out_dir: Path) -> Path:
@@ -41,7 +31,7 @@ def convert_encoder(name: str, src: Path, out_dir: Path) -> Path:
     params = _convert_flax(entry, _load_state_dict(Path(src)))
     out_dir.mkdir(parents=True, exist_ok=True)
     out_path = out_dir / f"{name}.npz"
-    np.savez(out_path, **_flatten(params))
+    np.savez(out_path, **flatten(params))
     return out_path
 
 
@@ -52,7 +42,7 @@ def convert_sam2(src: Path, out_dir: Path) -> Path:
     params = hf_to_flax(load_checkpoint(str(src)), SAM2Config.tiny())
     out_dir.mkdir(parents=True, exist_ok=True)
     out_path = out_dir / "sam2_hiera_tiny.npz"
-    np.savez(out_path, **_flatten(params))
+    np.savez(out_path, **flatten(params))
     return out_path
 
 

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths, its command line and its checkpoint loading, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths, its command line, its checkpoint loading and its SAM2 fine-tuning, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -16,8 +16,9 @@ Phases, one line each (any failure exits non-zero with no result line):
           body's SASS checked for HGMMA and UTMALDG, flash_attn.so's for TF32
           HMMA
   kernel  the attention kernel against its plain PyTorch version at the shapes
-          the main path hands it (every trunk block of the --fast preset and
-          of the float32 default) plus ragged, q-pool and FMA-body checks;
+          the main path hands it (every trunk block of the --fast preset, of
+          the float32 default at batch 1 (segmentation, detect-tissue) and at
+          batch 2 (finetune-sam2's validation forward)) plus ragged, q-pool and FMA-body checks;
           each line gives the variant launched, the kernel's time by CUDA
           events and its device time per call by torch.profiler, the plain
           version's and F.scaled_dot_product_attention's time (SDPA's device
@@ -171,13 +172,36 @@ Phases, one line each (any failure exits non-zero with no result line):
           load + convert s, extract_batch bf16 patches/s at batch 32 (warm,
           median of 3 over 128 patches) per encoder and the peak memory,
           each beside the card's name and power limit
+  finetune SAM2 fine-tuning at full Hiera-tiny width (input 1024, float32,
+          batch 2; random weights written to an init .npz): 10 pairs of
+          1024x768 from the port's synthetic corpus; finetune-sam2 --epochs 2
+          --val-fraction 0.2 --save-every 1 --trainable norms in process
+          (TF32 switched on first: the trainer must turn it off), then
+          --resume --epochs 3 ("resumed at step 8"); detect-tissue with the
+          fine-tuned sam2_finetuned.npz over the 2 held-out images, and
+          evaluate-masks --csv of its masks against the truth. Checks: every
+          loss finite; 0 kernel launches and 12 plain autograd attention
+          calls in each train step, 12 launches (9 tf32x3, 3 f32_win) in each
+          validation and detect-tissue forward; every non-norm tensor of the
+          archive byte-identical to init, some norm tensor moved; one row per
+          held-out pair in stdout and the CSV; one train step from the same
+          init and batch on the card and on the CPU (loss within 1e-4
+          relative, norm gradients within FT_GRAD_BOUND of each tensor's
+          largest, measured and printed), and the same step with TF32
+          switched on after the step is built, a control that must exceed
+          FT_GRAD_BOUND; flash_attention refuses a CUDA
+          input that requires grad. Prints the train step's ms by host clock
+          (median after the first), images/s, one step's device-busy ms by
+          torch.profiler, the validation forward's ms, the peak memory and
+          the phase's seconds, beside the card's name and power limit
 
 Then one JSON line with the kernel record (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
 (f1)+(f3) runner pass; ``process_launches``: the process phase's;
 ``cli_launches``: the cli phase's three in-process commands;
 ``weights_launches``: the weights phase's process, on existing coordinates;
-the encoder path holds no TPU kernel of its own), the card's name and power limit,
+the encoder path holds no TPU kernel of its own; ``finetune_launches``: the
+finetune phase's validation and detect-tissue forwards), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -444,8 +468,10 @@ def phase_kernel(state):
     cfg = SAM2Config.tiny()
     fast = trunk_attention_shapes(cfg, 768, 8)
     default = trunk_attention_shapes(cfg, 1024, 1)
+    pair = trunk_attention_shapes(cfg, 1024, 2)  # finetune-sam2's validation forward, batch 2
     checks = [(s, "bfloat16", f"fast block {i}") for i, s in enumerate(fast)]
     checks += [(s, "float32", f"f32-1024 block {i}") for i, s in enumerate(default)]
+    checks += [(s, "float32", f"f32-1024x2 block {i}") for i, s in enumerate(pair)]
     checks += [
         ((2, 1, 196, 196, 96), "float32", "ragged window"),
         ((1024, 8, 49, 196, 96), "float32", "q-pool 49/196"),
@@ -538,7 +564,8 @@ def phase_kernel(state):
         f"one TF32 pass in float32 max abs {tf32_fault['max_abs']:.3g} err/limit "
         f"{tf32_fault['err/limit']:.3g} [{state['card']}]")
     f32_rows = rows[len(fast) : len(fast) + len(default)]
-    for name, group in (("--fast", fast_rows), ("float32", f32_rows)):
+    pair_rows = rows[len(fast) + len(default) : len(fast) + len(default) + len(pair)]
+    for name, group in (("--fast", fast_rows), ("float32", f32_rows), ("float32 batch-2", pair_rows)):
         log(f"kernel one {name} forward's 12 calls: kernel {sum(r['ms'] for r in group):.3f} ms "
             f"(device {sum(r['dev_ms'] for r in group):.3f}), "
             f"plain {sum(r['plain_ms'] for r in group):.3f} ms, sdpa "
@@ -546,7 +573,7 @@ def phase_kernel(state):
             ", bound "
             f"{sum(max(r['op_ms'], r['byte_ms']) for r in group):.3f} ms"
             + (f" (3xTF32 bound {sum(tf32x3_bound(r['shape']) for r in group):.3f} ms)"
-               if name == "float32" else "")
+               if name.startswith("float32") else "")
             + f" [{state['card']}]")
     win = [r for r in f32_rows if r["variant"] == "f32_win"]
     log(f"kernel the float32 forward's {len(win)} f32_win calls: {sum(r['ms'] for r in win):.4f} ms "
@@ -2168,6 +2195,284 @@ def _drive_weights(state, tmp, tiff_root):
     state["weights"] = dict(report=report, gbps=gbps, load_s=load_s, peak_gib=peak_gib)
 
 
+# --- the finetune phase: finetune-sam2 → detect-tissue → evaluate-masks ------------------
+FT_PAIRS = 10  # 1024x768: 8 train, 2 held out at --val-fraction 0.2
+FT_ARGS = ["--batch-size", "2", "--val-fraction", "0.2", "--save-every", "1", "--trainable", "norms"]
+# card vs CPU norm gradients, per tensor: max |diff| <= this x max |CPU gradient|; the
+# sound step reads ~5e-6 and the step with TF32 switched on must read above it
+FT_GRAD_BOUND = 1e-4
+
+
+def _write_ft_corpus(root: Path, n: int, width: int, height: int) -> tuple[Path, Path]:
+    """n pairs of the port's synthetic corpus (seeds 0..n-1), written by n
+    generate_corpus calls on threads (numpy and PNG encoding release the GIL)."""
+    from atlaspatch_tpu_torch.tools.synthetic_corpus import generate_corpus
+
+    with ThreadPoolExecutor(max_workers=min(n, 6)) as pool:
+        dirs = list(pool.map(lambda i: generate_corpus(root, n=1, width=width, height=height, seed=i,
+                                                       prefix=f"syn{i:02d}_"), range(n)))
+    return dirs[0]
+
+
+def _counting_train_steps(record: dict):
+    """Wrap models.train.finetune's step factories, which the loop looks up at
+    each run, so every train step and validation forward records its host
+    time, loss, attention launches (by variant) and plain autograd calls;
+    returns the function that puts the factories back."""
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+    from atlaspatch_tpu_torch.ops import attention as A
+
+    real = ft.make_train_step, ft.make_eval_step
+
+    def counted(kind, step):
+        def run(images, targets):
+            launches, grads = A.flash_attention.launches, A.attention.plain_grad_calls
+            variants = Counter(A.flash_attention.variant_launches)
+            t0 = time.perf_counter()
+            out = step(images, targets)
+            loss = float(out if kind == "train" else out[0].mean())  # waits for the device
+            record[kind].append(dict(s=time.perf_counter() - t0, loss=loss,
+                                     launches=A.flash_attention.launches - launches,
+                                     grad_calls=A.attention.plain_grad_calls - grads,
+                                     variants=dict(Counter(A.flash_attention.variant_launches) - variants)))
+            return out
+        return run
+
+    ft.make_train_step = lambda model, optimizer, lr: counted("train", real[0](model, optimizer, lr))
+    ft.make_eval_step = lambda model: counted("eval", real[1](model))
+
+    def restore():
+        ft.make_train_step, ft.make_eval_step = real
+    return restore
+
+
+def _one_train_step(init: Path, cfg, images, targets, device: str, tf32: bool = False):
+    """(model, loss, {Flax key: norm gradient in the JAX layout}) of one
+    norms-only AdamW step from ``init`` on ``device``. TF32 is on when the
+    step is built, which must turn it off; ``tf32`` switches it on again for
+    the step itself, a control."""
+    import torch
+
+    from atlaspatch_tpu_torch.models.sam2.convert import load_into, load_npz, to_flax_layout
+    from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+
+    model = SAM2ImageModel(cfg)
+    load_into(model, load_npz(init, cfg))
+    model.to(device)
+    params = ft.trainable_parameters(model, "norms")
+    optimizer, lr = ft.make_optimizer(params.values())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = device != "cpu"
+    step = ft.make_train_step(model, optimizer, lr)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError(f"finetune: the train step built on {device} left TF32 on")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        loss = float(step(images, targets))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return model, loss, to_flax_layout(model, {k: t.grad for k, t in params.items()})
+
+
+def phase_finetune(state):
+    """finetune-sam2 (Hiera-tiny, 1024, float32, batch 2) on the synthetic
+    annotated corpus, its resume, detect-tissue with the fine-tuned archive
+    and evaluate-masks, on the card."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    try:
+        _drive_finetune(state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _drive_finetune(state, tmp, device="cuda", size=(1024, 768)):
+    import csv
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+    from atlaspatch_tpu_torch.models.sam2.convert import torch_to_flax_flat
+    from atlaspatch_tpu_torch.models.sam2.model import init_params
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+    from atlaspatch_tpu_torch.models.train.loop import collect_pairs, load_pair
+    from atlaspatch_tpu_torch.ops import attention as A
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    images, masks = _write_ft_corpus(tmp / "corpus", FT_PAIRS, *size)
+    cfg = SAM2Config.tiny()
+    n_attn = sum(cfg.blocks_per_stage)  # trunk attention calls per forward: 12 at Hiera-tiny
+    n_launch = n_attn if on_card else 0  # kernel launches per forward without a gradient
+    init = tmp / "init.npz"
+    np.savez(init, **torch_to_flax_flat(init_params(cfg, seed=0), cfg))  # random weights, written once
+    out = tmp / "ft"
+    setup_s = time.perf_counter() - t_phase
+    dev_args = [] if on_card else ["--device", device]
+
+    # 1. finetune-sam2 --epochs 2, then --resume --epochs 3, in process, with TF32 on before
+    record = {"train": [], "eval": []}
+    restore = _counting_train_steps(record)
+    runs = {}
+    try:
+        for label, extra in (("run", ["--epochs", "2"]), ("resume", ["--resume", "--epochs", "3"])):
+            if on_card:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+            n_train, n_eval = len(record["train"]), len(record["eval"])
+            lines, wall, launches, _ = _cli_main(["finetune-sam2", images, "--masks", masks, "-o", out, *FT_ARGS,
+                                                  *extra, "--sam2-checkpoint", init, *dev_args])
+            if on_card and (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
+                raise AssertionError(f"finetune {label}: the trainer left TF32 on")
+            runs[label] = dict(lines=lines, wall=wall, launches=launches, train=record["train"][n_train:],
+                               eval=record["eval"][n_eval:])
+    finally:
+        restore()
+    n_train_pairs = FT_PAIRS - round(0.2 * FT_PAIRS)
+    want = {"run": (8, f"Finetuned 8 step(s) over {n_train_pairs} pair(s): loss "),
+            "resume": (4, f"Finetuned 4 step(s) over {n_train_pairs} pair(s) (resumed at step 8): loss ")}
+    for label, run in runs.items():
+        steps, head = want[label]
+        if not run["lines"][0].startswith(head) or not run["lines"][1].startswith("Validation (2 held-out pair(s))"):
+            raise AssertionError(f"finetune {label} printed {run['lines']}")
+        if len(run["train"]) != steps or len(run["eval"]) != (2 if label == "run" else 1):
+            raise AssertionError(f"finetune {label}: {len(run['train'])} train steps, {len(run['eval'])} "
+                                 "validation forwards")
+        for s in run["train"]:
+            if not np.isfinite(s["loss"]) or s["launches"] or s["grad_calls"] != n_attn:
+                raise AssertionError(f"finetune {label} train step: {s}")
+        for s in run["eval"]:
+            if not np.isfinite(s["loss"]) or s["launches"] != n_launch or s["grad_calls"] \
+                    or (on_card and s["variants"] != {"tf32x3": 9, "f32_win": 3}):
+                raise AssertionError(f"finetune {label} validation forward: {s}")
+        if run["launches"] != n_launch * len(run["eval"]):
+            raise AssertionError(f"finetune {label}: {run['launches']} attention launches")
+    ckpts = sorted(p.name for p in (out / "checkpoints").glob("step_*.npz"))
+    if ckpts != ["step_00000004.npz", "step_00000008.npz", "step_00000012.npz"]:
+        raise AssertionError(f"finetune checkpoints {ckpts}")
+
+    # 2. only the norm tensors moved, every other one byte for byte init's
+    with np.load(init) as a, np.load(out / "sam2_finetuned.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError("finetune: sam2_finetuned.npz keys differ from init.npz")
+        moved = {k for k in a.files if a[k].tobytes() != b[k].tobytes()}
+        norms = {k for k in a.files if any("norm" in n for n in k.split("/")[:-1])}
+    if not moved or not moved <= norms:
+        raise AssertionError(f"finetune: moved {sorted(moved - norms)[:5]} outside the norms, "
+                             f"{len(moved)} of {len(norms)} norm tensors moved")
+
+    # 3. detect-tissue with the fine-tuned archive over the held-out images, then evaluate-masks
+    held = tmp / "held_out"
+    held.mkdir()
+    val_order = np.random.default_rng(0).permutation(FT_PAIRS)[: FT_PAIRS - n_train_pairs]
+    pairs = collect_pairs(images, masks)
+    held_pairs = [pairs[i] for i in val_order]
+    for img, _ in held_pairs:
+        (held / img.name).symlink_to(img)
+    (tmp / "mpp.csv").write_text("wsi,mpp\n" + "".join(f"{img.name},2.0\n" for img, _ in held_pairs))
+    lines, detect_wall, detect_launches, forwards = _cli_main(
+        ["detect-tissue", held, "--output", tmp / "detect", "--mpp-csv", tmp / "mpp.csv",
+         "--sam2-checkpoint", out / "sam2_finetuned.npz", *dev_args])
+    variants = dict(A.flash_attention.variant_launches)
+    if f"Created {len(held_pairs)} mask overlay(s), failures: 0" not in lines:
+        raise AssertionError(f"finetune detect-tissue printed {lines}")
+    if forwards != len(held_pairs) or detect_launches != n_launch * forwards \
+            or (on_card and variants != {"tf32x3": 9 * forwards, "f32_win": 3 * forwards}):
+        raise AssertionError(f"finetune detect-tissue: {detect_launches} launches {variants} in {forwards} forwards")
+    lines, _, eval_launches, _ = _cli_main(["evaluate-masks", tmp / "detect" / "visualization", "--truth", masks,
+                                           "--csv", tmp / "scores.csv"])
+    with open(tmp / "scores.csv") as f:
+        rows = list(csv.DictReader(f))
+    held_stems = sorted(img.stem for img, _ in held_pairs)
+    if [ln.split(":")[0] for ln in lines[: len(held_pairs)]] != held_stems or sorted(r["slide"] for r in rows) \
+            != held_stems or eval_launches or not lines[len(held_pairs)].startswith("Mean over 2 slide(s)"):
+        raise AssertionError(f"finetune evaluate-masks printed {lines}, CSV rows {rows}")
+
+    # 4. one train step from init.npz on the card and on the CPU, the same batch
+    loaded = [load_pair(img, mask, cfg.image_size) for img, mask in pairs[:2]]
+    batch = np.stack([im for im, _ in loaded]), np.stack([mk for _, mk in loaded])
+    card_model, card_loss, card_grads = _one_train_step(init, cfg, *batch, device)
+    t0 = time.perf_counter()
+    _, cpu_loss, cpu_grads = _one_train_step(init, cfg, *batch, "cpu")
+    cpu_step_s = time.perf_counter() - t0
+
+    def grad_rel(grads):
+        return max(float(np.abs(grads[k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+                   for k, g in cpu_grads.items())
+
+    loss_rel, sound_rel = abs(card_loss - cpu_loss) / abs(cpu_loss), grad_rel(card_grads)
+    if not (loss_rel <= 1e-4 and sound_rel <= FT_GRAD_BOUND):
+        raise AssertionError(f"finetune card vs CPU: loss rel {loss_rel}, norm gradients {sound_rel} of their largest")
+    control_rel = control_loss_rel = None
+    if on_card:  # the control: the bound must catch a step that runs its products in TF32
+        _, control_loss, control_grads = _one_train_step(init, cfg, *batch, device, tf32=True)
+        control_rel, control_loss_rel = grad_rel(control_grads), abs(control_loss - cpu_loss) / abs(cpu_loss)
+        if not control_rel > FT_GRAD_BOUND:
+            raise AssertionError(f"finetune: a step in TF32 passes the gradient bound {FT_GRAD_BOUND}: {control_rel}")
+        del control_grads
+
+    # 5. the refusal, one profiled step and the eval forward's time
+    step_busy_ms = eval_ms = None
+    if on_card:
+        q = torch.randn(1, 2, 64, 64, device=device, requires_grad=True)
+        try:
+            A.flash_attention(q, q, q)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("flash_attention took a CUDA input that requires grad")
+        if "forward-only" not in refusal:
+            raise AssertionError(f"flash_attention refused a CUDA input that requires grad for another reason: {refusal}")
+        params = ft.trainable_parameters(card_model, "norms")
+        optimizer, lr = ft.make_optimizer(params.values())
+        step = ft.make_train_step(card_model, optimizer, lr)
+        float(step(*batch))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(step(*batch))
+        rows = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        step_busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        if not step_busy_ms:
+            raise AssertionError("the profiler recorded no device time in the train step")
+        for e in rows[:10]:
+            log(f"finetune profile {e.self_device_time_total / 1e3:8.3f} ms "
+                f"{100 * e.self_device_time_total / 1e3 / step_busy_ms:5.1f}% x{e.count:<4d} {e.key[:100]}")
+    else:
+        refusal = "not checked off the card"
+    train_ms = 1e3 * statistics.median(s["s"] for s in [*runs["run"]["train"][1:], *runs["resume"]["train"]])
+    eval_ms = 1e3 * statistics.median(s["s"] for s in [*runs["run"]["eval"][1:], *runs["resume"]["eval"]])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    losses = [s["loss"] for r in runs.values() for s in r["train"]]
+    state["finetune_launches"] = sum(r["launches"] for r in runs.values()) + detect_launches
+    phase_s = time.perf_counter() - t_phase
+    log(f"finetune corpus {FT_PAIRS} pairs of {size[0]}x{size[1]} + init.npz: {setup_s:.1f} s; "
+        f"finetune-sam2 --epochs 2 {runs['run']['wall']:.3f} s: {runs['run']['lines'][0]} | "
+        f"{runs['run']['lines'][1]}; --resume --epochs 3 {runs['resume']['wall']:.3f} s: {runs['resume']['lines'][0]}")
+    log(f"finetune losses {[round(x, 4) for x in losses]} all finite; {len(moved)} of {len(norms)} norm tensors "
+        f"moved, every other tensor byte-identical to init.npz; TF32 on before each run, off after")
+    log(f"finetune launches: 0 in each of {len(losses)} train steps ({n_attn} plain autograd attention calls each), "
+        f"{n_launch} in each of {len(runs['run']['eval']) + len(runs['resume']['eval'])} validation forwards "
+        f"({runs['run']['eval'][0]['variants']}); detect-tissue {detect_launches} in {forwards} forwards {variants}")
+    log(f"finetune detect-tissue + evaluate-masks over {len(held_pairs)} held-out pairs: {detect_wall:.3f} s; "
+        + " | ".join(lines[: len(held_pairs) + 1]))
+    log(f"finetune card vs CPU, one norms step at batch 2: loss {card_loss:.6f} vs {cpu_loss:.6f} (rel "
+        f"{loss_rel:.3g} <= 1e-4); norm gradients max |diff| {sound_rel:.3g} of each tensor's largest "
+        f"(bound {FT_GRAD_BOUND}); control, the same step with TF32 on: gradients {control_rel and f'{control_rel:.3g}'}, "
+        f"loss rel {control_loss_rel and f'{control_loss_rel:.3g}'}; CPU step {cpu_step_s:.1f} s; refusal: {refusal}")
+    log(f"finetune train step {train_ms:.1f} ms by host clock (median of {len(losses) - 1} after the first), "
+        f"{2e3 / train_ms:.2f} images/s; device busy {step_busy_ms and round(step_busy_ms, 2)} ms per step "
+        f"(torch.profiler); validation forward {eval_ms:.1f} ms (batch 2); peak memory {peak_gib:.2f} GiB; "
+        f"phase {phase_s:.1f} s [{state.get('card', device)}]")
+    state["finetune"] = dict(train_ms=train_ms, busy_ms=step_busy_ms, eval_ms=eval_ms, peak_gib=peak_gib,
+                             phase_s=phase_s, loss_rel=loss_rel, grad_rel=sound_rel, control_rel=control_rel)
+
+
 def main() -> int:
     import torch
 
@@ -2182,7 +2487,8 @@ def main() -> int:
         for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
                             ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
-                            ("process", phase_process), ("cli", phase_cli), ("weights", phase_weights)):
+                            ("process", phase_process), ("cli", phase_cli), ("weights", phase_weights),
+                            ("finetune", phase_finetune)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -2195,10 +2501,11 @@ def main() -> int:
             shutil.rmtree(state.pop("tiff_tmp"), ignore_errors=True)
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
                   tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
-                  cli_launches=state["cli_launches"], weights_launches=state["weights_launches"])
+                  cli_launches=state["cli_launches"], weights_launches=state["weights_launches"],
+                  finetune_launches=state["finetune_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
-            "process_launches", "cli_launches", "weights_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "process_launches", "cli_launches", "weights_launches", "finetune_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
     print(state["card"])

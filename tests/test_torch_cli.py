@@ -151,6 +151,129 @@ def test_skip_existing_second_pass_segments_nothing(runs):
     assert got == want and "Completed 0 slide(s), failures: 0" in want
 
 
+# ------------------------------------------------------------ finetune-sam2 → detect-tissue → evaluate-masks
+FINETUNE_ARGS = ["--epochs", "2", "--batch-size", "2", "--val-fraction", "0.2", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def finetunes(tmp_path_factory):
+    """Both CLIs' finetune-sam2 over one synthetic corpus (5 pairs of 256x192:
+    4 train, 1 held out) from one JAX init archive, at the miniature config;
+    then the port's detect-tissue with its sam2_finetuned.npz over the
+    held-out image, and evaluate-masks of that mask against the truth."""
+    import shutil
+
+    from atlaspatch_tpu.tools.convert_weights import _flatten
+    from atlaspatch_tpu_torch.tools.synthetic_corpus import generate_corpus
+    from torch_port_helpers import shared_flax_params
+
+    tmp = tmp_path_factory.mktemp("finetune")
+    images, masks = generate_corpus(tmp / "corpus", n=5, width=256, height=192)
+    init = tmp / "init.npz"
+    np.savez(init, **_flatten(shared_flax_params(0)))
+    record = {}
+    with pytest.MonkeyPatch.context() as mp:
+        shared_cli_weights(mp, tmp)
+        for pkg in CLI_PACKAGES:
+            out = tmp / f"ft-{pkg}"
+            result = invoke_cli(pkg, ["finetune-sam2", images, "--masks", masks, "-o", out, *FINETUNE_ARGS,
+                                      "--sam2-checkpoint", init], catch_exceptions=False)
+            record[pkg] = dict(out=out, result=result, npz=out / "sam2_finetuned.npz")
+        # the held-out pair: the validation split of np.random.default_rng(seed 0)
+        held = sorted(images.iterdir())[int(np.random.default_rng(0).permutation(5)[0])]
+        slides = tmp / "held_out"
+        slides.mkdir()
+        shutil.copy(held, slides / held.name)
+        (tmp / "mpp.csv").write_text(f"wsi,mpp\n{held.name},0.5\n")
+        port = record[CLI_PACKAGES[1]]
+        detect = invoke_cli(CLI_PACKAGES[1], ["detect-tissue", slides, "--output", tmp / "detect", "--device", "cpu",
+                                              "--mpp-csv", tmp / "mpp.csv", "--sam2-checkpoint", port["npz"]],
+                            catch_exceptions=False)
+        scored = invoke_cli(CLI_PACKAGES[1], ["evaluate-masks", tmp / "detect" / "visualization", "--truth", masks,
+                                              "--csv", tmp / "scores.csv"], catch_exceptions=False)
+        record.update(held=held.stem, detect=detect, scored=scored, csv=(tmp / "scores.csv").read_text(),
+                      init=init, tmp=tmp)
+        yield record
+    shutil.rmtree(tmp)
+
+
+def _numbers(line: str) -> tuple[str, list[float]]:
+    import re
+
+    pattern = r"\d+\.\d{4}"
+    return re.sub(pattern, "<x>", line), [float(x) for x in re.findall(pattern, line)]
+
+
+def test_finetune_sam2_prints_the_jax_lines(finetunes):
+    """The same lines; each loss and IoU printed to 4 decimals within 1e-4 of
+    JAX's (float32 sums in another order can round the last digit apart)."""
+    lines = {}
+    for pkg in CLI_PACKAGES:
+        run = finetunes[pkg]
+        assert run["result"].exit_code == 0, run["result"].output
+        lines[pkg] = stdout_lines(run["result"], run["out"])
+    jax_lines, port_lines = (lines[p] for p in CLI_PACKAGES)
+    assert port_lines[0].startswith("Finetuned 4 step(s) over 4 pair(s): loss ")
+    assert port_lines[1].startswith("Validation (1 held-out pair(s)): loss ")
+    assert port_lines[2] == "Checkpoint: <out>/sam2_finetuned.npz" and len(port_lines) == 3
+    for got, want in zip(port_lines, jax_lines, strict=True):
+        (text, values), (want_text, want_values) = _numbers(got), _numbers(want)
+        assert text == want_text
+        np.testing.assert_allclose(values, want_values, rtol=0, atol=1e-4 + 1e-9)
+
+
+def test_finetuned_archive_has_the_jax_keys_and_loads_in_both(finetunes):
+    """sam2_finetuned.npz: JAX's keys, shapes and dtypes, only the norm
+    tensors moved from init, and the parameter changes within the three-step
+    bar of JAX's; JAX's SAM2Predictor loads the port's archive and the
+    port's loads JAX's."""
+    import jax
+
+    from atlaspatch_tpu.core.config import SegmentationConfig as JaxSegmentationConfig
+    from atlaspatch_tpu.models.sam2.config import SAM2Config as JaxSAM2Config
+    from atlaspatch_tpu.services.segmentation import SAM2Predictor as JaxSAM2Predictor
+    from atlaspatch_tpu.tools.convert_weights import _flatten
+    from atlaspatch_tpu_torch.core.config import SegmentationConfig
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+    from atlaspatch_tpu_torch.models.sam2.convert import load_npz
+    from atlaspatch_tpu_torch.services.segmentation import SAM2Predictor
+
+    def arrays(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+    port, want, init = (arrays(p) for p in (finetunes[CLI_PACKAGES[1]]["npz"], finetunes[CLI_PACKAGES[0]]["npz"],
+                                            finetunes["init"]))
+    assert {k: (v.shape, v.dtype) for k, v in port.items()} == {k: (v.shape, v.dtype) for k, v in want.items()}
+    moved = {k for k in port if not np.array_equal(port[k], init[k])}
+    assert moved and all("norm" in k.rsplit("/", 1)[0] for k in moved)
+    for k in moved:
+        delta = want[k] - init[k]
+        assert float(np.abs((port[k] - init[k]) - delta).max()) <= 1e-3 * float(np.abs(delta).max()) + 1e-7, k
+
+    jax_cfg = JaxSAM2Config.test_tiny()
+    jax_pred = JaxSAM2Predictor(JaxSegmentationConfig(checkpoint_path=finetunes[CLI_PACKAGES[1]]["npz"],
+                                                      device="cpu").validated(), sam2_cfg=jax_cfg)
+    loaded = {k: np.asarray(v) for k, v in _flatten(jax.tree.map(np.asarray, jax_pred.params)).items()}
+    assert loaded.keys() == port.keys() and all(np.array_equal(loaded[k], port[k]) for k in port)
+    cfg = SAM2Config.test_tiny()
+    pred = SAM2Predictor(SegmentationConfig(checkpoint_path=finetunes[CLI_PACKAGES[0]]["npz"], device="cpu")
+                         .validated(), sam2_cfg=cfg)
+    sd = load_npz(finetunes[CLI_PACKAGES[0]]["npz"], cfg)
+    own = pred.model.state_dict()
+    assert all(torch.equal(own[k], v) for k, v in sd.items())
+
+
+def test_finetuned_checkpoint_drives_detect_tissue_and_evaluate_masks(finetunes):
+    assert finetunes["detect"].exit_code == 0, finetunes["detect"].output
+    assert "Created 1 mask overlay(s), failures: 0" in finetunes["detect"].stdout
+    lines = finetunes["scored"].stdout.splitlines()
+    held = finetunes["held"]
+    assert lines[0].startswith(f"{held}: IoU ") and lines[1].startswith("Mean over 1 slide(s): IoU ")
+    rows = finetunes["csv"].splitlines()
+    assert rows[0] == "slide,iou,f1,precision,recall" and len(rows) == 2 and rows[1].startswith(f"{held},")
+
+
 class _Stop(Exception):
     pass
 
@@ -200,15 +323,21 @@ def test_seg_input_size_refused_at_the_option_layer(tmp_path, command):
         assert "positive multiple of 32" in result.output
 
 
+def _command_args(command, tmp_path) -> list:
+    """The arguments ``command`` needs besides --output and --device."""
+    if command == "finetune-sam2":
+        return ["--masks", tmp_path]
+    extra = [] if command == "detect-tissue" else ["--patch-size", "64", "--target-mag", "20"]
+    return extra + (_FEATURE_ARGS[2:] if command == "process" else [])
+
+
 @pytest.mark.parametrize("command, flag", [
     ("segment-and-get-coords", "--device"), ("detect-tissue", "--device"),
-    ("process", "--device"), ("process", "--feature-device"),
+    ("process", "--device"), ("process", "--feature-device"), ("finetune-sam2", "--device"),
 ])
 @pytest.mark.parametrize("value", ["tpu", "tpu:0", "TPU"])
 def test_tpu_is_refused(tmp_path, command, flag, value):
-    extra = [] if command == "detect-tissue" else ["--patch-size", "64", "--target-mag", "20"]
-    if command == "process":
-        extra += _FEATURE_ARGS[2:]
+    extra = _command_args(command, tmp_path)
     result = invoke_cli(CLI_PACKAGES[1], [command, tmp_path, "--output", tmp_path / "o", flag, value, *extra])
     assert result.exit_code == 2, result.output
     assert "TPU" in result.output and "cuda" in result.output
@@ -223,17 +352,16 @@ def test_device_flags_take_torch_devices(tmp_path, monkeypatch, value, want):
     assert _captured_config(CLI_PACKAGES[1], monkeypatch, args).device == want
 
 
-@pytest.mark.parametrize("command", ["segment-and-get-coords", "detect-tissue", "process"])
+@pytest.mark.parametrize("command", ["segment-and-get-coords", "detect-tissue", "process", "finetune-sam2"])
 def test_default_device_without_cuda_stops_naming_device_cpu(tmp_path, monkeypatch, capsys, command):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
-    extra = [] if command == "detect-tissue" else ["--patch-size", "64", "--target-mag", "20"]
-    if command == "process":
-        extra += _FEATURE_ARGS[2:]
-    args = [command, str(tmp_path), "--output", str(tmp_path / "o"), *extra]
+    args = [command, str(tmp_path), "--output", str(tmp_path / "o"), *map(str, _command_args(command, tmp_path))]
     result = invoke_cli(CLI_PACKAGES[1], args)
     assert result.exit_code != 0 and "--device cpu" in result.output, result.output
     assert not (tmp_path / "o" / "patches").exists() and not (tmp_path / "o" / "visualization").exists()
+    if command == "finetune-sam2":
+        assert not (tmp_path / "o").exists()
     # the console entry point too: a non-zero exit, never a run on the CPU
     from atlaspatch_tpu_torch import cli as cli_mod
 

@@ -45,7 +45,7 @@ from atlaspatch_tpu_torch.models.encoders.resnet import (
     flax_resnet_to_torch,
     torchvision_resnet_to_torch,
 )
-from torch_port_helpers import torchvision_cnn_sd
+from torch_port_helpers import free_tmp_path, torchvision_cnn_sd  # noqa: F401 (free_tmp_path: autouse)
 
 TOL = 1e-4  # float32, CPU, max-abs
 COSINE_BF16 = 0.995

@@ -295,7 +295,7 @@ def test_f32win_reads_a_fused_projection_in_place(card, tq):
 
 
 @pytest.mark.parametrize(
-    "kind", ["head_dim_100", "head_dim_136", "float16", "mixed_dtype", "cpu_key"]
+    "kind", ["head_dim_100", "head_dim_136", "float16", "mixed_dtype", "cpu_key", "requires_grad"]
 )
 def test_kernel_refuses(card, kind):
     d = {"head_dim_100": 100, "head_dim_136": 136}.get(kind, 64)
@@ -305,8 +305,82 @@ def test_kernel_refuses(card, kind):
         k = k.to(torch.bfloat16)
     if kind == "cpu_key":
         k = k.cpu()
+    if kind == "requires_grad":
+        v.requires_grad_(True)
+    A.reset_launch_counts()
     with pytest.raises(ValueError):
         A.flash_attention(q, k, v)
+    assert A.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 64, 64, 96), (2, 4, 49, 196, 96), (1, 4, 300, 300, 96)])
+def test_attention_under_autograd_matches_the_cpu_gradient(card, shape):
+    """attention() on CUDA tensors that require grad runs the plain products
+    (no launch, one plain_grad_call) and its gradients equal the CPU's; the
+    same call without a gradient launches the kernel."""
+    b, h, tq, tk, d = shape
+    q, k, v = _qkv(card, b, h, tq, tk, d, torch.float32)
+    w = torch.randn(b, h, tq, d, device=card, generator=torch.Generator(device=card).manual_seed(1))
+    grads = {}
+    A.reset_launch_counts()
+    for device in (card, torch.device("cpu")):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (q, k, v)]
+        (A.attention(*leaves) * w.to(device)).sum().backward()
+        grads[device.type] = [t.grad.cpu() for t in leaves]
+    assert A.flash_attention.launches == 0 and A.attention.plain_grad_calls == 2
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
+    with torch.no_grad():
+        A.attention(*(t.requires_grad_(True) for t in (q, k, v)))
+    assert A.flash_attention.launches == 1 and A.attention.plain_grad_calls == 2
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One norms-only AdamW step of the miniature SAM2 from the same weights
+    and batch: loss within 1e-4 relative, each norm gradient within 1e-4 of
+    its largest CPU value, a bound that the same step with TF32 switched on
+    after it was built must exceed; no kernel launch in the step, one per
+    trunk attention in the eval forward that follows."""
+    import numpy as np
+
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+    from atlaspatch_tpu_torch.models.sam2.model import init_params
+    from atlaspatch_tpu_torch.models.train import finetune
+
+    cfg = SAM2Config.test_tiny()
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    targets = (rng.random((2, cfg.image_size, cfg.image_size)) > 0.5).astype(np.float32)
+    out = {}
+    for run in ("cpu", "cuda", "cuda+tf32"):
+        device = run.split("+")[0]
+        model = init_params(cfg, seed=3).to(device)
+        params = finetune.trainable_parameters(model, "norms")
+        optimizer, lr = finetune.make_optimizer(params.values(), 1e-3)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        step = finetune.make_train_step(model, optimizer, lr)  # built on the card, it turns TF32 off
+        assert device == "cpu" or not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = run.endswith("tf32")
+        A.reset_launch_counts()
+        try:
+            loss = float(step(images, targets))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        assert A.flash_attention.launches == 0
+        assert A.attention.plain_grad_calls == sum(cfg.blocks_per_stage)
+        out[run] = loss, {k: t.grad.cpu() for k, t in params.items()}
+        finetune.make_eval_step(model)(images, targets)
+        assert A.flash_attention.launches == (sum(cfg.blocks_per_stage) if device == "cuda" else 0)
+    cpu_loss, cpu_grads = out["cpu"]
+
+    def grad_rel(grads):
+        return max((grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30) for k, g in cpu_grads.items())
+
+    card_loss, card_grads = out["cuda"]
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    print(f"card vs CPU norm gradients {grad_rel(card_grads):.3g}, with TF32 {grad_rel(out['cuda+tf32'][1]):.3g}")
+    assert grad_rel(card_grads) <= 1e-4
+    assert grad_rel(out["cuda+tf32"][1]) > 1e-4
 
 
 def test_runner_on_the_card(card, tmp_path, monkeypatch):

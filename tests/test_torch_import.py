@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: no JAX, no Flax, nothing of atlaspatch_tpu.
+"""The PyTorch port stands alone: no JAX, Flax, optax or orbax, nothing of atlaspatch_tpu.
 
 ``atlaspatch_tpu_torch`` starts with ``atlaspatch_tpu``, so the checks match
 the top-level module name exactly, never by prefix. Pillow, OpenCV, h5py and
@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 PORT = Path(__file__).resolve().parent.parent / "atlaspatch_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "atlaspatch_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "atlaspatch_tpu"}
 # modules the device and geometry path must not need at import time
 ABSENT_ON_CARD = {"PIL", "cv2", "h5py", "click"}
 CLI = "atlaspatch_tpu_torch.cli"  # imports click, and nothing else of ABSENT_ON_CARD

@@ -1,0 +1,537 @@
+"""The port's SAM2 fine-tuning (atlaspatch_tpu_torch/models/train/) against
+the JAX package's (atlaspatch_tpu/models/train/), on the CPU.
+
+Both start from one Flax tree at the miniature config (``shared_flax_params(0)``;
+the port loads it through ``flax_to_torch``) and the same batches, made from
+the synthetic corpus (``make_annotated_thumbnail``, seeds 0-5) by ``load_pair``.
+The JAX side's gradients come from one jitted ``jax.value_and_grad`` of its
+``seg_loss_fn`` shared by every test; its updates apply the JAX optimizer
+(``make_optimizer``) with ``make_train_step``'s gradient and update masks.
+
+Bars: the loss within 1e-5 relative; each trainable tensor's first-step
+gradient within 1e-5 + 1e-4·max|g_jax|; after three AdamW steps the losses
+within 1e-5 relative and each parameter's change from init within
+1e-3·max|Δ_jax| + 1e-7, except elements whose JAX gradient stayed under 1e-6
+of its tensor's largest at every step: Adam's m/√v turns their round-off
+into steps of up to ±lr, so they are held to 2·lr·steps and counted. So
+are elements whose JAX gradient stayed under 1e-6 in absolute value (100
+times Adam's eps, where the update depends on |g| through eps): the
+decoder's k_proj biases, zero in exact arithmetic, and units whose gradient
+is zero but for round-off. The optimizer alone, fed the JAX gradients, is
+held to the same bar with no element exempt. The
+learning rate equals optax's schedule to 1e-7; a resumed run equals the
+uninterrupted one bit for bit; the batches, flips and refusals are JAX's.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import Counter
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from atlaspatch_tpu.models.sam2.config import SAM2Config as JaxSAM2Config
+from atlaspatch_tpu.models.sam2.model import init_params as jax_init_params
+from atlaspatch_tpu.models.train import finetune as jax_ft
+from atlaspatch_tpu.models.train import loop as jax_loop
+from atlaspatch_tpu.tools import synthetic_corpus as jax_corpus
+from atlaspatch_tpu.tools.convert_weights import _flatten
+from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+from atlaspatch_tpu_torch.models.sam2.convert import flax_key_map, from_flax_layout, to_flax_layout
+from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel
+from atlaspatch_tpu_torch.models.train import checkpoints, finetune, loop
+from atlaspatch_tpu_torch.ops import attention as A
+from atlaspatch_tpu_torch.tools import synthetic_corpus
+from torch_port_helpers import CFG, JAX_CFG, free_tmp_path, port_model, shared_flax_params  # noqa: F401
+
+LR = 1e-3
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def init():
+    return shared_flax_params(0)
+
+
+@pytest.fixture(scope="module")
+def batches(tmp_path_factory):
+    """Three (images, targets) batches of 2 at 128, from 256x192 corpus pairs."""
+    import shutil
+
+    root = tmp_path_factory.mktemp("corpus")
+    images, masks = synthetic_corpus.generate_corpus(root, n=2 * STEPS, width=256, height=192)
+    pairs = loop.collect_pairs(images, masks)
+    loaded = [loop.load_pair(img, mask, CFG.image_size) for img, mask in pairs]
+    shutil.rmtree(root)
+    return [(np.stack([im for im, _ in loaded[i : i + 2]]), np.stack([mk for _, mk in loaded[i : i + 2]]))
+            for i in range(0, len(loaded), 2)]
+
+
+@pytest.fixture(scope="module")
+def jax_value_and_grad():
+    return jax.jit(jax.value_and_grad(lambda p, im, t: jax_ft.seg_loss_fn(JAX_CFG, p, im, t)))
+
+
+def _flat(tree) -> dict[str, np.ndarray]:
+    return {k: np.asarray(v) for k, v in _flatten(jax.tree.map(np.asarray, tree)).items()}
+
+
+def _jax_norm_keys(cfg) -> set[str]:
+    mask = jax_ft.norm_param_mask(jax.eval_shape(lambda: jax_init_params(cfg, 0)))
+    return {k for k, v in _flatten(mask).items() if bool(v)}
+
+
+def _port(init, trainable):
+    model = port_model(init)
+    params = finetune.trainable_parameters(model, trainable)
+    return model, params
+
+
+def _port_grads(model, params) -> dict[str, np.ndarray]:
+    return to_flax_layout(model, {k: t.grad for k, t in params.items()})
+
+
+# --------------------------------------------------------------- the norms-only mask
+@pytest.mark.parametrize("size", ["test_tiny", "tiny"])
+def test_norm_param_mask_selects_the_jax_tensors(size):
+    """The mask over the port's names, read through the converter's key map,
+    marks exactly the Flax leaves the JAX norm_param_mask marks; the "all"
+    set is every Flax leaf, one tensor each (the tied Fourier projection
+    once, the unused mask prompt encoder never)."""
+    cfg, jax_cfg = getattr(SAM2Config, size)(), getattr(JaxSAM2Config, size)()
+    with torch.device("meta"):
+        model = SAM2ImageModel(cfg)
+    keys = flax_key_map(model)
+    mask = finetune.norm_param_mask(model)
+    jax_leaves = set(_flatten(jax.eval_shape(lambda: jax_init_params(jax_cfg, 0))))
+    want = _jax_norm_keys(jax_cfg)
+    assert sorted(keys.values()) == sorted(jax_leaves)  # one to one
+    assert {keys[k] for k, on in mask.items() if on} == want
+    assert len(want) == 4 * sum(cfg.blocks_per_stage) + 8 * cfg.decoder_num_layers + 4  # 2 per LayerNorm
+    assert not any(on for k, on in mask.items() if "mask_embed" in k or k not in keys)
+    assert set(finetune.trainable_parameters(model, "norms")) == want
+    assert set(finetune.trainable_parameters(model, "all")) == jax_leaves
+    assert {n for n, p in model.named_parameters() if p.requires_grad} < set(keys)
+    with pytest.raises(ValueError, match="'norms' or 'all'"):
+        finetune.trainable_parameters(model, "decoder")
+
+
+def test_no_dropout_or_batch_statistics_and_no_inference_tensors():
+    """The train step runs the eval graph: the model has no module whose
+    forward depends on training mode; a model built under inference_mode is
+    refused before training."""
+    model = SAM2ImageModel(CFG)
+    assert not [m for m in model.modules() if isinstance(m, (torch.nn.Dropout, torch.nn.modules.batchnorm._NormBase))]
+    with torch.inference_mode():
+        frozen = SAM2ImageModel(CFG)
+    with pytest.raises(RuntimeError, match="inference tensors"):
+        finetune.trainable_parameters(frozen)
+
+
+# --------------------------------------------------------------- loss and gradients
+def test_seg_loss_matches_jax(init, batches, jax_value_and_grad):
+    images, targets = batches[0]
+    model = port_model(init)
+    with torch.no_grad():
+        got = float(finetune.seg_loss_fn(model, torch.from_numpy(images), torch.from_numpy(targets)))
+        per_sample, iou = finetune.make_eval_step(model)(images, targets)
+    want, _ = jax_value_and_grad(jax.tree.map(jnp.asarray, init), images, targets)
+    assert got == pytest.approx(float(want), rel=1e-5)
+    # the eval step's per-sample terms are the loss's (the JAX eval step's
+    # printed means are held in test_torch_cli.py's finetune-sam2 lines)
+    assert float(per_sample.mean()) == pytest.approx(got, rel=1e-6)
+    assert per_sample.shape == iou.shape == (2,) and ((iou >= 0) & (iou <= 1)).all()
+
+
+@pytest.mark.parametrize("trainable", ["norms", "all"])
+def test_first_step_gradients_match_jax(init, batches, jax_value_and_grad, trainable):
+    images, targets = batches[0]
+    model, params = _port(init, trainable)
+    A.reset_launch_counts()
+    loss = finetune.seg_loss_fn(model, torch.from_numpy(images), torch.from_numpy(targets))
+    loss.backward()
+    assert A.attention.plain_grad_calls == sum(CFG.blocks_per_stage)  # every trunk attention, differentiated
+    got = _port_grads(model, {k: t for k, t in params.items() if t.grad is not None})
+    _, grads = jax_value_and_grad(jax.tree.map(jnp.asarray, init), images, targets)
+    want = _flat(grads)
+    unreached = set(params) - set(got)
+    assert all(not np.any(want[k]) for k in unreached)  # the object-score head: zero in JAX too
+    assert len(got) > (40 if trainable == "norms" else 200)
+    for k, g in got.items():
+        bound = 1e-5 + 1e-4 * float(np.abs(want[k]).max())
+        assert float(np.abs(g - want[k]).max()) <= bound, k
+
+
+def _jax_steps(init, batches, jax_value_and_grad, trainable, optimizer):
+    """make_train_step's body after value_and_grad (atlaspatch_tpu/models/
+    train/finetune.py:150-166) on the shared jitted gradients: returns the
+    losses, the flat gradients of each step and the final flat params."""
+    mask = jax_ft.norm_param_mask(init)
+
+    @jax.jit
+    def update(grads, state, params):
+        if trainable == "norms":
+            grads = jax.tree.map(lambda g, m: g if m else jnp.zeros_like(g), grads, mask)
+        updates, state = optimizer.update(grads, state, params)
+        if trainable == "norms":
+            updates = jax.tree.map(lambda u, m: u if m else jnp.zeros_like(u), updates, mask)
+        return optax.apply_updates(params, updates), state, grads
+
+    params = jax.tree.map(jnp.asarray, init)
+    state = optimizer.init(params)
+    losses, grads_seen = [], []
+    for images, targets in batches:
+        loss, grads = jax_value_and_grad(params, images, targets)
+        params, state, grads = update(grads, state, params)
+        losses.append(float(loss))
+        grads_seen.append(_flat(grads))
+    return losses, grads_seen, _flat(params)
+
+
+STEP_CASES = [("norms", "constant", 0), ("all", "constant", 0), ("norms", "cosine", 1), ("all", "cosine", 1)]
+
+
+@pytest.fixture(scope="module")
+def jax_runs(init, batches, jax_value_and_grad):
+    """run(trainable, schedule, warmup) → _jax_steps over the three batches
+    at LR, each case computed once per module."""
+    cache = {}
+
+    def run(trainable, schedule, warmup):
+        if (trainable, schedule, warmup) not in cache:
+            optimizer = jax_ft.make_optimizer(LR, schedule=schedule, warmup_steps=warmup, total_steps=STEPS)
+            cache[trainable, schedule, warmup] = _jax_steps(init, batches, jax_value_and_grad, trainable, optimizer)
+        return cache[trainable, schedule, warmup]
+
+    return run
+
+
+def _port_steps(init, trainable, schedule, warmup):
+    model, params = _port(init, trainable)
+    optimizer, lr = finetune.make_optimizer(params.values(), LR, schedule=schedule, warmup_steps=warmup,
+                                            total_steps=STEPS)
+    return model, params, optimizer, lr
+
+
+@pytest.mark.parametrize("trainable, schedule, warmup", STEP_CASES)
+def test_three_adamw_steps_match_jax(init, batches, jax_runs, trainable, schedule, warmup, capsys):
+    want_losses, jax_grads, want = jax_runs(trainable, schedule, warmup)
+    model, params, optimizer, lr = _port_steps(init, trainable, schedule, warmup)
+    step = finetune.make_train_step(model, optimizer, lr)
+    losses = [float(step(images, targets)) for images, targets in batches]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    assert finetune.update_count(optimizer) == STEPS
+
+    start = _flat(init)
+    got = to_flax_layout(model, {k: t.detach() for k, t in params.items()})
+    exempt = eps_only = total = 0
+    beyond = Counter()  # eps-only elements outside the strict bar: k_proj biases / others
+    for k in want:
+        delta_jax = want[k] - start[k]
+        if k not in got:  # frozen: the JAX step leaves it exactly as it was
+            assert trainable == "norms" and not np.any(delta_jax), k
+            continue
+        err = np.abs((got[k] - start[k]) - delta_jax)
+        relative = np.all([np.abs(g[k]) < 1e-6 * np.abs(g[k]).max() for g in jax_grads], axis=0)
+        # under 100·eps (1e-6) the update m̂/(√v̂ + eps) depends on |g| through
+        # eps, so round-off in g moves it: the decoder's k_proj biases (zero in
+        # exact arithmetic: softmax is unchanged by a shift common to every
+        # key) and units whose gradient is zero but for round-off. The
+        # optimizer itself is held on the JAX gradients with no element
+        # exempt (test_adamw_on_the_jax_gradients_matches_jax).
+        absolute = np.all([np.abs(g[k]) < 1e-6 for g in jax_grads], axis=0)
+        tiny = relative | absolute
+        bound = 1e-3 * float(np.abs(delta_jax).max()) + 1e-7
+        assert float(err[~tiny].max(initial=0.0)) <= bound, k
+        assert float(err[tiny].max(initial=0.0)) <= 2 * LR * STEPS, k
+        exempt += int(tiny.sum())
+        eps_only += int((absolute & ~relative).sum())
+        beyond["k_proj/bias" if k.endswith("k_proj/bias") else "other"] += int(((err > bound) & absolute & ~relative).sum())
+        total += tiny.size
+    with capsys.disabled():
+        print(f"\n{trainable}/{schedule}: {exempt} of {total} trained elements exempt, {eps_only} of them only "
+              f"by |g| < 1e-6 (Adam's eps region), of which {beyond['k_proj/bias']} in k_proj biases and "
+              f"{beyond['other']} elsewhere move beyond the strict bar")
+
+
+@pytest.mark.parametrize("trainable, schedule, warmup", STEP_CASES)
+def test_adamw_on_the_jax_gradients_matches_jax(init, jax_runs, trainable, schedule, warmup):
+    """The optimizer apart from gradient round-off: the port's AdamW update
+    (make_optimizer + apply_update), fed the JAX step's own gradients, moves
+    every trained element as the JAX optimizer does, within 1e-3·max|Δ_jax| +
+    1e-7 per tensor with no element exempt."""
+    _, jax_grads, want = jax_runs(trainable, schedule, warmup)
+    model, params, optimizer, lr = _port_steps(init, trainable, schedule, warmup)
+    for grads in jax_grads:
+        for k, g in from_flax_layout(model, {k: grads[k] for k in params}).items():
+            params[k].grad = g
+        finetune.apply_update(optimizer, lr)
+    assert finetune.update_count(optimizer) == STEPS
+    start = _flat(init)
+    got = to_flax_layout(model, {k: t.detach() for k, t in params.items()})
+    for k in params:
+        delta_jax = want[k] - start[k]
+        err = float(np.abs((got[k] - start[k]) - delta_jax).max())
+        assert err <= 1e-3 * float(np.abs(delta_jax).max()) + 1e-7, k
+
+
+SCHEDULES = [
+    dict(schedule="constant"),
+    dict(schedule="constant", warmup_steps=5),
+    dict(schedule="cosine", total_steps=10),
+    dict(schedule="cosine", warmup_steps=3, total_steps=10),
+    dict(schedule="cosine", warmup_steps=4),  # total_steps None: decays over warmup + 1
+]
+
+
+@pytest.mark.parametrize("kw", SCHEDULES, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_lr_schedule_equals_optax(kw):
+    """lr(count), the count of updates already applied, equals the rate the
+    JAX optimizer applies at that update: with a zero gradient its AdamW
+    update of a unit parameter is -0.01·lr (decoupled decay only)."""
+    peak = 1e-2
+    optimizer = jax_ft.make_optimizer(peak, **kw)
+    _, lr = finetune.make_optimizer([torch.zeros(1, requires_grad=True)], peak, **kw)
+    params = {"w": jnp.ones((1,))}
+    state = optimizer.init(params)
+    for count in range(16):
+        updates, state = optimizer.update({"w": jnp.zeros((1,))}, state, params)
+        assert abs(lr(count) - float(-updates["w"][0] / 0.01)) <= 1e-7, count
+    if kw.get("warmup_steps"):
+        assert lr(0) == 0.0
+
+
+def test_optimizer_is_optax_adamw():
+    param = torch.zeros(3, requires_grad=True)
+    optimizer, _ = finetune.make_optimizer([param])
+    group = optimizer.param_groups[0]
+    assert isinstance(optimizer, torch.optim.AdamW)
+    assert (group["betas"], group["eps"], group["weight_decay"], group["amsgrad"]) == ((0.9, 0.999), 1e-8, 0.01, False)
+    with pytest.raises(ValueError, match="unknown LR schedule"):
+        finetune.make_optimizer([param], schedule="linear")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        finetune.shard_train_step()
+
+
+def test_attention_gradient_equals_jax_reference():
+    """attention() under autograd runs the plain products, counted in
+    attention.plain_grad_calls; its gradients equal jax.grad of the JAX
+    reference_attention. Without a gradient it is not counted."""
+    from atlaspatch_tpu.ops.attention import reference_attention as jax_reference
+
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.normal(size=(2, 3, t, 16)).astype(np.float32) for t in (9, 13, 13))
+    w = rng.normal(size=(2, 3, 9, 16)).astype(np.float32)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    A.reset_launch_counts()
+    (A.attention(tq, tk, tv, 0.3) * torch.from_numpy(w)).sum().backward()
+    assert A.attention.plain_grad_calls == 1
+    want = jax.grad(lambda q, k, v: (jax_reference(q, k, v, 0.3) * w).sum(), argnums=(0, 1, 2))(q, k, v)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    with torch.no_grad():
+        A.attention(tq, tk, tv)
+    A.attention(tq.detach(), tk.detach(), tv.detach())
+    assert A.attention.plain_grad_calls == 1
+
+
+# --------------------------------------------------------------- the loop
+def _corpus(root: Path, n: int):
+    return synthetic_corpus.generate_corpus(root / "corpus", n=n, width=256, height=192)
+
+
+def _npz(root: Path, init) -> Path:
+    path = root / "init.npz"
+    np.savez(path, **_flatten(init))
+    return path
+
+
+@pytest.fixture
+def tiny_models(monkeypatch):
+    monkeypatch.setattr(JaxSAM2Config, "tiny", JaxSAM2Config.test_tiny)
+    monkeypatch.setattr(SAM2Config, "tiny", SAM2Config.test_tiny)
+
+
+def _arrays(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_resume_equals_the_uninterrupted_run_bit_for_bit(tmp_path, init, tiny_models):
+    images, masks = _corpus(tmp_path, 5)
+    common = dict(batch_size=2, checkpoint=_npz(tmp_path, init), device="cpu", seed=1, val_fraction=0.2,
+                  warmup_steps=1, augment=True, save_every=1)
+    full = loop.finetune_sam2(images, masks, tmp_path / "full", epochs=2, **common)
+    loop.finetune_sam2(images, masks, tmp_path / "res", epochs=1, **common)
+    resumed = loop.finetune_sam2(images, masks, tmp_path / "res", epochs=2, resume=True, **common)
+    assert (full["steps"], resumed["steps"], resumed["resumed_at"], resumed["steps_this_run"]) == (4, 4, 2, 2)
+    assert resumed["final_loss"] == full["final_loss"] and resumed["val_loss"] == full["val_loss"]
+    a, b = _arrays(full["checkpoint"]), _arrays(resumed["checkpoint"])
+    assert a.keys() == b.keys() and all(a[k].tobytes() == b[k].tobytes() for k in a)
+    step_a = _arrays(tmp_path / "full" / "checkpoints" / "step_00000004.npz")
+    step_b = _arrays(tmp_path / "res" / "checkpoints" / "step_00000004.npz")
+    assert step_a.keys() == step_b.keys() and all(step_a[k].tobytes() == step_b[k].tobytes() for k in step_a)
+    # the step file: every JAX parameter, the norms' moments in the JAX layout, the step
+    norms = _jax_norm_keys(JAX_CFG)
+    assert {k[len("params/"):] for k in step_a if k.startswith("params/")} == set(_flat(init))
+    for name in ("exp_avg", "exp_avg_sq"):
+        moments = {k.split("/", 1)[1]: v for k, v in step_a.items() if k.startswith(name + "/")}
+        assert set(moments) == norms
+        assert all(v.shape == step_a[f"params/{k}"].shape and v.dtype == np.float32 for k, v in moments.items())
+    assert int(step_a["step"]) == 4
+    assert sorted(p.name for p in (tmp_path / "res" / "checkpoints").iterdir()) == [
+        "meta.json", "step_00000002.npz", "step_00000004.npz"]
+    again = loop.finetune_sam2(images, masks, tmp_path / "res", epochs=2, resume=True, **common)
+    assert again["steps"] == 4 and again["first_loss"] is None and again["val_loss"] == full["val_loss"]
+
+
+def _both_raise(exc, call) -> str:
+    messages = []
+    for module in (jax_loop, loop):
+        with pytest.raises(exc) as err:
+            call(module)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    return messages[1]
+
+
+def test_resume_guards_raise_the_jax_messages(tmp_path, init, tiny_models):
+    images, masks = _corpus(tmp_path, 4)
+    ckpt = _npz(tmp_path, init)
+    common = dict(epochs=1, batch_size=2, checkpoint=ckpt, device="cpu", save_every=1, resume=True)
+    assert "no checkpoints" in _both_raise(
+        FileNotFoundError, lambda m: m.finetune_sam2(images, masks, tmp_path / "empty", **common))
+
+    # a recorded setting that differs: both refuse before reading the step file
+    run = tmp_path / "run" / "checkpoints"
+    run.mkdir(parents=True)
+    (run / "step_00000002.npz").write_bytes(b"")
+    meta = {"n_pairs": 4, "n_val_pairs": 0, "batch_size": 4, "seed": 0, "image_size": 128,
+            "lr_schedule": "constant", "warmup_steps": 0, "augment": False, "trainable": "norms",
+            "learning_rate": 1e-4}
+    (run / "meta.json").write_text(json.dumps(meta))
+    assert "configuration differs" in _both_raise(
+        ValueError, lambda m: m.finetune_sam2(images, masks, tmp_path / "run", **common))
+
+    # the JAX package's checkpoints: an orbax step directory and a multi-host .npz are refused by name
+    meta["batch_size"] = 2
+    (run / "meta.json").write_text(json.dumps(meta))
+    (run / "step_00000002.npz").unlink()
+    (run / "step_00000002").mkdir()
+    with pytest.raises(ValueError, match="orbax checkpoint directory"):
+        loop.finetune_sam2(images, masks, tmp_path / "run", **common)
+    (run / "step_00000002").rmdir()
+    np.savez(run / "step_00000002.npz", p0=np.zeros(1), o0=np.zeros(1))
+    with pytest.raises(ValueError, match="multi-host checkpoints are not read"):
+        loop.finetune_sam2(images, masks, tmp_path / "run", **common)
+
+    # a real checkpoint whose step is not a whole number of epochs at the new
+    # batch size (no meta.json to catch it first): the JAX message
+    fresh = dict(common, resume=False)
+    loop.finetune_sam2(images, masks, tmp_path / "real", **fresh)
+    (tmp_path / "real" / "checkpoints" / "meta.json").unlink()
+    with pytest.raises(ValueError) as err:
+        loop.finetune_sam2(images, masks, tmp_path / "real", **dict(common, batch_size=1, epochs=2))
+    assert str(err.value) == ("--resume: checkpoint step 2 is not a whole number of epochs at 4 steps/epoch — "
+                              "the run configuration changed since the checkpoint was written")
+
+
+def _record_jax_batches(monkeypatch) -> list:
+    seen = []
+
+    def make_train_step(cfg, optimizer, *, trainable="norms"):
+        def step(params, opt_state, images_u8, targets):
+            jax.debug.callback(lambda i, t: seen.append((np.asarray(i), np.asarray(t))), images_u8, targets,
+                               ordered=True)
+            return params, opt_state, jnp.float32(0.0)
+        return step
+
+    monkeypatch.setattr(jax_ft, "make_train_step", make_train_step)
+    return seen
+
+
+def _record_port_batches(monkeypatch) -> list:
+    seen = []
+
+    def make_train_step(model, optimizer, lr):
+        def step(images_u8, targets):
+            seen.append((np.asarray(images_u8), np.asarray(targets)))
+            return torch.tensor(0.0)
+        return step
+
+    monkeypatch.setattr(finetune, "make_train_step", make_train_step)
+    return seen
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_batches_and_flips_equal_jax(tmp_path, init, tiny_models, monkeypatch, augment):
+    """The same shuffle, wrap-modulo batches and (seed, step) flips: every
+    batch each package's train step is handed, over 3 epochs of 5 pairs at
+    batch 2 (2 steps per epoch, the fifth pair never in an epoch's batches)."""
+    images, masks = _corpus(tmp_path, 5)
+    common = dict(epochs=3, batch_size=2, checkpoint=_npz(tmp_path, init), device="cpu", seed=4, augment=augment)
+    jax_seen = _record_jax_batches(monkeypatch)
+    jax_loop.finetune_sam2(images, masks, tmp_path / "jax", **common)
+    jax.effects_barrier()
+    port_seen = _record_port_batches(monkeypatch)
+    loop.finetune_sam2(images, masks, tmp_path / "port", **common)
+    assert len(port_seen) == len(jax_seen) == 6
+    for (pi, pt), (ji, jt) in zip(port_seen, jax_seen):
+        assert pi.dtype == ji.dtype == np.uint8 and pi.tobytes() == ji.tobytes()
+        assert pt.dtype == jt.dtype == np.float32 and pt.tobytes() == jt.tobytes()
+
+
+def test_multi_device_refusals(tmp_path, init, tiny_models, monkeypatch):
+    images, masks = _corpus(tmp_path, 2)
+    common = dict(checkpoint=_npz(tmp_path, init), device="cpu")
+    with pytest.raises(RuntimeError, match=r"--data-parallel 2 needs that many devices; 1 visible"):
+        loop.finetune_sam2(images, masks, tmp_path / "o", data_parallel=2, **common)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="not ported .*item 5"):
+        loop.finetune_sam2(images, masks, tmp_path / "o", data_parallel=2, **dict(common, device="cuda"))
+    monkeypatch.setenv("ATLASPATCH_NUM_HOSTS", "2")
+    with pytest.raises(RuntimeError, match="multi-host fine-tuning .*not ported"):
+        loop.finetune_sam2(images, masks, tmp_path / "o", **common)
+    assert not (tmp_path / "o").exists()
+
+
+def test_a_save_error_propagates_chained(tmp_path, init, tiny_models, monkeypatch):
+    images, masks = _corpus(tmp_path, 2)
+
+    def full_disk(*_a, **_k):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(checkpoints, "save_checkpoint", full_disk)
+    with pytest.raises(RuntimeError, match="saving the step 1 checkpoint") as err:
+        loop.finetune_sam2(images, masks, tmp_path / "o", checkpoint=_npz(tmp_path, init), device="cpu",
+                           save_every=1)
+    assert isinstance(err.value.__cause__, OSError) and err.value.__cause__.errno == 28
+
+
+# --------------------------------------------------------------- the corpus
+@pytest.mark.parametrize("seed", range(4))
+def test_synthetic_corpus_pixels_equal_jax(seed):
+    img, mask = synthetic_corpus.make_annotated_thumbnail(256, 192, seed=seed)
+    want_img, want_mask = jax_corpus.make_annotated_thumbnail(256, 192, seed=seed)
+    assert img.dtype == want_img.dtype == np.uint8 and img.shape == (192, 256, 3)
+    assert img.tobytes() == want_img.tobytes() and mask.tobytes() == want_mask.tobytes()
+
+
+def test_synthetic_corpus_command_writes_the_jax_files(tmp_path, monkeypatch, capsys):
+    import sys
+
+    for module, out in ((jax_corpus, tmp_path / "jax"), (synthetic_corpus, tmp_path / "port")):
+        monkeypatch.setattr(sys, "argv", ["synthetic_corpus", str(out), "--n", "2", "--width", "96",
+                                          "--height", "64", "--seed", "9", "--prefix", "s"])
+        module.main()
+        assert capsys.readouterr().out == f"2 pairs: {out / 'images'} | {out / 'masks'}\n"
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*.png"))
+    assert [str(p) for p in files] == ["images/s0000.png", "images/s0001.png", "masks/s0000_mask.png",
+                                       "masks/s0001_mask.png"]
+    assert all((tmp_path / "jax" / p).read_bytes() == (tmp_path / "port" / p).read_bytes() for p in files)

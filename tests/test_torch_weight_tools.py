@@ -37,7 +37,7 @@ from atlaspatch_tpu.tools import verify_weights as jax_verify
 from atlaspatch_tpu_torch.tools import convert_weights, drift_check, verify_weights
 from tests.upstream_layouts import synth_state_dict
 from upstream_values import fill
-from torch_port_helpers import invoke_cli
+from torch_port_helpers import free_tmp_path, invoke_cli  # noqa: F401 (free_tmp_path: autouse)
 
 NAMES = ["resnet18", "lunit_vit_small_patch16_dino", "dinov2_small", "chief-ctranspath",
          "resnet34", "vit_b_32", "resnet50"]
@@ -55,7 +55,7 @@ def _upstream(name: str, seed: int) -> dict:
 
 
 @pytest.fixture(scope="module")
-def weights_dir(tmp_path_factory) -> Path:
+def weights_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("weights")
     torch.save({k: torch.from_numpy(v) for k, v in _upstream("resnet18", 1).items()}, d / "resnet18.pt")
     save_file(_upstream("lunit_vit_small_patch16_dino", 2), str(d / "lunit_vit_small_patch16_dino.safetensors"))
@@ -67,7 +67,8 @@ def weights_dir(tmp_path_factory) -> Path:
     bad["layer2.1.conv2.weight"] = bad["layer2.1.conv2.weight"][:, :-1]  # one tensor's shape cut
     torch.save(bad, d / "resnet34.pt")
     shutil.copy(d / "resnet18.pt", d / "vit_b_32.pt")  # a checkpoint of the wrong tower
-    return d  # resnet50: no file
+    yield d  # resnet50: no file
+    shutil.rmtree(d)
 
 
 @pytest.fixture(autouse=True)

@@ -26,7 +26,7 @@ from atlaspatch_tpu_torch.models.encoders import zoo
 from atlaspatch_tpu_torch.models.encoders.vit import ViT
 from tests.upstream_layouts import torchvision_vit_sd
 from upstream_values import upstream_checkpoint
-from torch_port_helpers import shared_vit_params
+from torch_port_helpers import free_tmp_path, shared_vit_params  # noqa: F401 (free_tmp_path: autouse)
 
 # the families whose towers were ported last
 PENDING_FAMILIES = {"swin", "clip_modified_resnet", "coca", "conch", "beit3"}

@@ -8,8 +8,12 @@ embedding at zero, so those are filled from numpy to make parity meaningful.
 
 from __future__ import annotations
 
+import functools
+import shutil
+
 import jax
 import numpy as np
+import pytest
 
 from atlaspatch_tpu.models.sam2.config import SAM2Config as JaxSAM2Config
 from atlaspatch_tpu.models.sam2.model import init_params as jax_init_params
@@ -21,9 +25,29 @@ JAX_CFG = JaxSAM2Config.test_tiny()
 CFG = SAM2Config.test_tiny()
 
 
+@pytest.fixture(autouse=True)
+def free_tmp_path(request):
+    """Autouse in the modules that import it (the ones that write
+    checkpoints): once a test that asked for ``tmp_path`` is done, its
+    directory goes, with every checkpoint and archive the test wrote and
+    read there, so a run leaves no weights behind in pytest's temp root.
+    Module fixtures of those modules made with ``tmp_path_factory`` remove
+    their own directories when the module is done."""
+    path = request.getfixturevalue("tmp_path") if "tmp_path" in request.fixturenames else None
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def shared_flax_params(seed: int = 0, cfg=JAX_CFG) -> dict:
     """Flax param tree as numpy arrays, with the zero-initialized embeddings
-    randomized."""
+    randomized: a fresh copy of each call's tree, which the JAX init (~15 s
+    on the CPU) makes once per process."""
+    return jax.tree.map(np.copy, _shared_flax_params(seed, cfg))
+
+
+@functools.lru_cache(maxsize=4)
+def _shared_flax_params(seed: int, cfg) -> dict:
     params = jax.tree.map(np.asarray, jax_init_params(cfg, seed))
     rng = np.random.default_rng(seed + 1)
     bb = params["backbone"]
