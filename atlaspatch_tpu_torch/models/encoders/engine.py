@@ -12,8 +12,11 @@ Batches are padded to power-of-two buckets ≤ ``max_batch`` (``_bucket``), as
 the reference does so that it compiles few programs; here it keeps the
 kernels' shapes few. Params live on the device once. In bfloat16 mode every
 float32 param is cast to bfloat16 (else the matmuls would run in float32 or
-mixed); in float32 mode on the card the engine turns TF32 off for cuBLAS and
-cuDNN itself (process-wide, as the segmenter's float32 mode does), so float32
+mixed); in int8 mode (the W8A8 ViTs) activations flow in bfloat16 between the
+int8 products, and every floating tensor but the per-channel ``qscale``
+factors is cast to bfloat16 by name, as the reference casts its tree
+(engine.py:138-156); in float32 mode on the card the engine turns TF32 off for
+cuBLAS and cuDNN itself (process-wide, as the segmenter's float32 mode does), so float32
 features are float32-exact.
 
 The knobs are the reference's, with its names and meanings:
@@ -133,7 +136,20 @@ def _bucket(n: int, max_batch: int) -> int:
     return b
 
 
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# compute dtype -> the activations' dtype (int8: bfloat16 between the int8 products)
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.bfloat16}
+_KEEP_FLOAT32 = ("qscale",)  # int8 mode's dequantization scales stay exact
+
+
+def _cast_floating_(model: nn.Module, dtype: torch.dtype, keep: tuple[str, ...] = ()) -> nn.Module:
+    """Cast every floating param and buffer of ``model`` to ``dtype`` in
+    place, except those whose own name is in ``keep``."""
+    for module in model.modules():
+        for store in (module._parameters, module._buffers):
+            for name, t in store.items():
+                if t is not None and t.is_floating_point() and name not in keep:
+                    t.data = t.data.to(dtype)
+    return model
 
 
 def require_device(name: str, device: str) -> torch.device:
@@ -152,7 +168,8 @@ class TorchFeatureExtractor(FeatureExtractor):
 
     ``model(images)`` maps (N, S, S, 3) normalized images in the compute dtype
     to (N, D) features. ``device`` is a torch device string; "cuda" without a
-    card raises. int8 (ROADMAP queue 1, item 8) is not ported and raises.
+    card raises. ``compute_dtype`` is float32, bfloat16 or int8 (bfloat16
+    activations; the model's int8 layers are the W8A8 ones).
     """
 
     def __init__(
@@ -167,11 +184,6 @@ class TorchFeatureExtractor(FeatureExtractor):
         max_batch: int = 256,
         prep_workers: int = 8,
     ) -> None:
-        if compute_dtype == "int8":
-            raise NotImplementedError(
-                f"{name}: the int8 serving mode is not ported to atlaspatch_tpu_torch yet "
-                "(ROADMAP queue 1, item 8)"
-            )
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"unknown compute dtype {compute_dtype!r}")
         self.name = name
@@ -189,8 +201,9 @@ class TorchFeatureExtractor(FeatureExtractor):
         # Read once, as the reference does (its jit cache is keyed by shape only).
         self._fetch_bf16 = os.environ.get("ATLASPATCH_FEATURE_D2H_BF16", "0") == "1"
         self._dtype = _COMPUTE_DTYPES[compute_dtype]
-        model = model.eval().requires_grad_(False)
-        self.model = model.to(device=self.device, dtype=self._dtype)
+        model = model.eval().requires_grad_(False).to(device=self.device)
+        # by name, not Module.to(dtype), which would cast qscale too
+        self.model = _cast_floating_(model, self._dtype, keep=_KEEP_FLOAT32 if compute_dtype == "int8" else ())
         self._mean = torch.tensor(spec.mean, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(spec.std, dtype=torch.float32, device=self.device)
 

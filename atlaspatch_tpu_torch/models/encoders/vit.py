@@ -15,22 +15,32 @@ compute dtype, then PV, in the token-major (B, T, H, D) layout
 
 The state_dict mirrors the Flax param tree (``blocks_{i}`` → ``blocks.{i}``,
 Dense ``kernel`` → ``weight`` transposed, LayerNorm ``scale`` → ``weight``);
-:func:`flax_vit_to_torch` converts one to the other. The int8 serving mode
-(``Int8Dense``, ``quantize_vit_params``) is not ported: a spec with
-``quant_int8`` raises.
+:func:`flax_vit_to_torch` converts one to the other.
+
+The int8 serving mode (W8A8, ``spec.quant_int8``): the block linears
+(``QUANT_LAYER_NAMES`` under ``blocks``) are :class:`Int8Linear`, the port of
+the reference's ``Int8Dense`` (vit.py:124-157), whose quantizer and int8
+product run as the kernels of ``ops/int8.py`` on the card; the parameters
+take the layout of :func:`quantize_vit_params` (a Flax tree) or
+:func:`quantize_vit_state_dict` (a state_dict), which give the same int8
+weights and scales. GELU is the tanh approximation there unless
+``ATLASPATCH_GELU_TANH=0``. ``spec.quant_int8_attn`` also runs QK^T and PV as
+int8 products (vit.py:237-260); no entry point turns it on.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from atlaspatch_tpu_torch.ops.int8 import int8_linear, int_product, quantize_plain, quantize_rows
 
 
 @dataclass(frozen=True)
@@ -62,8 +72,12 @@ class ViTSpec:
     rope_theta: float = 100.0  # used when pos_mode == "rope"
     gated_mlp: bool = False  # DINOv3 GatedMLP: down(act(gate(x)) * up(x))
     ln_eps: float = 1e-6
-    # The int8 serving mode of the JAX package; not ported (ViT raises).
+    # W8A8 serving mode: the block linears run int8 x int8 -> int32 on the
+    # tensor cores (Int8Linear). Opt-in via --feature-precision int8; params
+    # use the quantized layout of quantize_vit_params().
     quant_int8: bool = False
+    # With quant_int8: QK^T and PV as int8 products too (dynamic per-row and
+    # per-channel scales; softmax stays float32). Off by default.
     quant_int8_attn: bool = False
 
     @property
@@ -79,12 +93,15 @@ class ViTSpec:
         return self.mlp_hidden if self.mlp_hidden is not None else int(self.dim * self.mlp_ratio)
 
 
-def _act(name: str):
-    """The activation by name. ``ATLASPATCH_GELU_TANH=1`` turns the exact erf
-    GELU into the tanh approximation (the JAX package does so by default only
-    in its int8 mode, which is not ported). Read when the module is built."""
-    if name == "gelu" and os.environ.get("ATLASPATCH_GELU_TANH") == "1":
-        name = "gelu_tanh"
+def _act(name: str, quantized: bool = False):
+    """The activation by name. The exact erf GELU becomes the tanh
+    approximation by default in the int8 serving mode (``quantized``), whose
+    contract is already small drift; ``ATLASPATCH_GELU_TANH=1`` / ``0``
+    forces it on / off everywhere. Read when the module is built."""
+    if name == "gelu":
+        env = os.environ.get("ATLASPATCH_GELU_TANH")
+        if env == "1" or (quantized and env != "0"):
+            name = "gelu_tanh"
     return {
         "gelu": lambda x: F.gelu(x),
         "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
@@ -123,12 +140,120 @@ def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, equati
     return torch.einsum(out_equation, attn, v)
 
 
+class Int8Linear(nn.Module):
+    """W8A8 dynamic-quantized linear layer (the int8 serving mode), the port
+    of the reference's ``Int8Dense``.
+
+    Weights: symmetric per-output-channel int8 ``weight_q`` (N, K) with
+    float32 ``qscale`` (N,), both buffers. Activations: symmetric per-row
+    dynamic abs-max int8 (``quantize_rows``). The int8 product accumulates in
+    int32 and is dequantized by one float32 multiply by both scales, plus the
+    bias, in the activations' dtype out (``int8_linear``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True) -> None:
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("qscale", torch.full((out_features,), 1.0 / 127.0, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq, s_x = quantize_rows(x.reshape(-1, self.in_features))
+        y = int8_linear(xq, s_x, self.weight_q, self.qscale, self.bias, x.dtype)
+        return y.reshape(*x.shape[:-1], self.out_features)
+
+
+# Block-level layers eligible for int8 (they must sit under ``blocks``).
+QUANT_LAYER_NAMES = ("qkv", "proj", "fc1", "fc2", "fc_gate", "fc_up")
+
+
+def _linear(spec: ViTSpec, in_features: int, out_features: int, bias: bool = True) -> nn.Module:
+    """Block-level linear: Int8Linear in the int8 serving mode, nn.Linear
+    otherwise. Only transformer-block layers quantize; embeddings, pooling
+    heads and projections stay float."""
+    if spec.quant_int8:
+        return Int8Linear(in_features, out_features, bias=bias)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
+def quantize_vit_params(params):
+    """Standard float ViT param tree (numpy) → the Int8Dense layout, as the
+    reference's ``quantize_vit_params`` (vit.py:171-199).
+
+    Per-output-channel symmetric scales over each eligible block kernel:
+    kernel (K, N) f32 → kernel_q (K, N) int8 + qscale (N,) f32; biases pass
+    through. Everything outside blocks_* is untouched."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if (
+                "kernel" in node
+                and path
+                and path[-1] in QUANT_LAYER_NAMES
+                and any(str(p).startswith("blocks_") for p in path)
+            ):
+                w = np.asarray(node["kernel"], np.float32)
+                s = np.maximum(np.abs(w).max(axis=0), 1e-8) / 127.0
+                kq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+                out = {"kernel_q": kq, "qscale": s.astype(np.float32)}
+                if "bias" in node:
+                    out["bias"] = np.asarray(node["bias"], np.float32)
+                return out
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return node
+
+    return walk(params, ())
+
+
+def quantize_vit_state_dict(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A float ViT state_dict → the Int8Linear layout, on the tensors' own
+    device: ``blocks.*.<layer>.weight`` (N, K) of a layer in
+    QUANT_LAYER_NAMES → ``weight_q`` (N, K) int8 + ``qscale`` (N,) float32,
+    its bias as float32; the rest as it is. Gives the int8 weights and scales
+    of :func:`quantize_vit_params`, bit for bit."""
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[-1] in ("weight", "bias") and len(parts) > 2 and parts[-2] in QUANT_LAYER_NAMES \
+                and "blocks" in parts[:-2]:
+            prefix = key[: -len(parts[-1])]
+            if parts[-1] == "bias":
+                out[key] = value.float()
+            else:
+                weight_q, qscale = quantize_plain(value.float(), dim=1)
+                out[prefix + "weight_q"] = weight_q
+                out[prefix + "qscale"] = qscale[:, 0]
+        else:
+            out[key] = value
+    return out
+
+
+def _int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(QK^T * scale) V with both products int8 (vit.py:237-260): QK^T
+    with per-(b, t, h) dynamic scales on both sides, PV with per-row
+    probability scales times per-(b, h, channel) value scales; the softmax in
+    float32. (B, T, H, D) in, (B, T, H, D) float32 out. The products are
+    exact (``int_product``)."""
+    qq, sq = quantize_plain(q.float(), -1)  # (B, T, H, 1)
+    kq, sk = quantize_plain(k.float(), -1)
+    acc = int_product("bqhd,bkhd->bhqk", qq, kq)
+    attn = acc.float() * (sq.permute(0, 2, 1, 3) * sk.permute(0, 2, 3, 1))
+    attn = attn * (q.shape[-1] ** -0.5)
+    e = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+    attn = e / e.sum(dim=-1, keepdim=True)
+    aq, sa = quantize_plain(attn, -1)  # (B, H, Tq, 1)
+    vq, sv = quantize_plain(v.float(), 1)  # scale (B, 1, H, D)
+    acc2 = int_product("bhqk,bkhd->bhqd", aq, vq)
+    out = acc2.float() * (sa * sv.permute(0, 2, 1, 3))
+    return out.permute(0, 2, 1, 3)
+
+
 class Attention(nn.Module):
     def __init__(self, spec: ViTSpec) -> None:
         super().__init__()
         self.spec = spec
-        self.qkv = nn.Linear(spec.dim, 3 * spec.dim, bias=spec.qkv_bias)
-        self.proj = nn.Linear(spec.dim, spec.dim)
+        self.qkv = _linear(spec, spec.dim, 3 * spec.dim, bias=spec.qkv_bias)
+        self.proj = _linear(spec, spec.dim, spec.dim)
         if spec.pos_mode == "rope":
             cos, sin = _rope_cos_sin(spec)
             self.register_buffer("rope_cos", cos, persistent=False)
@@ -148,7 +273,10 @@ class Attention(nn.Module):
             kp = kp * cos + _rotate_half(kp) * sin
             q = torch.cat([q[:, :n_prefix], qp], dim=1)
             k = torch.cat([k[:, :n_prefix], kp], dim=1)
-        out = _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
+        if s.quant_int8 and s.quant_int8_attn:
+            out = _int8_attention(q, k, v).to(x.dtype)
+        else:
+            out = _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
         return self.proj(out.reshape(B, T, s.dim))
 
 
@@ -156,14 +284,14 @@ class Mlp(nn.Module):
     def __init__(self, spec: ViTSpec) -> None:
         super().__init__()
         self.spec = spec
-        self.act = _act(spec.act)
+        self.act = _act(spec.act, spec.quant_int8)
         hidden = spec.hidden_dim
         if spec.gated_mlp:
-            self.fc_gate = nn.Linear(spec.dim, hidden)
-            self.fc_up = nn.Linear(spec.dim, hidden)
+            self.fc_gate = _linear(spec, spec.dim, hidden)
+            self.fc_up = _linear(spec, spec.dim, hidden)
         else:
-            self.fc1 = nn.Linear(spec.dim, 2 * hidden if spec.swiglu else hidden)
-        self.fc2 = nn.Linear(hidden, spec.dim)
+            self.fc1 = _linear(spec, spec.dim, 2 * hidden if spec.swiglu else hidden)
+        self.fc2 = _linear(spec, hidden, spec.dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.spec.gated_mlp:
@@ -212,7 +340,7 @@ class MAPHead(nn.Module):
         self.v_proj = nn.Linear(spec.dim, spec.dim)
         self.out_proj = nn.Linear(spec.dim, spec.dim)
         self.norm = nn.LayerNorm(spec.dim, eps=spec.ln_eps)
-        self.mlp = Mlp(spec)
+        self.mlp = Mlp(replace(spec, quant_int8=False))  # the pooling head stays float
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
@@ -234,11 +362,6 @@ class ViT(nn.Module):
 
     def __init__(self, spec: ViTSpec) -> None:
         super().__init__()
-        if spec.quant_int8:
-            raise NotImplementedError(
-                "the int8 ViT (Int8Dense, quantize_vit_params) is not ported to "
-                "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 8)"
-            )
         if spec.pos_mode not in ("prefix", "patches", "all", "rope"):
             raise ValueError(f"unknown pos_mode {spec.pos_mode}")
         if spec.pool not in ("cls", "mean", "cls_mean_concat", "map", "none"):
@@ -311,8 +434,10 @@ def flax_tree_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     ``blocks.{i}``; Dense kernels (in, out) → weight (out, in); Conv kernels
     (kh, kw, in, out) → weight (out, in, kh, kw); LayerNorm and BatchNorm
     ``scale`` → ``weight``; BatchNorm ``mean`` / ``var`` → ``running_mean`` /
-    ``running_var``; everything else as it is. The ViT and the other towers
-    of the zoo (Swin, CLIP ModifiedResNet, CoCa, BEiT3) use it.
+    ``running_var``; the int8 layout's ``kernel_q`` (in, out) → ``weight_q``
+    (out, in) int8, contiguous; everything else as it is, in float32. The ViT
+    and the other towers of the zoo (Swin, CLIP ModifiedResNet, CoCa, BEiT3)
+    use it.
 
     float32 leaves are not copied: a kernel's weight is a transposed view of
     it (``load_state_dict`` copies into the module), so a tree that is itself
@@ -328,10 +453,14 @@ def flax_tree_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                     key = f"blocks.{key[len('blocks_'):]}"
                 walk(value, path + [key])
             return
+        leaf = path[-1]
+        if leaf == "kernel_q":
+            out[".".join(path[:-1] + ["weight_q"])] = torch.from_numpy(
+                np.array(np.asarray(node, dtype=np.int8).T, order="C"))
+            return
         arr = np.asarray(node, dtype=np.float32)
         if not arr.flags.writeable:  # a jax array's view: torch wants its own
             arr = arr.copy()
-        leaf = path[-1]
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             leaf = "weight"

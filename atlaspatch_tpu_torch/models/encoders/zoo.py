@@ -27,7 +27,7 @@ from __future__ import annotations
 import logging
 import os
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any
 
@@ -82,7 +82,7 @@ from atlaspatch_tpu_torch.models.encoders.swin import (
     hf_swin_to_flax,
     timm_swin_to_flax,
 )
-from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_tree_to_torch
+from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_tree_to_torch, quantize_vit_state_dict
 from atlaspatch_tpu_torch.utils import safetensors
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders.zoo")
@@ -910,8 +910,18 @@ def build_extractor(
     if mesh is not None or tensor_parallel:
         raise NotImplementedError(
             f"{entry.name}: data- and tensor-parallel embedding is not ported to "
-            "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 9)"
+            "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 5)"
         )
+    quant_int8 = compute_dtype == "int8"
+    if quant_int8 and entry.family not in _VIT_FAMILIES:
+        logger.warning(
+            "int8 precision requested for %s (%s family): no int8 plan for this "
+            "tower, falling back to bfloat16.",
+            entry.name,
+            entry.family,
+        )
+        quant_int8 = False
+        compute_dtype = "bfloat16"
     tower, from_flax = _TOWERS[entry.family]
     with require_device(entry.name, device):  # built (and random-initialized) in place
         model = tower(entry.spec)
@@ -932,6 +942,13 @@ def build_extractor(
             "Place a checkpoint in ATLASPATCH_WEIGHTS_DIR or the HF cache, or set "
             "ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1 for benchmarking."
         )
+    if quant_int8:
+        # The float32 weights (from file, or the float model's random init,
+        # so int8 and float runs share weights), quantized into the W8A8 ViT.
+        state = quantize_vit_state_dict(model.state_dict())
+        with require_device(entry.name, device):
+            model = tower(replace(entry.spec, quant_int8=True))
+        model.load_state_dict(state, strict=True)
     return TorchFeatureExtractor(
         name=entry.name,
         embedding_dim=entry.embedding_dim,

@@ -1,1 +1,2 @@
-"""Compute ops: attention kernel, polygon containment, contours."""
+"""Compute ops: attention kernel, the int8 linear, polygon containment, contours,
+content filters, resizing."""

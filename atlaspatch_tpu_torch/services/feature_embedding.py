@@ -16,8 +16,8 @@ memory (feature rows do, until the slide's one H5 rewrite).
 The port of ``atlaspatch_tpu/services/feature_embedding.py``. H5 files are read
 by the port's own reader (utils/h5.py). Feature plugins
 (``feature_cfg.plugins``) register into the service's own registry, as in the
-JAX package. Not ported yet: the int8 precision (ROADMAP queue 1, item 8),
-which raises ``NotImplementedError`` when the service is built.
+JAX package. ``precision="int8"`` runs the ViT-family encoders in the W8A8
+serving mode on the card (other families fall back to bfloat16).
 """
 
 from __future__ import annotations
@@ -53,8 +53,8 @@ def resolve_feature_dtype(device: str, precision: str) -> str:
 
     float16 maps to bfloat16, the reduced precision the port runs;
     float32 stays exact. CPU runs always use float32 (parity with the
-    reference's fp16-on-CPU fallback, feature_embedding.py:28-39). int8 maps
-    to int8, which the service refuses (not ported).
+    reference's fp16-on-CPU fallback, feature_embedding.py:28-39). int8
+    maps to int8 (the W8A8 ViTs on the card's int8 tensor cores).
     """
     prec = precision.lower()
     if device.startswith("cpu"):
@@ -77,11 +77,6 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
         self.cfg = extraction_cfg.validated()
         self.output_cfg = output_cfg.validated()
         self.feature_cfg = feature_cfg.validated()
-        if self.feature_cfg.precision == "int8":
-            raise NotImplementedError(
-                "feature precision int8 is not ported to atlaspatch_tpu_torch yet "
-                "(ROADMAP queue 1, item 8)"
-            )
         self.compute_dtype = resolve_feature_dtype(
             self.feature_cfg.device, self.feature_cfg.precision
         )

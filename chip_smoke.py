@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths, its command line, its checkpoint loading and its SAM2 fine-tuning, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading and its SAM2 fine-tuning, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,6 +9,8 @@ Phases, one line each (any failure exits non-zero with no result line):
   build   the attention kernel's three libraries (nvcc, sm_90a: the wgmma +
           TMA bfloat16 body; the mma.sync bfloat16 body and two float32
           bodies, 3xTF32 on mma.sync and FMA; the float32 small-window body),
+          the int8 serving mode's library (int8_linear.so: the row quantizer
+          and the int8 tensor-core linear; no spills, SASS checked for IMMA),
           the contour tracer and the slide decoder (g++), all from the sources in
           atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
           per body (none allowed at D = 96 in the wgmma, tf32x3 and f32_win
@@ -102,6 +104,29 @@ Phases, one line each (any failure exits non-zero with no result line):
           dense bound (the forward's FLOPs per patch over 989 TFLOP/s), the
           device busy share of one extract_batch by torch.profiler with its
           largest device operations, and the peak memory allocated
+  int8    the int8 (W8A8) serving mode of vit_l_16. (a) Both kernels of
+          csrc/int8_linear.cu against their plain versions (max-abs 0) at the
+          shapes vit_l_16 hands them at batch 32 and 256 (M 6,304 and 50,432;
+          (K, N) of qkv, proj, fc1, fc2) and at medsiglip's ragged MLP
+          ((1152, 4304), (4304, 1152)) at M 8,192 and 5; per shape the device
+          ms by torch.profiler, the bound, the plain version's ms and the
+          library's (torch._int_mm + the eager dequantization; bf16 F.linear
+          beside it), timed only. (b) vit_l_16 at full width from the
+          registry with --feature-precision int8's dtype and random weights:
+          96 Int8Linear, weight_q int8, qscale float32, the rest bfloat16;
+          the float32 extractor's weights quantized; 96 launches of each
+          kernel per forward; int8 vs float32 per-patch cosine > 0.98 on 64
+          patches; card int8 vs CPU int8 at depth 2 on the same weights,
+          cosine >= 0.999; extract_batch patches/s at batch 32 (512 patches,
+          median of 3) and the resident rate at 32 and 256 beside the embed
+          phase's bf16 ones; the kernels' share of a forward's device time;
+          the quant_int8_attn branch's time. (d) content_filter_mask and
+          resize_nearest on the card equal to the CPU's. (c) process --fast
+          --feature-precision int8 --feature-extractors vit_l_16 through the
+          command line over four (f1) slides on the tiff phase's
+          coordinates: no segmentation, 96 launches of each kernel per
+          encoder forward, features (n, 1024) float32, coords and attrs
+          unchanged; patches/s by host clock
   process the runner phase's 28 slides through ProcessingRunner.run() and
           then PatchFeatureEmbeddingService.embed_all with vit_l_16 in
           bfloat16 (batch 32), as the JAX CLI's process composes them.
@@ -195,7 +220,10 @@ Phases, one line each (any failure exits non-zero with no result line):
           torch.profiler, the validation forward's ms, the peak memory and
           the phase's seconds, beside the card's name and power limit
 
-Then one JSON line with the kernel record (``launches``: the seg phase's;
+Then one JSON line with the kernel records: the two int8 kernels'
+(``launches``: the int8 phase's command-line run; ``extract_launches``: its
+extract_batch passes; ms, bound, plain and library ms summed over one
+vit_l_16 forward at batch 32) after the attention kernel's (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
 (f1)+(f3) runner pass; ``process_launches``: the process phase's;
 ``cli_launches``: the cli phase's three in-process commands;
@@ -405,10 +433,26 @@ def _ptxas_by_body(log: str) -> dict:
     return bodies
 
 
+def _ptxas_int8(log: str) -> dict:
+    """ptxas -v of int8_linear.so: per kernel (int8_linear_s8 / quantize_rows_s8),
+    its instantiations, the most registers and those with stack or spills."""
+    kernels: dict = {}
+    for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
+        kind = re.search(r"(int8_linear_s8|quantize_rows_s8)_kernel", name).group(1)
+        entry = kernels.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
+        entry["kernels"] += 1
+        entry["max_registers"] = max(entry["max_registers"], int(re.search(r"Used (\d+) registers", body).group(1)))
+        stack = re.search(r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads)", body)
+        if stack and stack.group(1) != NO_SPILL:
+            entry["spilling"].append(f"{name}: {stack.group(1)}")
+    return kernels
+
+
 def phase_build(state):
     from atlaspatch_tpu_torch.build import build_log, nvcc_path
     from atlaspatch_tpu_torch.io.native import load_contours_library, load_tiff_library
     from atlaspatch_tpu_torch.ops.attention import load_f32win_library, load_flash_library, load_wgmma_library
+    from atlaspatch_tpu_torch.ops.int8 import load_int8_library
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -416,11 +460,11 @@ def phase_build(state):
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         jobs = [pool.submit(timed, fn) for fn in (load_wgmma_library, load_flash_library, load_f32win_library,
-                                                  load_contours_library, load_tiff_library)]
-        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (_, contours_s), (_, tiff_s) = (
-            j.result() for j in jobs)
+                                                  load_int8_library, load_contours_library, load_tiff_library)]
+        (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (int8_lib, int8_s), (_, contours_s), \
+            (_, tiff_s) = (j.result() for j in jobs)
     bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
               **_ptxas_by_body(build_log(Path(flash_lib._name))),
               **_ptxas_by_body(build_log(Path(win_lib._name)))}
@@ -433,7 +477,7 @@ def phase_build(state):
         return subprocess.run([str(cuobjdump), "-sass", lib._name], capture_output=True, text=True,
                               check=True).stdout
 
-    wgmma_sass, flash_sass = sass(wgmma_lib), sass(flash_lib)
+    wgmma_sass, flash_sass, int8_sass = sass(wgmma_lib), sass(flash_lib), sass(int8_lib)
     ops = {op: wgmma_sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
     if not ops["HGMMA"] or not ops["UTMALDG"]:
         raise AssertionError(f"the wgmma library's SASS lacks HGMMA or UTMALDG: {ops}")
@@ -446,13 +490,24 @@ def phase_build(state):
     win_ctas = win_lib.atlas_flash_attn_f32win_ctas_per_sm()
     if win_ctas < 1:
         raise AssertionError(f"the f32_win body fits no CTA on an SM (cudaError {-win_ctas})")
-    log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s and "
-        f"flash_attn_f32win.so {win_s:.1f}s (nvcc sm_90a), atlas_contours.so {contours_s:.1f}s and "
+    int8_kernels = _ptxas_int8(build_log(Path(int8_lib._name)))
+    imma = Counter(re.findall(r"IMMA\.[\w.]+", int8_sass))
+    if set(int8_kernels) != {"int8_linear_s8", "quantize_rows_s8"} or not imma:
+        raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS IMMA {dict(imma)}")
+    if any(k["spilling"] for k in int8_kernels.values()):
+        raise AssertionError(f"an int8 kernel spills: {int8_kernels}")
+    log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s, "
+        f"flash_attn_f32win.so {win_s:.1f}s and int8_linear.so {int8_s:.1f}s (nvcc sm_90a), "
+        f"atlas_contours.so {contours_s:.1f}s and "
         f"atlas_tiff.so {tiff_s:.1f}s (g++), "
         f"wall {time.perf_counter() - t0:.1f}s")
     for kind, entry in bodies.items():
         log(f"build ptxas {kind}: {entry['kernels']} kernels, max registers {entry['max_registers']}, "
             f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
+    for kind, entry in int8_kernels.items():
+        log(f"build ptxas {kind}: {entry['kernels']} instantiations, max registers {entry['max_registers']}, "
+            f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
+    log(f"build int8_linear.so SASS: {dict(imma)}")
     log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; at D = 96: tf32x3 {ctas} CTAs "
         f"of 128 threads per SM, f32_win {win_ctas} CTAs of 384 threads (8 consumer, 4 producer warps) per SM")
 
@@ -1449,6 +1504,372 @@ def phase_embed(state):
         log(f"embed profile   {us / 1e3:8.2f} ms {100 * us / busy_us:5.1f}% x{e.count:<5d} {e.key[:100]}")
     bf16.cleanup()
     state["embed"] = dict(rates, bound_pps=bound_pps, busy=busy_us / 1e6 / wall_s)
+
+
+# The int8 phase: vit_l_16's block linears as (K, N), in the order a block runs
+# them, and medsiglip's MLP (hidden 4,304: K and N not multiples of 64).
+INT8_VITL_LINEARS = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+INT8_RAGGED = {"fc1": (1152, 4304), "fc2": (4304, 1152)}
+INT8_SOURCE = "atlaspatch_tpu_torch/csrc/int8_linear.cu"
+# Int8Dense's quantizer (the inlined _q8_dyn) and its int8 product with the dequantization
+INT8_REPLACES = {"quantize_rows_s8": "atlaspatch_tpu/models/encoders/vit.py:143",
+                 "int8_linear_s8": "atlaspatch_tpu/models/encoders/vit.py:146"}
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core operations per second
+INT8_COS = 0.98  # int8 against float32 per patch: tests/test_int8_mode.py's drift contract
+
+
+def int8_linear_bound(m: int, n: int, k: int) -> tuple[float, float]:
+    """(operation-bound ms, byte-bound ms) of one int8_linear to bfloat16: 2 M
+    N K int8 operations over the int8 tensor-core peak; xq, W, both scales and
+    the bfloat16 bias read and the bfloat16 output written once over HBM."""
+    nbytes = m * k + n * k + 4 * m + 4 * n + 2 * n + 2 * m * n
+    return 1e3 * 2.0 * m * n * k / H100_INT8_OPS, 1e3 * nbytes / H100_BYTES_PER_S
+
+
+def quantize_bound(m: int, k: int) -> float:
+    """ms of one quantize_rows of bfloat16 rows: 2 M K bytes in, M K + 4 M out
+    over HBM (its few operations per byte bound it by bytes)."""
+    return 1e3 * (3 * m * k + 4 * m) / H100_BYTES_PER_S
+
+
+def _int8_kernel_rows(state) -> dict:
+    """(a) Both kernels against their plain versions at vit_l_16's shapes at
+    batch 32 and 256 and medsiglip's ragged ones: max-abs 0, device ms, bound,
+    plain ms and library ms per shape. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    cases = [(b * 197, k, n, f"vit_l_16 {name} batch {b}") for b in (32, 256)
+             for name, (k, n) in INT8_VITL_LINEARS.items()]
+    cases += [(m, k, n, f"medsiglip {name} M={m}") for m in (8 * 1024, 5) for name, (k, n) in INT8_RAGGED.items()]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    quant, linear = {}, {}
+    for m, k, n, label in cases:
+        x = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+        qscale = (torch.rand(n, device="cuda", generator=gen) + 0.5) / 127.0
+        bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+        xq, s_x = I.quantize_rows(x)
+        want_xq, want_s = I.quantize_rows_plain(x)
+        y = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+        want = I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        q_err = max((xq.int() - want_xq.int()).abs().max().item(), (s_x - want_s).abs().max().item())
+        err = (y.float() - want.float()).abs().max().item()
+        if q_err != 0 or err != 0:
+            raise AssertionError(f"int8 {label} (M={m}, K={k}, N={n}): quantize_rows max-abs {q_err}, "
+                                 f"int8_linear max-abs {err} (must be 0)")
+        del want, want_xq, want_s, y
+        if (m, k) not in quant:
+            row = dict(err=q_err, ms=device_ms(lambda: I.quantize_rows(x), kernel="quantize_rows_s8"),
+                       plain_ms=cuda_ms(lambda: I.quantize_rows_plain(x)), bound_ms=quantize_bound(m, k))
+            quant[(m, k)] = row
+            log(f"int8 quantize_rows_s8 M={m:6d} K={k:5d} ({label.split(' M=')[0]}): max-abs {q_err} "
+                f"dev_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} (bytes) plain_ms={row['plain_ms']:.4f} "
+                f"library_ms=null [{state['card']}]")
+
+        def library():  # torch._int_mm and the eager dequantization: timed only, never called by the port
+            acc = torch._int_mm(xq, w.t())
+            return (acc.float() * (s_x[:, None] * qscale) + bias).to(torch.bfloat16)
+
+        w16 = w.to(torch.bfloat16)
+        op_ms, byte_ms = int8_linear_bound(m, n, k)
+        row = dict(err=err, op_ms=op_ms, byte_ms=byte_ms,
+                   ms=device_ms(lambda: I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16),
+                                kernel="int8_linear_s8"),
+                   plain_ms=cuda_ms(lambda: I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16),
+                                    max_reps=5),
+                   # torch._int_mm takes M > 16 only
+                   library_ms=device_ms(library, kernel=None) if m > 16 else None,
+                   bf16_ms=device_ms(lambda: F.linear(x, w16, bias), kernel=None))
+        linear[(m, k, n)] = row
+        lib = "null (M <= 16)" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        log(f"int8 int8_linear_s8  M={m:6d} K={k:5d} N={n:5d} ({label}): max-abs {err} "
+            f"dev_ms={row['ms']:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
+            f"({'operations' if op_ms >= byte_ms else 'bytes'}) plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={lib} (_int_mm + dequant) bf16 F.linear dev_ms={row['bf16_ms']:.4f} "
+            f"[{state['card']}]")
+        del x, w, w16, xq, s_x
+    torch.cuda.empty_cache()
+    return {"quant": quant, "linear": linear}
+
+
+def _int8_records(rows) -> dict:
+    """The two kernels' records over one vit_l_16 forward at batch 32 (M =
+    6,304): per block 3 quantize_rows of K 1,024 and one of 4,096, and the 4
+    linears, times 24 blocks."""
+    m, depth = 32 * 197, 24
+    blocks = [rows["quant"][(m, 1024)]] * 3 + [rows["quant"][(m, 4096)]]
+    linears = [rows["linear"][(m, k, n)] for k, n in INT8_VITL_LINEARS.values()]
+    worst = max(r["err"] for r in [*rows["quant"].values(), *rows["linear"].values()])
+    op = sum(r["op_ms"] for r in linears if r["op_ms"] >= r["byte_ms"])
+    byte = sum(r["byte_ms"] for r in linears if r["op_ms"] < r["byte_ms"])
+    return {
+        "quantize_rows_s8": {
+            "name": "quantize_rows_s8", "route": "cuda", "source": INT8_SOURCE,
+            "replaces": INT8_REPLACES["quantize_rows_s8"], "max_abs_err": worst,
+            "ms": depth * sum(r["ms"] for r in blocks), "plain_ms": depth * sum(r["plain_ms"] for r in blocks),
+            "bound_ms": depth * sum(r["bound_ms"] for r in blocks), "bound_by": "bytes", "library_ms": None,
+        },
+        "int8_linear_s8": {
+            "name": "int8_linear_s8", "route": "cuda", "source": INT8_SOURCE,
+            "replaces": INT8_REPLACES["int8_linear_s8"], "max_abs_err": worst,
+            "ms": depth * sum(r["ms"] for r in linears), "plain_ms": depth * sum(r["plain_ms"] for r in linears),
+            "bound_ms": depth * (op + byte), "bound_by": "operations" if op >= byte else "bytes",
+            "library_ms": depth * sum(r["library_ms"] for r in linears),
+            "bf16_linear_ms": depth * sum(r["bf16_ms"] for r in linears),
+        },
+    }
+
+
+def _int8_launches() -> tuple[int, int]:
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    return I.quantize_rows.launches, I.int8_linear.launches
+
+
+def phase_int8(state):
+    """The int8 (W8A8) serving mode of vit_l_16: (a) both kernels at the
+    shapes it hands them, (b) the encoder at full width, (c) process
+    --feature-precision int8 through the command line, (d) the device ops."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import (
+        Attention, Int8Linear, ViT, quantize_vit_state_dict,
+    )
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    rows = _int8_kernel_rows(state)
+    records = _int8_records(rows)
+
+    # (b) vit_l_16 at full width, random weights from the registry
+    entry = ENTRIES["vit_l_16"]
+    spec = entry.spec
+    if (spec.dim, spec.depth, spec.heads, spec.img_size, spec.patch_size) != (1024, 24, 16, 224, 16):
+        raise AssertionError(f"vit_l_16 is not at full width: {spec}")
+    rng = np.random.default_rng(0)
+    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(EMBED_PATCHES)]
+    t0 = time.perf_counter()
+    i8 = build_default_registry(device="cuda", dtype="int8").create("vit_l_16")
+    f32 = build_default_registry(device="cuda", dtype="float32").create("vit_l_16")
+    build_s = time.perf_counter() - t0
+    layers = [mod for mod in i8.model.modules() if isinstance(mod, Int8Linear)]
+    if i8.compute_dtype != "int8" or len(layers) != 4 * spec.depth:
+        raise AssertionError(f"int8: {i8.compute_dtype} extractor with {len(layers)} int8 layers")
+    kinds = {}
+    for name, t in i8.model.state_dict().items():
+        kind = name.rsplit(".", 1)[-1] if name.endswith(("weight_q", "qscale")) else "other"
+        kinds.setdefault(kind, set()).add((t.dtype, t.device.type))
+    if kinds != {"weight_q": {(torch.int8, "cuda")}, "qscale": {(torch.float32, "cuda")},
+                 "other": {(torch.bfloat16, "cuda")}}:
+        raise AssertionError(f"int8: tensor kinds after the engine's cast {kinds}")
+    want_q, want_s = I.quantize_plain(f32.model.blocks[5].mlp.fc1.weight.float(), dim=1)
+    if not (torch.equal(i8.model.blocks[5].mlp.fc1.weight_q, want_q)
+            and torch.equal(i8.model.blocks[5].mlp.fc1.qscale, want_s[:, 0])):
+        raise AssertionError("int8: the int8 weights are not the float32 extractor's, quantized")
+    ref = f32.extract_batch(patches[:64], batch_size=32)
+    I.reset_launch_counts()
+    got = i8.extract_batch(patches[:64], batch_size=32)
+    torch.cuda.synchronize()
+    if _int8_launches() != (2 * 96, 2 * 96):
+        raise AssertionError(f"int8: {_int8_launches()} launches in 2 forwards (96 each per forward)")
+    cos = _cos_rows(ref, got)
+    if not (np.isfinite(got).all() and got.shape == (64, 1024) and cos.min() > INT8_COS):
+        raise AssertionError(f"int8: int8 vs float32 per-patch cosine min {cos.min()}")
+    f32.cleanup()
+    del f32
+    log(f"int8 vit_l_16 (dim 1024, depth 24, 16 heads; random weights, two registry builds {build_s:.1f} s): "
+        f"96 Int8Linear, weight_q int8, qscale float32, the rest bfloat16 on the card; the float32 "
+        f"extractor's weights quantized; 96 launches of each kernel per forward; int8 vs float32 on 64 "
+        f"patches per-patch cosine min {cos.min():.6f} mean {cos.mean():.6f} (> {INT8_COS}) [{state['card']}]")
+
+    # card int8 against CPU int8 at full width, depth 2, on the same weights
+    shallow = init_random_weights_(ViT(dataclasses.replace(spec, depth=2)), seed=0)
+    quantized = ViT(dataclasses.replace(spec, depth=2, quant_int8=True))
+    quantized.load_state_dict(quantize_vit_state_dict(shallow.state_dict()), strict=True)
+    cpu = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                model=copy.deepcopy(quantized), device="cpu", compute_dtype="int8")
+    card = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                 model=quantized, device="cuda", compute_dtype="int8")
+    t0 = time.perf_counter()
+    want = cpu.extract_batch(patches[:4])
+    cpu_s = time.perf_counter() - t0
+    got = card.extract_batch(patches[:4])
+    card_cos = _cos_rows(want, got)
+    if not card_cos.min() >= 0.999:
+        raise AssertionError(f"int8: card vs CPU at depth 2 per-patch cosine min {card_cos.min()}")
+    card.cleanup()
+    del cpu, card, shallow, quantized
+    log(f"int8 card vs CPU at full width, depth 2, same weights, 4 patches: per-patch cosine min "
+        f"{card_cos.min():.7f} (>= 0.999; CPU {cpu_s:.1f} s) [{state['card']}]")
+
+    # rates, beside the embed phase's bfloat16 ones
+    bf16 = state.get("embed", {})
+    I.reset_launch_counts()
+    med_s, stages = _timed_passes(i8, patches, 32)
+    forwards = (1 + EMBED_PASSES) * len(patches) // 32  # the warm pass and the timed ones
+    if _int8_launches() != (96 * forwards, 96 * forwards):
+        raise AssertionError(f"int8: {_int8_launches()} launches in {forwards} forwards")
+    rate = len(patches) / med_s
+    log(f"int8 extract_batch {len(patches)} patches at batch 32: median {med_s:.4f} s of {EMBED_PASSES} = "
+        f"{rate:.1f} patches/s (bf16, embed phase: {bf16.get(32, float('nan')):.1f}) [{state['card']}]")
+    log("int8 stages at batch 32 (3 passes) " + json.dumps(stages) + f" [{state['card']}]")
+    resident = {}
+    for batch in (32, 256):
+        u8 = torch.from_numpy(np.stack([entry.preprocess.apply_host(p) for p in patches[:batch]])).cuda()
+        ms = cuda_ms(lambda: i8.forward_device(u8), min_total_ms=300.0)
+        resident[batch] = 1e3 * batch / ms
+        log(f"int8 resident forward at batch {batch}: {ms:.3f} ms = {resident[batch]:.1f} patches/s (bf16, "
+            f"embed phase: {bf16.get(f'resident_{batch}', float('nan')):.1f}) [{state['card']}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        i8.forward_device(u8)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    if busy_us == 0:
+        raise AssertionError("int8: the profiler recorded no device time")
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    share = {name: sum(e.self_device_time_total for e in dev if name in e.key) / busy_us
+             for name in ("int8_linear_s8", "quantize_rows_s8")}
+    log(f"int8 profile: one forward at batch 256, device {busy_us / 1e3:.2f} ms; int8_linear_s8 "
+        f"{100 * share['int8_linear_s8']:.1f}%, quantize_rows_s8 {100 * share['quantize_rows_s8']:.1f}% "
+        f"[{state['card']}]")
+    for e in dev[:8]:
+        log(f"int8 profile   {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:100]} [{state['card']}]")
+
+    # the int8 attention branch (quant_int8_attn; no entry point turns it on): its time at batch 32
+    x = torch.randn(32, 197, 1024, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    x = x.to(torch.bfloat16)
+    attn = i8.model.blocks[0].attn
+    attn8 = Attention(dataclasses.replace(i8.model.spec, quant_int8_attn=True)).cuda().requires_grad_(False)
+    attn8.load_state_dict(attn.state_dict())
+    attn8.qkv.bias.data, attn8.proj.bias.data = attn.qkv.bias.data, attn.proj.bias.data
+    with torch.no_grad():
+        a_cos = torch.nn.functional.cosine_similarity(attn8(x).float().flatten(1), attn(x).float().flatten(1))
+        plain_attn_ms, int8_attn_ms = cuda_ms(lambda: attn(x)), cuda_ms(lambda: attn8(x))
+    if not a_cos.min().item() > INT8_COS:
+        raise AssertionError(f"int8: the int8 attention branch's cosine to the plain branch {a_cos.min()}")
+    log(f"int8 attention block at batch 32 (qkv, attention, proj): plain products {plain_attn_ms:.3f} ms, "
+        f"int8 products (quant_int8_attn) {int8_attn_ms:.3f} ms by CUDA events; cosine of their outputs min "
+        f"{a_cos.min().item():.5f} [{state['card']}]")
+    del attn8, x
+
+    # (d) the device ops: content filters and the nearest resize, card against CPU
+    from atlaspatch_tpu_torch.ops.filters import content_filter_mask
+    from atlaspatch_tpu_torch.ops.resize import resize_nearest
+
+    host = np.stack(patches[:64])
+    host[0], host[1] = 0, 250  # a black and a white patch
+    batch = torch.from_numpy(host)
+    on_card = batch.cuda()
+    keep = content_filter_mask(on_card).cpu()
+    if not (torch.equal(keep, content_filter_mask(batch)) and keep.any() and not keep.all()):
+        raise AssertionError(f"int8: content_filter_mask on the card {keep.tolist()}")
+    small = resize_nearest(on_card, (224, 224))
+    if not torch.equal(small.cpu(), resize_nearest(batch, (224, 224))):
+        raise AssertionError("int8: resize_nearest on the card differs from the CPU")
+    filter_ms = cuda_ms(lambda: content_filter_mask(on_card))
+    resize_ms = cuda_ms(lambda: resize_nearest(on_card, (224, 224)))
+    log(f"int8 device ops on 64 patches of 256x256: content_filter_mask equals the CPU's ({int(keep.sum())} kept), "
+        f"{filter_ms:.3f} ms; resize_nearest to 224 equals the CPU's, {resize_ms:.3f} ms [{state['card']}]")
+    i8.cleanup()
+    del on_card, small
+    torch.cuda.empty_cache()
+
+    # (c) the command line: process --fast --feature-precision int8 on four (f1) slides' coordinates
+    cli = _int8_cli(state)
+    records["quantize_rows_s8"].update(launches=cli["launches"][0], extract_launches=96 * forwards)
+    records["int8_linear_s8"].update(launches=cli["launches"][1], extract_launches=96 * forwards)
+    state["int8_records"] = [records["quantize_rows_s8"], records["int8_linear_s8"]]
+    state["int8"] = dict(rate=rate, resident=resident, cos_min=float(cos.min()), card_cos=float(card_cos.min()),
+                         cli=cli, share=share, attn_ms=(plain_attn_ms, int8_attn_ms))
+    for rec in state["int8_records"]:
+        log(f"int8 record {rec['name']}: per forward (batch 32) {rec['ms']:.3f} ms device, bound "
+            f"{rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
+            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in the cli run "
+            f"[{state['card']}]")
+
+
+def _int8_cli(state) -> dict:
+    """process --fast --feature-precision int8 --feature-extractors vit_l_16
+    over four (f1) slides on the tiff phase's coordinates: no segmentation,
+    96 launches of each int8 kernel per encoder forward, features (n, 1024)
+    float32, coords and file attrs unchanged."""
+    import tempfile
+
+    import numpy as np
+
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.utils.h5 import read_h5, read_h5_tree
+
+    tiff_root = state["tiff_tmp"]
+    f1 = tiff_root / "f1"
+    stems = sorted(p.stem for p in f1.glob("*.svs"))[:4]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_"))
+    forward = TorchFeatureExtractor.forward_device
+    forwards = [0]
+
+    def counted(self, images_u8):
+        forwards[0] += 1
+        return forward(self, images_u8)
+
+    try:
+        slides, out = tmp / "slides", tmp / "out"
+        (out / "patches").mkdir(parents=True)
+        slides.mkdir()
+        for stem in stems:
+            (slides / f"{stem}.svs").symlink_to((f1 / f"{stem}.svs").resolve())
+            (h5,) = (tiff_root / "runner" / "out").rglob(f"{stem}.h5")
+            shutil.copy(h5, out / "patches" / f"{stem}.h5")
+        before = {s: read_h5(out / "patches" / f"{s}.h5") for s in stems}
+        TorchFeatureExtractor.forward_device = counted
+        try:
+            I.reset_launch_counts()
+            lines, wall, attn_launches, seg_forwards = _cli_main(
+                ["process", slides, "--output", out, *CLI_SEG_ARGS, "--fast", "--feature-precision", "int8",
+                 "--feature-extractors", "vit_l_16"])
+            launches = _int8_launches()
+        finally:
+            TorchFeatureExtractor.forward_device = forward
+        if f"Completed {len(stems)} slide(s), failures: 0" not in lines or seg_forwards or attn_launches:
+            raise AssertionError(f"int8 cli: {seg_forwards} segmentation forwards, {attn_launches} attention "
+                                 f"launches; {lines[-3:]}")
+        if not forwards[0] or launches != (96 * forwards[0], 96 * forwards[0]):
+            raise AssertionError(f"int8 cli: {launches} int8 launches in {forwards[0]} encoder forwards")
+        n_total = 0
+        for stem in stems:
+            tree = read_h5_tree(out / "patches" / f"{stem}.h5")
+            (old_data, old_attrs), n = before[stem], before[stem][0]["coords"].shape[0]
+            feats = tree.datasets.get("features/vit_l_16")
+            if feats is None or feats.shape != (n, 1024) or feats.dtype != np.float32 or not np.isfinite(feats).all():
+                raise AssertionError(f"int8 cli: {stem} features/vit_l_16 is {None if feats is None else feats.shape}")
+            if tree.dataset_attrs["features/vit_l_16"] != {"name": "vit_l_16", "embedding_dim": 1024}:
+                raise AssertionError(f"int8 cli: {stem} attrs {tree.dataset_attrs['features/vit_l_16']}")
+            for key, arr in old_data.items():
+                if tree.datasets[key].tobytes() != arr.tobytes():
+                    raise AssertionError(f"int8 cli: {stem} {key} changed")
+            if dict(tree.attrs) != old_attrs:
+                raise AssertionError(f"int8 cli: {stem} file attrs changed")
+            n_total += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"int8 cli process --fast --feature-precision int8 over {len(stems)} (f1) slides, {n_total} patches on "
+        f"the tiff phase's coordinates: {wall:.3f} s = {n_total / wall:.1f} patches/s by host clock (the encoder's "
+        f"build included); 0 segmentation forwards; {forwards[0]} encoder forwards, {launches[0]} quantize_rows_s8 "
+        f"and {launches[1]} int8_linear_s8 launches; features (n, 1024) float32 finite, coords and attrs "
+        f"unchanged [{state['card']}]")
+    return dict(launches=launches, forwards=forwards[0], patches=n_total, wall=wall)
 
 
 def phase_process(state):
@@ -2487,8 +2908,8 @@ def main() -> int:
         for name, phase in (("env", phase_env), ("build", phase_build), ("kernel", phase_kernel),
                             ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
-                            ("process", phase_process), ("cli", phase_cli), ("weights", phase_weights),
-                            ("finetune", phase_finetune)):
+                            ("int8", phase_int8), ("process", phase_process), ("cli", phase_cli),
+                            ("weights", phase_weights), ("finetune", phase_finetune)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -2506,8 +2927,12 @@ def main() -> int:
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
             "process_launches", "cli_launches", "weights_launches", "finetune_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    int8_keys = ("name", "route", "source", "replaces", "launches", "extract_launches", "max_abs_err", "ms",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms")
+    int8 = [{k: rec[k] for k in int8_keys + (("bf16_linear_ms",) if "bf16_linear_ms" in rec else ())}
+            for rec in state["int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8]}))
     print(state["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

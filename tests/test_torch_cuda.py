@@ -603,3 +603,107 @@ def test_embed_all_on_the_card(card, monkeypatch, tmp_path):
         assert np.isfinite(feats).all()
         assert tree.dataset_attrs["features/vit_b_16"] == {"name": "vit_b_16", "embedding_dim": 768}
         assert res.metadata["feature_sets"] == ["vit_b_16"]
+
+
+# --- the int8 serving mode's kernels (csrc/int8_linear.cu) -------------------------------
+INT8_SHAPES = [  # (M, N, K): ragged M (5, 37) and K (48, 4304; 3416, 44 and 45 take the 8-, 4- and 1-byte copies)
+    (5, 40, 48), (37, 130, 48), (5, 1152, 4304), (37, 4304, 1152), (37, 72, 4304), (130, 24, 3416),
+    (17, 8, 44), (33, 17, 45),
+]
+
+
+def _int8_operands(card, m, n, k, seed=0):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device=card).manual_seed(seed + m + n + k)
+    x = torch.randn(m, k, device=card, generator=gen) * 3
+    xq, s_x = I.quantize_rows_plain(x)
+    w = torch.randint(-127, 128, (n, k), device=card, generator=gen, dtype=torch.int32).to(torch.int8)
+    qscale = (torch.rand(n, device=card, generator=gen) + 0.5) / 127.0
+    bias = torch.randn(n, device=card, generator=gen)
+    return xq, s_x, w, qscale, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(5, 48), (37, 48), (5, 4304), (37, 4304), (9, 45)])
+def test_quantize_rows_kernel_matches_plain(card, dtype, m, k):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    x = (torch.randn(m, k, device=card, generator=gen) * 3).to(dtype)
+    x[0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])  # amax 127 -> s = 1: ties to 127, 2, -4, 0
+    x[0, 4:] = 0
+    x[1] = 0  # an all-zero row: s = 1e-8 / 127
+    before = I.quantize_rows.launches
+    xq, s_x = I.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert I.quantize_rows.launches == before + 1
+    assert xq.dtype == torch.int8 and s_x.dtype == torch.float32 and s_x.shape == (m,)
+    assert xq[0, :4].tolist() == [127, 2, -4, 0]
+    for want_xq, want_s in (I.quantize_rows_plain(x), I.quantize_rows_plain(x.cpu())):
+        assert torch.equal(xq.cpu(), want_xq.cpu()) and torch.equal(s_x.cpu(), want_s.cpu())
+    # an unaligned view (the scalar path of the same kernel)
+    view = torch.empty(m, k + 1, dtype=dtype, device=card)[:, 1:]
+    view.copy_(x)
+    got = I.quantize_rows(view)
+    assert torch.equal(got[0], xq) and torch.equal(got[1], s_x)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", INT8_SHAPES)
+def test_int8_linear_kernel_matches_plain(card, m, n, k, out_dtype, bias_dtype):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, m, n, k)
+    bias = None if bias_dtype is None else bias.to(bias_dtype)
+    before = I.int8_linear.launches
+    got = I.int8_linear(xq, s_x, w, qscale, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert I.int8_linear.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    want = I.int8_linear_plain(xq, s_x, w, qscale, bias, out_dtype)
+    cpu = I.int8_linear_plain(*(None if t is None else t.cpu() for t in (xq, s_x, w, qscale, bias)), out_dtype)
+    assert (got.float() - want.float()).abs().max().item() == 0
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_int8_linear_on_the_card_never_falls_back(card, monkeypatch):
+    """A CUDA Int8Linear launches both kernels: it never reaches torch._int_mm
+    or a plain version."""
+    from atlaspatch_tpu_torch.models.encoders.vit import Int8Linear
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    def refuse(*a, **k):
+        raise AssertionError("a fallback ran")
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 4304)
+    want = I.int8_linear_plain(xq, s_x, w, qscale, bias.bfloat16(), torch.bfloat16)
+    layer = Int8Linear(4304, 72).to(card)
+    layer.weight_q.copy_(w)
+    layer.qscale.copy_(qscale)
+    layer.bias.data = bias.bfloat16()
+    x = (torch.randn(37, 4304, device=card) * 3).bfloat16()
+    want_layer = I.int8_linear_plain(*I.quantize_rows_plain(x), w, qscale, bias.bfloat16(), torch.bfloat16)
+    for name in ("int8_linear_plain", "quantize_rows_plain", "int_product", "quantize_plain"):
+        monkeypatch.setattr(I, name, refuse)
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    I.reset_launch_counts()
+    with torch.no_grad():
+        got = layer(x[None])[0]
+    got_direct = I.int8_linear(xq, s_x, w, qscale, bias.bfloat16(), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (I.quantize_rows.launches, I.int8_linear.launches) == (1, 2)
+    assert torch.equal(got, want_layer) and torch.equal(got_direct, want)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(card):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, 5, 40, 48)
+    with pytest.raises(ValueError, match="one device"):
+        I.int8_linear(xq, s_x, w.cpu(), qscale, bias, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        I.int8_linear(xq, s_x, w, qscale, bias, torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        I.quantize_rows(torch.zeros(4, 8, dtype=torch.float16, device=card))

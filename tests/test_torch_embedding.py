@@ -304,9 +304,10 @@ def test_embed_features_single_slide(slide_dir, tmp_path):
 
 def test_service_refusals(tmp_path, slide_dir):
     cfg = _cfg(PORT, slide_dir, tmp_path / "out")
+    # int8 is served now: on the CPU it resolves to float32, as in the JAX package
     int8 = PORT.config.FeatureExtractionConfig(extractors=["toy"], device="cpu", precision="int8")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PORT.embedding.PatchFeatureEmbeddingService(cfg.extraction, cfg.output, int8)
+    svc = PORT.embedding.PatchFeatureEmbeddingService(cfg.extraction, cfg.output, int8, registry=_registry(PORT))
+    assert svc.compute_dtype == JAX.embedding.resolve_feature_dtype("cpu", "int8") == "float32"
     plugin = tmp_path / "plugin.py"
     plugin.write_text("")
     plugins = PORT.config.FeatureExtractionConfig(extractors=["toy"], device="cpu", plugins=[plugin])

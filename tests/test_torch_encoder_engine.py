@@ -7,7 +7,7 @@ equal. ``extract_batch`` of ``TorchFeatureExtractor`` is held against
 engine's paths (ragged last chunk, ``max_batch``, deferred and blocking
 fetches, dispatch depth 1 and 2, a deferred window of one chunk): max-abs
 1e-4 in float32. bfloat16 is held to per-row cosine > 0.995 against float32
-(the JAX bar, tests/test_zoo.py). The refusals (no card, int8) raise.
+(the JAX bar, tests/test_zoo.py). The refusals (no card, an unknown dtype) raise.
 """
 
 import jax
@@ -150,5 +150,9 @@ def test_cuda_without_a_card_raises(params, monkeypatch):
 
 
 def test_int8_raises(params):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_extractor(params, compute_dtype="int8")
+    """int8 is a compute dtype now (bfloat16 activations; tests/test_torch_int8.py
+    holds the W8A8 ViT); a dtype the engine does not know still raises."""
+    ext = _port_extractor(params, compute_dtype="int8")
+    assert ext.compute_dtype == "int8" and all(p.dtype == torch.bfloat16 for p in ext.model.parameters())
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        _port_extractor(params, compute_dtype="int4")

@@ -118,3 +118,11 @@ def test_segmentation_config_defaults_to_the_card():
     from atlaspatch_tpu_torch.core.config import SegmentationConfig
 
     assert SegmentationConfig().validated().device == "cuda"
+
+
+def test_the_int8_and_device_op_modules_are_checked():
+    """The modules of the int8 serving mode and the device ops are among
+    those the checks above import and parse."""
+    mods = _port_modules()
+    for mod in ("ops.int8", "ops.filters", "ops.resize", "models.encoders.vit"):
+        assert f"atlaspatch_tpu_torch.{mod}" in mods

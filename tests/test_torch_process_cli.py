@@ -19,12 +19,17 @@ params in the JAX package, an ``nn.Module`` on (B, 3, H, W) in the port.
     package's: float32 on the CPU, max-abs within 1e-4, with the same
     dataset attrs.
 
+``process --feature-precision int8`` on the segmented output (a copy made
+before the float run) gives the JAX CLI's lines and H5 files: on the CPU
+both packages resolve int8 to float32.
+
 Without the model: a plugin module without the hook raises the JAX package's
-error type, and ``--feature-precision int8`` is refused before any slide is
-touched.
+error type, and a precision neither CLI offers is refused before any slide
+is touched.
 """
 
 import importlib
+import shutil
 
 import h5py
 import numpy as np
@@ -141,10 +146,16 @@ def runs(tmp_path_factory):
                                    "--target-mag", "20", "--device", "cpu", "--mpp-csv", csv],
                              catch_exceptions=False)
             before = {s: _h5(out / "patches" / f"{s}.h5") for s in ("s0", "s1")}
+            out_int8 = tmp / f"out-int8-{pkg}"
+            shutil.copytree(out, out_int8)
             proc = invoke_cli(pkg, _feature_args(slides, out, csv, plugin, "--feature-extractors",
                                                  "resnet18 toy_pool", "--verbose"), catch_exceptions=False)
             after = {s: _h5(out / "patches" / f"{s}.h5") for s in ("s0", "s1")}
-            record[pkg] = {"out": out, "seg": seg, "process": proc, "before": before, "after": after}
+            int8 = invoke_cli(pkg, _feature_args(slides, out_int8, csv, plugin, "--feature-extractors", "toy_pool",
+                                                 "--feature-precision", "int8"), catch_exceptions=False)
+            record[pkg] = {"out": out, "seg": seg, "process": proc, "before": before, "after": after,
+                           "int8": int8, "out_int8": out_int8,
+                           "after_int8": {s: _h5(out_int8 / "patches" / f"{s}.h5") for s in ("s0", "s1")}}
     return record
 
 
@@ -154,6 +165,27 @@ def test_process_prints_the_same_lines(runs):
     want, got = (sorted(stdout_lines(runs[pkg]["process"], runs[pkg]["out"])) for pkg in CLI_PACKAGES)
     assert "Completed 2 slide(s), failures: 0" in want
     assert got == want
+
+
+def test_process_int8_matches_the_jax_cli(runs):
+    results = [runs[pkg]["int8"] for pkg in CLI_PACKAGES]
+    assert [r.exit_code for r in results] == [0, 0], results[1].output
+    want, got = (stdout_lines(runs[pkg]["int8"], runs[pkg]["out_int8"]) for pkg in CLI_PACKAGES)
+    assert "Completed 2 slide(s), failures: 0" in want
+    assert sorted(got) == sorted(want)
+    compared = 0
+    for stem in ("s0", "s1"):
+        (want_h5, want_attrs, want_file), (got_h5, got_attrs, got_file) = (
+            runs[pkg]["after_int8"][stem] for pkg in CLI_PACKAGES)
+        assert sorted(got_h5) == sorted(want_h5) and got_file == want_file
+        if got_h5["coords"] != want_h5["coords"]:
+            continue
+        assert got_attrs["features/toy_pool"] == want_attrs["features/toy_pool"]
+        (wdt, wshape, wbytes), (gdt, gshape, gbytes) = want_h5["features/toy_pool"], got_h5["features/toy_pool"]
+        assert wdt == gdt == np.float32 and wshape == gshape
+        assert np.abs(np.frombuffer(gbytes, np.float32) - np.frombuffer(wbytes, np.float32)).max() <= TOL
+        compared += 1
+    assert compared, "no slide's coordinates agree"
 
 
 @pytest.mark.parametrize("pkg", CLI_PACKAGES)
@@ -204,7 +236,13 @@ def test_int8_is_refused_before_any_slide(tmp_path, monkeypatch):
     called = []
     service = importlib.import_module(f"{CLI_PACKAGES[1]}.services.segmentation").SAM2SegmentationService
     monkeypatch.setattr(service, "__init__", lambda *a, **k: called.append(1))
+    # int8 is served now (runs_int8 below): it passes the feature service's build
+    # and reaches segmentation; a precision neither CLI offers is refused before any slide
     result = invoke_cli(CLI_PACKAGES[1], _feature_args(slides, tmp_path / "o", csv, plugin, "--feature-extractors",
                                                        "toy_pool", "--feature-precision", "int8"))
-    assert isinstance(result.exception, NotImplementedError) and "int8" in str(result.exception)
-    assert called == [] and not (tmp_path / "o" / "patches").exists()
+    assert called == [1], result.output
+    called.clear()
+    result = invoke_cli(CLI_PACKAGES[1], _feature_args(slides, tmp_path / "o2", csv, plugin, "--feature-extractors",
+                                                       "toy_pool", "--feature-precision", "int4"))
+    assert result.exit_code == 2 and "int4" in result.output
+    assert called == [] and not (tmp_path / "o2" / "patches").exists()

@@ -148,5 +148,9 @@ def test_random_init_is_deterministic_and_follows_the_flax_laws():
 
 
 def test_int8_spec_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ViT(ViTSpec(**TINY, quant_int8=True))
+    """The int8 ViT builds now (tests/test_torch_int8.py holds it); a float
+    state_dict, without the quantized layout, is refused by its strict load."""
+    params = flax_params(JaxViTSpec(**TINY))
+    model = ViT(ViTSpec(**TINY, quant_int8=True))
+    with pytest.raises(RuntimeError, match="weight_q"):
+        model.load_state_dict(flax_vit_to_torch(params), strict=True)

@@ -172,11 +172,12 @@ def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
     assert sorted(state) == sorted(shapes) and "blocks.2.ls1" in state
     monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
     tiny, _ = _tiny_entry(monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        zoo.build_extractor(tiny, device="cpu", compute_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # int8 builds now (tests/test_torch_int8.py): the W8A8 ViT
+    int8 = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8")
+    assert int8.compute_dtype == "int8" and int8.model.spec.quant_int8
+    with pytest.raises(NotImplementedError, match="item 5"):
         zoo.build_extractor(tiny, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         zoo.build_extractor(tiny, device="cpu", tensor_parallel=True)
 
 
