@@ -40,8 +40,8 @@
 // intrinsics, which the compiler never contracts into an FMA (and the
 // library is built with -fmad=false besides): a fused multiply-add rounds
 // once and would not equal the plain version. The int32 sum is exact, so the
-// result equals the plain version bit for bit. wgmma s8 fed by TMA is the
-// later, faster version.
+// result equals the plain version bit for bit. int8_linear_wgmma.cu's body
+// (wgmma s8 fed by TMA) is faster; this one takes what it does not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

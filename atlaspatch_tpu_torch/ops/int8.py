@@ -12,18 +12,25 @@ The two halves of ``atlaspatch_tpu/models/encoders/vit.py::Int8Dense``
 
 Each dispatches on the tensor's device: a CPU tensor runs the plain PyTorch
 version beside it (``quantize_rows_plain``, ``int8_linear_plain``), a CUDA
-tensor launches the kernel of ``csrc/int8_linear.cu`` (nvcc, sm_90a, built at
-first use and loaded with ctypes), which equals the plain version bit for
-bit. A build or launch failure on a CUDA tensor raises: nothing falls back to
-the plain version or to ``torch._int_mm``. ``quantize_rows.launches`` and
-``int8_linear.launches`` count kernel launches; ``reset_launch_counts()``
-zeroes both.
+tensor launches a kernel of the ``atlas_int8_linear`` library (nvcc, sm_90a,
+built at first use and loaded with ctypes), which equals the plain version
+bit for bit: ``quantize_rows_s8`` of ``csrc/int8_linear.cu``, and one of
+``int8_linear_s8``'s two bodies, picked by ``linear_variant``: ``wgmma``
+(``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by TMA, bfloat16 out) or ``mma``
+(``csrc/int8_linear.cu``, mma.sync fed by cp.async). A build, tensor-map
+encode or launch failure on a CUDA tensor raises: nothing retries on the
+other body or falls back to the plain version or to ``torch._int_mm``.
+``quantize_rows.launches`` and ``int8_linear.launches`` count kernel
+launches, ``int8_linear.variant_launches`` the latter by body;
+``reset_launch_counts()`` zeroes all three.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from collections import Counter
 
 import torch
 
@@ -38,21 +45,67 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FLOATS = (torch.float32, torch.bfloat16)
 _LIB: list[ctypes.CDLL] = []
 _LOCK = threading.Lock()
+# The wgmma body's return codes beyond a cudaError (csrc/int8_linear_wgmma.cu).
+_ENCODE_FAILED, _NO_DRIVER_ENTRY = 1_000_000, 2_000_000
+LINEAR_VARIANTS = ("wgmma", "mma")
+WGMMA_BLOCK_NS = (128, 256)  # the wgmma body's CTA tile widths (its two instantiations)
+WGMMA_BLOCK_M = 128
 
 
 def load_int8_library() -> ctypes.CDLL:
-    """Build (once) and load ``csrc/int8_linear.cu``; raises if the build fails."""
+    """Build (once) and load ``csrc/int8_linear.cu`` and
+    ``csrc/int8_linear_wgmma.cu`` as one library; raises if the build fails."""
     with _LOCK:
         if not _LIB:
-            path = build_shared_library("atlas_int8_linear", [CSRC / "int8_linear.cu"],
-                                        [nvcc_path(), *_NVCC_FLAGS])
+            path = build_shared_library(
+                "atlas_int8_linear", [CSRC / "int8_linear.cu", CSRC / "int8_linear_wgmma.cu"],
+                [nvcc_path(), *_NVCC_FLAGS])
             lib = ctypes.CDLL(str(path))
             lib.atlas_quantize_rows_s8.restype = _INT
             lib.atlas_quantize_rows_s8.argtypes = [_PTR, _INT, _PTR, _PTR, _INT, _INT, _PTR]
             lib.atlas_int8_linear_s8.restype = _INT
             lib.atlas_int8_linear_s8.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_PTR]
+            lib.atlas_int8_linear_s8_wgmma.restype = _INT
+            lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 5 + [_PTR]
             _LIB.append(lib)
         return _LIB[0]
+
+
+def wgmma_admits(N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> bool:
+    """Whether the wgmma body takes an (M, K) x (N, K) product to ``out_dtype``
+    over operands at these addresses. Its TMA maps want the operands' row
+    stride (K bytes) and bases on 16 bytes, and its epilogue stores bfloat16
+    rows of 2 N bytes by TMA, so N a multiple of 8."""
+    return (out_dtype == torch.bfloat16 and N % 8 == 0 and K % 16 == 0
+            and xq_ptr % 16 == 0 and w_ptr % 16 == 0)
+
+
+def linear_variant(M: int, N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> str:
+    """The body ``int8_linear`` launches for an (M, K) x (N, K) product to
+    ``out_dtype`` whose operands start at these addresses: ``wgmma`` where
+    ``wgmma_admits`` (every vit_l_16, uni and medsiglip linear of the int8
+    engine, which runs bfloat16), else ``mma``: virchow's fc2 (K = 3,416 =
+    16 x 213.5), float32 output, N not a multiple of 8. M does not decide:
+    at M = 5 the wgmma body is faster than the mma body too (both are bound
+    by reading the weights; PERF.md), so small batches stay on it."""
+    return "wgmma" if wgmma_admits(N, K, out_dtype, xq_ptr, w_ptr) else "mma"
+
+
+def wgmma_block_n(M: int, N: int, sms: int = 132) -> int:
+    """The wgmma body's CTA tile width for an (M, N) output on a card of
+    ``sms`` SMs: 256, whose tiles read less from L2 per product, unless its
+    tiles are fewer than the SMs, where 128 doubles the CTAs at work (at M =
+    5, medsiglip's MLP runs 1.7-1.9x faster so). Measured on an H100
+    (``tools/int8_variants.py``, PERF.md): at vit_l_16's batch-256
+    shapes 256 is level with 128 or up to 26% faster, but for qkv (2-4%
+    slower); at batch 32 the two are within the run-to-run spread."""
+    tiles = -(-M // WGMMA_BLOCK_M) * -(-N // 256)
+    return 256 if tiles >= sms else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -135,7 +188,7 @@ def int8_linear(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
     """(M, K) int8 activations with (M,) float32 scales, (N, K) int8 weights
     with (N,) float32 scales and an (N,) bias (float32, bfloat16 or None) →
     (M, N) ``out_dtype`` (float32 or bfloat16): the plain version on the CPU,
-    ``int8_linear_s8`` on the card."""
+    ``int8_linear_s8`` on the card, the body ``linear_variant`` picks."""
     _check_2d("xq", xq, torch.int8)
     _check_2d("weight_q", weight_q, torch.int8)
     M, K = xq.shape
@@ -158,22 +211,60 @@ def int8_linear(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
         raise ValueError(f"int8_linear got an empty product: M {M}, N {N}, K {K}")
     xq, s_x, weight_q, qscale = (t.contiguous() for t in (xq, s_x, weight_q, qscale))
     bias = None if bias is None else bias.contiguous()
+    variant = linear_variant(M, N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr())
+    return _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype)
+
+
+def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=None) -> torch.Tensor:
+    """Launch ``variant`` of ``int8_linear_s8`` on contiguous CUDA operands
+    ``int8_linear`` has checked; the wgmma body in tiles ``block_n`` wide
+    (default ``wgmma_block_n``). The card tests and ``chip_smoke.py`` call it
+    to hold every body a shape admits against the plain version. A body that
+    does not take the shape (``wgmma`` where ``wgmma_admits`` is false) or an
+    unknown tile width raises ValueError before any launch; a failed encode
+    or launch raises RuntimeError and is never retried on the other body."""
+    if variant not in LINEAR_VARIANTS:
+        raise ValueError(f"int8_linear has no body {variant!r}; it has {LINEAR_VARIANTS}")
+    M, K = xq.shape
+    N = weight_q.shape[0]
+    if variant == "wgmma":
+        if not wgmma_admits(N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr()):
+            raise ValueError(f"variant 'wgmma' takes K a multiple of 16 and operands on 16 bytes, and writes "
+                             f"bfloat16 with N a multiple of 8: got K {K}, xq at {xq.data_ptr() % 16} and weight_q "
+                             f"at {weight_q.data_ptr() % 16} mod 16, N {N}, {out_dtype}")
+        sms = _sm_count(xq.device.index or 0)
+        if block_n is None:
+            block_n = wgmma_block_n(M, N, sms)
+        if block_n not in WGMMA_BLOCK_NS:
+            raise ValueError(f"the wgmma body's tiles are {WGMMA_BLOCK_NS} wide, got {block_n}")
     out = torch.empty(M, N, dtype=out_dtype, device=xq.device)
-    err = load_int8_library().atlas_int8_linear_s8(
-        xq.data_ptr(), weight_q.data_ptr(), s_x.data_ptr(), qscale.data_ptr(),
-        None if bias is None else bias.data_ptr(), int(bias is not None and bias.dtype == torch.bfloat16),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, N, K, _stream(xq))
+    lib = load_int8_library()
+    args = (xq.data_ptr(), weight_q.data_ptr(), s_x.data_ptr(), qscale.data_ptr(),
+            None if bias is None else bias.data_ptr(), int(bias is not None and bias.dtype == torch.bfloat16),
+            out.data_ptr())
+    if variant == "wgmma":
+        err = lib.atlas_int8_linear_s8_wgmma(*args, M, N, K, block_n, sms, _stream(xq))
+    else:
+        err = lib.atlas_int8_linear_s8(*args, int(out_dtype == torch.bfloat16), M, N, K, _stream(xq))
+    if err >= _NO_DRIVER_ENTRY:
+        raise RuntimeError(f"the CUDA driver has no cuTensorMapEncodeTiled: cudaError {err - _NO_DRIVER_ENTRY}")
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"int8_linear_s8 (wgmma) TMA tensor map encode failed: CUresult {err - _ENCODE_FAILED}")
     if err != 0:
-        raise RuntimeError(f"int8_linear_s8 launch failed: cudaError {err}")
+        raise RuntimeError(f"int8_linear_s8 ({variant}) launch failed: cudaError {err}")
     int8_linear.launches += 1
+    int8_linear.variant_launches[variant] += 1
     return out
 
 
 quantize_rows.launches = 0
 int8_linear.launches = 0
+int8_linear.variant_launches = Counter()
 
 
 def reset_launch_counts() -> None:
-    """Zero ``quantize_rows.launches`` and ``int8_linear.launches``."""
+    """Zero ``quantize_rows.launches``, ``int8_linear.launches`` and
+    ``int8_linear.variant_launches``."""
     quantize_rows.launches = 0
     int8_linear.launches = 0
+    int8_linear.variant_launches.clear()

@@ -10,7 +10,9 @@ Phases, one line each (any failure exits non-zero with no result line):
           TMA bfloat16 body; the mma.sync bfloat16 body and two float32
           bodies, 3xTF32 on mma.sync and FMA; the float32 small-window body),
           the int8 serving mode's library (int8_linear.so: the row quantizer
-          and the int8 tensor-core linear; no spills, SASS checked for IMMA),
+          and the int8 linear's two bodies, mma.sync and wgmma fed by TMA;
+          no spills in any instantiation, no wgmma serialized by ptxas, SASS
+          checked for IMMA, IGMMA and UTMALDG),
           the contour tracer and the slide decoder (g++), all from the sources in
           atlaspatch_tpu_torch/csrc, built in parallel; registers and spills
           per body (none allowed at D = 96 in the wgmma, tf32x3 and f32_win
@@ -104,18 +106,24 @@ Phases, one line each (any failure exits non-zero with no result line):
           dense bound (the forward's FLOPs per patch over 989 TFLOP/s), the
           device busy share of one extract_batch by torch.profiler with its
           largest device operations, and the peak memory allocated
-  int8    the int8 (W8A8) serving mode of vit_l_16. (a) Both kernels of
-          csrc/int8_linear.cu against their plain versions (max-abs 0) at the
+  int8    the int8 (W8A8) serving mode of vit_l_16. (a) quantize_rows_s8
+          and int8_linear_s8 against their plain versions (max-abs 0) at the
           shapes vit_l_16 hands them at batch 32 and 256 (M 6,304 and 50,432;
           (K, N) of qkv, proj, fc1, fc2) and at medsiglip's ragged MLP
-          ((1152, 4304), (4304, 1152)) at M 8,192 and 5; per shape the device
-          ms by torch.profiler, the bound, the plain version's ms and the
-          library's (torch._int_mm + the eager dequantization; bf16 F.linear
-          beside it), timed only. (b) vit_l_16 at full width from the
-          registry with --feature-precision int8's dtype and random weights:
-          96 Int8Linear, weight_q int8, qscale float32, the rest bfloat16;
-          the float32 extractor's weights quantized; 96 launches of each
-          kernel per forward; int8 vs float32 per-patch cosine > 0.98 on 64
+          ((1152, 4304), (4304, 1152)) at M 8,192 and 5: the routed call and
+          each body of int8_linear_s8 the shape admits (the wgmma body of
+          csrc/int8_linear_wgmma.cu, the mma.sync body of
+          csrc/int8_linear.cu), forced, each at max-abs 0 against the plain
+          version and equal to the other; per shape each body's device ms by
+          torch.profiler, the bound, the plain version's ms and the
+          library's (torch._int_mm alone, torch._int_mm + the eager
+          dequantization, bf16 F.linear), timed only; the sums over one
+          vit_l_16 forward at batch 32 and 256. (b) vit_l_16 at full width
+          from the registry with --feature-precision int8's dtype and random
+          weights: 96 Int8Linear, weight_q int8, qscale float32, the rest
+          bfloat16; the float32 extractor's weights quantized; 96 launches of
+          each kernel per forward, all 96 linears on the wgmma body (0 on
+          mma.sync); int8 vs float32 per-patch cosine > 0.98 on 64
           patches; card int8 vs CPU int8 at depth 2 on the same weights,
           cosine >= 0.999; extract_batch patches/s at batch 32 (512 patches,
           median of 3) and the resident rate at 32 and 256 beside the embed
@@ -125,8 +133,9 @@ Phases, one line each (any failure exits non-zero with no result line):
           --feature-precision int8 --feature-extractors vit_l_16 through the
           command line over four (f1) slides on the tiff phase's
           coordinates: no segmentation, 96 launches of each kernel per
-          encoder forward, features (n, 1024) float32, coords and attrs
-          unchanged; patches/s by host clock
+          encoder forward, all on the wgmma body (printed by body), features
+          (n, 1024) float32, coords and attrs unchanged; patches/s by host
+          clock
   process the runner phase's 28 slides through ProcessingRunner.run() and
           then PatchFeatureEmbeddingService.embed_all with vit_l_16 in
           bfloat16 (batch 32), as the JAX CLI's process composes them.
@@ -221,9 +230,12 @@ Phases, one line each (any failure exits non-zero with no result line):
           the phase's seconds, beside the card's name and power limit
 
 Then one JSON line with the kernel records: the two int8 kernels'
-(``launches``: the int8 phase's command-line run; ``extract_launches``: its
+(``launches``: the int8 phase's command-line run, and for int8_linear_s8
+``variant_launches``, the same by body; ``extract_launches``: its
 extract_batch passes; ms, bound, plain and library ms summed over one
-vit_l_16 forward at batch 32) after the attention kernel's (``launches``: the seg phase's;
+vit_l_16 forward at batch 32; for int8_linear_s8 also ``sources`` (both
+bodies), ``mma_ms`` (the mma.sync body, forced), ``int_mm_ms``
+(torch._int_mm alone) and ``bf16_linear_ms``) after the attention kernel's (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
 (f1)+(f3) runner pass; ``process_launches``: the process phase's;
 ``cli_launches``: the cli phase's three in-process commands;
@@ -302,17 +314,20 @@ def cuda_ms(fn, min_total_ms: float = 60.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fwd") -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fwd", seen: dict | None = None) -> float:
     """Mean device time in ms of one fn() call, by torch.profiler, after a
     warm-up (host time between launches is not counted).
 
     With ``kernel`` (the attention kernel's flash_fwd bodies): those kernels'
     self device time over the launches it recorded of ``reps`` calls. With
     ``kernel=None`` (a library call that may launch several kernels): every
-    kernel's device time, over the launches of the most-launched one. The
-    profiler may drop some of a burst of launches, or now and then all of
-    them: the mean is over those it kept, and a window that kept none is run
-    again, up to ``tries`` times."""
+    kernel's device time, over the launches of the one that took the most of
+    it, the call's product kernel (so that a helper kernel launched more
+    often than once a call does not shrink the mean). The profiler may drop
+    some of a burst of launches, or now and then all of them: the mean is
+    over those it kept, and a window that kept none is run again, up to
+    ``tries`` times. With ``seen``, fills it with the kernels' names and
+    launches in the window it read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -327,10 +342,12 @@ def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fw
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                   and (kernel is None or kernel in e.key)]
         if kernel is None:
-            count = max((e.count for e in events), default=0)
+            count = max(events, key=lambda e: e.self_device_time_total).count if events else 0
         else:
             count = sum(e.count for e in events)
         if 0 < count <= reps:
+            if seen is not None:
+                seen.update((e.key, e.count) for e in events)
             return sum(e.self_device_time_total for e in events) / 1e3 / count
     raise AssertionError(f"the profiler saw {[(e.key, e.count) for e in events]} of {reps} launches "
                          f"in each of {tries} windows")
@@ -434,11 +451,12 @@ def _ptxas_by_body(log: str) -> dict:
 
 
 def _ptxas_int8(log: str) -> dict:
-    """ptxas -v of int8_linear.so: per kernel (int8_linear_s8 / quantize_rows_s8),
-    its instantiations, the most registers and those with stack or spills."""
+    """ptxas -v of int8_linear.so: per kernel (int8_linear_s8_wgmma /
+    int8_linear_s8 / quantize_rows_s8), its instantiations, the most registers
+    and those with stack or spills."""
     kernels: dict = {}
     for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
-        kind = re.search(r"(int8_linear_s8|quantize_rows_s8)_kernel", name).group(1)
+        kind = re.search(r"(int8_linear_s8_wgmma|int8_linear_s8|quantize_rows_s8)_kernel", name).group(1)
         entry = kernels.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
         entry["kernels"] += 1
         entry["max_registers"] = max(entry["max_registers"], int(re.search(r"Used (\d+) registers", body).group(1)))
@@ -491,11 +509,17 @@ def phase_build(state):
     if win_ctas < 1:
         raise AssertionError(f"the f32_win body fits no CTA on an SM (cudaError {-win_ctas})")
     int8_kernels = _ptxas_int8(build_log(Path(int8_lib._name)))
-    imma = Counter(re.findall(r"IMMA\.[\w.]+", int8_sass))
-    if set(int8_kernels) != {"int8_linear_s8", "quantize_rows_s8"} or not imma:
-        raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS IMMA {dict(imma)}")
+    imma = Counter(re.findall(r"\bI(?:G)?MMA\.[\w.]+|\bUTMALDG[\w.]*", int8_sass))
+    int8_ops = {op: sum(n for name, n in imma.items() if name.split(".")[0] == op)
+                for op in ("IMMA", "IGMMA", "UTMALDG")}
+    if set(int8_kernels) != {"int8_linear_s8", "int8_linear_s8_wgmma", "quantize_rows_s8"} \
+            or not all(int8_ops.values()):
+        raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS {dict(imma)}")
     if any(k["spilling"] for k in int8_kernels.values()):
         raise AssertionError(f"an int8 kernel spills: {int8_kernels}")
+    int8_warnings = [line.strip() for line in build_log(Path(int8_lib._name)).splitlines() if "warning" in line]
+    if any("serialized" in line for line in int8_warnings):
+        raise AssertionError(f"ptxas serializes the int8 wgmma: {int8_warnings}")
     log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s, "
         f"flash_attn_f32win.so {win_s:.1f}s and int8_linear.so {int8_s:.1f}s (nvcc sm_90a), "
         f"atlas_contours.so {contours_s:.1f}s and "
@@ -507,7 +531,7 @@ def phase_build(state):
     for kind, entry in int8_kernels.items():
         log(f"build ptxas {kind}: {entry['kernels']} instantiations, max registers {entry['max_registers']}, "
             f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
-    log(f"build int8_linear.so SASS: {dict(imma)}")
+    log(f"build int8_linear.so SASS: {int8_ops} ({dict(imma)}); ptxas warnings: {int8_warnings or 'none'}")
     log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; at D = 96: tf32x3 {ctas} CTAs "
         f"of 128 threads per SM, f32_win {win_ctas} CTAs of 384 threads (8 consumer, 4 producer warps) per SM")
 
@@ -1511,6 +1535,8 @@ def phase_embed(state):
 INT8_VITL_LINEARS = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
 INT8_RAGGED = {"fc1": (1152, 4304), "fc2": (4304, 1152)}
 INT8_SOURCE = "atlaspatch_tpu_torch/csrc/int8_linear.cu"
+# int8_linear_s8's two bodies: the routed one on vit_l_16's path first
+INT8_LINEAR_SOURCES = ["atlaspatch_tpu_torch/csrc/int8_linear_wgmma.cu", INT8_SOURCE]
 # Int8Dense's quantizer (the inlined _q8_dyn) and its int8 product with the dequantization
 INT8_REPLACES = {"quantize_rows_s8": "atlaspatch_tpu/models/encoders/vit.py:143",
                  "int8_linear_s8": "atlaspatch_tpu/models/encoders/vit.py:146"}
@@ -1534,8 +1560,11 @@ def quantize_bound(m: int, k: int) -> float:
 
 def _int8_kernel_rows(state) -> dict:
     """(a) Both kernels against their plain versions at vit_l_16's shapes at
-    batch 32 and 256 and medsiglip's ragged ones: max-abs 0, device ms, bound,
-    plain ms and library ms per shape. Returns the rows."""
+    batch 32 and 256 and medsiglip's ragged ones: max-abs 0 for the routed
+    call and for each int8_linear_s8 body the shape admits, forced, against
+    the plain version and each other; device ms per body, bound, plain ms and
+    the library's ms (torch._int_mm alone, and with the eager dequantization;
+    bf16 F.linear) per shape. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1553,15 +1582,21 @@ def _int8_kernel_rows(state) -> dict:
         bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
         xq, s_x = I.quantize_rows(x)
         want_xq, want_s = I.quantize_rows_plain(x)
+        routed = I.linear_variant(m, n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr())
+        bodies = [v for v in I.LINEAR_VARIANTS
+                  if v == "mma" or I.wgmma_admits(n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr())]
         y = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+        forced = {v: I._launch_linear(v, xq, s_x, w, qscale, bias, torch.bfloat16) for v in bodies}
         want = I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16)
         torch.cuda.synchronize()
         q_err = max((xq.int() - want_xq.int()).abs().max().item(), (s_x - want_s).abs().max().item())
-        err = (y.float() - want.float()).abs().max().item()
-        if q_err != 0 or err != 0:
+        errs = {v: (out.float() - want.float()).abs().max().item() for v, out in {"routed": y, **forced}.items()}
+        agree = all(torch.equal(out, forced["mma"]) for out in forced.values())
+        err = max(errs.values())
+        if q_err != 0 or err != 0 or not agree:
             raise AssertionError(f"int8 {label} (M={m}, K={k}, N={n}): quantize_rows max-abs {q_err}, "
-                                 f"int8_linear max-abs {err} (must be 0)")
-        del want, want_xq, want_s, y
+                                 f"int8_linear max-abs {errs} (must be 0), bodies equal {agree}")
+        del want, want_xq, want_s, y, forced
         if (m, k) not in quant:
             row = dict(err=q_err, ms=device_ms(lambda: I.quantize_rows(x), kernel="quantize_rows_s8"),
                        plain_ms=cuda_ms(lambda: I.quantize_rows_plain(x)), bound_ms=quantize_bound(m, k))
@@ -1576,21 +1611,28 @@ def _int8_kernel_rows(state) -> dict:
 
         w16 = w.to(torch.bfloat16)
         op_ms, byte_ms = int8_linear_bound(m, n, k)
-        row = dict(err=err, op_ms=op_ms, byte_ms=byte_ms,
-                   ms=device_ms(lambda: I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16),
-                                kernel="int8_linear_s8"),
+        body_ms = {v: device_ms(lambda v=v: I._launch_linear(v, xq, s_x, w, qscale, bias, torch.bfloat16),
+                                kernel="int8_linear_s8") for v in bodies}
+        int_mm_kernels: dict = {}  # which kernels cuBLASLt ran for torch._int_mm, and how often
+        row = dict(err=err, op_ms=op_ms, byte_ms=byte_ms, variant=routed, ms=body_ms[routed], mma_ms=body_ms["mma"],
                    plain_ms=cuda_ms(lambda: I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16),
                                     max_reps=5),
                    # torch._int_mm takes M > 16 only
                    library_ms=device_ms(library, kernel=None) if m > 16 else None,
+                   int_mm_ms=(device_ms(lambda: torch._int_mm(xq, w.t()), kernel=None, seen=int_mm_kernels)
+                              if m > 16 else None),
                    bf16_ms=device_ms(lambda: F.linear(x, w16, bias), kernel=None))
         linear[(m, k, n)] = row
         lib = "null (M <= 16)" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        log(f"int8 int8_linear_s8  M={m:6d} K={k:5d} N={n:5d} ({label}): max-abs {err} "
-            f"dev_ms={row['ms']:.4f} bound_ms={max(op_ms, byte_ms):.4f} "
-            f"({'operations' if op_ms >= byte_ms else 'bytes'}) plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={lib} (_int_mm + dequant) bf16 F.linear dev_ms={row['bf16_ms']:.4f} "
-            f"[{state['card']}]")
+        int_mm = "null" if row["int_mm_ms"] is None else f"{row['int_mm_ms']:.4f}"
+        int_mm_ran = {name.split("(")[0].split("<")[-1].rstrip(">"): n for name, n in int_mm_kernels.items()}
+        log(f"int8 int8_linear_s8  M={m:6d} K={k:5d} N={n:5d} ({label}): routed {routed}, max-abs {errs} "
+            f"(bodies equal) dev_ms={row['ms']:.4f} "
+            + " ".join(f"{v}_dev_ms={t:.4f}" for v, t in body_ms.items())
+            + f" bound_ms={max(op_ms, byte_ms):.4f} ({'operations' if op_ms >= byte_ms else 'bytes'}) "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={lib} (_int_mm + dequant) _int_mm alone dev_ms={int_mm} "
+            f"({int_mm_ran or 'not run'} in 20 calls) "
+            f"bf16 F.linear dev_ms={row['bf16_ms']:.4f} [{state['card']}]")
         del x, w, w16, xq, s_x
     torch.cuda.empty_cache()
     return {"quant": quant, "linear": linear}
@@ -1599,7 +1641,8 @@ def _int8_kernel_rows(state) -> dict:
 def _int8_records(rows) -> dict:
     """The two kernels' records over one vit_l_16 forward at batch 32 (M =
     6,304): per block 3 quantize_rows of K 1,024 and one of 4,096, and the 4
-    linears, times 24 blocks."""
+    linears, times 24 blocks; int8_linear_s8's ``ms`` is the routed body's,
+    ``mma_ms`` the mma.sync body's, forced, on the same inputs."""
     m, depth = 32 * 197, 24
     blocks = [rows["quant"][(m, 1024)]] * 3 + [rows["quant"][(m, 4096)]]
     linears = [rows["linear"][(m, k, n)] for k, n in INT8_VITL_LINEARS.values()]
@@ -1614,14 +1657,26 @@ def _int8_records(rows) -> dict:
             "bound_ms": depth * sum(r["bound_ms"] for r in blocks), "bound_by": "bytes", "library_ms": None,
         },
         "int8_linear_s8": {
-            "name": "int8_linear_s8", "route": "cuda", "source": INT8_SOURCE,
-            "replaces": INT8_REPLACES["int8_linear_s8"], "max_abs_err": worst,
+            "name": "int8_linear_s8", "route": "cuda", "source": INT8_LINEAR_SOURCES[0],
+            "sources": INT8_LINEAR_SOURCES, "replaces": INT8_REPLACES["int8_linear_s8"], "max_abs_err": worst,
             "ms": depth * sum(r["ms"] for r in linears), "plain_ms": depth * sum(r["plain_ms"] for r in linears),
             "bound_ms": depth * (op + byte), "bound_by": "operations" if op >= byte else "bytes",
             "library_ms": depth * sum(r["library_ms"] for r in linears),
+            "mma_ms": depth * sum(r["mma_ms"] for r in linears),
+            "int_mm_ms": depth * sum(r["int_mm_ms"] for r in linears),
             "bf16_linear_ms": depth * sum(r["bf16_ms"] for r in linears),
         },
     }
+
+
+def _per_forward(rows, batch: int) -> dict:
+    """int8_linear_s8's sums over one vit_l_16 forward (96 linears) at a
+    batch: routed body, mma.sync body, bound, _int_mm alone, _int_mm +
+    dequant and bf16 F.linear, ms."""
+    linears = [rows["linear"][(batch * 197, k, n)] for k, n in INT8_VITL_LINEARS.values()]
+    return {key: 24 * sum(r[src] for r in linears) for key, src in
+            (("ms", "ms"), ("mma_ms", "mma_ms"), ("int_mm_ms", "int_mm_ms"), ("library_ms", "library_ms"),
+             ("bf16_ms", "bf16_ms"))} | {"bound_ms": 24 * sum(max(r["op_ms"], r["byte_ms"]) for r in linears)}
 
 
 def _int8_launches() -> tuple[int, int]:
@@ -1650,6 +1705,13 @@ def phase_int8(state):
 
     rows = _int8_kernel_rows(state)
     records = _int8_records(rows)
+    forward_sums = {batch: _per_forward(rows, batch) for batch in (32, 256)}
+    for batch, f in forward_sums.items():
+        log(f"int8 int8_linear_s8 per vit_l_16 forward at batch {batch} (96 linears, device ms): routed (wgmma) "
+            f"{f['ms']:.3f}, mma.sync body {f['mma_ms']:.3f}, bound {f['bound_ms']:.3f} "
+            f"({100 * f['bound_ms'] / f['ms']:.1f}% of it reached; mma.sync "
+            f"{100 * f['bound_ms'] / f['mma_ms']:.1f}%), _int_mm alone {f['int_mm_ms']:.3f}, _int_mm + dequant "
+            f"{f['library_ms']:.3f}, bf16 F.linear {f['bf16_ms']:.3f} [{state['card']}]")
 
     # (b) vit_l_16 at full width, random weights from the registry
     entry = ENTRIES["vit_l_16"]
@@ -1680,8 +1742,9 @@ def phase_int8(state):
     I.reset_launch_counts()
     got = i8.extract_batch(patches[:64], batch_size=32)
     torch.cuda.synchronize()
-    if _int8_launches() != (2 * 96, 2 * 96):
-        raise AssertionError(f"int8: {_int8_launches()} launches in 2 forwards (96 each per forward)")
+    if _int8_launches() != (2 * 96, 2 * 96) or dict(I.int8_linear.variant_launches) != {"wgmma": 2 * 96}:
+        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}) in 2 "
+                             f"forwards (96 each per forward, every linear on the wgmma body)")
     cos = _cos_rows(ref, got)
     if not (np.isfinite(got).all() and got.shape == (64, 1024) and cos.min() > INT8_COS):
         raise AssertionError(f"int8: int8 vs float32 per-patch cosine min {cos.min()}")
@@ -1689,7 +1752,8 @@ def phase_int8(state):
     del f32
     log(f"int8 vit_l_16 (dim 1024, depth 24, 16 heads; random weights, two registry builds {build_s:.1f} s): "
         f"96 Int8Linear, weight_q int8, qscale float32, the rest bfloat16 on the card; the float32 "
-        f"extractor's weights quantized; 96 launches of each kernel per forward; int8 vs float32 on 64 "
+        f"extractor's weights quantized; 96 launches of each kernel per forward, the 96 linears all on the "
+        f"wgmma body; int8 vs float32 on 64 "
         f"patches per-patch cosine min {cos.min():.6f} mean {cos.mean():.6f} (> {INT8_COS}) [{state['card']}]")
 
     # card int8 against CPU int8 at full width, depth 2, on the same weights
@@ -1717,8 +1781,10 @@ def phase_int8(state):
     I.reset_launch_counts()
     med_s, stages = _timed_passes(i8, patches, 32)
     forwards = (1 + EMBED_PASSES) * len(patches) // 32  # the warm pass and the timed ones
-    if _int8_launches() != (96 * forwards, 96 * forwards):
-        raise AssertionError(f"int8: {_int8_launches()} launches in {forwards} forwards")
+    if _int8_launches() != (96 * forwards, 96 * forwards) \
+            or dict(I.int8_linear.variant_launches) != {"wgmma": 96 * forwards}:
+        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}) in "
+                             f"{forwards} forwards")
     rate = len(patches) / med_s
     log(f"int8 extract_batch {len(patches)} patches at batch 32: median {med_s:.4f} s of {EMBED_PASSES} = "
         f"{rate:.1f} patches/s (bf16, embed phase: {bf16.get(32, float('nan')):.1f}) [{state['card']}]")
@@ -1789,15 +1855,16 @@ def phase_int8(state):
     # (c) the command line: process --fast --feature-precision int8 on four (f1) slides' coordinates
     cli = _int8_cli(state)
     records["quantize_rows_s8"].update(launches=cli["launches"][0], extract_launches=96 * forwards)
-    records["int8_linear_s8"].update(launches=cli["launches"][1], extract_launches=96 * forwards)
+    records["int8_linear_s8"].update(launches=cli["launches"][1], extract_launches=96 * forwards,
+                                     variant_launches=cli["variants"])
     state["int8_records"] = [records["quantize_rows_s8"], records["int8_linear_s8"]]
     state["int8"] = dict(rate=rate, resident=resident, cos_min=float(cos.min()), card_cos=float(card_cos.min()),
-                         cli=cli, share=share, attn_ms=(plain_attn_ms, int8_attn_ms))
+                         cli=cli, share=share, attn_ms=(plain_attn_ms, int8_attn_ms), forward_sums=forward_sums)
     for rec in state["int8_records"]:
         log(f"int8 record {rec['name']}: per forward (batch 32) {rec['ms']:.3f} ms device, bound "
             f"{rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
-            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in the cli run "
-            f"[{state['card']}]")
+            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in the cli run"
+            f"{'' if 'variant_launches' not in rec else ' ' + str(rec['variant_launches'])} [{state['card']}]")
 
 
 def _int8_cli(state) -> dict:
@@ -1839,14 +1906,15 @@ def _int8_cli(state) -> dict:
             lines, wall, attn_launches, seg_forwards = _cli_main(
                 ["process", slides, "--output", out, *CLI_SEG_ARGS, "--fast", "--feature-precision", "int8",
                  "--feature-extractors", "vit_l_16"])
-            launches = _int8_launches()
+            launches, variants = _int8_launches(), dict(I.int8_linear.variant_launches)
         finally:
             TorchFeatureExtractor.forward_device = forward
         if f"Completed {len(stems)} slide(s), failures: 0" not in lines or seg_forwards or attn_launches:
             raise AssertionError(f"int8 cli: {seg_forwards} segmentation forwards, {attn_launches} attention "
                                  f"launches; {lines[-3:]}")
-        if not forwards[0] or launches != (96 * forwards[0], 96 * forwards[0]):
-            raise AssertionError(f"int8 cli: {launches} int8 launches in {forwards[0]} encoder forwards")
+        if not forwards[0] or launches != (96 * forwards[0], 96 * forwards[0]) \
+                or variants != {"wgmma": 96 * forwards[0]}:
+            raise AssertionError(f"int8 cli: {launches} int8 launches ({variants}) in {forwards[0]} encoder forwards")
         n_total = 0
         for stem in stems:
             tree = read_h5_tree(out / "patches" / f"{stem}.h5")
@@ -1867,9 +1935,9 @@ def _int8_cli(state) -> dict:
     log(f"int8 cli process --fast --feature-precision int8 over {len(stems)} (f1) slides, {n_total} patches on "
         f"the tiff phase's coordinates: {wall:.3f} s = {n_total / wall:.1f} patches/s by host clock (the encoder's "
         f"build included); 0 segmentation forwards; {forwards[0]} encoder forwards, {launches[0]} quantize_rows_s8 "
-        f"and {launches[1]} int8_linear_s8 launches; features (n, 1024) float32 finite, coords and attrs "
-        f"unchanged [{state['card']}]")
-    return dict(launches=launches, forwards=forwards[0], patches=n_total, wall=wall)
+        f"and {launches[1]} int8_linear_s8 launches, by body {variants}; features (n, 1024) float32 finite, coords "
+        f"and attrs unchanged [{state['card']}]")
+    return dict(launches=launches, variants=variants, forwards=forwards[0], patches=n_total, wall=wall)
 
 
 def phase_process(state):
@@ -2927,10 +2995,10 @@ def main() -> int:
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
             "process_launches", "cli_launches", "weights_launches", "finetune_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    int8_keys = ("name", "route", "source", "replaces", "launches", "extract_launches", "max_abs_err", "ms",
-                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-    int8 = [{k: rec[k] for k in int8_keys + (("bf16_linear_ms",) if "bf16_linear_ms" in rec else ())}
-            for rec in state["int8_records"]]
+    int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
+                 "extract_launches", "max_abs_err", "ms", "mma_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "int_mm_ms", "bf16_linear_ms")
+    int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8]}))
     print(state["card"])

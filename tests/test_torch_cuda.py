@@ -677,24 +677,51 @@ def test_int8_linear_on_the_card_never_falls_back(card, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a fallback ran")
 
-    xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 4304)
-    want = I.int8_linear_plain(xq, s_x, w, qscale, bias.bfloat16(), torch.bfloat16)
-    layer = Int8Linear(4304, 72).to(card)
-    layer.weight_q.copy_(w)
-    layer.qscale.copy_(qscale)
-    layer.bias.data = bias.bfloat16()
-    x = (torch.randn(37, 4304, device=card) * 3).bfloat16()
-    want_layer = I.int8_linear_plain(*I.quantize_rows_plain(x), w, qscale, bias.bfloat16(), torch.bfloat16)
+    cases = []
+    for k, variant in ((4304, "wgmma"), (3416, "mma")):
+        xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, k)
+        want = I.int8_linear_plain(xq, s_x, w, qscale, bias.bfloat16(), torch.bfloat16)
+        layer = Int8Linear(k, 72).to(card)
+        layer.weight_q.copy_(w)
+        layer.qscale.copy_(qscale)
+        layer.bias.data = bias.bfloat16()
+        x = (torch.randn(37, k, device=card) * 3).bfloat16()
+        want_layer = I.int8_linear_plain(*I.quantize_rows_plain(x), w, qscale, bias.bfloat16(), torch.bfloat16)
+        cases.append((variant, layer, x, (xq, s_x, w, qscale, bias.bfloat16()), want, want_layer))
     for name in ("int8_linear_plain", "quantize_rows_plain", "int_product", "quantize_plain"):
         monkeypatch.setattr(I, name, refuse)
     monkeypatch.setattr(torch, "_int_mm", refuse)
+    for variant, layer, x, operands, want, want_layer in cases:
+        I.reset_launch_counts()
+        with torch.no_grad():
+            got = layer(x[None])[0]
+        got_direct = I.int8_linear(*operands, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert (I.quantize_rows.launches, I.int8_linear.launches) == (1, 2)
+        assert I.int8_linear.variant_launches == {variant: 2}
+        assert torch.equal(got, want_layer) and torch.equal(got_direct, want)
+
+
+class _FailingLibrary:
+    """An int8 library whose wgmma body reports a tensor map that would not
+    encode and whose mma body must not run."""
+
+    def atlas_int8_linear_s8_wgmma(self, *args):
+        return 1_000_000 + 1  # CUDA_ERROR_INVALID_VALUE
+
+    def atlas_int8_linear_s8(self, *args):
+        raise AssertionError("the mma body ran after the wgmma body failed")
+
+
+def test_a_failed_wgmma_encode_raises_and_never_retries(card, monkeypatch):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 4304)
+    monkeypatch.setattr(I, "load_int8_library", lambda: _FailingLibrary())
     I.reset_launch_counts()
-    with torch.no_grad():
-        got = layer(x[None])[0]
-    got_direct = I.int8_linear(xq, s_x, w, qscale, bias.bfloat16(), torch.bfloat16)
-    torch.cuda.synchronize()
-    assert (I.quantize_rows.launches, I.int8_linear.launches) == (1, 2)
-    assert torch.equal(got, want_layer) and torch.equal(got_direct, want)
+    with pytest.raises(RuntimeError, match="encode failed: CUresult 1"):
+        I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+    assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(card):
@@ -707,3 +734,90 @@ def test_int8_kernels_refuse_what_they_do_not_take(card):
         I.int8_linear(xq, s_x, w, qscale, bias, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         I.quantize_rows(torch.zeros(4, 8, dtype=torch.float16, device=card))
+
+
+# --- int8_linear_s8's two bodies (csrc/int8_linear_wgmma.cu and csrc/int8_linear.cu) ------
+BODY_SHAPES = [  # (M, N, K): vit_l_16's four linears at batch 32; ragged N (130: mma only); K % 16 == 0 but not
+    # % 128; M 1, 5, 37
+    (6304, 3072, 1024), (6304, 1024, 1024), (6304, 4096, 1024), (6304, 1024, 4096),
+    (37, 4304, 1152), (5, 1152, 4304), (1, 72, 4304), (37, 72, 1040), (5, 40, 48), (6304, 1152, 48),
+    (1, 4304, 1040), (37, 130, 48),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", BODY_SHAPES)
+def test_int8_linear_bodies_match_plain_and_each_other(card, m, n, k, out_dtype, bias_dtype):
+    """Every body the shape admits (mma, and for bfloat16 out with N a
+    multiple of 8 wgmma in 128- and 256-column tiles), forced, equals the
+    plain version and the others at max-abs 0; the routed call launches the
+    wgmma body where it applies, else the mma body, and a forced wgmma body
+    is refused where it does not."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, m, n, k)
+    bias = None if bias_dtype is None else bias.to(bias_dtype)
+    want = I.int8_linear_plain(xq, s_x, w, qscale, bias, out_dtype)
+    routed = "wgmma" if out_dtype == torch.bfloat16 and n % 8 == 0 else "mma"
+    assert I.linear_variant(m, n, k, out_dtype, xq.data_ptr(), w.data_ptr()) == routed
+    bodies = (("mma", None), ("wgmma", 128), ("wgmma", 256)) if routed == "wgmma" else (("mma", None),)
+    if routed == "mma":
+        with pytest.raises(ValueError, match="writes bfloat16 with N a multiple of 8"):
+            I._launch_linear("wgmma", xq, s_x, w, qscale, bias, out_dtype)
+    got = {}
+    for variant, block_n in bodies:
+        I.reset_launch_counts()
+        got[variant, block_n] = I._launch_linear(variant, xq, s_x, w, qscale, bias, out_dtype, block_n)
+        torch.cuda.synchronize()
+        assert I.int8_linear.variant_launches == {variant: 1}
+    I.reset_launch_counts()
+    got["routed", None] = I.int8_linear(xq, s_x, w, qscale, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert I.int8_linear.variant_launches == {routed: 1} and I.int8_linear.launches == 1
+    for key, y in got.items():
+        assert y.dtype == out_dtype and y.shape == (m, n), key
+        assert (y.float() - want.float()).abs().max().item() == 0, key
+        assert torch.equal(y, got["mma", None]), key
+
+
+@pytest.mark.parametrize("m,n,k", [(130, 24, 3416), (33, 17, 45), (37, 72, 4308)])
+def test_int8_linear_routes_other_depths_to_mma(card, m, n, k):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, m, n, k)
+    I.reset_launch_counts()
+    got = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert I.int8_linear.variant_launches == {"mma": 1}
+    assert torch.equal(got, I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16))
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one byte past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.view(t.shape).copy_(t)
+
+
+def test_forced_wgmma_refused_where_it_does_not_apply(card):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 3416)
+    I.reset_launch_counts()
+    with pytest.raises(ValueError, match="variant 'wgmma' takes K a multiple of 16"):
+        I._launch_linear("wgmma", xq, s_x, w, qscale, bias, torch.bfloat16)
+    xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 1024)
+    for a, b in ((_misaligned(xq), w), (xq, _misaligned(w))):
+        with pytest.raises(ValueError, match="operands on 16 bytes"):
+            I._launch_linear("wgmma", a, s_x, b, qscale, bias, torch.bfloat16)
+        assert I.linear_variant(37, 72, 1024, torch.bfloat16, a.data_ptr(), b.data_ptr()) == "mma"
+        got = I.int8_linear(a, s_x, b, qscale, bias, torch.bfloat16)  # routed to the mma body
+        assert torch.equal(got, I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16))
+    with pytest.raises(ValueError, match="writes bfloat16 with N a multiple of 8"):
+        I._launch_linear("wgmma", xq, s_x, w, qscale, bias, torch.float32)
+    with pytest.raises(ValueError, match="tiles are"):
+        I._launch_linear("wgmma", xq, s_x, w, qscale, bias, torch.bfloat16, block_n=64)
+    with pytest.raises(ValueError, match="no body"):
+        I._launch_linear("wgmma_m64", xq, s_x, w, qscale, bias, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert I.int8_linear.variant_launches == {"mma": 2} and I.int8_linear.launches == 2

@@ -237,6 +237,98 @@ def test_plain_versions_run_on_the_cpu_without_a_launch():
     xq, s_x = I.quantize_rows(x)
     I.int8_linear(xq, s_x, torch.ones(8, 48, dtype=torch.int8), torch.ones(8), torch.zeros(8), torch.bfloat16)
     assert I.quantize_rows.launches == 0 and I.int8_linear.launches == 0
+    assert not I.int8_linear.variant_launches
+
+
+# --- which int8_linear_s8 body a shape takes ----------------------------------------------
+def _int8_widths(name: str) -> dict:
+    """(K, N) of each int8 block linear of a zoo ViT, by Int8Linear name."""
+    spec = zoo.ENTRIES[name].spec
+    hidden = spec.hidden_dim
+    mlp = ({"fc_gate": (spec.dim, hidden), "fc_up": (spec.dim, hidden)} if spec.gated_mlp
+           else {"fc1": (spec.dim, 2 * hidden if spec.swiglu else hidden)})
+    return {"qkv": (spec.dim, 3 * spec.dim), "proj": (spec.dim, spec.dim), **mlp, "fc2": (hidden, spec.dim)}
+
+
+@pytest.mark.parametrize("name,layer,want", [
+    *[("vit_l_16", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    *[("medsiglip", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    *[("uni_v1", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    ("virchow_v1", "qkv", "wgmma"), ("virchow_v1", "fc1", "wgmma"),
+    ("virchow_v1", "fc2", "mma"), ("virchow_v2", "fc2", "mma"),
+])
+def test_linear_variant_over_the_zoo_int8_widths(name, layer, want):
+    """The wgmma body takes K a multiple of 16 (a TMA map's row stride):
+    every vit_l_16, medsiglip and uni linear in bfloat16, the int8 engine's
+    dtype; virchow's fc2 reads the SwiGLU half-width, K = 3,416 = 16 x
+    213.5, and stays on mma.sync, as does every float32 output."""
+    k, n = _int8_widths(name)[layer]
+    bf16 = torch.bfloat16
+    for m in (1, 5, 32 * 197, 256 * 197):
+        assert I.linear_variant(m, n, k, bf16) == want, (name, layer, m, k, n)
+        assert I.linear_variant(m, n, k, bf16, xq_ptr=1 << 20, w_ptr=3 << 20) == want
+        assert I.linear_variant(m, n, k, bf16, xq_ptr=(1 << 20) + 8) == "mma"  # a base off 16 bytes
+        assert I.linear_variant(m, n, k, bf16, w_ptr=(1 << 20) + 1) == "mma"
+        assert I.linear_variant(m, n, k, torch.float32) == "mma"
+
+
+@pytest.mark.parametrize("k,want", [(45, "mma"), (44, "mma"), (40, "mma"), (48, "wgmma"), (1040, "wgmma"),
+                                    (3416, "mma"), (4304, "wgmma"), (4308, "mma")])
+def test_linear_variant_by_depth(k, want):
+    assert I.linear_variant(37, 72, k, torch.bfloat16) == want
+    assert I.wgmma_admits(72, k, torch.bfloat16) == (want == "wgmma")
+
+
+@pytest.mark.parametrize("n,out_dtype,want", [
+    (72, torch.bfloat16, "wgmma"), (8, torch.bfloat16, "wgmma"), (4304, torch.bfloat16, "wgmma"),
+    (72, torch.float32, "mma"), (4304, torch.float32, "mma"), (130, torch.bfloat16, "mma"),
+    (17, torch.bfloat16, "mma"), (4, torch.bfloat16, "mma"),
+])
+def test_linear_variant_by_output(n, out_dtype, want):
+    """The wgmma body stores its tile by TMA in bfloat16 rows of 2 N bytes:
+    float32 output and N no multiple of 8 go to the mma body."""
+    assert I.linear_variant(37, n, 1024, out_dtype) == want
+    assert I.wgmma_admits(n, 1024, out_dtype) == (want == "wgmma")
+
+
+@pytest.mark.parametrize("m,n,sms,want", [
+    (5, 4304, 132, 128), (5, 1152, 132, 128), (1, 72, 132, 128), (197 * 32, 1024, 132, 256),
+    (197 * 32, 4096, 132, 256), (197 * 256, 3072, 132, 256), (8192, 1152, 132, 256), (640, 1024, 132, 128),
+    (128 * 33, 1024, 132, 256), (5, 4304, 8, 256), (5, 1152, 8, 128),
+])
+def test_wgmma_block_n_rule(m, n, sms, want):
+    """256-column tiles unless they are fewer than the SMs (132 on an H100
+    SXM), where 128-column ones double the CTAs at work."""
+    assert I.wgmma_block_n(m, n, sms=sms) == want
+
+
+@pytest.mark.parametrize("k,offset,match", [
+    (3416, 0, "variant 'wgmma' takes K a multiple of 16"), (45, 0, "variant 'wgmma' takes K"),
+    (1024, 1, "operands on 16 bytes"),
+])
+def test_forced_wgmma_refused_before_any_launch(k, offset, match):
+    """``_launch_linear`` refuses a body that cannot take the shape before it
+    touches a card or the library (pure Python, so it runs here)."""
+    I.reset_launch_counts()
+    buf = torch.zeros(5 * k + offset, dtype=torch.int8)
+    xq = buf[offset:].view(5, k)
+    w = torch.zeros(8, k, dtype=torch.int8)
+    with pytest.raises(ValueError, match=match):
+        I._launch_linear("wgmma", xq, torch.ones(5), w, torch.ones(8), None, torch.bfloat16)
+    with pytest.raises(ValueError, match="no body"):
+        I._launch_linear("imma", xq, torch.ones(5), w, torch.ones(8), None, torch.float32)
+    assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches
+
+
+@pytest.mark.parametrize("n,out_dtype", [(8, torch.float32), (130, torch.bfloat16), (130, torch.float32)])
+def test_forced_wgmma_refused_for_its_output(n, out_dtype):
+    """A forced wgmma body that would write float32 or rows of N no multiple
+    of 8 is refused before any launch."""
+    I.reset_launch_counts()
+    xq, w = torch.zeros(5, 1024, dtype=torch.int8), torch.zeros(n, 1024, dtype=torch.int8)
+    with pytest.raises(ValueError, match=f"writes bfloat16 with N a multiple of 8: .* N {n}, {out_dtype}"):
+        I._launch_linear("wgmma", xq, torch.ones(5), w, torch.ones(n), None, out_dtype)
+    assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches
 
 
 # --- the int8 attention branch -------------------------------------------------------------
