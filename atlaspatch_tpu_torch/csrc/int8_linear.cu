@@ -11,13 +11,44 @@
 // they are two kernels, each of which reads its inputs once and writes its
 // outputs once.
 //
-// quantize_rows_s8: one warp per row. It reads the row (bfloat16 or float32)
-// as 16-byte vectors, takes its abs-max in float32 (a butterfly over the
-// warp), then reads it again (from L1) and writes q = clamp(rint(x / s),
-// -127, 127) as int8 with s = max(amax, 1e-8) / 127, both divisions IEEE
-// round-to-nearest (__fdiv_rn) and rint half-to-even, as jnp.round rounds.
-// Bound on an H100 SXM: bytes (2 or 4 bytes in, 1 out per element, a few
-// operations each).
+// quantize_rows_s8: one template with a prologue that computes the row's
+// values from what lies in memory, then the abs-max quantizer in the same pass
+// (the XLA fusion of Int8Dense's quantizer with the op before it on the TPU):
+//   identity    x, read where it lies: a (M, K) matrix of any row stride, or
+//               the attention's (B, T, H, D) output rows of H D;
+//   layernorm   F.layer_norm(x, weight, bias, eps), before qkv and fc1;
+//   activations act(a) or act(a) * b (SwiGLU and the gated MLP: a and b two
+//               row-strided operands), before fc2.
+// Each computes the function the port's unfused chain computes, rounded to
+// the input's dtype where that chain stores: F.layer_norm once, GELU and SiLU
+// once, QuickGELU's x * sigmoid(1.702 x) three times, act(a) * b twice. Then
+// s = max(amax, 1e-8) / 127 (IEEE) and q = clamp(rint(x / s), -127, 127),
+// rint half-to-even as jnp.round rounds. The row is read from device memory
+// once, by loads all issued before the first use, and held in registers (32
+// or 128 values a thread); xq is written as 16-byte stores. Bound on an H100
+// SXM: bytes (2 or 4 in, 1 out per element; per row 4 out). The design:
+//   * a row is one warp (K = 1,024: 32 bfloat16 a lane) or a group of 2, 4 or
+//     8 warps (K = 4,096: 4 warps, 32 a thread); 8 warps a CTA, and at least
+//     3 or 4 CTAs an SM (a register cap, kQuantCtas), so rows in flight cover
+//     the memory's latency;
+//   * x / s without a division per element: q = x * (1 / s) lies within
+//     2^-15 of the IEEE quotient, so where q is further than 2^-13 from a
+//     half-integer both round alike; nearer (about 1 value in 10^4), the
+//     exact residual x - h s of the half-integer h decides, which keeps
+//     exact .5 ties; the rounding itself is an add of 1.5 * 2^23, whose low
+//     byte is the int8 value. No division in the kernel calls IEEE
+//     division's subroutine (div_rn), whose call convention spills;
+//   * layernorm's mean and variance are ATen's vectorized_layer_norm_kernel's
+//     (aten/src/ATen/native/cuda/layer_norm_kernel.cu): its 128 threads'
+//     Welford sums over 4-element vectors, combined in its shuffle and
+//     shared-memory order, with the multiply-adds its build contracts
+//     written as fma (this library is built with -fmad=false). Equal
+//     statistics give an equal normalized row, so the quantizer sees the
+//     values F.layer_norm stores; a differing one would move a value by a
+//     bfloat16 ulp now and then, and the row's scale with it where that
+//     value is the row's largest.
+// identity equals the plain version bit for bit; layernorm and the
+// activations meet it where the arithmetic above equals ATen's.
 //
 // int8_linear_s8: Y (M, N) = dequant(Xq (M, K) . Wq (N, K)^T). Bound on an
 // H100 SXM: operations at ViT widths (2 M N K over 1,979 TOPS int8 against
@@ -52,65 +83,405 @@ namespace {
 
 // ---------------------------------------------------------------- quantizer
 
-constexpr int kQuantWarps = 8;  // rows per CTA, one warp each
+// The prologue codes of atlas_quantize_rows_s8, in ops/int8.py::PROLOGUES's order.
+enum Prologue : int { kIdentity, kLayerNorm, kGelu, kGeluTanh, kQuickGelu, kSilu, kRelu };
+
+constexpr int kQuantThreads = 256;   // a CTA: 256 / group rows of `group` threads
+constexpr int kQuantMaxCols = 8192;  // 256 threads x 32 values
+// By prologue, the CTAs an SM that a bfloat16 2-unit instantiation's registers must allow: more rows
+// in flight (at most 64 registers a thread for identity, 80 for the others, where none spills;
+// float32's spill there). tools/int8_variants.py QUANT_VARIANTS measures the choice.
+constexpr int kQuantCtas[7] = {4, 3, 3, 3, 3, 3, 3};
+
+// 1 / n, n = 1..32, rounded to nearest: ATen's Welford weights 1.f / count
+// (its vectors' counts run 1, 2, 3, ... in every thread, so they are constants).
+__constant__ float kInvCount[33] = {
+    0.0f,      1.0f / 1,  1.0f / 2,  1.0f / 3,  1.0f / 4,  1.0f / 5,  1.0f / 6,  1.0f / 7,  1.0f / 8,
+    1.0f / 9,  1.0f / 10, 1.0f / 11, 1.0f / 12, 1.0f / 13, 1.0f / 14, 1.0f / 15, 1.0f / 16, 1.0f / 17,
+    1.0f / 18, 1.0f / 19, 1.0f / 20, 1.0f / 21, 1.0f / 22, 1.0f / 23, 1.0f / 24, 1.0f / 25, 1.0f / 26,
+    1.0f / 27, 1.0f / 28, 1.0f / 29, 1.0f / 30, 1.0f / 31, 1.0f / 32};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
+// v as a store to T leaves it.
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// E consecutive elements of a row: 16-byte loads where E * sizeof(T) >= 16.
+template <typename T, int E>
+struct alignas(E * sizeof(T) >= 16 ? 16 : E * sizeof(T)) Unit {
+  T v[E];
 };
 
-template <int VEC>
-struct alignas(VEC) Bytes {
-  int8_t v[VEC];
+// Where an operand's element (m, k) lies, in elements from p: the row at
+// (m / t) sb + (m % t) st, the column at (k / d) sh + k % d (k where sh == 0).
+struct Rows {
+  const void* p;
+  long long sb, st, sh;
+  int t, d;
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kQuantWarps * 32)
-quantize_rows_s8_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ scale,
-                        int rows, int cols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kQuantWarps + warp;
-  if (row >= rows) return;
-  const Vec<T, VEC>* src = reinterpret_cast<const Vec<T, VEC>*>(x + (int64_t)row * cols);
-  Bytes<VEC>* dst = reinterpret_cast<Bytes<VEC>*>(xq + (int64_t)row * cols);
-  const int n = cols / VEC;  // VEC divides cols
-  float amax = 0.0f;
-  for (int i = lane; i < n; i += 32) {
-    const Vec<T, VEC> p = src[i];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) amax = fmaxf(amax, fabsf(to_float(p.v[j])));
+template <typename T>
+__device__ __forceinline__ const T* row_start(const Rows& r, int m) {
+  return static_cast<const T*>(r.p) + (long long)(m / r.t) * r.sb + (long long)(m % r.t) * r.st;
+}
+
+__device__ __forceinline__ long long column(const Rows& r, int k) {
+  return r.sh == 0 ? (long long)k : (long long)(k / r.d) * r.sh + k % r.d;
+}
+
+// a / b rounded to nearest even, as IEEE division (div.rn.f32) gives it, without the subroutine that
+// instruction calls for extreme operands (a call's convention costs registers, and spills). r ~ 1 / b
+// by MUFU.RCP and a Newton step, q = a r within 2 ulps; of q and its two neighbours the one with the
+// least residual |a - b q| (one fma, exact for the correctly rounded one) is the quotient, the even
+// one on a tie. Quotients outside the normal range (a row's tail of a saturated sigmoid or SiLU,
+// which quantizes to 0) come back as q.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  float r = __fdividef(1.0f, b);
+  r = __fmaf_rn(__fmaf_rn(-b, r, 1.0f), r, r);
+  const float q = __fmul_rn(a, r);
+  if (!(fabsf(q) >= 0x1p-125f && fabsf(q) < 0x1p+127f)) return q;
+  const float lo = __uint_as_float(__float_as_uint(q) - 1u), hi = __uint_as_float(__float_as_uint(q) + 1u);
+  const float dq = fabsf(__fmaf_rn(-b, q, a)), dlo = fabsf(__fmaf_rn(-b, lo, a)), dhi = fabsf(__fmaf_rn(-b, hi, a));
+  const float best = dlo < dhi ? lo : hi, dbest = fminf(dlo, dhi);
+  if (dq < dbest || (dq == dbest && !(__float_as_uint(q) & 1u))) return q;
+  if (dlo == dhi) return (__float_as_uint(lo) & 1u) ? hi : lo;
+  return best;
+}
+
+// The activations as ATen's CUDA kernels compute them in float (GeluCUDAKernelImpl, silu_kernel,
+// sigmoid_kernel_cuda and the scalar multiply of x * torch.sigmoid(1.702 * x)); QuickGELU's two
+// inner stores are rounded here, its last one and every other result by the caller.
+template <int P, typename T>
+__device__ __forceinline__ float activation(float x) {
+  if constexpr (P == kGelu) {
+    return __fmul_rn(__fmul_rn(x, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(x, 0.70710678118654752440f))));
+  } else if constexpr (P == kGeluTanh) {
+    constexpr float kBeta = (float)(1.41421356237309504880 * 1.12837916709551257390 * 0.5);
+    const float inner = __fmul_rn(kBeta, __fmaf_rn(0.044715f, __fmul_rn(__fmul_rn(x, x), x), x));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
+  } else if constexpr (P == kQuickGelu) {
+    const float z = rnd<T>(__fmul_rn(x, 1.702f));
+    return __fmul_rn(x, rnd<T>(div_rn(1.0f, __fadd_rn(1.0f, expf(-z)))));
+  } else if constexpr (P == kSilu) {
+    return div_rn(x, __fadd_rn(1.0f, expf(-x)));
+  } else {
+    return fmaxf(x, 0.0f);
   }
+}
+
+struct Welford {
+  float mean, m2, count;
+};
+
+// ATen's cuWelfordOnlineSum, with the weight 1 / (count + 1) given.
+__device__ __forceinline__ void welford_add(Welford& w, float x, float weight) {
+  const float delta = __fsub_rn(x, w.mean);
+  w.count = __fadd_rn(w.count, 1.0f);
+  w.mean = __fmaf_rn(delta, weight, w.mean);
+  w.m2 = __fmaf_rn(delta, __fsub_rn(x, w.mean), w.m2);
+}
+
+// ATen's cuWelfordCombine(dataB = b, dataA = a), with its count-only terms given: count = a.count +
+// b.count, coef = 1 / count, na = a.count coef, nb = b.count coef (one set serves every slot of a
+// lane, whose slots hold equal counts).
+struct Weights {
+  float count, na, nb;
+};
+
+__device__ __forceinline__ Weights combine_weights(float b_count, float a_count) {
+  const float count = __fadd_rn(a_count, b_count);
+  const float coef = div_rn(1.0f, count);
+  return {count, __fmul_rn(a_count, coef), __fmul_rn(b_count, coef)};
+}
+
+__device__ __forceinline__ Welford welford_combine(const Welford& b, const Welford& a, const Weights& k) {
+  if (!(k.count > 0.0f)) return {0.0f, 0.0f, 0.0f};
+  const float delta = __fsub_rn(b.mean, a.mean);
+  return {__fmaf_rn(k.na, a.mean, __fmul_rn(k.nb, b.mean)),
+          __fmaf_rn(__fmul_rn(__fmul_rn(delta, delta), a.count), k.nb, __fadd_rn(a.m2, b.m2)), k.count};
+}
+
+__device__ __forceinline__ Welford shfl_down(const Welford& w, int offset) {
+  return {__shfl_down_sync(0xffffffffu, w.mean, offset), __shfl_down_sync(0xffffffffu, w.m2, offset),
+          __shfl_down_sync(0xffffffffu, w.count, offset)};
+}
+
+// The row's mean and 1 / sqrt(var + eps) as ATen's vectorized layer norm computes them, for a row held
+// by one warp in 16-element units (unit l + 32 j in lane l). ATen's 128 threads (4 warps) each sum
+// 4-element vectors v, v + 128, v + 256, ...: its thread 4 l + i is slot i here, whose j-th vector is
+// unit l + 32 j's i-th quarter. Its shuffle offsets 16, 8, 4 are lane offsets 4, 2, 1 here, its
+// offsets 2 and 1 slots i + 2 and i + 1, and its warp w's result lands in lane 8 w.
+template <int U>
+__device__ __forceinline__ void aten_row_stats(const float (&v)[U][16], int lane, int units, int cols, float eps,
+                                               float& mean, float& rstd) {
+  Welford w[4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-  for (int i = lane; i < n; i += 32) {
-    const Vec<T, VEC> p = src[i];
-    Bytes<VEC> q;
+  for (int i = 0; i < 4; ++i) w[i] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(to_float(p.v[j]), s)), -127.0f), 127.0f);
-      q.v[j] = (int8_t)__float2int_rn(r);
+  for (int j = 0; j < U; ++j) {
+    if (lane + 32 * j < units) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) welford_add(w[i], v[j][4 * i + e], kInvCount[4 * j + e + 1]);
     }
-    dst[i] = q;
   }
-  if (lane == 0) scale[row] = s;
+#pragma unroll
+  for (int offset = 4; offset > 0; offset >>= 1) {
+    Welford other[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) other[i] = shfl_down(w[i], offset);
+    const Weights k = combine_weights(w[0].count, other[0].count);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = welford_combine(w[i], other[i], k);
+  }
+  const Weights k = combine_weights(w[0].count, w[2].count);
+  w[0] = welford_combine(w[0], w[2], k);
+  w[1] = welford_combine(w[1], w[3], k);
+  w[0] = welford_combine(w[0], w[1], combine_weights(w[0].count, w[1].count));
+#pragma unroll
+  for (int offset = 16; offset >= 8; offset >>= 1) {  // ATen's warps 0, 1 take 2, 3, then 0 takes 1
+    const Welford other = shfl_down(w[0], offset);
+    w[0] = welford_combine(w[0], other, combine_weights(w[0].count, other.count));
+  }
+  mean = __shfl_sync(0xffffffffu, w[0].mean, 0);
+  const float var = div_rn(__shfl_sync(0xffffffffu, w[0].m2, 0), (float)cols);
+  rstd = rsqrtf(__fadd_rn(var, eps));
+}
+
+// Sum or max over a row's group of threads (a power of two, 32 to 256), in one fixed order.
+template <bool kMax>
+__device__ __forceinline__ float group_reduce(float x, int group, float* red) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, offset);
+    x = kMax ? fmaxf(x, y) : __fadd_rn(x, y);
+  }
+  if (group > 32) {
+    const int warp = threadIdx.x >> 5, first = warp & ~(group / 32 - 1);
+    __syncthreads();  // the last reduction's reads are done
+    if ((threadIdx.x & 31) == 0) red[warp] = x;
+    __syncthreads();
+    x = red[first];
+    for (int w = 1; w < group / 32; ++w) x = kMax ? fmaxf(x, red[first + w]) : __fadd_rn(x, red[first + w]);
+  }
+  return x;
+}
+
+// rint(fl(x / s)) clamped to [-127, 127], in the low byte. q = x r (r ~ 1 / s within 2 ulps) lies
+// within 2^-15 of fl(x / s) (|x / s| <= 127); where it lies further than 2^-13 from a half-integer
+// both round to the same integer. Adding 1.5 * 2^23 rounds half-to-even and leaves the integer in
+// the low bits. Nearer a half-integer h (about 1 value in 10^4), the exact residual d = x - h s (one
+// fma: |d| < 2^-12 s is a multiple of s's ulp / 4) decides: fl(x / s) is h itself where
+// |d| <= s ulp(h) / 2 (then rint takes the even neighbour), else it lies on d's side of h.
+__device__ __forceinline__ uint32_t quantize_one(float x, float s, float r) {
+  constexpr float kMagic = 12582912.0f;
+  const float q = fminf(fmaxf(__fmul_rn(x, r), -127.0f), 127.0f);
+  float f = __fadd_rn(q, kMagic);
+  if (fabsf(__fsub_rn(q, __fsub_rn(f, kMagic))) > 0.5f - 0x1p-13f) {
+    const float h = __fadd_rn(floorf(q), 0.5f);
+    const float d = __fmaf_rn(-h, s, x);
+    const float half_ulp = __fmul_rn(s, __fmul_rn(__uint_as_float(__float_as_uint(h) & 0x7f800000u), 0x1p-24f));
+    const float n = fabsf(d) <= half_ulp ? rintf(h) : (d > 0.0f ? __fadd_rn(h, 0.5f) : __fsub_rn(h, 0.5f));
+    f = __fadd_rn(n, kMagic);
+  }
+  return __float_as_uint(f);
+}
+
+// One row per group of `group` threads; thread t holds units t + j group (E elements each, j < U)
+// in registers. Groups past the last row read it and write nothing.
+template <typename T, int E, int U, int P>
+__global__ void __launch_bounds__(kQuantThreads, sizeof(T) == 2 && E == 16 && U == 2 ? kQuantCtas[P] : 1)
+quantize_rows_s8_kernel(const Rows a, const T* __restrict__ b, const long long ldb, const T* __restrict__ gamma,
+                        const T* __restrict__ beta, const float eps, int8_t* __restrict__ xq,
+                        float* __restrict__ scale, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                        const int rows, const int cols, const int group) {
+  __shared__ float red[kQuantThreads / 32];
+  const int t = threadIdx.x & (group - 1);
+  const int row = blockIdx.x * (kQuantThreads / group) + threadIdx.x / group;
+  const int m = min(row, rows - 1);
+  const int units = cols / E;
+  const T* arow = row_start<T>(a, m);
+  const T* brow = b == nullptr ? nullptr : b + (long long)m * ldb;
+
+  Unit<T, E> ua[U], ub[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const int u = t + j * group;
+    if (u < units) {
+      ua[j] = *reinterpret_cast<const Unit<T, E>*>(arow + column(a, u * E));
+      if constexpr (P >= kGelu)
+        if (b != nullptr) ub[j] = *reinterpret_cast<const Unit<T, E>*>(brow + u * E);
+    }
+  }
+  float v[U][E];
+#pragma unroll
+  for (int j = 0; j < U; ++j)
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[j][e] = t + j * group < units ? to_float(ua[j].v[e]) : 0.0f;
+
+  if constexpr (P == kLayerNorm) {
+    float mean, rstd;
+    if constexpr (E == 16) {
+      aten_row_stats<U>(v, t, units, cols, eps, mean, rstd);
+    } else {  // rows no multiple of 16 (ATen's other kernel): two passes over the registers
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e) sum = __fadd_rn(sum, v[j][e]);
+      mean = div_rn(group_reduce<false>(sum, group, red), (float)cols);
+      float dev = 0.0f;
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+        if (t + j * group < units)
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float d = __fsub_rn(v[j][e], mean);
+            dev = __fmaf_rn(d, d, dev);
+          }
+      rstd = rsqrtf(__fadd_rn(div_rn(group_reduce<false>(dev, group, red), (float)cols), eps));
+    }
+    if (t == 0 && row < rows && mean_out != nullptr) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int u = t + j * group;
+      if (u < units) {
+        const Unit<T, E> g = *reinterpret_cast<const Unit<T, E>*>(gamma + u * E);
+        const Unit<T, E> h = *reinterpret_cast<const Unit<T, E>*>(beta + u * E);
+#pragma unroll
+        for (int e = 0; e < E; ++e)  // ATen: gamma * (rstd * (x - mean)) + beta
+          v[j][e] = rnd<T>(__fmaf_rn(to_float(g.v[e]), __fmul_rn(rstd, __fsub_rn(v[j][e], mean)),
+                                     to_float(h.v[e])));
+      }
+    }
+  } else if constexpr (P >= kGelu) {
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (t + j * group < units) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          float h = rnd<T>(activation<P, T>(v[j][e]));
+          if (b != nullptr) h = rnd<T>(__fmul_rn(h, to_float(ub[j].v[e])));
+          v[j][e] = h;
+        }
+      }
+    }
+  }
+
+  float amax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < U; ++j)
+#pragma unroll
+    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
+  amax = group_reduce<true>(amax, group, red);
+  const float s = div_rn(fmaxf(amax, 1e-8f), 127.0f);
+  const float r0 = __fdividef(1.0f, s);
+  const float r = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
+  if (row >= rows) return;
+  int8_t* out = xq + (long long)row * cols;
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const int u = t + j * group;
+    if (u < units) {
+      uint32_t f[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) f[e] = quantize_one(v[j][e], s, r);
+      if constexpr (E == 1) {
+        out[u] = (int8_t)(f[0] & 0xffu);
+      } else {
+        uint32_t w[E / 4];
+#pragma unroll
+        for (int i = 0; i < E / 4; ++i)
+          w[i] = __byte_perm(__byte_perm(f[4 * i], f[4 * i + 1], 0x0040), __byte_perm(f[4 * i + 2], f[4 * i + 3], 0x0040),
+                             0x5410);
+        if constexpr (E == 16) *reinterpret_cast<uint4*>(out + u * E) = make_uint4(w[0], w[1], w[2], w[3]);
+        if constexpr (E == 8) *reinterpret_cast<uint2*>(out + u * E) = make_uint2(w[0], w[1]);
+        if constexpr (E == 4) *reinterpret_cast<uint32_t*>(out + u * E) = w[0];
+      }
+    }
+  }
+  if (t == 0) scale[row] = s;
+}
+
+struct QuantCall {
+  Rows a;
+  const void* b;
+  long long ldb;
+  const void *gamma, *beta;
+  float eps;
+  void *xq, *scale, *mean, *rstd;
+  int rows, cols;
+};
+
+template <typename T, int E, int U, int P>
+cudaError_t launch_quantize(const QuantCall& c, int group, cudaStream_t stream) {
+  const int per_cta = kQuantThreads / group;
+  quantize_rows_s8_kernel<T, E, U, P><<<(c.rows + per_cta - 1) / per_cta, kQuantThreads, 0, stream>>>(
+      c.a, static_cast<const T*>(c.b), c.ldb, static_cast<const T*>(c.gamma), static_cast<const T*>(c.beta), c.eps,
+      static_cast<int8_t*>(c.xq), static_cast<float*>(c.scale), static_cast<float*>(c.mean),
+      static_cast<float*>(c.rstd), c.rows, c.cols, group);
+  return cudaGetLastError();
+}
+
+bool on16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// Units of 16 elements where every one starts on 16 bytes (K a multiple of 16, 16-byte bases and
+// strides), else of one 16-byte vector (8 bfloat16 or 4 float32: virchow's K = 3,416; not for
+// layernorm, whose units of 16 follow ATen's threads), else single elements. A layernorm row of
+// 16-element units is one warp (ATen's statistics), the other rows the fewest threads that hold them:
+// 32 values a thread (64 or 128 for a layernorm row of 1,025 to 2,048 or 2,049 to 4,096).
+template <typename T, int P>
+cudaError_t dispatch_quantize(const QuantCall& c, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned = on16(c.a.p) && c.a.sb % kVec == 0 && c.a.st % kVec == 0 &&
+                       (c.b == nullptr || (on16(c.b) && c.ldb % kVec == 0)) &&
+                       (c.gamma == nullptr || (on16(c.gamma) && on16(c.beta))) && on16(c.xq);
+  const bool heads16 = c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % 16 == 0);
+  if (aligned && heads16 && c.cols % 16 == 0) {
+    const int units = c.cols / 16;
+    if constexpr (P == kLayerNorm) {
+      if (units <= 64) return launch_quantize<T, 16, 2, P>(c, 32, stream);
+      if (units <= 128) return launch_quantize<T, 16, 4, P>(c, 32, stream);
+      if (units <= 256) return launch_quantize<T, 16, 8, P>(c, 32, stream);
+    } else {
+      int group = 32;
+      while (units > 2 * group) group *= 2;
+      return launch_quantize<T, 16, 2, P>(c, group, stream);
+    }
+  }
+  if constexpr (P != kLayerNorm) {
+    if (aligned && (c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % kVec == 0)) && c.cols % kVec == 0) {
+      const int units = c.cols / kVec;
+      int group = 32;
+      while (units * kVec > 32 * group) group *= 2;
+      return launch_quantize<T, kVec, 32 / kVec, P>(c, group, stream);
+    }
+  }
+  int group = 32;
+  while (c.cols > 32 * group) group *= 2;
+  return launch_quantize<T, 1, 32, P>(c, group, stream);
 }
 
 template <typename T>
-cudaError_t launch_quantize(const void* x, void* xq, void* scale, int rows, int cols, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const dim3 grid((rows + kQuantWarps - 1) / kQuantWarps), block(kQuantWarps * 32);
-  const bool vec = cols % kVec == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)xq % kVec == 0;
-  if (vec)
-    quantize_rows_s8_kernel<T, kVec><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<int8_t*>(xq), static_cast<float*>(scale), rows, cols);
-  else
-    quantize_rows_s8_kernel<T, 1><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<int8_t*>(xq), static_cast<float*>(scale), rows, cols);
-  return cudaGetLastError();
+cudaError_t dispatch_prologue(int prologue, const QuantCall& c, cudaStream_t stream) {
+  switch (prologue) {
+    case kIdentity: return dispatch_quantize<T, kIdentity>(c, stream);
+    case kLayerNorm: return dispatch_quantize<T, kLayerNorm>(c, stream);
+    case kGelu: return dispatch_quantize<T, kGelu>(c, stream);
+    case kGeluTanh: return dispatch_quantize<T, kGeluTanh>(c, stream);
+    case kQuickGelu: return dispatch_quantize<T, kQuickGelu>(c, stream);
+    case kSilu: return dispatch_quantize<T, kSilu>(c, stream);
+    default: return dispatch_quantize<T, kRelu>(c, stream);
+  }
 }
 
 // ------------------------------------------------------------------ product
@@ -331,14 +702,24 @@ cudaError_t launch_linear(const void* xq, const void* w, const void* s_x, const 
 
 }  // namespace
 
-// x (rows, cols) float32 or bfloat16, contiguous -> xq (rows, cols) int8 and
-// scale (rows,) float32. Returns the launch's cudaError.
-extern "C" int atlas_quantize_rows_s8(const void* x, int x_is_bf16, void* xq, void* scale, int rows, int cols,
-                                      void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+// The quantizer of `prologue` (Prologue) over rows x cols values of float32 or
+// bfloat16 operands -> xq (rows, cols) int8 and scale (rows,) float32, contiguous.
+// a's element (m, k) lies at a + (m / a_t) a_sb + (m % a_t) a_st + (k / a_d) a_sh
+// + k % a_d elements (a_sh = 0: + k); b (the activations' second operand, or
+// null) at b + m ldb + k; gamma, beta (cols,) and eps are layernorm's, which
+// also writes its mean and 1 / sqrt(var + eps) per row where mean and rstd are
+// not null. Returns the launch's cudaError.
+extern "C" int atlas_quantize_rows_s8(int prologue, int x_is_bf16, int rows, int cols, const void* a, long long a_sb,
+                                      long long a_st, int a_t, long long a_sh, int a_d, const void* b, long long ldb,
+                                      const void* gamma, const void* beta, float eps, void* xq, void* scale,
+                                      void* mean, void* rstd, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols > kQuantMaxCols || a_t <= 0 || a_d <= 0 || prologue < kIdentity ||
+      prologue > kRelu || (prologue == kLayerNorm && (gamma == nullptr || beta == nullptr)) ||
+      ((mean == nullptr) != (rstd == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, gamma, beta, eps, xq, scale, mean, rstd, rows, cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_is_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, scale, rows, cols, s)
-                         : launch_quantize<float>(x, xq, scale, rows, cols, s));
+  return (int)(x_is_bf16 ? dispatch_prologue<__nv_bfloat16>(prologue, c, s) : dispatch_prologue<float>(prologue, c, s));
 }
 
 // xq (M, K) int8, w (N, K) int8, s_x (M,) and qscale (N,) float32, bias (N,)

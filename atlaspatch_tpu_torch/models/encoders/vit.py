@@ -23,9 +23,15 @@ the reference's ``Int8Dense`` (vit.py:124-157), whose quantizer and int8
 product run as the kernels of ``ops/int8.py`` on the card; the parameters
 take the layout of :func:`quantize_vit_params` (a Flax tree) or
 :func:`quantize_vit_state_dict` (a state_dict), which give the same int8
-weights and scales. GELU is the tanh approximation there unless
-``ATLASPATCH_GELU_TANH=0``. ``spec.quant_int8_attn`` also runs QK^T and PV as
-int8 products (vit.py:237-260); no entry point turns it on.
+weights and scales. The quantizer takes in the op before it, as XLA fuses
+them on the TPU: ``Block`` quantizes ``norm1(x)`` and ``norm2(x)`` in one
+pass (``layernorm_quantize_rows``; a gated MLP's two linears share the
+rows), ``Mlp`` its activation (``act_quantize_rows``), ``Attention`` the
+attention's output where it lies (``quantize_heads``); each hands the
+linear :class:`QuantizedRows`. On the CPU these run the unfused ops. GELU is
+the tanh approximation there unless ``ATLASPATCH_GELU_TANH=0``.
+``spec.quant_int8_attn`` also runs QK^T and PV as int8 products
+(vit.py:237-260); no entry point turns it on.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from atlaspatch_tpu_torch.ops.int8 import int8_linear, int_product, quantize_plain, quantize_rows
+from atlaspatch_tpu_torch.ops.int8 import (
+    ACTIVATIONS, act_quantize_rows, int8_linear, int_product, layernorm_quantize_rows, quantize_heads, quantize_plain,
+    quantize_rows,
+)
 
 
 @dataclass(frozen=True)
@@ -93,22 +101,23 @@ class ViTSpec:
         return self.mlp_hidden if self.mlp_hidden is not None else int(self.dim * self.mlp_ratio)
 
 
-def _act(name: str, quantized: bool = False):
-    """The activation by name. The exact erf GELU becomes the tanh
-    approximation by default in the int8 serving mode (``quantized``), whose
-    contract is already small drift; ``ATLASPATCH_GELU_TANH=1`` / ``0``
-    forces it on / off everywhere. Read when the module is built."""
+def _act_name(name: str, quantized: bool = False) -> str:
+    """The activation's name as the module runs it. The exact erf GELU
+    becomes the tanh approximation by default in the int8 serving mode
+    (``quantized``), whose contract is already small drift;
+    ``ATLASPATCH_GELU_TANH=1`` / ``0`` forces it on / off everywhere. Read
+    when the module is built."""
     if name == "gelu":
         env = os.environ.get("ATLASPATCH_GELU_TANH")
         if env == "1" or (quantized and env != "0"):
-            name = "gelu_tanh"
-    return {
-        "gelu": lambda x: F.gelu(x),
-        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
-        "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
-        "silu": F.silu,
-        "relu": F.relu,
-    }[name]
+            return "gelu_tanh"
+    return name
+
+
+def _act(name: str, quantized: bool = False):
+    """The activation by name (``ops/int8.py::ACTIVATIONS``), after
+    ``_act_name``."""
+    return ACTIVATIONS[_act_name(name, quantized)]
 
 
 def _rope_cos_sin(spec: ViTSpec) -> tuple[torch.Tensor, torch.Tensor]:
@@ -140,15 +149,29 @@ def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, equati
     return torch.einsum(out_equation, attn, v)
 
 
+@dataclass(frozen=True)
+class QuantizedRows:
+    """The rows of a (..., K) tensor of ``shape`` and ``dtype`` quantized for
+    an :class:`Int8Linear`: ``xq`` (M, K) int8 and ``s_x`` (M,) float32, M
+    the product of the leading dims. Built by the op that fused the quantizer
+    in, so the float rows are never stored."""
+
+    xq: torch.Tensor
+    s_x: torch.Tensor
+    shape: tuple
+    dtype: torch.dtype
+
+
 class Int8Linear(nn.Module):
     """W8A8 dynamic-quantized linear layer (the int8 serving mode), the port
     of the reference's ``Int8Dense``.
 
     Weights: symmetric per-output-channel int8 ``weight_q`` (N, K) with
     float32 ``qscale`` (N,), both buffers. Activations: symmetric per-row
-    dynamic abs-max int8 (``quantize_rows``). The int8 product accumulates in
-    int32 and is dequantized by one float32 multiply by both scales, plus the
-    bias, in the activations' dtype out (``int8_linear``)."""
+    dynamic abs-max int8, quantized here (``quantize_rows``) or handed in as
+    :class:`QuantizedRows`. The int8 product accumulates in int32 and is
+    dequantized by one float32 multiply by both scales, plus the bias, in the
+    activations' dtype out (``int8_linear``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True) -> None:
         super().__init__()
@@ -157,9 +180,10 @@ class Int8Linear(nn.Module):
         self.register_buffer("qscale", torch.full((out_features,), 1.0 / 127.0, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, s_x = quantize_rows(x.reshape(-1, self.in_features))
-        y = int8_linear(xq, s_x, self.weight_q, self.qscale, self.bias, x.dtype)
+    def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
+        if not isinstance(x, QuantizedRows):
+            x = QuantizedRows(*quantize_rows(x.reshape(-1, self.in_features)), tuple(x.shape), x.dtype)
+        y = int8_linear(x.xq, x.s_x, self.weight_q, self.qscale, self.bias, x.dtype)
         return y.reshape(*x.shape[:-1], self.out_features)
 
 
@@ -259,7 +283,7 @@ class Attention(nn.Module):
             self.register_buffer("rope_cos", cos, persistent=False)
             self.register_buffer("rope_sin", sin, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
         s = self.spec
         B, T, _ = x.shape
         # token-major (B, T, H, D) throughout, as the reference keeps it
@@ -277,6 +301,8 @@ class Attention(nn.Module):
             out = _int8_attention(q, k, v).to(x.dtype)
         else:
             out = _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
+        if s.quant_int8:  # (B, T, H, D) quantized where it lies, not reshaped into a copy first
+            return self.proj(QuantizedRows(*quantize_heads(out), (B, T, s.dim), out.dtype))
         return self.proj(out.reshape(B, T, s.dim))
 
 
@@ -284,7 +310,8 @@ class Mlp(nn.Module):
     def __init__(self, spec: ViTSpec) -> None:
         super().__init__()
         self.spec = spec
-        self.act = _act(spec.act, spec.quant_int8)
+        self.act_name = _act_name(spec.act, spec.quant_int8)
+        self.act = ACTIVATIONS[self.act_name]
         hidden = spec.hidden_dim
         if spec.gated_mlp:
             self.fc_gate = _linear(spec, spec.dim, hidden)
@@ -293,15 +320,18 @@ class Mlp(nn.Module):
             self.fc1 = _linear(spec, spec.dim, 2 * hidden if spec.swiglu else hidden)
         self.fc2 = _linear(spec, hidden, spec.dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
         if self.spec.gated_mlp:
-            h = self.act(self.fc_gate(x)) * self.fc_up(x)
+            a, b = self.fc_gate(x), self.fc_up(x)
         elif self.spec.swiglu:
-            x1, x2 = self.fc1(x).chunk(2, dim=-1)
-            h = self.act(x1) * x2
+            a, b = self.fc1(x).chunk(2, dim=-1)
         else:
-            h = self.act(self.fc1(x))
-        return self.fc2(h)
+            a, b = self.fc1(x), None
+        if self.spec.quant_int8:  # act(a) (* b) quantized in one pass, never stored
+            rows = (a.reshape(-1, a.shape[-1]), None if b is None else b.reshape(-1, b.shape[-1]))
+            return self.fc2(QuantizedRows(*act_quantize_rows(rows[0], self.act_name, rows[1]), tuple(a.shape),
+                                          a.dtype))
+        return self.fc2(self.act(a) if b is None else self.act(a) * b)
 
 
 class Block(nn.Module):
@@ -311,6 +341,7 @@ class Block(nn.Module):
         self.attn = Attention(spec)
         self.norm2 = nn.LayerNorm(spec.dim, eps=spec.ln_eps)
         self.mlp = Mlp(spec)
+        self.quantized = spec.quant_int8
         if spec.layerscale:
             self.ls1 = nn.Parameter(torch.ones(spec.dim))
             self.ls2 = nn.Parameter(torch.ones(spec.dim))
@@ -318,14 +349,22 @@ class Block(nn.Module):
             self.ls1 = self.ls2 = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.attn(self.norm1(x))
+        h = self.attn(self._normed(self.norm1, x))
         if self.ls1 is not None:
             h = h * self.ls1
         x = x + h
-        h = self.mlp(self.norm2(x))
+        h = self.mlp(self._normed(self.norm2, x))
         if self.ls2 is not None:
             h = h * self.ls2
         return x + h
+
+    def _normed(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor | QuantizedRows:
+        """norm(x), or in the int8 serving mode its rows quantized in the same
+        pass for the linears that read it (qkv; fc1, or fc_gate and fc_up)."""
+        if not self.quantized:
+            return norm(x)
+        xq, s_x = layernorm_quantize_rows(x.reshape(-1, x.shape[-1]), norm.weight, norm.bias, norm.eps)
+        return QuantizedRows(xq, s_x, tuple(x.shape), x.dtype)
 
 
 class MAPHead(nn.Module):

@@ -106,7 +106,21 @@ Phases, one line each (any failure exits non-zero with no result line):
           dense bound (the forward's FLOPs per patch over 989 TFLOP/s), the
           device busy share of one extract_batch by torch.profiler with its
           largest device operations, and the peak memory allocated
-  int8    the int8 (W8A8) serving mode of vit_l_16. (a) quantize_rows_s8
+  int8    the int8 (W8A8) serving mode of vit_l_16. (a0) quantize_rows_s8's
+          prologues against their plain versions (the unfused chain: the
+          F.layer_norm or activation stored, then the quantizer) on the same
+          inputs: layernorm (norm1/norm2 -> qkv/fc1) at K 1,024 and medsiglip's
+          1,152, tanh GELU (-> fc2) at 4,096 and 4,304, the attention's
+          (B, T, H, D) output read where it lies (identity, -> proj) at
+          vit_l_16's rows at batch 32 and 256 (M 6,304 and 50,432; bfloat16,
+          and float32 at batch 32), SiLU of SwiGLU halves at virchow's 3,416;
+          identity at max-abs 0, the others within 1 in at most 1e-3 of xq and
+          s_x within 2^-8 (the flip share printed); device ms per call and per
+          forward (48 layernorm, 24 activation, 24 identity) against the
+          bound, beside the unfused chain's kernels timed in the same run
+          (F.layer_norm, F.gelu, the reshape copy of the attention's output,
+          the earlier two-read quantizer from tools/int8_variants.py).
+          (a) quantize_rows_s8 (identity)
           and int8_linear_s8 against their plain versions (max-abs 0) at the
           shapes vit_l_16 hands them at batch 32 and 256 (M 6,304 and 50,432;
           (K, N) of qkv, proj, fc1, fc2) and at medsiglip's ragged MLP
@@ -122,12 +136,16 @@ Phases, one line each (any failure exits non-zero with no result line):
           from the registry with --feature-precision int8's dtype and random
           weights: 96 Int8Linear, weight_q int8, qscale float32, the rest
           bfloat16; the float32 extractor's weights quantized; 96 launches of
-          each kernel per forward, all 96 linears on the wgmma body (0 on
+          each kernel per forward (quantize_rows_s8: 48 layernorm, 24
+          gelu_tanh, 24 identity), all 96 linears on the wgmma body (0 on
           mma.sync); int8 vs float32 per-patch cosine > 0.98 on 64
           patches; card int8 vs CPU int8 at depth 2 on the same weights,
           cosine >= 0.999; extract_batch patches/s at batch 32 (512 patches,
           median of 3) and the resident rate at 32 and 256 beside the embed
-          phase's bf16 ones; the kernels' share of a forward's device time;
+          phase's bf16 ones; the kernels' share of a forward's device time,
+          the top kernels of one batch-256 forward (one LayerNorm kernel, the
+          final norm, and no GELU kernel), the device-busy share of one
+          batch-32 forward;
           the quant_int8_attn branch's time. (d) content_filter_mask and
           resize_nearest on the card equal to the CPU's. (c) process --fast
           --feature-precision int8 --feature-extractors vit_l_16 through the
@@ -470,7 +488,8 @@ def phase_build(state):
     from atlaspatch_tpu_torch.build import build_log, nvcc_path
     from atlaspatch_tpu_torch.io.native import load_contours_library, load_tiff_library
     from atlaspatch_tpu_torch.ops.attention import load_f32win_library, load_flash_library, load_wgmma_library
-    from atlaspatch_tpu_torch.ops.int8 import load_int8_library
+    from atlaspatch_tpu_torch.ops.int8 import PROLOGUES, load_int8_library
+    from atlaspatch_tpu_torch.tools.int8_variants import load_old_quantizer
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -478,11 +497,12 @@ def phase_build(state):
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         jobs = [pool.submit(timed, fn) for fn in (load_wgmma_library, load_flash_library, load_f32win_library,
-                                                  load_int8_library, load_contours_library, load_tiff_library)]
+                                                  load_int8_library, load_contours_library, load_tiff_library,
+                                                  load_old_quantizer)]
         (wgmma_lib, wgmma_s), (flash_lib, flash_s), (win_lib, win_s), (int8_lib, int8_s), (_, contours_s), \
-            (_, tiff_s) = (j.result() for j in jobs)
+            (_, tiff_s), (_, old_s) = (j.result() for j in jobs)
     bodies = {**_ptxas_by_body(build_log(Path(wgmma_lib._name))),
               **_ptxas_by_body(build_log(Path(flash_lib._name))),
               **_ptxas_by_body(build_log(Path(win_lib._name)))}
@@ -517,11 +537,17 @@ def phase_build(state):
         raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS {dict(imma)}")
     if any(k["spilling"] for k in int8_kernels.values()):
         raise AssertionError(f"an int8 kernel spills: {int8_kernels}")
+    prologues = sorted(set(int(p) for p in re.findall(r"quantize_rows_s8_kernelI\w+?Li\d+ELi\d+ELi(\d+)E",
+                                                       build_log(Path(int8_lib._name)))))
+    if prologues != list(range(len(PROLOGUES))):
+        raise AssertionError(f"quantize_rows_s8 instantiates prologues {prologues}, not the {len(PROLOGUES)} of "
+                             f"{PROLOGUES}")
     int8_warnings = [line.strip() for line in build_log(Path(int8_lib._name)).splitlines() if "warning" in line]
     if any("serialized" in line for line in int8_warnings):
         raise AssertionError(f"ptxas serializes the int8 wgmma: {int8_warnings}")
     log(f"build ok flash_attn_wgmma.so {wgmma_s:.1f}s, flash_attn.so {flash_s:.1f}s, "
-        f"flash_attn_f32win.so {win_s:.1f}s and int8_linear.so {int8_s:.1f}s (nvcc sm_90a), "
+        f"flash_attn_f32win.so {win_s:.1f}s, int8_linear.so {int8_s:.1f}s and the earlier two-read quantizer "
+        f"{old_s:.1f}s (nvcc sm_90a), "
         f"atlas_contours.so {contours_s:.1f}s and "
         f"atlas_tiff.so {tiff_s:.1f}s (g++), "
         f"wall {time.perf_counter() - t0:.1f}s")
@@ -531,7 +557,8 @@ def phase_build(state):
     for kind, entry in int8_kernels.items():
         log(f"build ptxas {kind}: {entry['kernels']} instantiations, max registers {entry['max_registers']}, "
             f"stack or spills: {'; '.join(entry['spilling']) or 'none'}")
-    log(f"build int8_linear.so SASS: {int8_ops} ({dict(imma)}); ptxas warnings: {int8_warnings or 'none'}")
+    log(f"build int8_linear.so SASS: {int8_ops} ({dict(imma)}); ptxas warnings: {int8_warnings or 'none'}; "
+        f"quantize_rows_s8 prologues {dict(enumerate(PROLOGUES))} all instantiated")
     log(f"build wgmma SASS: {ops}; flash_attn.so SASS: {dict(hmma)}; at D = 96: tf32x3 {ctas} CTAs "
         f"of 128 threads per SM, f32_win {win_ctas} CTAs of 384 threads (8 consumer, 4 producer warps) per SM")
 
@@ -1558,6 +1585,99 @@ def quantize_bound(m: int, k: int) -> float:
     return 1e3 * (3 * m * k + 4 * m) / H100_BYTES_PER_S
 
 
+# quantize_rows_s8's prologues on the main path and beside it: (M, K, prologue, operand, dtype, label)
+INT8_PROLOGUE_CASES = [
+    *[(b * 197, k, prologue, operand, dtype, f"vit_l_16 b{b}") for b in (32, 256)
+      for k, prologue, operand in ((1024, "layernorm", None), (4096, "gelu_tanh", None), (1024, "identity", "heads"))
+      for dtype in ("bfloat16", *(("float32",) if b == 32 else ()))],
+    (8192, 1152, "layernorm", None, "bfloat16", "medsiglip"), (8192, 4304, "gelu_tanh", None, "bfloat16", "medsiglip"),
+    (8192, 3416, "silu", "swiglu", "bfloat16", "virchow SwiGLU half"),
+]
+FUSED_FLIP_SHARE = 1e-3  # layernorm and the activations: xq within 1 in this share, s_x within 2^-8
+
+
+def _prologue_operands(m, k, prologue, operand, dtype, gen):
+    import torch
+
+    dt = getattr(torch, dtype)
+    if operand == "heads":
+        attn = torch.softmax(torch.randn(m // 197, 16, 197, 197, device="cuda", generator=gen) * 3, dim=-1).to(dt)
+        v = torch.randn(m // 197, 197, 16, k // 16, device="cuda", generator=gen).to(dt)
+        return (torch.einsum("bhqk,bkhd->bqhd", attn, v),)
+    if prologue == "layernorm":
+        return ((torch.randn(m, k, device="cuda", generator=gen) * 2 + 0.3).to(dt),
+                (1 + 0.5 * torch.randn(k, device="cuda", generator=gen)).to(dt),
+                (0.5 * torch.randn(k, device="cuda", generator=gen)).to(dt), 1e-6)
+    if operand == "swiglu":
+        a, b = (torch.randn(m, 2 * k, device="cuda", generator=gen) * 2).to(dt).chunk(2, dim=-1)
+        return a, prologue, b
+    return (torch.randn(m, k, device="cuda", generator=gen) * 2).to(dt), prologue
+
+
+def _int8_prologue_rows(state) -> dict:
+    """(a0) Each prologue against its plain version on the same inputs at INT8_PROLOGUE_CASES, with
+    its device ms, bound and plain ms; the unfused chain's kernels (F.layer_norm, F.gelu, the reshape
+    copy, the earlier two-read quantizer) on vit_l_16's inputs at batch 32 and 256. Returns the rows and
+    the per-forward sums."""
+    import torch
+
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.tools.int8_variants import chain_calls, quantize_bound_ms, quantize_chain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for m, k, prologue, operand, dtype, label in INT8_PROLOGUE_CASES:
+        args = _prologue_operands(m, k, prologue, operand, dtype, gen)
+        if prologue == "layernorm":
+            fused, plain = I.layernorm_quantize_rows, I.layernorm_quantize_rows_plain
+        elif prologue == "identity":
+            fused, plain = I.quantize_heads, lambda x: I.quantize_rows_plain(x.reshape(x.shape[0] * x.shape[1], -1))
+        else:
+            fused, plain = I.act_quantize_rows, I.act_quantize_rows_plain
+        I.reset_launch_counts()
+        xq, s_x = fused(*args)
+        torch.cuda.synchronize()
+        if dict(I.quantize_rows.prologue_launches) != {prologue: 1}:
+            raise AssertionError(f"int8 {prologue}: launches {dict(I.quantize_rows.prologue_launches)}")
+        want_xq, want_s = plain(*args)
+        diff = (xq.int() - want_xq.int()).abs()
+        err, share = diff.max().item(), (diff > 0).float().mean().item()
+        rel = ((s_x - want_s).abs() / want_s).max().item()
+        ok = err == 0 and rel == 0 if prologue == "identity" else \
+            err <= 1 and share <= FUSED_FLIP_SHARE and rel <= 2.0**-8
+        if not ok:
+            raise AssertionError(f"int8 quantize_rows_s8 {prologue} {label} M={m} K={k} {dtype}: |dxq| max {err}, "
+                                 f"flip share {share}, s_x rel {rel}")
+        elem = (2 if dtype == "bfloat16" else 4) * (2 if operand in ("swiglu", "gated") else 1)  # bytes in a value
+        row = dict(err=err, share=share, rel=rel, ms=device_ms(lambda: fused(*args), kernel="quantize_rows_s8"),
+                   plain_ms=cuda_ms(lambda: plain(*args), max_reps=10), bound_ms=quantize_bound_ms(m, k, elem))
+        rows[(m, k, prologue, dtype)] = row
+        log(f"int8 quantize_rows_s8 {prologue:9s} {label} M={m:6d} K={k:5d} {dtype}: |dxq| max {err}, flip share "
+            f"{share:.3e} ({int((diff > 0).sum())} of {diff.numel()}), s_x rel max {rel:.3e}; dev_ms={row['ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({100 * row['bound_ms'] / row['ms']:.1f}%) plain_ms="
+            f"{row['plain_ms']:.4f} [{state['card']}]")
+        del args, xq, s_x, want_xq, want_s, diff
+    torch.cuda.empty_cache()
+
+    forwards = {}
+    for batch in (32, 256):
+        m = batch * 197
+        chain = quantize_chain(m, gen)
+        times = {name: (count, device_ms(fn, kernel=kernel)) for name, (count, fn, kernel) in chain_calls(chain).items()}
+        fused = sum(24 * count * ms for name, (count, ms) in times.items() if name in I.PROLOGUES)
+        unfused = sum(24 * count * ms for name, (count, ms) in times.items() if name not in I.PROLOGUES)
+        bound = 24 * (3 * quantize_bound_ms(m, 1024) + quantize_bound_ms(m, 4096))
+        forwards[batch] = dict(ms=fused, unfused_ms=unfused, bound_ms=bound, parts=times)
+        log(f"int8 quantize_rows_s8 per vit_l_16 forward at batch {batch} (48 layernorm, 24 gelu_tanh, 24 identity; "
+            f"device ms): {fused:.3f} against the bound {bound:.3f} ({100 * bound / fused:.1f}% of it reached); the "
+            f"unfused chain it replaces {unfused:.3f}: "
+            + ", ".join(f"{name} {24 * count * ms:.3f} ({count} a block, {ms:.4f} a call)"
+                        for name, (count, ms) in times.items()) + f" [{state['card']}]")
+        del chain
+    torch.cuda.empty_cache()
+    return {"rows": rows, "forwards": forwards}
+
+
 def _int8_kernel_rows(state) -> dict:
     """(a) Both kernels against their plain versions at vit_l_16's shapes at
     batch 32 and 256 and medsiglip's ragged ones: max-abs 0 for the routed
@@ -1638,23 +1758,31 @@ def _int8_kernel_rows(state) -> dict:
     return {"quant": quant, "linear": linear}
 
 
-def _int8_records(rows) -> dict:
+def _int8_records(rows, prologue_rows) -> dict:
     """The two kernels' records over one vit_l_16 forward at batch 32 (M =
-    6,304): per block 3 quantize_rows of K 1,024 and one of 4,096, and the 4
-    linears, times 24 blocks; int8_linear_s8's ``ms`` is the routed body's,
+    6,304): per block 2 layernorm quantizers of K 1,024, one tanh GELU of
+    4,096 and one identity of 1,024 (the batch-256 sums beside them), and the
+    4 linears, times 24 blocks; int8_linear_s8's ``ms`` is the routed body's,
     ``mma_ms`` the mma.sync body's, forced, on the same inputs."""
     m, depth = 32 * 197, 24
-    blocks = [rows["quant"][(m, 1024)]] * 3 + [rows["quant"][(m, 4096)]]
     linears = [rows["linear"][(m, k, n)] for k, n in INT8_VITL_LINEARS.values()]
     worst = max(r["err"] for r in [*rows["quant"].values(), *rows["linear"].values()])
     op = sum(r["op_ms"] for r in linears if r["op_ms"] >= r["byte_ms"])
     byte = sum(r["byte_ms"] for r in linears if r["op_ms"] < r["byte_ms"])
+    p = prologue_rows["rows"]
+    blocks = [p[(m, 1024, "layernorm", "bfloat16")]] * 2 + [p[(m, 4096, "gelu_tanh", "bfloat16")],
+                                                           p[(m, 1024, "identity", "bfloat16")]]
+    fwd = prologue_rows["forwards"]
+    identity_err = max(r["err"] for key, r in p.items() if key[2] == "identity")
     return {
         "quantize_rows_s8": {
             "name": "quantize_rows_s8", "route": "cuda", "source": INT8_SOURCE,
-            "replaces": INT8_REPLACES["quantize_rows_s8"], "max_abs_err": worst,
-            "ms": depth * sum(r["ms"] for r in blocks), "plain_ms": depth * sum(r["plain_ms"] for r in blocks),
-            "bound_ms": depth * sum(r["bound_ms"] for r in blocks), "bound_by": "bytes", "library_ms": None,
+            "replaces": INT8_REPLACES["quantize_rows_s8"], "max_abs_err": max(identity_err, worst),
+            "ms": fwd[32]["ms"], "plain_ms": depth * sum(r["plain_ms"] for r in blocks),
+            "bound_ms": fwd[32]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "ms_b256": fwd[256]["ms"], "bound_ms_b256": fwd[256]["bound_ms"],
+            "unfused_ms": fwd[32]["unfused_ms"], "unfused_ms_b256": fwd[256]["unfused_ms"],
+            "flip_share": max(r["share"] for key, r in p.items() if key[2] != "identity"),
         },
         "int8_linear_s8": {
             "name": "int8_linear_s8", "route": "cuda", "source": INT8_LINEAR_SOURCES[0],
@@ -1685,6 +1813,16 @@ def _int8_launches() -> tuple[int, int]:
     return I.quantize_rows.launches, I.int8_linear.launches
 
 
+# quantize_rows_s8's launches by prologue in one vit_l_16 int8 forward
+VITL_PROLOGUE_LAUNCHES = {"layernorm": 48, "gelu_tanh": 24, "identity": 24}
+
+
+def _prologue_launches_are(forwards: int) -> bool:
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    return dict(I.quantize_rows.prologue_launches) == {k: n * forwards for k, n in VITL_PROLOGUE_LAUNCHES.items()}
+
+
 def phase_int8(state):
     """The int8 (W8A8) serving mode of vit_l_16: (a) both kernels at the
     shapes it hands them, (b) the encoder at full width, (c) process
@@ -1703,8 +1841,9 @@ def phase_int8(state):
     from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
     from atlaspatch_tpu_torch.ops import int8 as I
 
+    prologue_rows = _int8_prologue_rows(state)
     rows = _int8_kernel_rows(state)
-    records = _int8_records(rows)
+    records = _int8_records(rows, prologue_rows)
     forward_sums = {batch: _per_forward(rows, batch) for batch in (32, 256)}
     for batch, f in forward_sums.items():
         log(f"int8 int8_linear_s8 per vit_l_16 forward at batch {batch} (96 linears, device ms): routed (wgmma) "
@@ -1742,9 +1881,11 @@ def phase_int8(state):
     I.reset_launch_counts()
     got = i8.extract_batch(patches[:64], batch_size=32)
     torch.cuda.synchronize()
-    if _int8_launches() != (2 * 96, 2 * 96) or dict(I.int8_linear.variant_launches) != {"wgmma": 2 * 96}:
-        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}) in 2 "
-                             f"forwards (96 each per forward, every linear on the wgmma body)")
+    if _int8_launches() != (2 * 96, 2 * 96) or dict(I.int8_linear.variant_launches) != {"wgmma": 2 * 96} \
+            or not _prologue_launches_are(2):
+        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}, "
+                             f"{dict(I.quantize_rows.prologue_launches)}) in 2 forwards (96 each per forward, "
+                             f"every linear on the wgmma body, quantizers {VITL_PROLOGUE_LAUNCHES})")
     cos = _cos_rows(ref, got)
     if not (np.isfinite(got).all() and got.shape == (64, 1024) and cos.min() > INT8_COS):
         raise AssertionError(f"int8: int8 vs float32 per-patch cosine min {cos.min()}")
@@ -1753,7 +1894,7 @@ def phase_int8(state):
     log(f"int8 vit_l_16 (dim 1024, depth 24, 16 heads; random weights, two registry builds {build_s:.1f} s): "
         f"96 Int8Linear, weight_q int8, qscale float32, the rest bfloat16 on the card; the float32 "
         f"extractor's weights quantized; 96 launches of each kernel per forward, the 96 linears all on the "
-        f"wgmma body; int8 vs float32 on 64 "
+        f"wgmma body, the quantizers by prologue {VITL_PROLOGUE_LAUNCHES}; int8 vs float32 on 64 "
         f"patches per-patch cosine min {cos.min():.6f} mean {cos.mean():.6f} (> {INT8_COS}) [{state['card']}]")
 
     # card int8 against CPU int8 at full width, depth 2, on the same weights
@@ -1782,9 +1923,9 @@ def phase_int8(state):
     med_s, stages = _timed_passes(i8, patches, 32)
     forwards = (1 + EMBED_PASSES) * len(patches) // 32  # the warm pass and the timed ones
     if _int8_launches() != (96 * forwards, 96 * forwards) \
-            or dict(I.int8_linear.variant_launches) != {"wgmma": 96 * forwards}:
-        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}) in "
-                             f"{forwards} forwards")
+            or dict(I.int8_linear.variant_launches) != {"wgmma": 96 * forwards} or not _prologue_launches_are(forwards):
+        raise AssertionError(f"int8: {_int8_launches()} launches ({dict(I.int8_linear.variant_launches)}, "
+                             f"{dict(I.quantize_rows.prologue_launches)}) in {forwards} forwards")
     rate = len(patches) / med_s
     log(f"int8 extract_batch {len(patches)} patches at batch 32: median {med_s:.4f} s of {EMBED_PASSES} = "
         f"{rate:.1f} patches/s (bf16, embed phase: {bf16.get(32, float('nan')):.1f}) [{state['card']}]")
@@ -1807,11 +1948,34 @@ def phase_int8(state):
     dev.sort(key=lambda e: -e.self_device_time_total)
     share = {name: sum(e.self_device_time_total for e in dev if name in e.key) / busy_us
              for name in ("int8_linear_s8", "quantize_rows_s8")}
+    norms = sum(e.count for e in dev if "layer_norm" in e.key)
+    gelus = sum(e.count for e in dev if "gelu" in e.key.lower())
+    if norms != 1 or gelus != 0:  # the final norm only: the blocks' LayerNorms and GELUs run in the quantizer
+        raise AssertionError(f"int8: one batch-256 forward ran {norms} LayerNorm and {gelus} GELU kernels")
     log(f"int8 profile: one forward at batch 256, device {busy_us / 1e3:.2f} ms; int8_linear_s8 "
-        f"{100 * share['int8_linear_s8']:.1f}%, quantize_rows_s8 {100 * share['quantize_rows_s8']:.1f}% "
-        f"[{state['card']}]")
-    for e in dev[:8]:
-        log(f"int8 profile   {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:100]} [{state['card']}]")
+        f"{100 * share['int8_linear_s8']:.1f}%, quantize_rows_s8 {100 * share['quantize_rows_s8']:.1f}%; "
+        f"{norms} LayerNorm kernel (the final norm), {gelus} GELU kernels [{state['card']}]")
+    for e in dev[:12]:
+        log(f"int8 profile   {e.self_device_time_total / 1e3:8.2f} ms {100 * e.self_device_time_total / busy_us:5.1f}% "
+            f"x{e.count:<4d} {e.key[:100]} [{state['card']}]")
+    # the device-busy share of one batch-32 forward: profiler device time over the host clock of a
+    # forward without the profiler (the least of 5)
+    u8_32 = u8[:32].contiguous()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i8.forward_device(u8_32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        i8.forward_device(u8_32)
+        torch.cuda.synchronize()
+    busy32_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    busy32 = busy32_us / 1e6 / min(walls)
+    log(f"int8 profile: one forward at batch 32, {1e3 * min(walls):.3f} ms by host clock (least of 5, no "
+        f"profiler), device busy {busy32_us / 1e3:.3f} ms = {100 * busy32:.1f}% [{state['card']}]")
 
     # the int8 attention branch (quant_int8_attn; no entry point turns it on): its time at batch 32
     x = torch.randn(32, 197, 1024, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
@@ -1854,17 +2018,20 @@ def phase_int8(state):
 
     # (c) the command line: process --fast --feature-precision int8 on four (f1) slides' coordinates
     cli = _int8_cli(state)
-    records["quantize_rows_s8"].update(launches=cli["launches"][0], extract_launches=96 * forwards)
+    records["quantize_rows_s8"].update(launches=cli["launches"][0], extract_launches=96 * forwards,
+                                       prologue_launches=cli["prologues"])
     records["int8_linear_s8"].update(launches=cli["launches"][1], extract_launches=96 * forwards,
                                      variant_launches=cli["variants"])
     state["int8_records"] = [records["quantize_rows_s8"], records["int8_linear_s8"]]
     state["int8"] = dict(rate=rate, resident=resident, cos_min=float(cos.min()), card_cos=float(card_cos.min()),
-                         cli=cli, share=share, attn_ms=(plain_attn_ms, int8_attn_ms), forward_sums=forward_sums)
+                         cli=cli, share=share, attn_ms=(plain_attn_ms, int8_attn_ms), forward_sums=forward_sums,
+                         busy32=busy32, quantize_forwards=prologue_rows["forwards"])
     for rec in state["int8_records"]:
         log(f"int8 record {rec['name']}: per forward (batch 32) {rec['ms']:.3f} ms device, bound "
             f"{rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
             f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in the cli run"
-            f"{'' if 'variant_launches' not in rec else ' ' + str(rec['variant_launches'])} [{state['card']}]")
+            f"{'' if 'variant_launches' not in rec else ' ' + str(rec['variant_launches'])}"
+            f"{'' if 'prologue_launches' not in rec else ' ' + str(rec['prologue_launches'])} [{state['card']}]")
 
 
 def _int8_cli(state) -> dict:
@@ -1907,14 +2074,17 @@ def _int8_cli(state) -> dict:
                 ["process", slides, "--output", out, *CLI_SEG_ARGS, "--fast", "--feature-precision", "int8",
                  "--feature-extractors", "vit_l_16"])
             launches, variants = _int8_launches(), dict(I.int8_linear.variant_launches)
+            prologues = dict(I.quantize_rows.prologue_launches)
         finally:
             TorchFeatureExtractor.forward_device = forward
         if f"Completed {len(stems)} slide(s), failures: 0" not in lines or seg_forwards or attn_launches:
             raise AssertionError(f"int8 cli: {seg_forwards} segmentation forwards, {attn_launches} attention "
                                  f"launches; {lines[-3:]}")
         if not forwards[0] or launches != (96 * forwards[0], 96 * forwards[0]) \
-                or variants != {"wgmma": 96 * forwards[0]}:
-            raise AssertionError(f"int8 cli: {launches} int8 launches ({variants}) in {forwards[0]} encoder forwards")
+                or variants != {"wgmma": 96 * forwards[0]} \
+                or prologues != {k: n * forwards[0] for k, n in VITL_PROLOGUE_LAUNCHES.items()}:
+            raise AssertionError(f"int8 cli: {launches} int8 launches ({variants}, {prologues}) in {forwards[0]} "
+                                 f"encoder forwards")
         n_total = 0
         for stem in stems:
             tree = read_h5_tree(out / "patches" / f"{stem}.h5")
@@ -1935,9 +2105,11 @@ def _int8_cli(state) -> dict:
     log(f"int8 cli process --fast --feature-precision int8 over {len(stems)} (f1) slides, {n_total} patches on "
         f"the tiff phase's coordinates: {wall:.3f} s = {n_total / wall:.1f} patches/s by host clock (the encoder's "
         f"build included); 0 segmentation forwards; {forwards[0]} encoder forwards, {launches[0]} quantize_rows_s8 "
-        f"and {launches[1]} int8_linear_s8 launches, by body {variants}; features (n, 1024) float32 finite, coords "
+        f"(by prologue {prologues}) and {launches[1]} int8_linear_s8 launches, by body {variants}; features (n, 1024) "
+        f"float32 finite, coords "
         f"and attrs unchanged [{state['card']}]")
-    return dict(launches=launches, variants=variants, forwards=forwards[0], patches=n_total, wall=wall)
+    return dict(launches=launches, variants=variants, prologues=prologues, forwards=forwards[0], patches=n_total,
+                wall=wall)
 
 
 def phase_process(state):
@@ -2996,7 +3168,8 @@ def main() -> int:
             "process_launches", "cli_launches", "weights_launches", "finetune_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
-                 "extract_launches", "max_abs_err", "ms", "mma_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "prologue_launches", "extract_launches", "max_abs_err", "flip_share", "ms", "mma_ms", "ms_b256",
+                 "plain_ms", "bound_ms", "bound_ms_b256", "bound_by", "library_ms", "unfused_ms", "unfused_ms_b256",
                  "int_mm_ms", "bf16_linear_ms")
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")

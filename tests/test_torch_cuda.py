@@ -821,3 +821,198 @@ def test_forced_wgmma_refused_where_it_does_not_apply(card):
         I._launch_linear("wgmma_m64", xq, s_x, w, qscale, bias, torch.bfloat16)
     torch.cuda.synchronize()
     assert I.int8_linear.variant_launches == {"mma": 2} and I.int8_linear.launches == 2
+
+
+# --- quantize_rows_s8's prologues (csrc/int8_linear.cu) -----------------------------------
+# (M, K, prologue, operand): vit_l_16's rows at batch 32 and 256 (norm1/norm2 → qkv/fc1 at K 1,024,
+# GELU → fc2 at 4,096, the attention's output → proj at 1,024), medsiglip's (LayerNorm at 1,152,
+# tanh GELU at 4,304), virchow's SwiGLU half (3,416: single-element units) and the other activations.
+PROLOGUE_CASES = [
+    *[(m, 1024, "layernorm", None) for m in (6304, 50432)],
+    *[(m, 4096, "gelu_tanh", None) for m in (6304, 50432)],
+    *[(m, 1024, "identity", "heads") for m in (6304, 50432)],
+    (8192, 1152, "layernorm", None), (8192, 4304, "gelu_tanh", None), (8192, 1152, "identity", None),
+    (6304, 3416, "silu", "swiglu"), (6304, 4096, "silu", "gated"), (6304, 4096, "gelu", None),
+    (6304, 1024, "quick_gelu", None), (6304, 4096, "relu", None), (6304, 4096, "gelu", "swiglu"),
+    (6304, 4096, "layernorm", None), (37, 45, "layernorm", None), (37, 45, "gelu_tanh", "gated"),
+]
+FUSED_FLIP_SHARE = 1e-3  # tests/test_torch_int8.py's bar: xq within 1 in this share, s_x within 2^-8
+
+
+def _fused_operands(card, m, k, prologue, operand, dtype, seed=0):
+    """The call's arguments on the card: rows like the residual stream (LayerNorm), fc1's output
+    (activations; SwiGLU: the two halves of one output, gated: two outputs) or the attention's
+    (B, T, H, D) einsum output (heads)."""
+    gen = torch.Generator(device=card).manual_seed(seed + m + k)
+    if operand == "heads":
+        b, t = m // 197, 197
+        attn = torch.softmax(torch.randn(b, 16, t, t, device=card, generator=gen) * 3, dim=-1).to(dtype)
+        v = torch.randn(b, t, 16, k // 16, device=card, generator=gen).to(dtype)
+        return (torch.einsum("bhqk,bkhd->bqhd", attn, v),)
+    if prologue == "identity":
+        return ((torch.randn(m, k, device=card, generator=gen) * 2).to(dtype),)
+    if prologue == "layernorm":
+        x = (torch.randn(m, k, device=card, generator=gen) * 2 + 0.3).to(dtype)
+        w = (1 + 0.5 * torch.randn(k, device=card, generator=gen)).to(dtype)
+        return x, w, (0.5 * torch.randn(k, device=card, generator=gen)).to(dtype), 1e-6
+    if operand == "swiglu":
+        a, b = (torch.randn(m, 2 * k, device=card, generator=gen) * 2).to(dtype).chunk(2, dim=-1)
+        return a, prologue, b
+    a = (torch.randn(m, k, device=card, generator=gen) * 2).to(dtype)
+    b = (torch.randn(m, k, device=card, generator=gen) * 2).to(dtype) if operand == "gated" else None
+    return a, prologue, b
+
+
+def _fused_call(prologue, operand):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    if prologue == "layernorm":
+        return I.layernorm_quantize_rows, I.layernorm_quantize_rows_plain
+    if prologue == "identity":
+        if operand == "heads":
+            return I.quantize_heads, lambda x: I.quantize_rows_plain(x.reshape(x.shape[0] * x.shape[1], -1))
+        return I.quantize_rows, I.quantize_rows_plain
+    return I.act_quantize_rows, I.act_quantize_rows_plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,prologue,operand", PROLOGUE_CASES)
+def test_quantize_prologue_matches_plain(card, m, k, prologue, operand, dtype):
+    """Each prologue against its plain version on the same inputs: identity at max-abs 0; layernorm
+    and the activations within 1 in at most FUSED_FLIP_SHARE of xq, s_x within 2^-8."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    args = _fused_operands(card, m, k, prologue, operand, dtype)
+    fused, plain = _fused_call(prologue, operand)
+    I.reset_launch_counts()
+    xq, s_x = fused(*args)
+    torch.cuda.synchronize()
+    assert I.quantize_rows.prologue_launches == {prologue: 1} and I.quantize_rows.launches == 1
+    assert xq.shape == (m, k) and xq.dtype == torch.int8 and s_x.shape == (m,) and s_x.dtype == torch.float32
+    want_xq, want_s = plain(*args)
+    diff = (xq.int() - want_xq.int()).abs()
+    rel = ((s_x - want_s).abs() / want_s).max().item()
+    share = (diff > 0).float().mean().item()
+    print(f"{prologue} {operand} M={m} K={k} {dtype}: {int((diff > 0).sum())} xq flipped ({share:.2e}), "
+          f"s_x rel {rel:.2e}")
+    if prologue == "identity":
+        assert diff.max().item() == 0 and rel == 0
+    else:
+        assert diff.max().item() <= 1 and share <= FUSED_FLIP_SHARE and rel <= 2.0**-8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1024, 1152, 384, 4096])
+def test_layernorm_statistics_are_atens(card, k, dtype):
+    """The layernorm prologue's mean and 1 / sqrt(var + eps) against torch.native_layer_norm's on
+    the card, row for row (its Welford order is mirrored: equal statistics, equal rows)."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    x, w, b, eps = _fused_operands(card, 6304, k, "layernorm", None, dtype)
+    _, _, mean, rstd = I._launch_quantize("layernorm", x, (0, x.stride(0), x.shape[0], 0, k), gamma=w, beta=b,
+                                          eps=eps, stats=True)
+    _, want_mean, want_rstd = torch.native_layer_norm(x, (k,), w, b, eps)
+    torch.cuda.synchronize()
+    same_mean = (mean == want_mean.flatten()).float().mean().item()
+    same_rstd = (rstd == want_rstd.flatten()).float().mean().item()
+    print(f"layernorm K={k} {dtype}: mean equal in {same_mean:.4f} of rows, rstd in {same_rstd:.4f}")
+    assert torch.allclose(mean, want_mean.flatten(), rtol=1e-5, atol=1e-6)
+    assert torch.allclose(rstd, want_rstd.flatten(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_identity_prologue_keeps_ties_where_rows_lie(card, dtype):
+    """Exact .5 ties and an all-zero row, through a row-strided view, a (B, T, H, D) view and a
+    misaligned one (single-element units): equal to the plain version, max-abs 0."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = (torch.randn(2, 197, 16, 64, device=card, generator=gen) * 3).to(dtype)
+    x[0, 0, 0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])  # amax 127 -> s = 1: ties to 127, 2, -4, 0
+    x[0, 0, 0, 4:] = 0
+    x[0, 0, 1:] = 0
+    x[0, 1] = 0  # an all-zero row: s = 1e-8 / 127
+    heads = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # (B, T, H, D) lying as (B, H, T, D)
+    rows = torch.empty(394, 1024 + 16, dtype=dtype, device=card)[:, 8:1032]
+    rows.copy_(x.reshape(394, 1024))
+    odd = torch.empty(394 * 1024 + 1, dtype=dtype, device=card)[1:].view(394, 1024)
+    odd.copy_(rows)
+    want = I.quantize_rows_plain(x.reshape(394, 1024))
+    assert want[0][0, :4].tolist() == [127, 2, -4, 0]
+    for got in (I.quantize_heads(heads), I.quantize_rows(rows), I.quantize_rows(odd)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+class _FailingQuantizer:
+    def atlas_quantize_rows_s8(self, *args):
+        return 9  # cudaErrorInvalidConfiguration
+
+
+@pytest.mark.parametrize("prologue", ["identity", "layernorm", "gelu_tanh"])
+def test_a_failed_quantizer_launch_raises_and_nothing_runs_instead(card, monkeypatch, prologue):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    args = _fused_operands(card, 37, 1024, prologue, None, torch.bfloat16)
+    fused, _ = _fused_call(prologue, None)
+    for name in ("quantize_rows_plain", "layernorm_quantize_rows_plain", "act_quantize_rows_plain"):
+        monkeypatch.setattr(I, name, refuse)
+    monkeypatch.setattr(I, "load_int8_library", lambda: _FailingQuantizer())
+    I.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"quantize_rows_s8 \\({prologue}\\) launch failed: cudaError 9"):
+        fused(*args)
+    assert I.quantize_rows.launches == 0 and not I.quantize_rows.prologue_launches
+
+
+def test_fused_quantizers_refuse_on_the_card(card):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    x = torch.zeros(4, 8, device=card)
+    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 weight on cuda"):
+        I.layernorm_quantize_rows(x, torch.ones(8), torch.zeros(8, device=card), 1e-6)
+    with pytest.raises(ValueError, match="takes b like a"):
+        I.act_quantize_rows(x, "silu", torch.zeros(4, 8))
+    with pytest.raises(ValueError, match=f"at most {I.QUANT_MAX_K} values"):
+        I.act_quantize_rows(torch.zeros(2, I.QUANT_MAX_K + 16, device=card), "silu")
+    with pytest.raises(ValueError, match="empty"):
+        I.quantize_heads(torch.zeros(0, 4, 2, 8, device=card))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(swiglu=True, act="silu", mlp_hidden=96),
+                                dict(gated_mlp=True, mlp_hidden=96, layerscale=True)])
+def test_int8_blocks_launch_each_prologue_on_the_card(card, monkeypatch, kw):
+    """A bfloat16 int8 ViT on the card: per block two layernorm quantizers, one activation and one
+    identity (the attention's output), four int8 linears (five gated), no plain version; its output
+    against the same model on the CPU (the unfused chain), cosine > 0.999."""
+    import dataclasses
+
+    from atlaspatch_tpu_torch.models.encoders.engine import _cast_floating_, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, quantize_vit_state_dict
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    spec = ViTSpec(img_size=64, patch_size=16, dim=128, depth=2, heads=2, **kw)
+    state = quantize_vit_state_dict(init_random_weights_(ViT(spec), seed=0).state_dict())
+    model = ViT(dataclasses.replace(spec, quant_int8=True))
+    model.load_state_dict(state, strict=True)
+    model = _cast_floating_(model, torch.bfloat16, keep=("qscale",))  # as the int8 engine casts it
+    x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = model(x).float()
+        model.to(card)
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain version ran on the card")
+
+        for name in ("quantize_rows_plain", "layernorm_quantize_rows_plain", "act_quantize_rows_plain",
+                     "int8_linear_plain"):
+            monkeypatch.setattr(I, name, refuse)
+        I.reset_launch_counts()
+        got = model(x.to(card)).float().cpu()
+    torch.cuda.synchronize()
+    act = "silu" if kw.get("act") == "silu" else "gelu_tanh"
+    assert I.quantize_rows.prologue_launches == {"layernorm": 4, act: 2, "identity": 2}
+    assert I.int8_linear.launches == 2 * (5 if kw.get("gated_mlp") else 4)
+    cos = torch.nn.functional.cosine_similarity(got, want)
+    assert cos.min().item() > 0.999, cos

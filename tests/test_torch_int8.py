@@ -18,10 +18,22 @@ both packages run them: the JAX side as ``tests/test_int8_mode.py`` runs it.
     max-abs within 1e-3 of the feature's largest magnitude (a quantizer input
     off by one ulp may flip an int8 value; the flips are counted); through
     both engines' bfloat16 int8 path: per-row cosine >= BF16_INT8_COS.
+  * the quantizer fused with the op before it (``layernorm_quantize_rows``,
+    ``act_quantize_rows``, ``quantize_heads``): each plain version equals the
+    unfused chain bit for bit in float32 and bfloat16, and, in float32,
+    ``nn.LayerNorm`` / the MLP's ``_act`` followed by ``Int8Dense``'s
+    quantizer within FUSED_FLIP_SHARE flipped xq elements of at most 1 and
+    scales within 2^-8; the int8 ViT through the fused path equals the
+    unfused chain bit for bit on the CPU; a gated MLP quantizes its input
+    once; the refusals.
   * the GELU switch, the registry, the fallback of other families, the
     drift contract (int8 against float32 cosine > 0.98) and the engine's
     cast, which keeps ``qscale`` float32 and ``weight_q`` int8.
 """
+
+import re
+from pathlib import Path
+
 
 import dataclasses
 
@@ -47,6 +59,9 @@ SPECS = {
     "gated_mlp": dict(gated_mlp=True, mlp_hidden=96, layerscale=True),
     "rope": dict(pos_mode="rope", reg_tokens=2, swiglu=True, act="silu", mlp_hidden=48),
 }
+# The fused quantizers' CPU path against the unfused chain also at a CLIP-style tower (pre-LN,
+# QuickGELU), which the JAX parity tests above leave to the quantizer-level tests below.
+FUSED_SPECS = {**SPECS, "quick_gelu": dict(act="quick_gelu", pre_ln=True)}
 PRE = dict(crop=32, resize=32, mode="square")
 # The two engines round bfloat16 at other places (XLA rounds each op of the
 # tanh GELU and of LayerNorm's normalization to bfloat16, torch each of its
@@ -55,6 +70,11 @@ PRE = dict(crop=32, resize=32, mode="square")
 # path read per-row cosine >= 0.99864 against the JAX one, the size of each
 # engine's own int8-against-float32 drift at this width (>= 0.99898).
 BF16_INT8_COS = 0.998
+# The fused quantizers' bar against the JAX op + quantizer (and, on the card,
+# against their plain versions): xq elements differ by at most 1, in at most
+# this share of them, and the row scales by at most 2^-8 relative.
+FUSED_FLIP_SHARE = 1e-3
+ACTS = ("gelu", "gelu_tanh", "quick_gelu", "silu", "relu")
 
 
 def _leaf_paths(tree, prefix=()):
@@ -240,6 +260,238 @@ def test_plain_versions_run_on_the_cpu_without_a_launch():
     assert not I.int8_linear.variant_launches
 
 
+# --- the quantizer fused with the op before it -------------------------------------------
+def _rows(m: int, k: int, dtype, seed: int, scale: float = 2.0) -> torch.Tensor:
+    x = np.random.default_rng(seed).normal(0.3, scale, (m, k)).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+def _assert_fused_bar(got, want, what):
+    """xq within 1 in at most FUSED_FLIP_SHARE of the elements, s_x within 2^-8."""
+    (xq, s_x), (want_xq, want_s) = got, want
+    diff = (xq.int() - want_xq.int()).abs()
+    share = (diff > 0).float().mean().item()
+    rel = ((s_x - want_s).abs() / want_s).max().item()
+    print(f"{what}: {int((diff > 0).sum())} of {diff.numel()} xq flipped ({share:.2e}), s_x rel {rel:.2e}")
+    assert diff.max().item() <= 1 and share <= FUSED_FLIP_SHARE and rel <= 2.0**-8, what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [48, 64, 1024])
+def test_layernorm_plain_version_is_the_unfused_chain(dtype, k):
+    x = _rows(37, k, dtype, seed=k)
+    norm = torch.nn.LayerNorm(k, eps=1e-6).to(dtype)
+    with torch.no_grad():
+        norm.weight.copy_(_rows(1, k, dtype, seed=1, scale=0.5)[0] + 1)
+        norm.bias.copy_(_rows(1, k, dtype, seed=2, scale=0.5)[0])
+        want = I.quantize_rows_plain(norm(x))
+    for got in (I.layernorm_quantize_rows_plain(x, norm.weight, norm.bias, norm.eps),
+                I.layernorm_quantize_rows(x, norm.weight, norm.bias, norm.eps)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
+@pytest.mark.parametrize("act", ACTS)
+def test_act_plain_version_is_the_unfused_chain(act, gate, dtype):
+    """What Mlp.forward ran before the fusion: act(fc1(x)), act(x1) * x2 of
+    one fc1 output's halves, act(fc_gate(x)) * fc_up(x)."""
+    fn = pvit._act(act)
+    h = _rows(37, 2 * 72 if gate == "swiglu" else 72, dtype, seed=5)
+    if gate == "swiglu":
+        a, b = h.chunk(2, dim=-1)
+    else:
+        a, b = h, (_rows(37, 72, dtype, seed=6) if gate == "gated" else None)
+    want = I.quantize_rows_plain(fn(a) if b is None else fn(a) * b)
+    for got in (I.act_quantize_rows_plain(a, act, b), I.act_quantize_rows(a, act, b)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_quantize_heads_is_the_reshaped_rows():
+    """The attention's output as its einsum leaves it: (B, T, H, D), not
+    contiguous, quantized as the (B T, H D) rows of its reshape."""
+    attn = torch.softmax(_rows(2 * 4 * 5, 5, torch.float32, seed=7).reshape(2, 4, 5, 5), dim=-1)
+    v = _rows(2 * 5 * 4, 8, torch.float32, seed=8).reshape(2, 5, 4, 8)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    assert not out.is_contiguous()
+    want = I.quantize_rows_plain(out.reshape(10, 32))
+    got = I.quantize_heads(out)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [48, 1024])
+def test_layernorm_quantizer_matches_jax_layernorm_and_int8_dense(k):
+    """float32 rows from numpy: the plain version against the JAX
+    ``nn.LayerNorm`` followed by ``Int8Dense``'s quantizer."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(0.3, 2.0, (64, k)).astype(np.float32)
+    scale, bias = (1 + rng.normal(0, 0.5, k)).astype(np.float32), rng.normal(0, 0.5, k).astype(np.float32)
+    y = fnn.LayerNorm(epsilon=1e-6).apply({"params": {"scale": scale, "bias": bias}}, jnp.asarray(x))
+    want = jvit._q8_dyn(y, axis=-1)
+    got = I.layernorm_quantize_rows_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 1e-6)
+    _assert_fused_bar(got, (torch.from_numpy(np.asarray(want[0])), torch.from_numpy(np.asarray(want[1])[:, 0])),
+                      f"layernorm K={k}")
+
+
+@pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
+@pytest.mark.parametrize("act", ACTS)
+def test_act_quantizer_matches_jax_mlp_and_int8_dense(act, gate):
+    """float32 rows from numpy: the plain version against the JAX MLP's
+    ``_act`` (then ``* b``) followed by ``Int8Dense``'s quantizer."""
+    rng = np.random.default_rng(3)
+    a = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32)
+    b = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32) if gate else None
+    h = jvit._act(act)(jnp.asarray(a))
+    want = jvit._q8_dyn(h if b is None else h * jnp.asarray(b), axis=-1)
+    if gate == "swiglu":  # the two halves of one fc1 output
+        both = torch.from_numpy(np.concatenate([a, b], axis=1))
+        ta, tb = both.chunk(2, dim=-1)
+    else:
+        ta, tb = torch.from_numpy(a), None if b is None else torch.from_numpy(b)
+    got = I.act_quantize_rows_plain(ta, act, tb)
+    _assert_fused_bar(got, (torch.from_numpy(np.asarray(want[0])), torch.from_numpy(np.asarray(want[1])[:, 0])),
+                      f"{act} {gate}")
+
+
+def _unfused_forward(model: pvit.ViT, x: torch.Tensor) -> torch.Tensor:
+    """The int8 ViT as the port ran it before the fusion: each LayerNorm and
+    activation stored, the attention's output reshaped, every Int8Linear fed
+    a plain tensor."""
+    s = model.spec
+
+    def block(blk, x):
+        h = blk.norm1(x)
+        B, T, _ = h.shape
+        q, k, v = blk.attn.qkv(h).reshape(B, T, 3, s.heads, s.dim // s.heads).unbind(2)
+        if s.pos_mode == "rope":
+            cos = blk.attn.rope_cos.to(q.dtype)[None, :, None, :]
+            sin = blk.attn.rope_sin.to(q.dtype)[None, :, None, :]
+            n = T - cos.shape[1]
+            qp, kp = q[:, n:], k[:, n:]
+            q = torch.cat([q[:, :n], qp * cos + pvit._rotate_half(qp) * sin], dim=1)
+            k = torch.cat([k[:, :n], kp * cos + pvit._rotate_half(kp) * sin], dim=1)
+        out = pvit._softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
+        h = blk.attn.proj(out.reshape(B, T, s.dim))
+        x = x + (h if blk.ls1 is None else h * blk.ls1)
+        h, mlp = blk.norm2(x), blk.mlp
+        if s.gated_mlp:
+            h = mlp.act(mlp.fc_gate(h)) * mlp.fc_up(h)
+        elif s.swiglu:
+            x1, x2 = mlp.fc1(h).chunk(2, dim=-1)
+            h = mlp.act(x1) * x2
+        else:
+            h = mlp.act(mlp.fc1(h))
+        h = mlp.fc2(h)
+        return x + (h if blk.ls2 is None else h * blk.ls2)
+
+    blocks = model.blocks
+    features = {}
+    hook = blocks[0].register_forward_pre_hook(lambda mod, args: features.setdefault("in", args[0]))
+    model(x)
+    hook.remove()
+    y = features["in"]
+    for blk in blocks:
+        y = block(blk, y)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FUSED_SPECS))
+def test_fused_blocks_equal_the_unfused_chain_on_the_cpu(case, dtype):
+    """On the CPU the fused quantizers run the ops the port ran before, so
+    the int8 blocks' output is unchanged bit for bit."""
+    kw = FUSED_SPECS[case]
+    model = _int8_model(kw, jvit.quantize_vit_params(_params(kw, seed=9)))
+    model.to(dtype)
+    for mod in model.modules():
+        if isinstance(mod, pvit.Int8Linear):
+            mod.qscale.data = mod.qscale.data.float()
+    x = torch.from_numpy(_images(seed=9)).to(dtype)
+    outputs = []
+    hook = model.blocks[-1].register_forward_hook(lambda mod, args, out: outputs.append(out))
+    with torch.no_grad():
+        model(x)
+        want = _unfused_forward(model, x)
+    hook.remove()
+    assert outputs[0].dtype == dtype and torch.equal(outputs[0], want)
+
+
+def _counting(monkeypatch, names):
+    calls = {name: 0 for name in names}
+    for name in names:
+        fn = getattr(pvit, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(pvit, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_SPECS))
+def test_quantizers_per_block_by_prologue(case, monkeypatch):
+    """Per block: two layernorm quantizers (norm1 → qkv; norm2 → fc1, or
+    shared by fc_gate and fc_up), one activation quantizer (→ fc2), one of
+    the attention's output (→ proj), and no quantize_rows of a plain
+    tensor."""
+    kw = FUSED_SPECS[case]
+    model = _int8_model(kw, jvit.quantize_vit_params(_params(kw)))
+    calls = _counting(monkeypatch, ("layernorm_quantize_rows", "act_quantize_rows", "quantize_heads",
+                                    "quantize_rows"))
+    with torch.no_grad():
+        model(torch.from_numpy(_images()))
+    depth = TINY["depth"]
+    assert calls == {"layernorm_quantize_rows": 2 * depth, "act_quantize_rows": depth, "quantize_heads": depth,
+                     "quantize_rows": 0}
+
+
+def test_prologue_codes_match_the_kernel_source():
+    """ops/int8.py::PROLOGUES lists the C enum's prologues in its order."""
+    src = (Path(I.__file__).parents[1] / "csrc" / "int8_linear.cu").read_text()
+    enum = re.search(r"enum Prologue : int \{([^}]*)\}", src).group(1)
+    assert [n.strip()[1:].lower() for n in enum.split(",")] == [n.replace("_", "") for n in I.PROLOGUES]
+
+
+def test_fused_quantizers_refuse_what_they_do_not_take():
+    x = torch.zeros(4, 8)
+    w, b = torch.ones(8), torch.zeros(8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        I.layernorm_quantize_rows(x.half(), w.half(), b.half(), 1e-6)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        I.act_quantize_rows(x.half(), "gelu")
+    with pytest.raises(ValueError, match="2-D"):
+        I.act_quantize_rows(torch.zeros(2, 4, 8), "gelu")
+    with pytest.raises(ValueError, match="4-D"):
+        I.quantize_heads(x)
+    with pytest.raises(ValueError, match="empty"):
+        I.layernorm_quantize_rows(torch.zeros(0, 8), w, b, 1e-6)
+    with pytest.raises(ValueError, match="empty"):
+        I.act_quantize_rows(torch.zeros(0, 8), "silu")
+    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 weight"):
+        I.layernorm_quantize_rows(x, torch.ones(7), b, 1e-6)
+    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 bias"):
+        I.layernorm_quantize_rows(x, w, b.bfloat16(), 1e-6)
+    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 weight"):
+        I.layernorm_quantize_rows(x, None, b, 1e-6)
+    with pytest.raises(ValueError, match="no activation 'tanh'"):
+        I.act_quantize_rows(x, "tanh")
+    with pytest.raises(ValueError, match="takes b like a"):
+        I.act_quantize_rows(x, "silu", torch.zeros(4, 9))
+    with pytest.raises(ValueError, match="takes b like a"):
+        I.act_quantize_rows(x, "silu", x.bfloat16())
+
+
+def test_rows_longer_than_the_registers_hold_are_refused_before_a_launch():
+    """The kernel holds a row in registers (at most QUANT_MAX_K values): a
+    longer one is refused before the library is touched."""
+    I.reset_launch_counts()
+    x = torch.zeros(2, I.QUANT_MAX_K + 16)
+    with pytest.raises(ValueError, match=f"at most {I.QUANT_MAX_K} values"):
+        I._launch_quantize("identity", x, (0, x.stride(0), 2, 0, x.shape[1]))
+    assert I.quantize_rows.launches == 0 and not I.quantize_rows.prologue_launches
+
+
 # --- which int8_linear_s8 body a shape takes ----------------------------------------------
 def _int8_widths(name: str) -> dict:
     """(K, N) of each int8 block linear of a zoo ViT, by Int8Linear name."""
@@ -393,13 +645,13 @@ def _quantizer_inputs_flipped(jax_inputs, port_inputs) -> tuple[int, int]:
     for a, b in zip(jax_inputs, port_inputs):
         qa, _ = jvit._q8_dyn(jnp.asarray(a, jnp.float32), axis=-1)
         qb, _ = I.quantize_plain(b.float(), -1)
-        flipped += int((np.asarray(qa) != qb.numpy()).sum())
+        flipped += int((np.asarray(qa).reshape(qb.shape) != qb.numpy()).sum())
         total += qb.numel()
     return flipped, total
 
 
 @pytest.mark.parametrize("case", sorted(SPECS))
-def test_int8_vit_matches_jax_in_float32(case):
+def test_int8_vit_matches_jax_in_float32(case, monkeypatch):
     kw = SPECS[case]
     qtree = jvit.quantize_vit_params(_params(kw, seed=3))
     x = _images(seed=3)
@@ -408,17 +660,19 @@ def test_int8_vit_matches_jax_in_float32(case):
         want = np.asarray(jvit.ViT(jvit.ViTSpec(**TINY, **kw, quant_int8=True)).apply({"params": qtree},
                                                                                    jnp.asarray(x)))
     model = _int8_model(kw, qtree)
-    port_inputs = []
-    hooks = [m.register_forward_hook(lambda mod, args, out: port_inputs.append(args[0]))
-             for m in model.modules() if isinstance(m, pvit.Int8Linear)]
+    # every quantizer of the port (fused or not) ends in quantize_rows_plain on the CPU
+    port_inputs, plain = [], I.quantize_rows_plain
+    monkeypatch.setattr(I, "quantize_rows_plain", lambda rows: port_inputs.append(rows) or plain(rows))
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
-    for h in hooks:
-        h.remove()
-    # both run the layers in the same order: block by block, qkv, proj, then the MLP's
-    mlp = ("fc_gate", "fc_up", "fc2") if kw.get("gated_mlp") else ("fc1", "fc2")
+    # both quantize in the same order: block by block, qkv, proj, then the MLP's; a gated MLP's fc_gate
+    # and fc_up read one tensor, which the port quantizes once
+    if kw.get("gated_mlp"):
+        for i in range(2):
+            np.testing.assert_array_equal(seen["fc_gate"][i][0], seen["fc_up"][i][0])
+    mlp = ("fc_gate", "fc2") if kw.get("gated_mlp") else ("fc1", "fc2")
     jax_inputs = [seen[name][i][0] for i in range(2) for name in ("qkv", "proj", *mlp)]
-    assert len(jax_inputs) == len(port_inputs) == 2 * (2 + len(mlp))
+    assert len(jax_inputs) == len(port_inputs) == 2 * 4
     flipped, total = _quantizer_inputs_flipped(jax_inputs, port_inputs)
     err = np.abs(got - want).max()
     print(f"{case}: max-abs {err:.3g} of {np.abs(want).max():.3g}; {flipped} of {total} xq elements flipped")
