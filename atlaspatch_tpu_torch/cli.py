@@ -11,10 +11,13 @@ against truth masks). Device flags name torch devices: ``cuda`` (the default),
 default device stops the run with an error that names ``--device cpu``; the
 CLI never falls back to the CPU by itself.
 
-Multi-GPU segmentation and embedding (``--seg-data-parallel``,
-``--feature-parallel``) are not ported: with one visible card they log a
-warning and run on it, with more they are refused; `finetune-sam2` refuses
-``--data-parallel`` above 1. ``verify-weights`` preflights checkpoints (the
+Multi-GPU: ``--seg-data-parallel`` and ``--feature-parallel data|tensor``
+build a mesh of every local card (``parallel/mesh.py``; with one card they
+warn and run on it), `finetune-sam2 --data-parallel N` trains over N local
+devices, and under torchrun's variables the pipeline commands and
+`finetune-sam2` join a ``torch.distributed`` process group
+(``parallel/multihost.py``): slides shard over its ranks, fine-tuning runs
+in lockstep over them. ``verify-weights`` preflights checkpoints (the
 port's ``tools/verify_weights.py``).
 
     python -m atlaspatch_tpu_torch.cli segment-and-get-coords SLIDES -o OUT \\
@@ -23,6 +26,7 @@ port's ``tools/verify_weights.py``).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import sys
@@ -86,25 +90,20 @@ def _require_devices(*devices: str) -> None:
             )
 
 
-def _visible_devices(device: str) -> int:
-    if not device.startswith("cuda"):
-        return 1
-    import torch
+def _local_mesh(flag: str, device: str, tensor_parallel: bool = False):
+    """A mesh of every local device of ``device``'s kind
+    (``parallel.mesh.local_devices``): one data row per device, or with
+    ``tensor_parallel`` one row of them all, as the JAX CLI builds it; None,
+    with the JAX CLI's warning, when only one is visible."""
+    from atlaspatch_tpu_torch.parallel import mesh
 
-    return torch.cuda.device_count()
-
-
-def _single_device(flag: str, device: str) -> None:
-    """Multi-GPU runs are not ported: one visible device runs as it is, with
-    the JAX CLI's warning; more are refused, never silently narrowed to one."""
-    count = _visible_devices(device)
-    if count > 1:
-        raise click.UsageError(
-            f"{flag}: {count} CUDA devices are visible, and multi-GPU runs are not "
-            "ported to atlaspatch_tpu_torch yet; drop the flag, or make one card "
-            "visible (CUDA_VISIBLE_DEVICES)."
-        )
-    logger.warning("%s requested but only one device is visible.", flag)
+    devices = mesh.local_devices(device)
+    if len(devices) <= 1:
+        logger.warning("%s requested but only one device is visible.", flag)
+        return None
+    grid = mesh.embedding_mesh(len(devices) if tensor_parallel else 1, devices)
+    logger.info("%s over %d %s devices: %s", flag, len(devices), devices[0].type, grid)
+    return grid
 
 
 # Shared option sets -----------------------------------------------------------
@@ -165,8 +164,8 @@ _COMMON_OPTIONS: list = [
                       "pixels; validate mask quality for your checkpoint "
                       "before lowering."),
     click.option("--seg-data-parallel", is_flag=True,
-                 help="Shard segmentation batches across all local GPUs (not "
-                      "ported: runs on the one visible card, refused with more)."),
+                 help="Shard segmentation batches across all local GPUs "
+                      "(data-parallel mesh; needs --seg-batch-size >= GPU count)."),
     click.option("--fast", is_flag=True,
                  help="Throughput preset: --seg-precision bfloat16 "
                       "--seg-batch-size 8 --seg-input-size 768. "
@@ -197,8 +196,9 @@ _FEATURE_OPTIONS: list = [
     click.option("--feature-parallel",
                  type=click.Choice(["none", "data", "tensor"], case_sensitive=False),
                  default="none", show_default=True,
-                 help="Shard feature embedding across all local GPUs (not "
-                      "ported: runs on the one visible card, refused with more)."),
+                 help="Shard feature embedding across all local GPUs: 'data' "
+                      "splits batches, 'tensor' also shards ViT attention heads "
+                      "and MLP hidden units (not with --feature-precision int8)."),
 ]
 
 
@@ -313,6 +313,26 @@ def _run_pipeline(
     return results, failures
 
 
+def _process_group(command):
+    """Run ``command`` in a ``torch.distributed`` group when torchrun's
+    variables ask for one (``multihost.maybe_init_distributed``, on the
+    command's ``device``), destroyed when the command ends."""
+
+    @functools.wraps(command)
+    def run(**kw):
+        from atlaspatch_tpu_torch.parallel.multihost import maybe_init_distributed, shutdown_distributed
+
+        configure_logging(kw["verbose"])
+        initialized = maybe_init_distributed(kw["device"])
+        try:
+            return command(**kw)
+        finally:
+            if initialized:
+                shutdown_distributed()
+
+    return run
+
+
 def _run_pipeline_inner(
     *, feature_cfg: FeatureExtractionConfig | None = None, registry=None, **kw
 ) -> tuple[list, list]:
@@ -325,9 +345,10 @@ def _run_pipeline_inner(
 
     configure_logging(kw["verbose"])
     app_cfg = _build_app_config(kw, feature_cfg)
-    if kw.get("seg_data_parallel"):
-        _single_device("--seg-data-parallel", app_cfg.segmentation.device)
     _require_devices(app_cfg.segmentation.device, *([app_cfg.features.device] if app_cfg.features else []))
+    seg_mesh = None
+    if kw.get("seg_data_parallel"):
+        seg_mesh = _local_mesh("--seg-data-parallel", app_cfg.segmentation.device)
 
     feature_service = None
     if app_cfg.features is not None:
@@ -336,7 +357,7 @@ def _run_pipeline_inner(
         feature_service = PatchFeatureEmbeddingService(
             app_cfg.extraction, app_cfg.output, app_cfg.features, registry=registry
         )
-    segmentation_service = SAM2SegmentationService(app_cfg.segmentation)
+    segmentation_service = SAM2SegmentationService(app_cfg.segmentation, mesh=seg_mesh)
     extractor_service = PatchExtractionService(app_cfg.extraction, app_cfg.output)
     visualizer_service = None
     if kw["visualize_grids"] or kw["visualize_mask"] or kw["visualize_contours"]:
@@ -401,6 +422,7 @@ def cli():
 
 @cli.command()
 @common_options
+@_process_group
 def segment_and_get_coords(**kw):
     """Segment, patchify, and optionally visualize WSI files."""
     results, failures = _run_pipeline(feature_cfg=None, **kw)
@@ -546,6 +568,7 @@ def detect_tissue(wsi_path, output, device, seg_batch_size, recursive, mpp_csv,
 @cli.command()
 @feature_options
 @common_options
+@_process_group
 def process(**kw):
     """Run segmentation, patch extraction, and feature embedding into one H5."""
     from atlaspatch_tpu_torch.models.encoders import build_default_registry
@@ -561,9 +584,18 @@ def process(**kw):
     extractors_raw = kw.pop("feature_extractors")
 
     dtype = resolve_feature_dtype(feat_device, precision)
-    if kw.pop("feature_parallel", "none").lower() != "none":
-        _single_device("--feature-parallel", feat_device)
-    registry = build_default_registry(device=feat_device, num_workers=num_workers, dtype=dtype)
+    feat_parallel = kw.pop("feature_parallel", "none").lower()
+    if feat_parallel == "tensor" and precision == "int8":
+        raise click.UsageError(
+            "--feature-parallel tensor with --feature-precision int8: tensor-parallel int8 is not "
+            "ported (its row-parallel linears need a row scale reduced across the shards, which the "
+            "fused int8 quantizer cannot take yet); use --feature-parallel data, or another precision."
+        )
+    feat_mesh = None
+    if feat_parallel != "none":
+        feat_mesh = _local_mesh("--feature-parallel", feat_device, tensor_parallel=feat_parallel == "tensor")
+    registry = build_default_registry(device=feat_device, num_workers=num_workers, dtype=dtype,
+                                      mesh=feat_mesh, tensor_parallel=feat_parallel == "tensor")
     for plugin in plugins:
         register_feature_extractors_from_module(
             plugin,
@@ -638,7 +670,7 @@ def info():
               help="Override model input size (small-scale experiments).")
 @click.option("--data-parallel", type=click.IntRange(1, None), default=1,
               show_default=True,
-              help="Shard batches over N devices (not ported: refused above 1).")
+              help="Shard batches over N local devices (data-parallel).")
 @click.option("--save-every", type=click.IntRange(0, None), default=0,
               show_default=True, help="Save a checkpoint every N epochs.")
 @click.option("--val-fraction", type=click.FloatRange(0.0, 0.9), default=0.0,
@@ -662,6 +694,7 @@ def info():
 @click.option("--device", type=str, default="cuda", show_default=True,
               callback=_validate_device, help="Training device (cuda, cuda:0, cpu).")
 @click.option("--verbose", "-v", is_flag=True, help="Enable debug logging.")
+@_process_group  # lockstep fine-tuning over the group's ranks
 def finetune_sam2_cmd(images_dir, masks_dir, output, epochs, batch_size,
                       learning_rate, sam2_checkpoint, sam2_config, image_size,
                       data_parallel, save_every, val_fraction, resume,
@@ -677,7 +710,6 @@ def finetune_sam2_cmd(images_dir, masks_dir, output, epochs, batch_size,
     from atlaspatch_tpu_torch.models.train.loop import finetune_sam2
 
     _require_devices(device)
-    configure_logging(verbose)
     bar = ProgressBar(total=None, enabled=not verbose, desc="finetune")
 
     def on_step(step: int, loss: float) -> None:

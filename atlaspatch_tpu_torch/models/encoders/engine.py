@@ -27,10 +27,17 @@ into pinned buffers and complete by a CUDA event; 0: blocking fetches),
 ``ATLASPATCH_FEATURE_D2H_BF16`` (features cross the link as bfloat16 and are
 cast back to float32). Host stages: ``embed_prep``, ``embed_dispatch``,
 ``embed_d2h_start``, ``embed_fetch``.
+
+With a ``mesh`` (``parallel/mesh.py``) batches pad to a multiple of its data
+size and split contiguously over the data rows; each row holds one replica
+of the encoder, or with ``tensor_parallel`` one group of shards over the
+row's 'model' devices (``parallel/sharding.py::shard_vit``). Each row's
+features come back through its own pinned fetch, in patch order.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
@@ -164,12 +171,15 @@ def require_device(name: str, device: str) -> torch.device:
 
 
 class TorchFeatureExtractor(FeatureExtractor):
-    """Runs an encoder ``nn.Module`` over preprocessed patch batches on one device.
+    """Runs an encoder ``nn.Module`` over preprocessed patch batches on one
+    device, or over a mesh.
 
     ``model(images)`` maps (N, S, S, 3) normalized images in the compute dtype
     to (N, D) features. ``device`` is a torch device string; "cuda" without a
     card raises. ``compute_dtype`` is float32, bfloat16 or int8 (bfloat16
-    activations; the model's int8 layers are the W8A8 ones).
+    activations; the model's int8 layers are the W8A8 ones). ``mesh``
+    replaces ``device`` (its first device holds the first replica);
+    ``tensor_parallel`` shards a ViT over each data row's 'model' devices.
     """
 
     def __init__(
@@ -180,6 +190,8 @@ class TorchFeatureExtractor(FeatureExtractor):
         spec: PreprocessSpec,
         model: nn.Module,
         device: str = "cuda",
+        mesh=None,
+        tensor_parallel: bool = False,
         compute_dtype: str = "float32",
         max_batch: int = 256,
         prep_workers: int = 8,
@@ -192,7 +204,8 @@ class TorchFeatureExtractor(FeatureExtractor):
         self.compute_dtype = compute_dtype
         self.max_batch = int(max_batch)
         self.prep_workers = int(prep_workers)
-        self.device = require_device(name, device)
+        self.mesh = mesh
+        self.device = require_device(name, str(mesh.data_devices[0]) if mesh is not None else device)
         if self.device.type == "cuda" and compute_dtype == "float32":
             # float32 features are float32-exact: no TF32 in cuBLAS, nor in
             # cuDNN (its default) for the patch-embed convolution
@@ -201,49 +214,83 @@ class TorchFeatureExtractor(FeatureExtractor):
         # Read once, as the reference does (its jit cache is keyed by shape only).
         self._fetch_bf16 = os.environ.get("ATLASPATCH_FEATURE_D2H_BF16", "0") == "1"
         self._dtype = _COMPUTE_DTYPES[compute_dtype]
-        model = model.eval().requires_grad_(False).to(device=self.device)
+        model = model.eval().requires_grad_(False)
+        if mesh is None or not tensor_parallel:
+            model = model.to(device=self.device)
         # by name, not Module.to(dtype), which would cast qscale too
-        self.model = _cast_floating_(model, self._dtype, keep=_KEEP_FLOAT32 if compute_dtype == "int8" else ())
-        self._mean = torch.tensor(spec.mean, dtype=torch.float32, device=self.device)
-        self._std = torch.tensor(spec.std, dtype=torch.float32, device=self.device)
+        model = _cast_floating_(model, self._dtype, keep=_KEEP_FLOAT32 if compute_dtype == "int8" else ())
+        if mesh is None:
+            self.replicas = [model]
+        elif tensor_parallel:
+            from atlaspatch_tpu_torch.parallel.sharding import shard_vit
+
+            self.replicas = shard_vit(model, mesh)
+        else:
+            self.replicas = [model if i == 0 else copy.deepcopy(model).to(d)
+                             for i, d in enumerate(mesh.data_devices)]
+        self.model = self.replicas[0]
+        self._batch_align = mesh.shape["data"] if mesh is not None else 1
+        self._norm = [(torch.tensor(spec.mean, dtype=torch.float32, device=d),
+                       torch.tensor(spec.std, dtype=torch.float32, device=d)) for d in self._row_devices()]
+
+    def _row_devices(self) -> list[torch.device]:
+        return self.mesh.data_devices if self.mesh is not None else [self.device]
 
     # --- device ------------------------------------------------------------------
-    def forward_device(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """(N, S, S, 3) uint8 on the device → (N, D) features on the device,
+    def forward_device(self, images_u8: torch.Tensor, replica: int = 0) -> torch.Tensor:
+        """(N, S, S, 3) uint8 on a replica's device → (N, D) features there,
         float32 (bfloat16 with ATLASPATCH_FEATURE_D2H_BF16=1)."""
+        mean, std = self._norm[replica]
         with torch.inference_mode():
             x = images_u8.to(torch.float32) * self.spec.rescale
-            x = ((x - self._mean) / self._std).to(self._dtype)
-            out = self.model(x)
+            x = ((x - mean) / std).to(self._dtype)
+            out = self.replicas[replica](x)
             return out.to(torch.bfloat16 if self._fetch_bf16 else torch.float32)
 
-    def _forward_async(self, images_u8: np.ndarray) -> torch.Tensor:
-        """Upload one padded batch and enqueue its forward; returns the device
-        tensor (not fetched)."""
+    def _forward_async(self, images_u8: np.ndarray) -> list[torch.Tensor]:
+        """Upload one padded batch and enqueue its forward, each data row's
+        contiguous rows on its replica; returns the device tensors in row
+        order (not fetched)."""
+        from atlaspatch_tpu_torch.parallel.mesh import split_rows
+
+        devices = self._row_devices()
+        outs = []
         with perf.stage("embed_dispatch"):
             host = torch.from_numpy(images_u8)
             if self.device.type == "cuda":
                 host = host.pin_memory()
-            return self.forward_device(host.to(self.device, non_blocking=True))
+            for i, rows in enumerate(split_rows(host.shape[0], len(devices))):
+                try:
+                    outs.append(self.forward_device(host[rows].to(devices[i], non_blocking=True), i))
+                except Exception as e:
+                    if self.mesh is None:
+                        raise
+                    raise RuntimeError(f"{self.name}: embedding replica {i} on {devices[i]} failed: {e}") from e
+        return outs
 
-    def _start_fetch(self, dev_out: torch.Tensor):
-        """Start the device→host copy into a pinned buffer; returns what
+    def _start_fetch(self, dev_outs: list[torch.Tensor]) -> list:
+        """Start each device→host copy into a pinned buffer; returns what
         ``_materialize_f32`` completes."""
         if self.device.type != "cuda":
-            return dev_out, None
-        host = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
-        host.copy_(dev_out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+            return [(t, None) for t in dev_outs]
+        fetches = []
+        for dev_out in dev_outs:
+            host = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+            host.copy_(dev_out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev_out.device))
+            fetches.append((host, event))
+        return fetches
 
     @staticmethod
-    def _materialize_f32(fetch) -> np.ndarray:
-        """Wait for a started fetch; float32 rows on the host."""
-        host, event = fetch
-        if event is not None:
-            event.synchronize()
-        return host.float().numpy() if host.dtype != torch.float32 else host.numpy()
+    def _materialize_f32(fetches: list) -> np.ndarray:
+        """Wait for started fetches; float32 rows on the host, in order."""
+        rows = []
+        for host, event in fetches:
+            if event is not None:
+                event.synchronize()
+            rows.append(host.float().numpy() if host.dtype != torch.float32 else host.numpy())
+        return rows[0] if len(rows) == 1 else np.concatenate(rows, axis=0)
 
     # --- host pipeline -------------------------------------------------------------
     def extract_batch(
@@ -290,7 +337,7 @@ class TorchFeatureExtractor(FeatureExtractor):
                         outputs.append(self._materialize_f32(fetch)[:k0])
             else:
                 with perf.stage("embed_fetch"):
-                    outputs.append(self._materialize_f32((fut.result().cpu(), None))[:k])
+                    outputs.append(self._materialize_f32([(t.cpu(), None) for t in fut.result()])[:k])
 
         with ThreadPoolExecutor(max_workers=self.prep_workers) as ex, ThreadPoolExecutor(
             max_workers=depth, thread_name_prefix="h2d-dispatch"
@@ -300,6 +347,7 @@ class TorchFeatureExtractor(FeatureExtractor):
                     imgs = prep_chunk(ex, chunk)
                 n = imgs.shape[0]
                 padded = _bucket(n, bs)
+                padded += (-padded) % self._batch_align
                 if padded != n:
                     imgs = np.concatenate(
                         [imgs, np.zeros((padded - n, *imgs.shape[1:]), imgs.dtype)]
@@ -316,6 +364,6 @@ class TorchFeatureExtractor(FeatureExtractor):
         return np.concatenate(outputs, axis=0)
 
     def cleanup(self) -> None:
-        self.model = None
+        self.model = self.replicas = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

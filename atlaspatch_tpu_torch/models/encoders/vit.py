@@ -32,6 +32,12 @@ linear :class:`QuantizedRows`. On the CPU these run the unfused ops. GELU is
 the tanh approximation there unless ``ATLASPATCH_GELU_TANH=0``.
 ``spec.quant_int8_attn`` also runs QK^T and PV as int8 products
 (vit.py:237-260); no entry point turns it on.
+
+Tensor parallelism (``parallel/sharding.py``): ``Attention`` and ``Mlp``
+take ``shards``, and then hold one slice of the heads or hidden units and
+map the whole input to a partial output without its bias; a
+:class:`RowParallel` sums the shards' partials, each on its own device, and
+adds the bias once; the block adds layerscale and residual after that.
 """
 
 from __future__ import annotations
@@ -273,11 +279,17 @@ def _int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 class Attention(nn.Module):
-    def __init__(self, spec: ViTSpec) -> None:
+    """Multi-head self-attention; with ``shards`` > 1, one of that many
+    equal slices of the heads, whose ``proj`` has no bias (the sum of the
+    slices' outputs is the layer's, before its bias)."""
+
+    def __init__(self, spec: ViTSpec, shards: int = 1) -> None:
         super().__init__()
         self.spec = spec
-        self.qkv = _linear(spec, spec.dim, 3 * spec.dim, bias=spec.qkv_bias)
-        self.proj = _linear(spec, spec.dim, spec.dim)
+        self.heads, self.head_dim = spec.heads // shards, spec.dim // spec.heads
+        width = self.heads * self.head_dim
+        self.qkv = _linear(spec, spec.dim, 3 * width, bias=spec.qkv_bias)
+        self.proj = _linear(spec, width, spec.dim, bias=shards == 1)
         if spec.pos_mode == "rope":
             cos, sin = _rope_cos_sin(spec)
             self.register_buffer("rope_cos", cos, persistent=False)
@@ -286,8 +298,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
         s = self.spec
         B, T, _ = x.shape
+        width = self.heads * self.head_dim
         # token-major (B, T, H, D) throughout, as the reference keeps it
-        q, k, v = self.qkv(x).reshape(B, T, 3, s.heads, s.dim // s.heads).unbind(2)
+        q, k, v = self.qkv(x).reshape(B, T, 3, self.heads, self.head_dim).unbind(2)
         if s.pos_mode == "rope":
             cos = self.rope_cos.to(q.dtype)[None, :, None, :]  # (1, T_patch, 1, D)
             sin = self.rope_sin.to(q.dtype)[None, :, None, :]
@@ -302,23 +315,27 @@ class Attention(nn.Module):
         else:
             out = _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
         if s.quant_int8:  # (B, T, H, D) quantized where it lies, not reshaped into a copy first
-            return self.proj(QuantizedRows(*quantize_heads(out), (B, T, s.dim), out.dtype))
-        return self.proj(out.reshape(B, T, s.dim))
+            return self.proj(QuantizedRows(*quantize_heads(out), (B, T, width), out.dtype))
+        return self.proj(out.reshape(B, T, width))
 
 
 class Mlp(nn.Module):
-    def __init__(self, spec: ViTSpec) -> None:
+    """The block MLP; with ``shards`` > 1, one of that many equal slices of
+    the hidden units (of each half of a SwiGLU-packed ``fc1``), whose
+    ``fc2`` has no bias."""
+
+    def __init__(self, spec: ViTSpec, shards: int = 1) -> None:
         super().__init__()
         self.spec = spec
         self.act_name = _act_name(spec.act, spec.quant_int8)
         self.act = ACTIVATIONS[self.act_name]
-        hidden = spec.hidden_dim
+        hidden = spec.hidden_dim // shards
         if spec.gated_mlp:
             self.fc_gate = _linear(spec, spec.dim, hidden)
             self.fc_up = _linear(spec, spec.dim, hidden)
         else:
             self.fc1 = _linear(spec, spec.dim, 2 * hidden if spec.swiglu else hidden)
-        self.fc2 = _linear(spec, hidden, spec.dim)
+        self.fc2 = _linear(spec, hidden, spec.dim, bias=shards == 1)
 
     def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
         if self.spec.gated_mlp:
@@ -332,6 +349,30 @@ class Mlp(nn.Module):
             return self.fc2(QuantizedRows(*act_quantize_rows(rows[0], self.act_name, rows[1]), tuple(a.shape),
                                           a.dtype))
         return self.fc2(self.act(a) if b is None else self.act(a) * b)
+
+
+class RowParallel(nn.Module):
+    """A layer split over devices: each shard (an ``Attention`` or ``Mlp``
+    with ``shards`` > 1, on its own device) maps the same input to a
+    partial output; the partials are summed on the first shard's device in
+    shard order, in float32, and the layer's output bias is added once,
+    after the sum. Built by ``parallel/sharding.py::shard_vit``; never moved
+    as a whole (``Module.to`` would gather the shards on one device)."""
+
+    def __init__(self, shards: list[nn.Module], bias: torch.Tensor | None) -> None:
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+        self.devices = [next(s.parameters()).device for s in shards]
+        self.bias = None if bias is None else nn.Parameter(bias.detach().to(self.devices[0]), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = None
+        for shard, device in zip(self.shards, self.devices):
+            part = shard(x.to(device)).to(self.devices[0], torch.float32)
+            out = part if out is None else out + part
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(x.dtype)
 
 
 class Block(nn.Module):

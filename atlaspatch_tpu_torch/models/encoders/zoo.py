@@ -83,6 +83,7 @@ from atlaspatch_tpu_torch.models.encoders.swin import (
     timm_swin_to_flax,
 )
 from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_tree_to_torch, quantize_vit_state_dict
+from atlaspatch_tpu_torch.parallel.sharding import TP_INT8_REFUSED
 from atlaspatch_tpu_torch.utils import safetensors
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders.zoo")
@@ -907,12 +908,9 @@ def build_extractor(
             f"Encoder '{entry.name}' ({entry.family}) is registered but its tower is "
             f"not yet implemented in this build: {entry.notes}"
         )
-    if mesh is not None or tensor_parallel:
-        raise NotImplementedError(
-            f"{entry.name}: data- and tensor-parallel embedding is not ported to "
-            "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 5)"
-        )
     quant_int8 = compute_dtype == "int8"
+    if quant_int8 and tensor_parallel and entry.family in _VIT_FAMILIES:
+        raise NotImplementedError(f"{entry.name}: {TP_INT8_REFUSED}")
     if quant_int8 and entry.family not in _VIT_FAMILIES:
         logger.warning(
             "int8 precision requested for %s (%s family): no int8 plan for this "
@@ -922,6 +920,16 @@ def build_extractor(
         )
         quant_int8 = False
         compute_dtype = "bfloat16"
+    if mesh is not None and tensor_parallel and entry.family not in _VIT_FAMILIES:
+        logger.warning(
+            "tensor_parallel requested for %s (%s family): no TP plan for this "
+            "tower, replicating params (data-parallel only).",
+            entry.name,
+            entry.family,
+        )
+        tensor_parallel = False
+    if mesh is not None:
+        device = str(mesh.data_devices[0])  # the first replica's device
     tower, from_flax = _TOWERS[entry.family]
     with require_device(entry.name, device):  # built (and random-initialized) in place
         model = tower(entry.spec)
@@ -955,6 +963,8 @@ def build_extractor(
         spec=entry.preprocess,
         model=model,
         device=device,
+        mesh=mesh,
+        tensor_parallel=mesh is not None and tensor_parallel,
         compute_dtype=compute_dtype,
         max_batch=max_batch,
     )

@@ -11,6 +11,10 @@ one (reference behavior: atlas_patch/services/segmentation.py:104-140).
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -201,6 +205,57 @@ def segment_step_packed(model: SAM2ImageModel, images_u8: torch.Tensor, threshol
     bits = (segment_step(model, images_u8) > threshold).to(torch.uint8)
     return _packbits_last_axis(bits)
 
+
+class SegmentReplicas:
+    """Data-parallel serving: one replica of the SAM2 model per data device
+    of ``mesh`` (the port of ``make_sharded_segment_step``'s replicated
+    params). ``model`` itself is the first replica when it lies on the first
+    data device; a device named twice gets two replicas.
+
+    The forward is embarrassingly parallel over the batch, so no collective
+    runs: ``run`` hands each replica its contiguous rows of the batch (whose
+    leading dim the data size must divide; callers pad, see SAM2Predictor)
+    and concatenates the outputs in order on the first data device. Replicas
+    are dispatched one after another from the calling thread
+    (``_run_replica`` is the per-device unit). A replica that fails fails the
+    call, naming its device."""
+
+    def __init__(self, model: SAM2ImageModel, mesh):
+        self.devices = mesh.data_devices
+        first = next(model.parameters()).device
+        self.replicas = [
+            model if i == 0 and first == d else copy.deepcopy(model).to(d) for i, d in enumerate(self.devices)
+        ]
+
+    def _run_replica(self, step, i: int, rows: torch.Tensor, threshold: float, idx: tuple) -> torch.Tensor:
+        device = self.devices[i]
+        try:
+            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+                return step(self.replicas[i], rows.to(device, non_blocking=True), threshold,
+                            *(t.to(device) for t in idx))
+        except Exception as e:
+            raise RuntimeError(f"segmentation replica {i} on {device} failed: {e}") from e
+
+    def run(self, step, batch: torch.Tensor, threshold: float, *idx: torch.Tensor) -> torch.Tensor:
+        """``step`` (one of the packed single-device steps) over the batch,
+        split contiguously over the replicas."""
+        from atlaspatch_tpu_torch.parallel.mesh import gather_rows, split_rows
+
+        rows = split_rows(batch.shape[0], len(self.devices))
+        outs = [self._run_replica(step, i, batch[r], threshold, idx) for i, r in enumerate(rows)]
+        return gather_rows(outs, self.devices[0])
+
+
+def make_sharded_segment_step(model: SAM2ImageModel, mesh, *, from_thumbs: bool = True, to_shape: bool = False):
+    """Multi-device serving step over ``mesh``'s data axis: ``step(batch,
+    threshold[, row_idx, col_idx])`` takes the single-device step's
+    arguments and gives its output (``to_shape``: the
+    segment_step_packed_to_shape variant and its index tables)."""
+    if to_shape:
+        step = segment_step_packed_to_shape
+    else:
+        step = segment_step_packed_from_thumbs if from_thumbs else segment_step_packed
+    return functools.partial(SegmentReplicas(model, mesh).run, step)
 
 def init_params(cfg: SAM2Config, seed: int = 0) -> SAM2ImageModel:
     """A float32 CPU model with random weights drawn from a seeded

@@ -15,10 +15,17 @@ train step runs the graph of the eval step. Under autograd the trunk's
 attention runs the plain products (``ops.attention.attention``), which is
 also what the JAX train step differentiates; forwards without a gradient
 launch the CUDA kernel.
+
+Several devices (the JAX ``shard_train_step``): ``shard_train_step`` runs
+one replica per data device of a local mesh, sums the gradients onto the
+first device and applies one update there; ``make_train_step(...,
+all_reduce=True)`` is the step of one rank of a process group, whose
+gradients and loss are averaged over the ranks before the update.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Iterable
 
@@ -223,12 +230,19 @@ def update_count(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
-def make_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr: Callable[[int], float]):
+def make_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr: Callable[[int], float], *,
+                    all_reduce: bool = False):
     """train_step(images_u8, targets) → loss (a 0-d tensor, before the
     update): one AdamW update of the tensors ``optimizer`` holds (see
     ``trainable_parameters``) at lr(update count). Tensors outside the
     optimizer neither move nor decay, as the JAX step's masked gradients and
-    updates leave them."""
+    updates leave them.
+
+    ``all_reduce``: one rank of the live default process group, handed its
+    equal share of the global batch; the gradients and the loss are
+    averaged over the ranks (one ``all_reduce`` of one flat buffer) before
+    the update, so every rank applies the global batch's update and returns
+    its mean loss."""
     _full_float32(model)
 
     def train_step(images_u8, targets):
@@ -237,8 +251,92 @@ def make_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr:
         with torch.enable_grad():
             loss = seg_loss_fn(model, images, targets)
             loss.backward()
+        loss = loss.detach()
+        if all_reduce:
+            loss = _average_over_ranks(optimizer, loss)
         apply_update(optimizer, lr)
-        return loss.detach()
+        return loss
+
+    return train_step
+
+
+def _held(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def _average_over_ranks(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """Every gradient ``optimizer`` holds (zeros where the loss does not
+    reach) and ``loss``, averaged over the default group's ranks in place;
+    returns the averaged loss."""
+    import torch.distributed as dist
+
+    params = _held(optimizer)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1).to(params[0].grad)])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset : offset + p.numel()].view_as(p))
+        offset += p.numel()
+    return flat[offset].clone()
+
+
+def shard_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr: Callable[[int], float], mesh,
+                     *, trainable: str = "norms"):
+    """The train step data-parallel over ``mesh``'s data devices (the JAX
+    ``shard_train_step``): ``model``, on the first, is the first replica,
+    and a copy lies on each other device (a device named twice gets two).
+    Each replica runs forward and backward on its contiguous rows of the
+    batch, its loss weighted by its share of the rows so the sum is the
+    global batch mean; the gradients are summed onto the first device in
+    device order; ``optimizer`` (over ``model``'s tensors) makes one update
+    there, and the trainable tensors are copied back to the other replicas.
+    Returns the global batch mean loss before the update."""
+    from atlaspatch_tpu_torch.parallel.mesh import split_rows
+
+    _full_float32(model)
+    devices = mesh.data_devices
+    if next(model.parameters()).device != devices[0]:
+        raise ValueError(f"the model lies on {next(model.parameters()).device}, the mesh's first device is {devices[0]}")
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+    tensors = [trainable_parameters(r, trainable) for r in replicas]
+
+    def train_step(images_u8, targets):
+        images, targets = torch.as_tensor(images_u8), torch.as_tensor(targets)
+        rows = split_rows(images.shape[0], len(replicas))
+        optimizer.zero_grad(set_to_none=True)
+        losses = []
+        for i, (replica, r) in enumerate(zip(replicas, rows)):
+            for t in tensors[i].values():
+                t.grad = None
+            try:
+                imgs, tgts = _on_device(replica, images[r], targets[r])
+                with torch.enable_grad():
+                    loss = seg_loss_fn(replica, imgs, tgts) * ((r.stop - r.start) / images.shape[0])
+                    loss.backward()
+            except Exception as e:
+                raise RuntimeError(f"train replica {i} on {devices[i]} failed: {e}") from e
+            losses.append(loss.detach().to(devices[0]))
+        with torch.no_grad():
+            for key, p in tensors[0].items():
+                grads = [t[key].grad for t in tensors if t[key].grad is not None]
+                if grads:
+                    total = grads[0].to(devices[0])
+                    for g in grads[1:]:
+                        total = total + g.to(devices[0])
+                    p.grad = total
+        apply_update(optimizer, lr)
+        with torch.no_grad():
+            for t in tensors[1:]:
+                for key, p in tensors[0].items():
+                    t[key].copy_(p)
+        total_loss = losses[0]
+        for part in losses[1:]:
+            total_loss = total_loss + part
+        return total_loss
 
     return train_step
 
@@ -256,11 +354,3 @@ def apply_update(optimizer: torch.optim.Optimizer, lr: Callable[[int], float]) -
                 # moves its moments
                 p.grad = torch.zeros_like(p)
     optimizer.step()
-
-
-def shard_train_step(*_args, **_kwargs):
-    """Data-parallel training over several cards is not ported."""
-    raise NotImplementedError(
-        "shard_train_step: data-parallel SAM2 fine-tuning over several cards is not ported to "
-        "atlaspatch_tpu_torch yet (ROADMAP queue 1, item 5: multi-GPU)"
-    )

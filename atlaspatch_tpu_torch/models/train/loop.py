@@ -1,19 +1,27 @@
 """SAM2 fine-tuning loop: (thumbnail, mask) pairs → norm-only updates.
 
-The port of ``atlaspatch_tpu/models/train/loop.py``, single process. The
-reference ships no training code — its model card only documents the recipe
-("~35,000 semi-manually annotated WSI thumbnails; SAM2 finetuned with
-backbone frozen, only normalization layers trained", SURVEY.md §6 /
-reference CHANGELOG.md:13). This module runs that recipe on one device: the
-train step of ``models/train/finetune.py`` (focal + dice + IoU loss, AdamW on
-the norm parameters), host-side image loading on threads, step checkpoints,
+The port of ``atlaspatch_tpu/models/train/loop.py``. The reference ships
+no training code — its model card only documents the recipe ("~35,000
+semi-manually annotated WSI thumbnails; SAM2 finetuned with backbone
+frozen, only normalization layers trained", SURVEY.md §6 / reference
+CHANGELOG.md:13). This module runs that recipe: the train step of
+``models/train/finetune.py`` (focal + dice + IoU loss, AdamW on the norm
+parameters), host-side image loading on threads, step checkpoints,
 and a final ``sam2_finetuned.npz`` in the JAX package's archive layout,
 which either package's ``--sam2-checkpoint`` loads. The data order, the
 validation split, the augmentation flips and the resume rules are the JAX
 loop's, so the same seed gives the same batches.
 
-Data-parallel and multi-host training are not ported (ROADMAP queue 1,
-item 5): ``data_parallel > 1`` and ``ATLASPATCH_NUM_HOSTS > 1`` are refused.
+Several devices, as the JAX loop runs them: ``data_parallel`` N > 1 runs
+the step over N local devices (``finetune.shard_train_step``); under a live
+``torch.distributed`` group of more than one rank (``parallel/multihost.py``)
+every rank runs the loop in lockstep on its own device, loads only its
+contiguous slice of each global batch (flips drawn for the global batch),
+and averages gradients and loss over the ranks before each update. Every
+rank scores the whole holdout; rank 0 alone writes the checkpoints,
+``meta.json`` and ``sam2_finetuned.npz``, and tells the others whether it
+could (``_rank0_writes``). ``ATLASPATCH_NUM_HOSTS`` alone does not make
+training multi-process.
 """
 
 from __future__ import annotations
@@ -30,7 +38,6 @@ import numpy as np
 logger = logging.getLogger("atlaspatch_tpu_torch.train")
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
-_MULTI_GPU = "ROADMAP queue 1, item 5: multi-GPU"
 
 
 def collect_pairs(images_dir: Path, masks_dir: Path) -> list[tuple[Path, Path]]:
@@ -68,27 +75,46 @@ def load_pair(img_path: Path, mask_path: Path, size: int) -> tuple[np.ndarray, n
     return np.asarray(img, np.uint8), (np.asarray(mask) > 127).astype(np.float32)
 
 
-def _refuse_multi_device(data_parallel: int, device: str) -> None:
-    from atlaspatch_tpu_torch.parallel.multihost import host_identity
+def _data_parallel_devices(data_parallel: int, device: str, batch_size: int) -> list:
+    """The first ``data_parallel`` local devices of ``device``'s kind, with
+    the JAX loop's errors for too few devices and an uneven batch."""
+    from atlaspatch_tpu_torch.parallel import mesh
 
-    _, num_hosts = host_identity()
-    if num_hosts > 1:
-        raise RuntimeError(
-            f"multi-host fine-tuning ({num_hosts} hosts from ATLASPATCH_NUM_HOSTS) is not ported "
-            f"to atlaspatch_tpu_torch yet ({_MULTI_GPU})"
-        )
-    if data_parallel > 1:
-        import torch
+    devices = mesh.local_devices(device)
+    if len(devices) < data_parallel:
+        raise RuntimeError(f"--data-parallel {data_parallel} needs that many devices; {len(devices)} visible")
+    if batch_size % data_parallel:
+        raise ValueError("batch size must divide evenly over data_parallel")
+    return devices[:data_parallel]
 
-        visible = torch.cuda.device_count() if device.startswith("cuda") else 1
-        if visible < data_parallel:
-            raise RuntimeError(
-                f"--data-parallel {data_parallel} needs that many devices; {visible} visible"
-            )
-        raise RuntimeError(
-            f"--data-parallel {data_parallel}: data-parallel fine-tuning over several cards is not "
-            f"ported to atlaspatch_tpu_torch yet ({_MULTI_GPU}); drop the flag"
-        )
+
+def _rank0_writes(what: str, write: Callable[[], object]):
+    """``write()`` on rank 0 alone (on the one process without a group).
+    Rank 0 then broadcasts whether it succeeded, so no rank waits on one
+    that failed: rank 0 raises its own error chained, every other rank a
+    RuntimeError naming rank 0's failure. Returns what ``write`` returned
+    (None on the other ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from atlaspatch_tpu_torch.parallel import multihost
+
+    group = multihost.live_group()
+    rank = group[0] if group is not None else 0
+    result = error = None
+    if rank == 0:
+        try:
+            result = write()
+        except Exception as e:  # noqa: BLE001 — told to the other ranks, then raised chained
+            error = e
+    if group is not None:
+        failed = torch.tensor([float(error is not None)], device=multihost.collective_device())
+        dist.broadcast(failed, src=0)
+        if rank != 0 and failed.item():
+            raise RuntimeError(f"rank 0 failed at {what}; rank {rank} stops with it")
+    if error is not None:
+        raise RuntimeError(f"{what} failed") from error
+    return result
 
 
 def finetune_sam2(
@@ -126,16 +152,28 @@ def finetune_sam2(
     from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
     from atlaspatch_tpu_torch.models.sam2.convert import torch_to_flax_flat
     from atlaspatch_tpu_torch.models.train.checkpoints import save_checkpoint
-    from atlaspatch_tpu_torch.models.train.finetune import (
-        make_eval_step,
-        make_optimizer,
-        make_train_step,
-        trainable_parameters,
-    )
+    from atlaspatch_tpu_torch.models.train import finetune
+    from atlaspatch_tpu_torch.parallel import multihost
+    from atlaspatch_tpu_torch.parallel.mesh import LocalMesh
     from atlaspatch_tpu_torch.services.segmentation import SAM2Predictor
 
+    # Multi-process: meet every rank while all are in lockstep, right after
+    # the group's rendezvous, before minutes of model loading skew them.
+    group = multihost.live_group()
+    multihost.barrier("atlaspatch_finetune_start")
     seg_cfg = SegmentationConfig(checkpoint_path=checkpoint, device=device).validated()
-    _refuse_multi_device(data_parallel, seg_cfg.device)
+    dp_devices = None
+    if group is None and data_parallel > 1:
+        dp_devices = _data_parallel_devices(data_parallel, seg_cfg.device, batch_size)
+        seg_cfg = dataclasses.replace(seg_cfg, device=str(dp_devices[0]))
+    rows = slice(None)  # this rank's rows of each global batch
+    if group is not None:
+        rank, world = group
+        if batch_size % world:
+            raise ValueError(
+                f"global batch size {batch_size} must divide over the {world} ranks of the process group"
+            )
+        rows = slice(rank * (batch_size // world), (rank + 1) * (batch_size // world))
 
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -165,15 +203,21 @@ def finetune_sam2(
     size = sam2_cfg.image_size
 
     steps_per_epoch = max(1, len(pairs) // batch_size)
-    params = trainable_parameters(model, trainable)
-    optimizer, lr = make_optimizer(
+    params = finetune.trainable_parameters(model, trainable)
+    optimizer, lr = finetune.make_optimizer(
         params.values(),
         learning_rate,
         schedule=lr_schedule,
         warmup_steps=warmup_steps,
         total_steps=epochs * steps_per_epoch,
     )
-    step = make_train_step(model, optimizer, lr)
+    if dp_devices is not None:
+        step = finetune.shard_train_step(model, optimizer, lr, LocalMesh([[d] for d in dp_devices]),
+                                         trainable=trainable)
+    elif group is not None:
+        step = finetune.make_train_step(model, optimizer, lr, all_reduce=True)
+    else:
+        step = finetune.make_train_step(model, optimizer, lr)
 
     rng = np.random.default_rng(seed)
     pool = ThreadPoolExecutor(max_workers=max(1, loader_threads))
@@ -206,6 +250,7 @@ def finetune_sam2(
     if resume:
         from atlaspatch_tpu_torch.models.train.checkpoints import latest_step, restore_checkpoint
 
+        multihost.barrier("atlaspatch_resume")  # every rank restores rank 0's file
         step_no = latest_step(ckpt_dir)
         if step_no is None:
             # A silent fresh start would be indistinguishable from a real
@@ -261,7 +306,7 @@ def finetune_sam2(
             np.stack([mk for _, mk in loaded]),
         )
 
-    eval_step = make_eval_step(model) if val_pairs else None
+    eval_step = finetune.make_eval_step(model) if val_pairs else None
     val_loss = val_iou = None
 
     def _run_validation() -> tuple[float, float]:
@@ -285,13 +330,15 @@ def finetune_sam2(
                 # Wrap modulo the dataset so every batch is exactly
                 # batch_size even when batch_size > len(pairs).
                 idx = order[np.arange(b * batch_size, (b + 1) * batch_size) % len(order)]
-                images_u8, targets = _load_batch(idx)
+                # Multi-process: this rank loads only its contiguous slice;
+                # the flips are drawn for the global batch and sliced alike.
+                images_u8, targets = _load_batch(idx[rows])
                 if augment:
                     # Flips applied identically to image and mask. Seeded by
                     # (seed, global_step), not the shuffle rng, so checkpoint
                     # resume reproduces them without replaying draws.
                     aug = np.random.default_rng((seed, global_step))
-                    flips = aug.integers(0, 2, size=(batch_size, 2), dtype=np.int64)
+                    flips = aug.integers(0, 2, size=(batch_size, 2), dtype=np.int64)[rows]
                     images_u8 = images_u8.copy()
                     targets = targets.copy()
                     for i, (fh, fv) in enumerate(flips):
@@ -325,14 +372,15 @@ def finetune_sam2(
                     float(np.mean(losses[-steps_per_epoch:])),
                 )
             if save_every and (epoch + 1) % save_every == 0:
-                try:
+
+                def save() -> Path:
                     path = save_checkpoint(ckpt_dir, global_step, model, optimizer, params)
                     (ckpt_dir / "meta.json").write_text(json.dumps(run_meta))
-                except OSError as e:
-                    raise RuntimeError(
-                        f"saving the step {global_step} checkpoint under {ckpt_dir} failed"
-                    ) from e
-                logger.info("saved %s", path)
+                    return path
+
+                path = _rank0_writes(f"saving the step {global_step} checkpoint under {ckpt_dir}", save)
+                if path is not None:
+                    logger.info("saved %s", path)
         if eval_step is not None and val_loss is None:
             # Nothing-left-to-train resume: still score the restored params
             # so --resume --val-fraction reports metrics for the checkpoint.
@@ -341,7 +389,7 @@ def finetune_sam2(
         pool.shutdown(wait=False)
 
     npz_path = output_dir / "sam2_finetuned.npz"
-    np.savez(npz_path, **torch_to_flax_flat(model, sam2_cfg))
+    _rank0_writes(f"writing {npz_path}", lambda: np.savez(npz_path, **torch_to_flax_flat(model, sam2_cfg)))
     summary = {
         "steps": global_step,
         "steps_this_run": global_step - resumed_at,

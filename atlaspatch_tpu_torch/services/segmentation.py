@@ -12,7 +12,10 @@ normalize → Hiera → FPN → decoder → upscale → threshold → PIL-NEARES
 host buffer and a CUDA event, so the caller can overlap the next batch.
 
 Device: ``cfg.device`` ("cuda" by default). A CUDA request on a machine
-without CUDA raises; there is no silent CPU fallback. Checkpoint: explicit
+without CUDA raises; there is no silent CPU fallback. With a ``mesh``
+(``parallel/mesh.py``) every data device holds a replica and each batch,
+padded to a multiple of the data size, is split over them
+(``SegmentReplicas``); the masks are the one-device predictor's. Checkpoint: explicit
 path, or ATLASPATCH_SAM2_CHECKPOINT, or a converted ``.npz`` in
 ATLASPATCH_WEIGHTS_DIR, or the HF-cached reference checkpoint; otherwise
 random init only with ATLASPATCH_ALLOW_RANDOM_WEIGHTS=1, else an error.
@@ -78,10 +81,22 @@ class _PackedFetch:
 
 
 class SAM2Predictor:
-    """Batched SAM2 mask prediction with resizing helpers (one device)."""
+    """Batched SAM2 mask prediction with resizing helpers, on one device or
+    data-parallel over the data axis of ``mesh``."""
 
-    def __init__(self, cfg: SegmentationConfig, sam2_cfg: SAM2Config | None = None):
+    def __init__(
+        self,
+        cfg: SegmentationConfig,
+        sam2_cfg: SAM2Config | None = None,
+        *,
+        mesh=None,
+        data_axis: str = "data",
+    ):
         self.cfg = cfg
+        if mesh is not None and data_axis != "data":
+            raise ValueError(f"a LocalMesh's batch axis is 'data', got data_axis={data_axis!r}")
+        self._mesh = mesh
+        self._n_data = mesh.shape["data"] if mesh is not None else 1
         # device-resident PIL-NEAREST index tables keyed (n_out, n_in): the
         # host loops + H2D upload run once per shape, not once per dispatch
         self._resample_idx: dict[tuple[int, int], torch.Tensor] = {}
@@ -114,22 +129,26 @@ class SAM2Predictor:
                 self.sam2_cfg = dataclasses.replace(self.sam2_cfg, image_size=int(override))
         self.input_size = self.sam2_cfg.image_size
 
-        self.device = torch.device(cfg.device)
+        # with a mesh, the first data device holds the first replica
+        self.device = mesh.data_devices[0] if mesh is not None else torch.device(cfg.device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
-                    f"SAM2 predictor asked for device {cfg.device!r}, but CUDA is not "
+                    f"SAM2 predictor asked for device {str(self.device)!r}, but CUDA is not "
                     "available; pass device='cpu' to run on the CPU."
                 )
             if cfg.precision == "float32":
                 # The float32 mode is the reference-exact mode: keep matmuls
                 # AND cuDNN convolutions in full float32 (cuDNN defaults to
-                # TF32, which keeps ~3 decimal digits). Process-wide setting.
+                # TF32, which keeps ~3 decimal digits). Process-wide setting,
+                # so every replica computes under it.
                 torch.backends.cuda.matmul.allow_tf32 = False
                 torch.backends.cudnn.allow_tf32 = False
-        logger.info("SAM2 predictor device: %s", self.device)
+        logger.info("SAM2 predictor device: %s", mesh if mesh is not None else self.device)
 
         self.model = self._load_model()
+        # every replica holds the model as loaded and cast (bf16 included)
+        self._replicas = sam2_model.SegmentReplicas(self.model, mesh) if mesh is not None else None
 
     def _resolve_checkpoint_path(self) -> Path | None:
         if self.cfg.checkpoint_path is not None:
@@ -223,14 +242,29 @@ class SAM2Predictor:
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(batch).to(self.device, non_blocking=True)
 
+    def _step(self, step, batch: np.ndarray, threshold: float, *idx: torch.Tensor) -> torch.Tensor:
+        """One packed step over a host batch: on the device, or split over the
+        mesh's replicas (the host batch uploads per replica)."""
+        if self._replicas is not None:
+            return self._replicas.run(step, torch.from_numpy(batch), threshold, *idx)
+        return step(self.model, self._to_device(batch), threshold, *idx)
+
+    def _pad_to_data(self, batch: np.ndarray) -> np.ndarray:
+        """Zero rows appended so the data size divides the batch."""
+        pad = (-batch.shape[0]) % self._n_data
+        if not pad:
+            return batch
+        return np.concatenate([batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
+
     def predict_masks_async(self, images_u8: np.ndarray) -> _PackedFetch:
         """Dispatch the packed step on (B,S,S,3) uint8 model-input images;
         returns the in-flight fetch WITHOUT waiting for it."""
         with perf.stage("segment_dispatch"):
-            packed = sam2_model.segment_step_packed(
-                self.model, self._to_device(images_u8), float(self.cfg.mask_threshold)
+            n = images_u8.shape[0]
+            packed = self._step(
+                sam2_model.segment_step_packed, self._pad_to_data(images_u8), float(self.cfg.mask_threshold)
             )
-            return _PackedFetch(packed)
+            return _PackedFetch(packed[:n])
 
     def predict_masks_grouped_async(
         self,
@@ -262,19 +296,15 @@ class SAM2Predictor:
         with perf.stage("segment_dispatch"):
             for (h, w, target), idxs in groups.items():
                 padded = _pad_to_pow2_batch(len(idxs), max_batch=max(self.cfg.batch_size, len(idxs)))
+                padded += (-padded) % self._n_data
                 batch = np.zeros((padded, h, w, 3), dtype=np.uint8)
                 for j, i in enumerate(idxs):
                     batch[j] = arrs[i]
-                thumbs = self._to_device(batch)
                 if target is not None:
-                    row_idx, col_idx = (self._resample_index(n_out) for n_out in target)
-                    packed = sam2_model.segment_step_packed_to_shape(
-                        self.model, thumbs, threshold, row_idx, col_idx
-                    )
+                    idx = tuple(self._resample_index(n_out) for n_out in target)
+                    packed = self._step(sam2_model.segment_step_packed_to_shape, batch, threshold, *idx)
                 else:
-                    packed = sam2_model.segment_step_packed_from_thumbs(
-                        self.model, thumbs, threshold
-                    )
+                    packed = self._step(sam2_model.segment_step_packed_from_thumbs, batch, threshold)
                 # The D2H copy is queued behind the step right away, so the
                 # bits cross while the host prepares the next batch.
                 handles.append((_PackedFetch(packed), idxs, target))
@@ -340,7 +370,7 @@ class SAM2Predictor:
         return self.predict_batch([image], resize_to_input=resize_to_input)[0]
 
     def close(self) -> None:
-        self.model = None
+        self.model = self._replicas = None
 
 
 class SAM2SegmentationService(SegmentationService):
@@ -352,12 +382,14 @@ class SAM2SegmentationService(SegmentationService):
         sam2_cfg: SAM2Config | None = None,
         *,
         device: str | None = None,
+        mesh=None,
+        data_axis: str = "data",
     ) -> None:
         cfg = cfg if cfg is not None else SegmentationConfig()
         if device is not None:
             cfg = dataclasses.replace(cfg, device=device)
         self.cfg = cfg.validated()
-        self.predictor = SAM2Predictor(self.cfg, sam2_cfg)
+        self.predictor = SAM2Predictor(self.cfg, sam2_cfg, mesh=mesh, data_axis=data_axis)
         self._thumb_pool_obj: ThreadPoolExecutor | None = None
 
     def _thumb_quant(self) -> int:

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading and its SAM2 fine-tuning, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading, its SAM2 fine-tuning and its multi-device paths, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -246,6 +246,38 @@ Phases, one line each (any failure exits non-zero with no result line):
           (median after the first), images/s, one step's device-busy ms by
           torch.profiler, the validation forward's ms, the peak memory and
           the phase's seconds, beside the card's name and power limit
+  multi   the multi-device paths on the one card, which each mesh names
+          twice (MULTI_CARD) and two processes share. (k0) the attention
+          kernel at the --fast trunk's shapes at 4 rows a replica and the
+          int8 kernels at 16 patches a replica (M 3,152), against their
+          plain versions at the kernel and int8 phases' bars. (k1)
+          SAM2SegmentationService on a (2, 1) mesh at full Hiera-tiny width:
+          --fast (bfloat16, 768, batch 8: 4 rows a replica) on the seg
+          phase's 16 thumbnails and float32 at 1024 (batch 2: 1 a replica;
+          TF32 switched on before the build) on 2; masks against the
+          one-device service (float32: bits differ only within 1e-4 of the
+          threshold; bfloat16: >= 99.5% per thumbnail, the JAX package's
+          partitioning bar); 12 attention launches per replica forward, by
+          kernel_variant's counts. (k2) vit_l_16 on a (2, 1) data-parallel
+          and a (1, 2) tensor-parallel mesh against one device on 32
+          patches: float32 at depth 2 within 1e-4 (TF32 on before each
+          build), bfloat16 at full depth per-patch cosine >= 0.999, int8
+          data-parallel cosine >= 0.999 with 96 launches of each int8
+          kernel per replica forward (48 / 24 / 24 by prologue, every linear
+          on wgmma). (k3) finetune-sam2 at the JAX defaults (1024, float32,
+          global batch 2) on 5 synthetic 1024x768 pairs from one init
+          archive: one process; --data-parallel 2 through the command line
+          (losses at rtol 2e-3, 12 launches in its validation forward); two
+          ranks sharing the card on gloo (python -c workers through
+          maybe_init_distributed: the ranks' losses agree to 1e-5, rtol 2e-3
+          to one process, only rank 0 writes sam2_finetuned.npz); a
+          one-rank nccl group whose train step all-reduces its gradients on
+          the card (one all-reduce, gradients within FT_GRAD_BOUND of the
+          plain step's). (k4) segment-and-get-coords from two ranks of one
+          gloo group over 4 (f1)-style JPEG SVS and one output directory:
+          every slide's coordinates byte for byte one process's, each slide
+          processed by one rank, no lock left. One line per part with its
+          wall time and the card's name and power limit
 
 Then one JSON line with the kernel records: the two int8 kernels'
 (``launches``: the int8 phase's command-line run, and for int8_linear_s8
@@ -259,7 +291,10 @@ bodies), ``mma_ms`` (the mma.sync body, forced), ``int_mm_ms``
 ``cli_launches``: the cli phase's three in-process commands;
 ``weights_launches``: the weights phase's process, on existing coordinates;
 the encoder path holds no TPU kernel of its own; ``finetune_launches``: the
-finetune phase's validation and detect-tissue forwards), the card's name and power limit,
+finetune phase's validation and detect-tissue forwards; ``multi_launches``: the
+multi phase's data-parallel segmentation, data-parallel and two-rank
+fine-tuning and two-rank command line; the int8 records' ``multi_launches``:
+its data-parallel int8 extract_batch), the card's name and power limit,
 and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -2054,9 +2089,9 @@ def _int8_cli(state) -> dict:
     forward = TorchFeatureExtractor.forward_device
     forwards = [0]
 
-    def counted(self, images_u8):
+    def counted(self, images_u8, replica=0):
         forwards[0] += 1
-        return forward(self, images_u8)
+        return forward(self, images_u8, replica)
 
     try:
         slides, out = tmp / "slides", tmp / "out"
@@ -2899,7 +2934,7 @@ def _counting_train_steps(record: dict):
             return out
         return run
 
-    ft.make_train_step = lambda model, optimizer, lr: counted("train", real[0](model, optimizer, lr))
+    ft.make_train_step = lambda model, optimizer, lr, **kw: counted("train", real[0](model, optimizer, lr, **kw))
     ft.make_eval_step = lambda model: counted("eval", real[1](model))
 
     def restore():
@@ -3134,6 +3169,524 @@ def _drive_finetune(state, tmp, device="cuda", size=(1024, 768)):
                              phase_s=phase_s, loss_rel=loss_rel, grad_rel=sound_rel, control_rel=control_rel)
 
 
+# The multi phase: the multi-device paths on the one card, named twice.
+MULTI_CARD = ["cuda:0", "cuda:0"]
+MULTI_BF16_AGREE = 0.995  # bf16 DP masks vs one device per thumbnail (tests/test_train_and_parallel.py:270)
+MULTI_FT_PAIRS = 5  # 1024x768: 4 train (2 steps at batch 2), 1 held out at --val-fraction 0.2
+MULTI_CLI_SLIDES = 4
+MULTI_RANK_TIMEOUT = 300
+
+MULTI_FT_WORKER = r"""
+import json, sys
+import torch.distributed as dist
+from atlaspatch_tpu_torch.models.train import loop
+from atlaspatch_tpu_torch.ops import attention as A
+from atlaspatch_tpu_torch.parallel import multihost
+images, masks, out, init, result = sys.argv[1:6]
+if not multihost.maybe_init_distributed("cuda"):
+    raise SystemExit("no process group")
+backend, rank = dist.get_backend(), dist.get_rank()
+losses = []
+try:
+    summary = loop.finetune_sam2(images, masks, out, epochs=1, batch_size=2, val_fraction=0.2, checkpoint=init,
+                                 device="cuda", seed=0, on_step=lambda step, loss: losses.append(loss))
+finally:
+    multihost.shutdown_distributed()
+with open(result, "w") as f:
+    json.dump({"backend": backend, "rank": rank, "losses": losses, "val_loss": summary["val_loss"],
+               "val_iou": summary["val_iou"], "launches": A.flash_attention.launches,
+               "jax": any(m == "jax" or m.startswith(("jax.", "flax", "atlaspatch_tpu.")) for m in sys.modules)}, f)
+"""
+
+MULTI_CLI_WORKER = r"""
+import sys
+from atlaspatch_tpu_torch.cli import main
+from atlaspatch_tpu_torch.ops import attention as A
+main(sys.argv[1:], standalone_mode=False)
+print("LAUNCHES", A.flash_attention.launches)
+"""
+
+
+def _rank_env(rank: int, port: int) -> dict:
+    """torchrun's variables for one of two ranks on this machine; no
+    ATLASPATCH_NUM_HOSTS, so the slides shard over the group."""
+    env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port), PYTHONPATH=str(Path(__file__).resolve().parent))
+    for var in ("ATLASPATCH_NUM_HOSTS", "ATLASPATCH_HOST_ID"):
+        env.pop(var, None)
+    return env
+
+
+def _two_ranks(code: str, argv_of) -> list[tuple[int, str]]:
+    """Two ranks of ``python -c code`` (argv_of(rank)), started together and
+    each waited for with MULTI_RANK_TIMEOUT (killed past it): (rc, output)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", code, *map(str, argv_of(r))], env=_rank_env(r, port),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    done = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MULTI_RANK_TIMEOUT)
+            done.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (rc, out) in enumerate(done):
+        if rc != 0:
+            raise AssertionError(f"multi: rank {r} exited {rc}:\n{out[-3000:]}")
+    return done
+
+
+def _count_segment_forwards():
+    """Wrap the SAM2 packed steps so each replica's forward is counted;
+    returns (counter, restore)."""
+    from atlaspatch_tpu_torch.models.sam2 import model as sam2_model
+
+    steps = {name: getattr(sam2_model, name) for name in
+             ("segment_step_packed_to_shape", "segment_step_packed_from_thumbs", "segment_step_packed")}
+    forwards = Counter()
+
+    def counting(step):
+        def wrapped(model, batch, *a, **k):
+            forwards[batch.shape[0]] += 1
+            return step(model, batch, *a, **k)
+        return wrapped
+
+    for name, step in steps.items():
+        setattr(sam2_model, name, counting(step))
+
+    def restore():
+        for name, step in steps.items():
+            setattr(sam2_model, name, step)
+    return forwards, restore
+
+
+def _multi_kernel_checks(state):
+    """(k0) The kernels against their plain versions at the shapes the
+    data-parallel paths hand them that no earlier phase checks: the --fast
+    trunk at 4 rows a replica (attention, bfloat16) and vit_l_16 int8 at 16
+    patches a replica (M 3,152: the four linears at max-abs 0, the
+    quantizer's three prologues at the int8 phase's bars)."""
+    import torch
+
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+    from atlaspatch_tpu_torch.models.sam2.hiera import trunk_attention_shapes
+    from atlaspatch_tpu_torch.ops import attention as A
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    for n, h, tq, tk, d in trunk_attention_shapes(SAM2Config.tiny(), 768, 4):
+        q, k, v = (torch.randn(n, h, t, d, device="cuda", generator=gen).to(torch.bfloat16) for t in (tq, tk, tk))
+        got = A.flash_attention(q, k, v, d**-0.5)
+        want, limit = A.bf16_error_limit(q, k, v, d**-0.5)
+        err = (got.float() - want).abs().max().item()
+        ratio = ((got.float() - want).abs() / limit).max().item()
+        if not (err <= TOL["bfloat16"] and ratio <= 1.0):
+            raise AssertionError(f"multi: attention at {(n, h, tq, tk, d)} max abs {err}, err/limit {ratio}")
+        worst = max(worst, err)
+    m = 16 * 197
+    i8_worst, share_worst = 0, 0.0
+    for k_, prologue, operand in ((1024, "layernorm", None), (4096, "gelu_tanh", None), (1024, "identity", "heads")):
+        args = _prologue_operands(m, k_, prologue, operand, "bfloat16", gen)
+        if prologue == "layernorm":
+            fused, plain = I.layernorm_quantize_rows, I.layernorm_quantize_rows_plain
+        elif prologue == "identity":
+            fused, plain = I.quantize_heads, lambda x: I.quantize_rows_plain(x.reshape(x.shape[0] * x.shape[1], -1))
+        else:
+            fused, plain = I.act_quantize_rows, I.act_quantize_rows_plain
+        (xq, s_x), (want_xq, want_s) = fused(*args), plain(*args)
+        diff = (xq.int() - want_xq.int()).abs()
+        err, share = diff.max().item(), (diff > 0).float().mean().item()
+        rel = ((s_x - want_s).abs() / want_s).max().item()
+        ok = err == 0 and rel == 0 if prologue == "identity" else \
+            err <= 1 and share <= FUSED_FLIP_SHARE and rel <= 2.0**-8
+        if not ok:
+            raise AssertionError(f"multi: quantize_rows_s8 {prologue} M={m}: |dxq| {err}, share {share}, s_x {rel}")
+        share_worst = max(share_worst, share)
+    for k_, n_ in INT8_VITL_LINEARS.values():
+        xq, s_x = I.quantize_rows((torch.randn(m, k_, device="cuda", generator=gen) * 2).to(torch.bfloat16))
+        w = torch.randint(-127, 128, (n_, k_), device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+        qs = torch.rand(n_, device="cuda", generator=gen) / 127 + 1e-4
+        bias = torch.randn(n_, device="cuda", generator=gen)
+        err = (I.int8_linear(xq, s_x, w, qs, bias, torch.bfloat16).float()
+               - I.int8_linear_plain(xq, s_x, w, qs, bias, torch.bfloat16).float()).abs().max().item()
+        if err != 0:
+            raise AssertionError(f"multi: int8_linear_s8 at M={m} K={k_} N={n_} differs by {err}")
+    torch.cuda.synchronize()
+    log(f"multi (k0) kernels at the per-replica shapes: attention --fast at 4 rows, 12 calls, max abs {worst:.3g} "
+        f"(<= {TOL['bfloat16']}, within bf16_error_limit); int8 at M={m}: the 4 linears max-abs 0, quantizer "
+        f"prologues identity max-abs 0, layernorm/gelu_tanh flip share max {share_worst:.3e}; part "
+        f"{time.perf_counter() - t0:.1f} s wall [{state['card']}]")
+
+
+def _multi_seg(state, mesh) -> int:
+    """(k1) SAM2SegmentationService on the data-parallel mesh at full
+    Hiera-tiny width (random weights): the --fast preset on the seg phase's
+    16 thumbnails, float32 at 1024 on 2 thumbnails of one shape; masks
+    against one device's; 12 launches per replica forward, by variant."""
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.core.config import SegmentationConfig
+    from atlaspatch_tpu_torch.models.sam2.hiera import trunk_attention_shapes
+    from atlaspatch_tpu_torch.models.sam2.model import pil_nearest_index, thumbs_to_logits
+    from atlaspatch_tpu_torch.ops import attention as A
+    from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
+
+    settings = (("--fast bf16 768 batch 8", dict(precision="bfloat16", input_size=768, batch_size=8),
+                 _thumbnails([(256, 192), (224, 160)], per_shape=8), 4),
+                ("f32 1024 batch 2", dict(precision="float32", batch_size=2),
+                 _thumbnails([(256, 192)], per_shape=2, seed0=100), 1))
+    launches = 0
+    for label, kw, thumbs, per_replica in settings:
+        one = SAM2SegmentationService(SegmentationConfig(device="cuda", **kw))
+        if kw["precision"] == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        dp = SAM2SegmentationService(SegmentationConfig(device="cuda", **kw), mesh=mesh)
+        if torch.backends.cuda.matmul.allow_tf32 and kw["precision"] == "float32":
+            raise AssertionError("multi: the float32 data-parallel segmenter left TF32 on")
+        replicas = dp.predictor._replicas.replicas
+        dtype = getattr(torch, kw["precision"])
+        if len(replicas) != 2 or replicas[0] is replicas[1] or not all(
+                p.dtype == dtype and p.is_cuda for r in replicas for p in r.parameters()):
+            raise AssertionError(f"multi {label}: replicas {len(replicas)}, not all {dtype} on the card")
+        _run_service(one, thumbs)  # warm-up (cuDNN plans, allocator)
+        _run_service(dp, thumbs)
+        want, one_wall = _run_service(one, thumbs)
+        forwards, restore = _count_segment_forwards()
+        A.reset_launch_counts()
+        try:
+            got, wall = _run_service(dp, thumbs)
+        finally:
+            restore()
+        n_fwd, part_launches = sum(forwards.values()), A.flash_attention.launches
+        variants = dict(A.flash_attention.variant_launches)
+        cfg = one.predictor.model.cfg
+        expect = Counter()
+        for _, _, tq, tk, d in trunk_attention_shapes(cfg, one.predictor.input_size, per_replica):
+            expect[A.kernel_variant(dtype, tq, tk, d)] += n_fwd
+        if part_launches != 12 * n_fwd or variants != dict(expect) or set(forwards) != {per_replica}:
+            raise AssertionError(f"multi {label}: {part_launches} launches {variants} in replica "
+                                 f"forwards {dict(forwards)}, want 12 each, {dict(expect)}")
+        launches += part_launches
+        agree = []
+        for g, w, t in zip(got, want, thumbs):
+            if g.data.shape != w.data.shape:
+                raise AssertionError(f"multi {label}: mask shapes {g.data.shape} vs {w.data.shape}")
+            if kw["precision"] == "float32":
+                S = one.predictor.input_size
+                logits = thumbs_to_logits(one.predictor.model, torch.from_numpy(t)[None].cuda())[0].cpu().numpy()
+                small = logits[pil_nearest_index(t.shape[0], S)][:, pil_nearest_index(t.shape[1], S)]
+                if ((g.data != w.data) & (np.abs(small - one.cfg.mask_threshold) >= 1e-4)).any():
+                    raise AssertionError(f"multi {label}: mask bits differ away from the threshold")
+            agree.append(float((g.data == w.data).mean()))
+        if min(agree) < MULTI_BF16_AGREE:
+            raise AssertionError(f"multi {label}: masks agree {min(agree)} with one device")
+        log(f"multi (k1) segmentation data-parallel on {MULTI_CARD} {label}: {len(thumbs)} thumbnails in "
+            f"{wall:.3f} s wall ({len(thumbs) / wall:.2f}/s; one device {one_wall:.3f} s, "
+            f"{len(thumbs) / one_wall:.2f}/s, same run), {n_fwd} replica forwards of {per_replica} rows, "
+            f"{part_launches} attention launches (12 each) {variants}; masks vs one device: agreement "
+            f"min {min(agree):.6f}" + (" (float32: bits differ only within 1e-4 of the threshold)"
+                                        if kw["precision"] == "float32" else f" (>= {MULTI_BF16_AGREE})")
+            + f" [{state['card']}]")
+        one.close()
+        dp.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _multi_embed(state) -> tuple[int, int]:
+    """(k2) vit_l_16 on a (2, 1) data-parallel and a (1, 2) tensor-parallel
+    mesh over the card against one device: float32 at depth 2 (TF32 on
+    before the build), bfloat16 at full depth, int8 data-parallel at batch
+    32. Returns the int8 kernels' launches in the data-parallel run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import RowParallel, ViT
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
+
+    entry = ENTRIES["vit_l_16"]
+    meshes = {"dp (2, 1)": (embedding_mesh(1, MULTI_CARD), False), "tp (1, 2)": (embedding_mesh(2, MULTI_CARD), True)}
+    rng = np.random.default_rng(3)
+    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(32)]
+    t0 = time.perf_counter()
+    shallow = init_random_weights_(ViT(dataclasses.replace(entry.spec, depth=2)), seed=0)
+    one = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                model=copy.deepcopy(shallow), device="cuda").extract_batch(patches, batch_size=32)
+    f32 = {}
+    for label, (mesh, tp) in meshes.items():
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        ext = TorchFeatureExtractor(name="vit_l_16", embedding_dim=1024, spec=entry.preprocess,
+                                    model=copy.deepcopy(shallow), mesh=mesh, tensor_parallel=tp)
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError(f"multi {label}: the float32 extractor left TF32 on")
+        if tp != isinstance(ext.replicas[0].blocks[0].attn, RowParallel):
+            raise AssertionError(f"multi {label}: replicas {ext.replicas[0].blocks[0].attn}")
+        f32[label] = float(np.abs(ext.extract_batch(patches, batch_size=32) - one).max())
+        if not f32[label] <= 1e-4:
+            raise AssertionError(f"multi {label}: float32 at depth 2 differs from one device by {f32[label]}")
+        ext.cleanup()
+    del shallow
+    bf16, cos = {}, {}
+    for label, (mesh, tp) in [("one", (None, False)), *meshes.items()]:
+        ext = build_default_registry(device="cuda", dtype="bfloat16", mesh=mesh, tensor_parallel=tp).create("vit_l_16")
+        bf16[label] = ext.extract_batch(patches, batch_size=32)
+        ext.cleanup()
+        if label != "one":
+            cos[label] = float(_cos_rows(bf16["one"], bf16[label]).min())
+            if not cos[label] >= 0.999:
+                raise AssertionError(f"multi {label}: bfloat16 per-patch cosine {cos[label]} against one device")
+    i8 = {}
+    for label, mesh in (("one", None), ("dp (2, 1)", meshes["dp (2, 1)"][0])):
+        ext = build_default_registry(device="cuda", dtype="int8", mesh=mesh).create("vit_l_16")
+        ext.extract_batch(patches[:4], batch_size=32)  # warm-up
+        I.reset_launch_counts()
+        t1 = time.perf_counter()
+        i8[label] = ext.extract_batch(patches, batch_size=32)
+        torch.cuda.synchronize()
+        i8_wall = time.perf_counter() - t1
+        counts = _int8_launches()
+        if label != "one":
+            replica_fwd = len(ext.replicas)
+            if counts != (96 * replica_fwd, 96 * replica_fwd) or not _prologue_launches_are(replica_fwd) \
+                    or dict(I.int8_linear.variant_launches) != {"wgmma": 96 * replica_fwd}:
+                raise AssertionError(f"multi int8 dp: launches {counts} {dict(I.quantize_rows.prologue_launches)} "
+                                     f"{dict(I.int8_linear.variant_launches)} in {replica_fwd} replica forwards")
+            int8_launches = counts
+        ext.cleanup()
+    i8_cos = float(_cos_rows(i8["one"], i8["dp (2, 1)"]).min())
+    if not i8_cos >= 0.999:
+        raise AssertionError(f"multi int8 dp: per-patch cosine {i8_cos} against one device")
+    torch.cuda.empty_cache()
+    log(f"multi (k2) vit_l_16 on {MULTI_CARD}, 32 patches at batch 32: float32 depth 2 max-abs vs one device "
+        f"{ {k: f'{v:.3g}' for k, v in f32.items()} } (<= 1e-4, TF32 on before each build, off after); bfloat16 "
+        f"full depth per-patch cosine min {cos} (>= 0.999); int8 dp cosine min {i8_cos:.6f} (>= 0.999), "
+        f"{int8_launches} launches of quantize_rows_s8 / int8_linear_s8 in 2 replica forwards (96 each, "
+        f"{VITL_PROLOGUE_LAUNCHES} by prologue, all linears wgmma), int8 dp extract_batch {i8_wall:.3f} s; "
+        f"part {time.perf_counter() - t0:.1f} s wall [{state['card']}]")
+    return int8_launches
+
+
+def _multi_finetune(state, tmp) -> int:
+    """(k3) finetune-sam2 at the JAX defaults (Hiera-tiny, 1024, float32,
+    global batch 2) from one init archive: one process on the card, then
+    --data-parallel 2 over the card named twice, then two ranks sharing the
+    card on gloo; and a one-rank nccl group all-reducing a step's gradients
+    on the card. Returns the attention launches of the multi-device runs."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+    from atlaspatch_tpu_torch.models.sam2.convert import load_into, load_npz, torch_to_flax_flat
+    from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel, init_params
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+    from atlaspatch_tpu_torch.models.train import loop
+    from atlaspatch_tpu_torch.models.train.loop import collect_pairs, load_pair
+    from atlaspatch_tpu_torch.ops import attention as A
+    from atlaspatch_tpu_torch.parallel import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    images, masks = _write_ft_corpus(tmp / "corpus", MULTI_FT_PAIRS, 1024, 768)
+    cfg = SAM2Config.tiny()
+    init = tmp / "init.npz"
+    np.savez(init, **torch_to_flax_flat(init_params(cfg, seed=0), cfg))
+    common = dict(epochs=1, batch_size=2, val_fraction=0.2, checkpoint=init, device="cuda", seed=0)
+    one_losses = []
+    t1 = time.perf_counter()
+    one = loop.finetune_sam2(images, masks, tmp / "one", on_step=lambda s, loss: one_losses.append(loss), **common)
+    one_s = time.perf_counter() - t1
+
+    # --data-parallel 2 through the command line, the card named twice
+    dp_losses, dp_steps = [], []
+    real_loop, real_shard = loop.finetune_sam2, ft.shard_train_step
+
+    def recording(*a, on_step=None, **k):
+        def both(step, loss):
+            dp_losses.append(loss)
+            if on_step is not None:
+                on_step(step, loss)
+        return real_loop(*a, on_step=both, **k)
+
+    def shard(model, optimizer, lr, mesh, **k):
+        dp_steps.append(mesh.data_devices)
+        return real_shard(model, optimizer, lr, mesh, **k)
+
+    loop.finetune_sam2, ft.shard_train_step = recording, shard
+    real_devices = mesh_mod.local_devices
+    mesh_mod.local_devices = lambda kind="cuda": [torch.device(d) for d in MULTI_CARD]
+    try:
+        lines, dp_wall, dp_launches, _ = _cli_main(
+            ["finetune-sam2", images, "--masks", masks, "-o", tmp / "dp", "--epochs", "1", "--batch-size", "2",
+             "--val-fraction", "0.2", "--sam2-checkpoint", init, "--data-parallel", "2"])
+    finally:
+        loop.finetune_sam2, ft.shard_train_step = real_loop, real_shard
+        mesh_mod.local_devices = real_devices
+    if dp_steps != [[torch.device(d) for d in MULTI_CARD]] or dp_launches != 12:
+        raise AssertionError(f"multi --data-parallel 2: meshes {dp_steps}, {dp_launches} launches (12: one "
+                             "validation forward)")
+    np.testing.assert_allclose(dp_losses, one_losses, rtol=2e-3)
+
+    # two ranks on gloo sharing the card, through the loop
+    t2 = time.perf_counter()
+    ranks = _two_ranks(MULTI_FT_WORKER, lambda r: [images, masks, tmp / f"rank{r}", init, tmp / f"rank{r}.json"])
+    ranks_s = time.perf_counter() - t2
+    res = [_json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    if [r["backend"] for r in res] != ["gloo", "gloo"] or any(r["jax"] for r in res):
+        raise AssertionError(f"multi ranks: backends {[r['backend'] for r in res]}, jax {[r['jax'] for r in res]}")
+    np.testing.assert_allclose(res[0]["losses"], res[1]["losses"], rtol=1e-5)
+    np.testing.assert_allclose(res[0]["losses"], one_losses, rtol=2e-3)
+    np.testing.assert_allclose([res[0]["val_loss"], res[0]["val_iou"]], [one["val_loss"], one["val_iou"]],
+                               rtol=2e-3)
+    written = [sorted(p.name for p in (tmp / f"rank{r}").iterdir()) for r in range(2)]
+    if written != [["sam2_finetuned.npz"], []] or any(r["launches"] != 12 for r in res):
+        raise AssertionError(f"multi ranks: files {written}, launches {[r['launches'] for r in res]}")
+
+    # a one-rank nccl group: the step's gradients all-reduced on the card
+    pairs = collect_pairs(images, masks)
+    loaded = [load_pair(img, mask, cfg.image_size) for img, mask in pairs[:2]]
+    batch = np.stack([im for im, _ in loaded]), np.stack([mk for _, mk in loaded])
+    models = []
+    for _ in range(2):
+        model = SAM2ImageModel(cfg)
+        load_into(model, load_npz(init, cfg))
+        models.append(model.to("cuda"))
+    reduced = []
+    real_all_reduce = dist.all_reduce
+
+    def counted(tensor, *a, **k):
+        reduced.append((tensor.device.type, tensor.numel()))
+        return real_all_reduce(tensor, *a, **k)
+
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    dist.all_reduce = counted
+    try:
+        backend = dist.get_backend()
+        losses, params = [], []
+        for model, all_reduce in zip(models, (True, False)):
+            p = ft.trainable_parameters(model, "norms")
+            optimizer, lr = ft.make_optimizer(p.values())
+            losses.append(float(ft.make_train_step(model, optimizer, lr, all_reduce=all_reduce)(*batch)))
+            params.append(p)
+    finally:
+        dist.all_reduce = real_all_reduce
+        dist.destroy_process_group()
+    # the card's backward is not bitwise repeatable (atomic adds), so the
+    # gradients are held to the finetune phase's bound, each of its largest
+    grad_rel = max(float((params[0][k].grad - params[1][k].grad).abs().max())
+                   / max(float(params[1][k].grad.abs().max()), 1e-30) for k in params[0])
+    n_grad = sum(t.numel() for t in params[0].values()) + 1
+    if backend != "nccl" or reduced != [("cuda", n_grad)] or grad_rel > FT_GRAD_BOUND \
+            or abs(losses[0] - losses[1]) > 1e-6 * abs(losses[1]):
+        raise AssertionError(f"multi nccl: backend {backend}, all-reduces {reduced} (want one of {n_grad} on the "
+                             f"card), gradients differ by {grad_rel} of their largest, losses {losses}")
+    log(f"multi (k3) finetune-sam2 1024 float32 global batch 2 ({len(one_losses)} steps + validation): one "
+        f"process {one_s:.1f} s, losses {[round(x, 6) for x in one_losses]}; --data-parallel 2 on {MULTI_CARD} "
+        f"{dp_wall:.1f} s, losses {[round(x, 6) for x in dp_losses]} (rtol 2e-3), 12 launches in its validation "
+        f"forward; two gloo ranks sharing the card {ranks_s:.1f} s wall, losses {[round(x, 6) for x in res[0]['losses']]}"
+        f" (ranks agree to 1e-5, rtol 2e-3 to one process), val loss {res[0]['val_loss']:.6f} vs "
+        f"{one['val_loss']:.6f}, one sam2_finetuned.npz (rank 0), 12 launches each; one-rank nccl group: 1 "
+        f"all-reduce of {n_grad} values on the card, its gradients within {grad_rel:.3g} of the plain step's (of each "
+        f"tensor's largest; bound {FT_GRAD_BOUND}); part "
+        f"{time.perf_counter() - t0:.1f} s wall [{state['card']}]")
+    return dp_launches + sum(r["launches"] for r in res)
+
+
+def _multi_cli(state, tmp) -> int:
+    """(k4) segment-and-get-coords (float32, batch 1: the same forwards in
+    every process) from two ranks of one group (gloo,
+    sharing the card, no ATLASPATCH_NUM_HOSTS) over one output directory,
+    against one process: every slide's coordinates byte for byte."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from atlaspatch_tpu_torch.utils.h5 import read_h5
+
+    t0 = time.perf_counter()
+    slides = tmp / "slides"
+    slides.mkdir()
+    with ProcessPoolExecutor(max_workers=MULTI_CLI_SLIDES, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for job in [pool.submit(_write_svs, str(slides / f"tslide{s:03d}.svs"), TIFF_WH, 100 + s, 3)
+                    for s in range(MULTI_CLI_SLIDES)]:
+            job.result()
+    args = [*CLI_SEG_ARGS, "--verbose"]
+    lines, one_wall, _, _ = _cli_main(["segment-and-get-coords", slides, "-o", tmp / "one", *args])
+    if f"Completed {MULTI_CLI_SLIDES} slide(s), failures: 0" not in lines:
+        raise AssertionError(f"multi cli one process printed {lines}")
+    t1 = time.perf_counter()
+    done = _two_ranks(MULTI_CLI_WORKER, lambda r: ["segment-and-get-coords", slides, "-o", tmp / "ranks", *args])
+    ranks_wall = time.perf_counter() - t1
+    launches = 0
+    for r, (_, out) in enumerate(done):
+        if "backend gloo" not in out or f"Host {r}/2 takes {MULTI_CLI_SLIDES // 2} of {MULTI_CLI_SLIDES}" not in out:
+            raise AssertionError(f"multi cli rank {r}: no gloo group or no host shard in its log:\n{out[-2000:]}")
+        launches += int(out.rsplit("LAUNCHES", 1)[1].split()[0])
+    for s in range(MULTI_CLI_SLIDES):
+        stem = f"tslide{s:03d}"
+        a = read_h5(tmp / "one" / "patches" / f"{stem}.h5")[0]["coords"]
+        b = read_h5(tmp / "ranks" / "patches" / f"{stem}.h5")[0]["coords"]
+        if a.shape[0] == 0 or a.tobytes() != b.tobytes():
+            raise AssertionError(f"multi cli {stem}: coordinates differ between one process and the two ranks")
+        if sum(f"Processed {stem}.svs" in out for _, out in done) != 1:
+            raise AssertionError(f"multi cli {stem}: not processed by exactly one rank")
+    if list((tmp / "ranks" / "patches").glob("*.lock")):
+        raise AssertionError("multi cli: lock files left")
+    log(f"multi (k4) segment-and-get-coords over {MULTI_CLI_SLIDES} JPEG SVS of {TIFF_WH[0]}x{TIFF_WH[1]}: "
+        f"one process {one_wall:.1f} s; two gloo ranks sharing the card {ranks_wall:.1f} s wall (each process "
+        f"starts, loads and builds on its own), {launches} attention launches, every slide's coordinates byte "
+        f"for byte one process's, each slide processed once, no lock left; part {time.perf_counter() - t0:.1f} s "
+        f"[{state['card']}]")
+    return launches
+
+
+def phase_multi(state):
+    """The multi-device paths on the one card: (k0) kernels at the
+    per-replica shapes, (k1) data-parallel segmentation, (k2) data- and
+    tensor-parallel embedding, (k3) data-parallel and multi-process
+    fine-tuning and an nccl all-reduce, (k4) two command-line ranks."""
+    import tempfile
+
+    from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
+
+    t0 = time.perf_counter()
+    _multi_kernel_checks(state)
+    launches = _multi_seg(state, embedding_mesh(1, MULTI_CARD))
+    state["multi_int8_launches"] = _multi_embed(state)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
+    try:
+        (tmp / "ft").mkdir()
+        (tmp / "cli").mkdir()
+        launches += _multi_finetune(state, tmp / "ft")
+        launches += _multi_cli(state, tmp / "cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["multi_launches"] = launches
+    log(f"multi: {launches} attention launches in the multi-device runs; phase {time.perf_counter() - t0:.1f} s "
+        f"[{state['card']}]")
+
+
 def main() -> int:
     import torch
 
@@ -3149,7 +3702,7 @@ def main() -> int:
                             ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
                             ("int8", phase_int8), ("process", phase_process), ("cli", phase_cli),
-                            ("weights", phase_weights), ("finetune", phase_finetune)):
+                            ("weights", phase_weights), ("finetune", phase_finetune), ("multi", phase_multi)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -3163,14 +3716,17 @@ def main() -> int:
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
                   tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
                   cli_launches=state["cli_launches"], weights_launches=state["weights_launches"],
-                  finetune_launches=state["finetune_launches"])
+                  finetune_launches=state["finetune_launches"], multi_launches=state["multi_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
-            "process_launches", "cli_launches", "weights_launches", "finetune_launches", "max_abs_err", "ms",
+            "process_launches", "cli_launches", "weights_launches", "finetune_launches", "multi_launches",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
-                 "prologue_launches", "extract_launches", "max_abs_err", "flip_share", "ms", "mma_ms", "ms_b256",
-                 "plain_ms", "bound_ms", "bound_ms_b256", "bound_by", "library_ms", "unfused_ms", "unfused_ms_b256",
+                 "prologue_launches", "extract_launches", "multi_launches", "max_abs_err", "flip_share", "ms",
+                 "mma_ms", "ms_b256", "plain_ms", "bound_ms", "bound_ms_b256", "bound_by", "library_ms", "unfused_ms", "unfused_ms_b256",
                  "int_mm_ms", "bf16_linear_ms")
+    for rec, launches in zip(state["int8_records"], state["multi_int8_launches"]):
+        rec["multi_launches"] = launches  # the multi phase's data-parallel int8 extract_batch
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8]}))

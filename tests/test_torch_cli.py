@@ -19,8 +19,8 @@ miniature SAM2 and one shared weight archive, then runs it again
 The rest costs no model run: the ``--fast`` preset fills only values not
 typed (both packages' configs equal), ``--seg-input-size`` and ``tpu`` are
 refused at the option layer, the default device without CUDA stops with an
-error naming ``--device cpu``, multi-GPU flags run on one device and are
-refused with more, ``info`` prints the JAX package's lines with a ready
+error naming ``--device cpu``, multi-GPU flags run on one device and build
+a mesh of every card with more, ``info`` prints the JAX package's lines with a ready
 list that is a subset of the JAX package's, and ATLASPATCH_TORCH_TRACE
 writes a profiler trace.
 """
@@ -371,15 +371,49 @@ def test_default_device_without_cuda_stops_naming_device_cpu(tmp_path, monkeypat
 
 
 def test_multi_gpu_flags_are_refused_with_more_than_one_card(tmp_path, monkeypatch):
+    """Named when the multi-GPU flags were refused with more than one card:
+    now each builds a mesh of every visible card (segmentation data-parallel
+    over both; embedding data-parallel (2, 1) or tensor-parallel (1, 2)),
+    recorded where the services take it, before any slide. The one refusal
+    left is tensor-parallel int8, by name, before any slide."""
+    from atlaspatch_tpu_torch.models import encoders
+    from atlaspatch_tpu_torch.services import segmentation
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def seg_service(self, cfg, sam2_cfg=None, *, mesh=None, **_kw):
+        seen["seg"] = mesh
+        raise Built
+
+    def registry(**kw):
+        seen["features"] = (kw["mesh"], kw["tensor_parallel"])
+        raise Built
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(segmentation.SAM2SegmentationService, "__init__", seg_service)
+    monkeypatch.setattr(encoders, "build_default_registry", registry)
     base = [tmp_path, "--output", tmp_path / "o", "--patch-size", "64", "--target-mag", "20"]
-    for args in (["segment-and-get-coords", *base, "--seg-data-parallel"],
-                 ["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "data"],
-                 ["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "tensor"]):
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    for args, key, want in (
+            (["segment-and-get-coords", *base, "--seg-data-parallel"], "seg", ([[cards[0]], [cards[1]]], None)),
+            (["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "data"], "features",
+             ([[cards[0]], [cards[1]]], False)),
+            (["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "tensor"], "features", ([cards], True))):
+        seen.clear()
         result = invoke_cli(CLI_PACKAGES[1], args)
-        assert result.exit_code == 2, result.output
-        assert "2 CUDA devices" in result.output and "not ported" in result.output
+        assert isinstance(result.exception, Built), result.output
+        mesh = seen[key][0] if key == "features" else seen[key]
+        assert mesh.grid == want[0], mesh
+        if key == "features":
+            assert seen[key][1] is want[1]
+    result = invoke_cli(CLI_PACKAGES[1], ["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "tensor",
+                                          "--feature-precision", "int8"])
+    assert result.exit_code == 2, result.output
+    assert "tensor-parallel int8 is not ported" in result.output
     assert not (tmp_path / "o" / "patches").exists()
 
 

@@ -47,6 +47,8 @@ from atlaspatch_tpu_torch.models.sam2.convert import flax_key_map, from_flax_lay
 from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel
 from atlaspatch_tpu_torch.models.train import checkpoints, finetune, loop
 from atlaspatch_tpu_torch.ops import attention as A
+from atlaspatch_tpu_torch.parallel import mesh
+from atlaspatch_tpu_torch.parallel.mesh import LocalMesh
 from atlaspatch_tpu_torch.tools import synthetic_corpus
 from torch_port_helpers import CFG, JAX_CFG, free_tmp_path, port_model, shared_flax_params  # noqa: F401
 
@@ -315,8 +317,9 @@ def test_optimizer_is_optax_adamw():
     assert (group["betas"], group["eps"], group["weight_decay"], group["amsgrad"]) == ((0.9, 0.999), 1e-8, 0.01, False)
     with pytest.raises(ValueError, match="unknown LR schedule"):
         finetune.make_optimizer([param], schedule="linear")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        finetune.shard_train_step()
+    # the data-parallel step (tests/test_torch_parallel.py) starts from the model on the mesh's first device
+    with pytest.raises(ValueError, match="the mesh's first device is meta"):
+        finetune.shard_train_step(port_model(shared_flax_params()), optimizer, None, LocalMesh([["meta"]]))
 
 
 def test_attention_gradient_equals_jax_reference():
@@ -488,17 +491,19 @@ def test_batches_and_flips_equal_jax(tmp_path, init, tiny_models, monkeypatch, a
 
 
 def test_multi_device_refusals(tmp_path, init, tiny_models, monkeypatch):
+    """The JAX loop's errors: --data-parallel needs that many devices, and a
+    batch it divides. ATLASPATCH_NUM_HOSTS alone no longer refuses: as in the
+    JAX loop, it does not make training multi-process."""
     images, masks = _corpus(tmp_path, 2)
     common = dict(checkpoint=_npz(tmp_path, init), device="cpu")
     with pytest.raises(RuntimeError, match=r"--data-parallel 2 needs that many devices; 1 visible"):
         loop.finetune_sam2(images, masks, tmp_path / "o", data_parallel=2, **common)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(RuntimeError, match="not ported .*item 5"):
-        loop.finetune_sam2(images, masks, tmp_path / "o", data_parallel=2, **dict(common, device="cuda"))
-    monkeypatch.setenv("ATLASPATCH_NUM_HOSTS", "2")
-    with pytest.raises(RuntimeError, match="multi-host fine-tuning .*not ported"):
-        loop.finetune_sam2(images, masks, tmp_path / "o", **common)
+    monkeypatch.setattr(mesh, "local_devices", lambda kind="cuda": [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="batch size must divide evenly over data_parallel"):
+        loop.finetune_sam2(images, masks, tmp_path / "o", data_parallel=2, batch_size=3, **common)
     assert not (tmp_path / "o").exists()
+    monkeypatch.setenv("ATLASPATCH_NUM_HOSTS", "2")
+    assert loop.finetune_sam2(images, masks, tmp_path / "o", **common)["steps"] == 1
 
 
 def test_a_save_error_propagates_chained(tmp_path, init, tiny_models, monkeypatch):

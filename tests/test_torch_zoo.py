@@ -24,6 +24,7 @@ from atlaspatch_tpu.models.encoders import zoo as jax_zoo
 from atlaspatch_tpu.tools.convert_weights import _flatten
 from atlaspatch_tpu_torch.models.encoders import zoo
 from atlaspatch_tpu_torch.models.encoders.vit import ViT
+from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
 from tests.upstream_layouts import torchvision_vit_sd
 from upstream_values import upstream_checkpoint
 from torch_port_helpers import free_tmp_path, shared_vit_params  # noqa: F401 (free_tmp_path: autouse)
@@ -175,10 +176,13 @@ def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
     # int8 builds now (tests/test_torch_int8.py): the W8A8 ViT
     int8 = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8")
     assert int8.compute_dtype == "int8" and int8.model.spec.quant_int8
-    with pytest.raises(NotImplementedError, match="item 5"):
-        zoo.build_extractor(tiny, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        zoo.build_extractor(tiny, device="cpu", tensor_parallel=True)
+    # named when meshes were refused: data-parallel int8 builds one replica per data device
+    # (tests/test_torch_parallel.py); tensor-parallel int8 is refused by name
+    dp = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=embedding_mesh(1, ["cpu", "cpu"]))
+    assert len(dp.replicas) == 2 and all(r.spec.quant_int8 for r in dp.replicas)
+    for mesh in (None, embedding_mesh(2, ["cpu", "cpu"])):
+        with pytest.raises(NotImplementedError, match="tensor-parallel int8 is not ported"):
+            zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=mesh, tensor_parallel=True)
 
 
 def test_safetensors_without_the_module_raises(tmp_path, monkeypatch):
