@@ -37,7 +37,6 @@ features come back through its own pinned fetch, in patch order.
 
 from __future__ import annotations
 
-import copy
 import logging
 import math
 import os
@@ -226,8 +225,9 @@ class TorchFeatureExtractor(FeatureExtractor):
 
             self.replicas = shard_vit(model, mesh)
         else:
-            self.replicas = [model if i == 0 else copy.deepcopy(model).to(d)
-                             for i, d in enumerate(mesh.data_devices)]
+            from atlaspatch_tpu_torch.parallel.mesh import replicate
+
+            self.replicas = replicate(mesh, model)
         self.model = self.replicas[0]
         self._batch_align = mesh.shape["data"] if mesh is not None else 1
         self._norm = [(torch.tensor(spec.mean, dtype=torch.float32, device=d),
@@ -251,7 +251,7 @@ class TorchFeatureExtractor(FeatureExtractor):
         """Upload one padded batch and enqueue its forward, each data row's
         contiguous rows on its replica; returns the device tensors in row
         order (not fetched)."""
-        from atlaspatch_tpu_torch.parallel.mesh import split_rows
+        from atlaspatch_tpu_torch.parallel.mesh import shard_batch
 
         devices = self._row_devices()
         outs = []
@@ -259,9 +259,10 @@ class TorchFeatureExtractor(FeatureExtractor):
             host = torch.from_numpy(images_u8)
             if self.device.type == "cuda":
                 host = host.pin_memory()
-            for i, rows in enumerate(split_rows(host.shape[0], len(devices))):
+            parts = shard_batch(self.mesh, host) if self.mesh is not None else [host.to(self.device, non_blocking=True)]
+            for i, rows in enumerate(parts):
                 try:
-                    outs.append(self.forward_device(host[rows].to(devices[i], non_blocking=True), i))
+                    outs.append(self.forward_device(rows, i))
                 except Exception as e:
                     if self.mesh is None:
                         raise

@@ -12,7 +12,6 @@ one (reference behavior: atlas_patch/services/segmentation.py:104-140).
 from __future__ import annotations
 
 import contextlib
-import copy
 import functools
 
 import numpy as np
@@ -221,28 +220,27 @@ class SegmentReplicas:
     call, naming its device."""
 
     def __init__(self, model: SAM2ImageModel, mesh):
+        from atlaspatch_tpu_torch.parallel.mesh import replicate
+
+        self.mesh = mesh
         self.devices = mesh.data_devices
-        first = next(model.parameters()).device
-        self.replicas = [
-            model if i == 0 and first == d else copy.deepcopy(model).to(d) for i, d in enumerate(self.devices)
-        ]
+        self.replicas = replicate(mesh, model)
 
     def _run_replica(self, step, i: int, rows: torch.Tensor, threshold: float, idx: tuple) -> torch.Tensor:
         device = self.devices[i]
         try:
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-                return step(self.replicas[i], rows.to(device, non_blocking=True), threshold,
-                            *(t.to(device) for t in idx))
+                return step(self.replicas[i], rows, threshold, *(t.to(device) for t in idx))
         except Exception as e:
             raise RuntimeError(f"segmentation replica {i} on {device} failed: {e}") from e
 
     def run(self, step, batch: torch.Tensor, threshold: float, *idx: torch.Tensor) -> torch.Tensor:
         """``step`` (one of the packed single-device steps) over the batch,
         split contiguously over the replicas."""
-        from atlaspatch_tpu_torch.parallel.mesh import gather_rows, split_rows
+        from atlaspatch_tpu_torch.parallel.mesh import gather_rows, shard_batch
 
-        rows = split_rows(batch.shape[0], len(self.devices))
-        outs = [self._run_replica(step, i, batch[r], threshold, idx) for i, r in enumerate(rows)]
+        parts = shard_batch(self.mesh, batch)
+        outs = [self._run_replica(step, i, rows, threshold, idx) for i, rows in enumerate(parts)]
         return gather_rows(outs, self.devices[0])
 
 

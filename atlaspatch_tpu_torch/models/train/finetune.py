@@ -25,7 +25,6 @@ gradients and loss are averaged over the ranks before the update.
 
 from __future__ import annotations
 
-import copy
 import math
 from typing import Callable, Iterable
 
@@ -289,33 +288,43 @@ def shard_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr
     """The train step data-parallel over ``mesh``'s data devices (the JAX
     ``shard_train_step``): ``model``, on the first, is the first replica,
     and a copy lies on each other device (a device named twice gets two).
-    Each replica runs forward and backward on its contiguous rows of the
-    batch, its loss weighted by its share of the rows so the sum is the
-    global batch mean; the gradients are summed onto the first device in
-    device order; ``optimizer`` (over ``model``'s tensors) makes one update
-    there, and the trainable tensors are copied back to the other replicas.
-    Returns the global batch mean loss before the update."""
-    from atlaspatch_tpu_torch.parallel.mesh import split_rows
+    The copies are made at the first call, from ``model`` as it is then (a
+    restored checkpoint included), and each call first copies ``model``'s
+    trainable tensors into them, so every replica runs the weights the
+    update will be applied to. Each replica runs forward and backward on
+    its contiguous rows of the batch, its loss weighted by its share of the
+    rows so the sum is the global batch mean; the gradients are summed
+    onto the first device in device order, and ``optimizer`` (over
+    ``model``'s tensors) makes one update there. Returns the global batch
+    mean loss before the update."""
+    from atlaspatch_tpu_torch.parallel.mesh import replicate, shard_batch
 
     _full_float32(model)
     devices = mesh.data_devices
     if next(model.parameters()).device != devices[0]:
         raise ValueError(f"the model lies on {next(model.parameters()).device}, the mesh's first device is {devices[0]}")
-    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
-    tensors = [trainable_parameters(r, trainable) for r in replicas]
+    replicas: list[SAM2ImageModel] = []
+    tensors: list[dict[str, torch.Tensor]] = []
 
     def train_step(images_u8, targets):
-        images, targets = torch.as_tensor(images_u8), torch.as_tensor(targets)
-        rows = split_rows(images.shape[0], len(replicas))
+        if not replicas:
+            replicas.extend(replicate(mesh, model))
+            tensors.extend(trainable_parameters(r, trainable) for r in replicas)
+        with torch.no_grad():
+            for t in tensors[1:]:
+                for key, p in tensors[0].items():
+                    t[key].copy_(p)
+        parts = zip(shard_batch(mesh, images_u8), shard_batch(mesh, targets))
+        n = len(images_u8)
         optimizer.zero_grad(set_to_none=True)
         losses = []
-        for i, (replica, r) in enumerate(zip(replicas, rows)):
+        for i, (replica, (imgs, tgts)) in enumerate(zip(replicas, parts)):
             for t in tensors[i].values():
                 t.grad = None
             try:
-                imgs, tgts = _on_device(replica, images[r], targets[r])
+                imgs, tgts = _on_device(replica, imgs, tgts)
                 with torch.enable_grad():
-                    loss = seg_loss_fn(replica, imgs, tgts) * ((r.stop - r.start) / images.shape[0])
+                    loss = seg_loss_fn(replica, imgs, tgts) * (imgs.shape[0] / n)
                     loss.backward()
             except Exception as e:
                 raise RuntimeError(f"train replica {i} on {devices[i]} failed: {e}") from e
@@ -329,10 +338,6 @@ def shard_train_step(model: SAM2ImageModel, optimizer: torch.optim.Optimizer, lr
                         total = total + g.to(devices[0])
                     p.grad = total
         apply_update(optimizer, lr)
-        with torch.no_grad():
-            for t in tensors[1:]:
-                for key, p in tensors[0].items():
-                    t[key].copy_(p)
         total_loss = losses[0]
         for part in losses[1:]:
             total_loss = total_loss + part

@@ -86,25 +86,24 @@ def split_rows(n: int, parts: int) -> list[slice]:
 
 
 def shard_batch(mesh: LocalMesh, batch: Any) -> list[torch.Tensor]:
-    """A host (numpy) or device batch split contiguously over the mesh's
-    data axis: one tensor per device in device order, each holding its data
-    row's rows (replicated over the row's model devices), as the addressable
-    shards of ``P("data")`` lie."""
+    """A host (numpy, or pinned torch) or device batch split contiguously
+    over the mesh's data axis: one tensor per data row, on the row's first
+    device, where its replica (or its tensor-parallel group) takes its
+    input; these are ``P("data")``'s addressable shards, which repeat the
+    row's rows on each of its 'model' devices. Copies from pinned memory
+    are asynchronous."""
     t = torch.as_tensor(batch)
     rows = split_rows(t.shape[0], mesh.shape["data"])
-    return [t[rows[i]].to(d) for i, row in enumerate(mesh.grid) for d in row]
+    return [t[r].to(d, non_blocking=True) for r, d in zip(rows, mesh.data_devices)]
 
 
-def replicate(mesh: LocalMesh, obj: nn.Module | dict) -> list:
-    """One copy of a module or a state_dict on each device of the mesh, in
-    device order. A device named twice gets two copies."""
-    out = []
-    for d in mesh.devices:
-        if isinstance(obj, nn.Module):
-            out.append(copy.deepcopy(obj).to(d))
-        else:
-            out.append({k: v.to(d, copy=True) for k, v in obj.items()})
-    return out
+def replicate(mesh: LocalMesh, model: nn.Module) -> list[nn.Module]:
+    """One replica of ``model`` per data row, on the row's first device, in
+    row order: ``model`` itself is the first when it lies on the first data
+    device already, the rest are copies (a device named twice gets two)."""
+    first = next(model.parameters()).device
+    return [model if i == 0 and first == d else copy.deepcopy(model).to(d)
+            for i, d in enumerate(mesh.data_devices)]
 
 
 def gather_rows(parts: Sequence[torch.Tensor], device: torch.device | str) -> torch.Tensor:

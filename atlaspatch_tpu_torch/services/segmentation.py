@@ -90,11 +90,8 @@ class SAM2Predictor:
         sam2_cfg: SAM2Config | None = None,
         *,
         mesh=None,
-        data_axis: str = "data",
     ):
         self.cfg = cfg
-        if mesh is not None and data_axis != "data":
-            raise ValueError(f"a LocalMesh's batch axis is 'data', got data_axis={data_axis!r}")
         self._mesh = mesh
         self._n_data = mesh.shape["data"] if mesh is not None else 1
         # device-resident PIL-NEAREST index tables keyed (n_out, n_in): the
@@ -383,13 +380,12 @@ class SAM2SegmentationService(SegmentationService):
         *,
         device: str | None = None,
         mesh=None,
-        data_axis: str = "data",
     ) -> None:
         cfg = cfg if cfg is not None else SegmentationConfig()
         if device is not None:
             cfg = dataclasses.replace(cfg, device=device)
         self.cfg = cfg.validated()
-        self.predictor = SAM2Predictor(self.cfg, sam2_cfg, mesh=mesh, data_axis=data_axis)
+        self.predictor = SAM2Predictor(self.cfg, sam2_cfg, mesh=mesh)
         self._thumb_pool_obj: ThreadPoolExecutor | None = None
 
     def _thumb_quant(self) -> int:

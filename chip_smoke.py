@@ -273,7 +273,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           to one process, only rank 0 writes sam2_finetuned.npz); a
           one-rank nccl group whose train step all-reduces its gradients on
           the card (one all-reduce, gradients within FT_GRAD_BOUND of the
-          plain step's). (k4) segment-and-get-coords from two ranks of one
+          plain step's); one shard_train_step over the card named twice,
+          its summed gradients within FT_GRAD_BOUND of the plain step's. (k4) segment-and-get-coords from two ranks of one
           gloo group over 4 (f1)-style JPEG SVS and one output directory:
           every slide's coordinates byte for byte one process's, each slide
           processed by one rank, no lock left. One line per part with its
@@ -3487,7 +3488,9 @@ def _multi_finetune(state, tmp) -> int:
     global batch 2) from one init archive: one process on the card, then
     --data-parallel 2 over the card named twice, then two ranks sharing the
     card on gloo; and a one-rank nccl group all-reducing a step's gradients
-    on the card. Returns the attention launches of the multi-device runs."""
+    on the card, and one shard_train_step over the card named twice, each
+    step's gradients held against the plain step's. Returns the attention
+    launches of the multi-device runs."""
     import json as _json
 
     import numpy as np
@@ -3564,7 +3567,7 @@ def _multi_finetune(state, tmp) -> int:
     loaded = [load_pair(img, mask, cfg.image_size) for img, mask in pairs[:2]]
     batch = np.stack([im for im, _ in loaded]), np.stack([mk for _, mk in loaded])
     models = []
-    for _ in range(2):
+    for _ in range(3):
         model = SAM2ImageModel(cfg)
         load_into(model, load_npz(init, cfg))
         models.append(model.to("cuda"))
@@ -3593,15 +3596,29 @@ def _multi_finetune(state, tmp) -> int:
     finally:
         dist.all_reduce = real_all_reduce
         dist.destroy_process_group()
+    # and one shard_train_step over the card named twice: one row per
+    # replica, its summed gradients held where the update leaves them
+    p = ft.trainable_parameters(models[2], "norms")
+    optimizer, lr = ft.make_optimizer(p.values())
+    dp_mesh = mesh_mod.LocalMesh([[torch.device(d)] for d in MULTI_CARD])
+    losses.append(float(ft.shard_train_step(models[2], optimizer, lr, dp_mesh)(*batch)))
+    params.append(p)
+
     # the card's backward is not bitwise repeatable (atomic adds), so the
     # gradients are held to the finetune phase's bound, each of its largest
-    grad_rel = max(float((params[0][k].grad - params[1][k].grad).abs().max())
-                   / max(float(params[1][k].grad.abs().max()), 1e-30) for k in params[0])
+    def grad_gap(got):
+        return max(float((got[k].grad - params[1][k].grad).abs().max())
+                   / max(float(params[1][k].grad.abs().max()), 1e-30) for k in got)
+
+    grad_rel, shard_rel = grad_gap(params[0]), grad_gap(params[2])
     n_grad = sum(t.numel() for t in params[0].values()) + 1
     if backend != "nccl" or reduced != [("cuda", n_grad)] or grad_rel > FT_GRAD_BOUND \
             or abs(losses[0] - losses[1]) > 1e-6 * abs(losses[1]):
         raise AssertionError(f"multi nccl: backend {backend}, all-reduces {reduced} (want one of {n_grad} on the "
                              f"card), gradients differ by {grad_rel} of their largest, losses {losses}")
+    if shard_rel > FT_GRAD_BOUND or abs(losses[2] - losses[1]) > 1e-4 * abs(losses[1]):
+        raise AssertionError(f"multi shard_train_step on {MULTI_CARD}: summed gradients differ from the plain "
+                             f"step's by {shard_rel} of their largest (bound {FT_GRAD_BOUND}), losses {losses}")
     log(f"multi (k3) finetune-sam2 1024 float32 global batch 2 ({len(one_losses)} steps + validation): one "
         f"process {one_s:.1f} s, losses {[round(x, 6) for x in one_losses]}; --data-parallel 2 on {MULTI_CARD} "
         f"{dp_wall:.1f} s, losses {[round(x, 6) for x in dp_losses]} (rtol 2e-3), 12 launches in its validation "
@@ -3609,7 +3626,8 @@ def _multi_finetune(state, tmp) -> int:
         f" (ranks agree to 1e-5, rtol 2e-3 to one process), val loss {res[0]['val_loss']:.6f} vs "
         f"{one['val_loss']:.6f}, one sam2_finetuned.npz (rank 0), 12 launches each; one-rank nccl group: 1 "
         f"all-reduce of {n_grad} values on the card, its gradients within {grad_rel:.3g} of the plain step's (of each "
-        f"tensor's largest; bound {FT_GRAD_BOUND}); part "
+        f"tensor's largest; bound {FT_GRAD_BOUND}); shard_train_step on {MULTI_CARD}: summed gradients within "
+        f"{shard_rel:.3g} of the plain step's, loss {losses[2]:.6f} vs {losses[1]:.6f}; part "
         f"{time.perf_counter() - t0:.1f} s wall [{state['card']}]")
     return dp_launches + sum(r["launches"] for r in res)
 
