@@ -198,7 +198,7 @@ _FEATURE_OPTIONS: list = [
                  default="none", show_default=True,
                  help="Shard feature embedding across all local GPUs: 'data' "
                       "splits batches, 'tensor' also shards ViT attention heads "
-                      "and MLP hidden units (not with --feature-precision int8)."),
+                      "and MLP hidden units (for ViT-g+ towers; int8 too)."),
 ]
 
 
@@ -585,12 +585,6 @@ def process(**kw):
 
     dtype = resolve_feature_dtype(feat_device, precision)
     feat_parallel = kw.pop("feature_parallel", "none").lower()
-    if feat_parallel == "tensor" and precision == "int8":
-        raise click.UsageError(
-            "--feature-parallel tensor with --feature-precision int8: tensor-parallel int8 is not "
-            "ported (its row-parallel linears need a row scale reduced across the shards, which the "
-            "fused int8 quantizer cannot take yet); use --feature-parallel data, or another precision."
-        )
     feat_mesh = None
     if feat_parallel != "none":
         feat_mesh = _local_mesh("--feature-parallel", feat_device, tensor_parallel=feat_parallel == "tensor")

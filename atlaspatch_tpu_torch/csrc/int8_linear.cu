@@ -49,6 +49,14 @@
 //     value is the row's largest.
 // identity equals the plain version bit for bit; layernorm and the
 // activations meet it where the arithmetic above equals ATen's.
+// Three modes (tensor-parallel int8, where a row-parallel linear's shards
+// each hold a slice of the row, and the JAX program takes the row's abs-max
+// across them): one-pass (the above), amax-only (the prologue and the
+// reduction, writing the row's abs-max and no xq) and given-amax (the
+// prologue, then s from an abs-max read per row instead of reduced). The max
+// is exact in any order, so a row split over shards, its slices' amaxes
+// maxed and handed back, quantizes each slice to the bytes and the scale of
+// the whole row's one pass.
 //
 // int8_linear_s8: Y (M, N) = dequant(Xq (M, K) . Wq (N, K)^T). Bound on an
 // H100 SXM: operations at ViT widths (2 M N K over 1,979 TOPS int8 against
@@ -72,12 +80,24 @@
 // library is built with -fmad=false besides): a fused multiply-add rounds
 // once and would not equal the plain version. The int32 sum is exact, so the
 // result equals the plain version bit for bit. int8_linear_wgmma.cu's body
-// (wgmma s8 fed by TMA) is faster; this one takes what it does not.
+// (wgmma s8 fed by TMA) is faster; this one takes what it does not, and writes
+// the int32 accumulator itself (no dequantization) for tensor-parallel int8's
+// row-parallel partials.
+//
+// dequant_sum_s32: Y (M, N) = dequant(P_0 + ... + P_{n-1}), n int32 partials
+// (M, N) of one K split over shards: the int32 sum, then int8_linear_s8's
+// epilogue arithmetic unchanged, so the result equals int8_linear_s8 on the
+// whole K bit for bit (the int32 sum is exact; the row's scale is the whole
+// row's, given-amax). Elementwise; bound by bytes on an H100 SXM (4 n in and
+// 2 or 4 out per element over 3.35 TB/s): 4 consecutive columns a thread,
+// 16-byte loads of each partial where the rows allow.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +105,8 @@ namespace {
 
 // The prologue codes of atlas_quantize_rows_s8, in ops/int8.py::PROLOGUES's order.
 enum Prologue : int { kIdentity, kLayerNorm, kGelu, kGeluTanh, kQuickGelu, kSilu, kRelu };
+// The quantizer's modes, in ops/int8.py::QUANT_MODES's order.
+enum Mode : int { kOnePass, kAmaxOnly, kGivenAmax };
 
 constexpr int kQuantThreads = 256;   // a CTA: 256 / group rows of `group` threads
 constexpr int kQuantMaxCols = 8192;  // 256 threads x 32 values
@@ -294,13 +316,15 @@ __device__ __forceinline__ uint32_t quantize_one(float x, float s, float r) {
 }
 
 // One row per group of `group` threads; thread t holds units t + j group (E elements each, j < U)
-// in registers. Groups past the last row read it and write nothing.
+// in registers. Groups past the last row read it and write nothing. `mode` (Mode) is the same for
+// every thread: amax-only writes amax[row] and returns before the quantizer, given-amax reads it.
 template <typename T, int E, int U, int P>
 __global__ void __launch_bounds__(kQuantThreads, sizeof(T) == 2 && E == 16 && U == 2 ? kQuantCtas[P] : 1)
 quantize_rows_s8_kernel(const Rows a, const T* __restrict__ b, const long long ldb, const T* __restrict__ gamma,
                         const T* __restrict__ beta, const float eps, int8_t* __restrict__ xq,
                         float* __restrict__ scale, float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                        const int rows, const int cols, const int group) {
+                        const int mode, float* __restrict__ amax_io, const int rows, const int cols,
+                        const int group) {
   __shared__ float red[kQuantThreads / 32];
   const int t = threadIdx.x & (group - 1);
   const int row = blockIdx.x * (kQuantThreads / group) + threadIdx.x / group;
@@ -378,11 +402,19 @@ quantize_rows_s8_kernel(const Rows a, const T* __restrict__ b, const long long l
   }
 
   float amax = 0.0f;
+  if (mode == kGivenAmax) {
+    amax = amax_io[m];
+  } else {
 #pragma unroll
-  for (int j = 0; j < U; ++j)
+    for (int j = 0; j < U; ++j)
 #pragma unroll
-    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
-  amax = group_reduce<true>(amax, group, red);
+      for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
+    amax = group_reduce<true>(amax, group, red);
+    if (mode == kAmaxOnly) {
+      if (t == 0 && row < rows) amax_io[row] = amax;
+      return;
+    }
+  }
   const float s = div_rn(fmaxf(amax, 1e-8f), 127.0f);
   const float r0 = __fdividef(1.0f, s);
   const float r = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
@@ -419,6 +451,8 @@ struct QuantCall {
   const void *gamma, *beta;
   float eps;
   void *xq, *scale, *mean, *rstd;
+  int mode;
+  void* amax;
   int rows, cols;
 };
 
@@ -428,7 +462,7 @@ cudaError_t launch_quantize(const QuantCall& c, int group, cudaStream_t stream) 
   quantize_rows_s8_kernel<T, E, U, P><<<(c.rows + per_cta - 1) / per_cta, kQuantThreads, 0, stream>>>(
       c.a, static_cast<const T*>(c.b), c.ldb, static_cast<const T*>(c.gamma), static_cast<const T*>(c.beta), c.eps,
       static_cast<int8_t*>(c.xq), static_cast<float*>(c.scale), static_cast<float*>(c.mean),
-      static_cast<float*>(c.rstd), c.rows, c.cols, group);
+      static_cast<float*>(c.rstd), c.mode, static_cast<float*>(c.amax), c.rows, c.cols, group);
   return cudaGetLastError();
 }
 
@@ -444,7 +478,7 @@ cudaError_t dispatch_quantize(const QuantCall& c, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool aligned = on16(c.a.p) && c.a.sb % kVec == 0 && c.a.st % kVec == 0 &&
                        (c.b == nullptr || (on16(c.b) && c.ldb % kVec == 0)) &&
-                       (c.gamma == nullptr || (on16(c.gamma) && on16(c.beta))) && on16(c.xq);
+                       (c.gamma == nullptr || (on16(c.gamma) && on16(c.beta))) && (c.xq == nullptr || on16(c.xq));
   const bool heads16 = c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % 16 == 0);
   if (aligned && heads16 && c.cols % 16 == 0) {
     const int units = c.cols / 16;
@@ -555,6 +589,18 @@ __device__ __forceinline__ void store_two(__nv_bfloat16* p, float y0, float y1) 
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
 }
 
+// int8_linear_s8's dequantization of one element, in the plain version's order: float(acc) * (s_x[m] *
+// qscale[n]), then + bias[n] read in its stored dtype; the caller's store casts. dequant_sum_s32 runs it too.
+__device__ __forceinline__ float dequant(int acc, float sx, float qs, const void* bias, int bias_is_bf16, int col) {
+  float y = __fmul_rn(__int2float_rn(acc), __fmul_rn(sx, qs));
+  if (bias != nullptr) {
+    const float bv = bias_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[col])
+                                  : static_cast<const float*>(bias)[col];
+    y = __fadd_rn(y, bv);
+  }
+  return y;
+}
+
 template <typename OutT, int WIDTH>
 __global__ void __launch_bounds__(kThreads)
 int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
@@ -626,7 +672,7 @@ int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
   cp_async_wait<0>();
 
   // Epilogue: accumulator (i, j, r) holds row wm + 16 i + g (+ 8 for r >= 2),
-  // column wn + 8 j + 2 t (+ 1 for odd r).
+  // column wn + 8 j + 2 t (+ 1 for odd r). An int32 output is the accumulator as it is.
   const bool pairs = N % 2 == 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -634,33 +680,109 @@ int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + wm + i * 16 + g + 8 * h;
       if (m >= M) continue;
-      const float sx = s_x[m];
+      if constexpr (std::is_same<OutT, int32_t>::value) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * t;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n + e;
-          y[e] = 0.0f;
-          if (col >= N) continue;
-          y[e] = __fmul_rn(__int2float_rn(acc[i][j][2 * h + e]), __fmul_rn(sx, qscale[col]));
-          if (bias != nullptr) {
-            const float bv = bias_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[col])
-                                          : static_cast<const float*>(bias)[col];
-            y[e] = __fadd_rn(y[e], bv);
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + wn + j * 8 + 2 * t;
+          int32_t* o = out + (int64_t)m * N + n;
+          if (pairs && n + 1 < N) {
+            *reinterpret_cast<int2*>(o) = make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          } else {
+            if (n < N) o[0] = acc[i][j][2 * h];
+            if (n + 1 < N) o[1] = acc[i][j][2 * h + 1];
           }
         }
-        OutT* o = out + (int64_t)m * N + n;
-        if (pairs && n + 1 < N) {
-          store_two(o, y[0], y[1]);
-        } else {
-          if (n < N) store_one(o, y[0]);
-          if (n + 1 < N) store_one(o + 1, y[1]);
+      } else {
+        const float sx = s_x[m];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + wn + j * 8 + 2 * t;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n + e;
+            y[e] = col < N ? dequant(acc[i][j][2 * h + e], sx, qscale[col], bias, bias_is_bf16, col) : 0.0f;
+          }
+          OutT* o = out + (int64_t)m * N + n;
+          if (pairs && n + 1 < N) {
+            store_two(o, y[0], y[1]);
+          } else {
+            if (n < N) store_one(o, y[0]);
+            if (n + 1 < N) store_one(o + 1, y[1]);
+          }
         }
       }
     }
   }
+}
+
+// ------------------------------------------------------------ dequant_sum_s32
+
+constexpr int kMaxPartials = 8;  // shards of one row-parallel linear
+constexpr int kSumThreads = 256;
+
+struct Partials {
+  const int32_t* p[kMaxPartials];
+};
+
+// V consecutive elements of one row a thread (V divides N): the partials' int32 sum (wrapping, as
+// the whole product's own sum would: the total fits), then int8_linear_s8's epilogue.
+template <typename OutT, int V>
+__global__ void __launch_bounds__(kSumThreads)
+dequant_sum_s32_kernel(const Partials parts, const int n_parts, const float* __restrict__ s_x,
+                       const float* __restrict__ qscale, const void* __restrict__ bias, const int bias_is_bf16,
+                       OutT* __restrict__ out, const int M, const int N) {
+  const long long i = ((long long)blockIdx.x * kSumThreads + threadIdx.x) * V;
+  if (i >= (long long)M * N) return;
+  const int m = (int)(i / N), n = (int)(i % N);
+  uint32_t acc[V];
+  if constexpr (V == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(parts.p[0] + i);
+    acc[0] = v.x, acc[1] = v.y, acc[2] = v.z, acc[3] = v.w;
+#pragma unroll
+    for (int s = 1; s < kMaxPartials; ++s) {  // constant indices: the pointers stay in the parameter bank
+      if (s < n_parts) {
+        const int4 w = *reinterpret_cast<const int4*>(parts.p[s] + i);
+        acc[0] += (uint32_t)w.x, acc[1] += (uint32_t)w.y, acc[2] += (uint32_t)w.z, acc[3] += (uint32_t)w.w;
+      }
+    }
+  } else {
+    acc[0] = (uint32_t)parts.p[0][i];
+#pragma unroll
+    for (int s = 1; s < kMaxPartials; ++s)
+      if (s < n_parts) acc[0] += (uint32_t)parts.p[s][i];
+  }
+  const float sx = s_x[m];
+  float y[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) y[e] = dequant((int)acc[e], sx, qscale[n + e], bias, bias_is_bf16, n + e);
+  OutT* o = out + i;
+  if constexpr (V == 4) {
+    store_two(o, y[0], y[1]);
+    store_two(o + 2, y[2], y[3]);
+  } else {
+    store_one(o, y[0]);
+  }
+}
+
+template <typename OutT, int V>
+cudaError_t launch_dequant_sum(const Partials& parts, int n_parts, const void* s_x, const void* qscale,
+                               const void* bias, int bias_is_bf16, void* out, int M, int N, cudaStream_t stream) {
+  const long long threads = ((long long)M * N + V - 1) / V;
+  dequant_sum_s32_kernel<OutT, V><<<(unsigned)((threads + kSumThreads - 1) / kSumThreads), kSumThreads, 0, stream>>>(
+      parts, n_parts, static_cast<const float*>(s_x), static_cast<const float*>(qscale), bias, bias_is_bf16,
+      static_cast<OutT*>(out), M, N);
+  return cudaGetLastError();
+}
+
+// 4 columns a thread where N allows and every partial starts on 16 bytes (the output then on 8).
+template <typename OutT>
+cudaError_t dispatch_dequant_sum(const Partials& parts, int n_parts, const void* s_x, const void* qscale,
+                                 const void* bias, int bias_is_bf16, void* out, int M, int N, cudaStream_t stream) {
+  bool wide = N % 4 == 0 && (uintptr_t)out % (4 * sizeof(OutT)) == 0;
+  for (int s = 0; s < n_parts; ++s) wide = wide && on16(parts.p[s]);
+  return wide ? launch_dequant_sum<OutT, 4>(parts, n_parts, s_x, qscale, bias, bias_is_bf16, out, M, N, stream)
+              : launch_dequant_sum<OutT, 1>(parts, n_parts, s_x, qscale, bias, bias_is_bf16, out, M, N, stream);
 }
 
 template <typename OutT, int WIDTH>
@@ -708,30 +830,58 @@ cudaError_t launch_linear(const void* xq, const void* w, const void* s_x, const 
 // + k % a_d elements (a_sh = 0: + k); b (the activations' second operand, or
 // null) at b + m ldb + k; gamma, beta (cols,) and eps are layernorm's, which
 // also writes its mean and 1 / sqrt(var + eps) per row where mean and rstd are
-// not null. Returns the launch's cudaError.
+// not null. `mode` (Mode): one-pass; amax-only, which writes each row's abs-max
+// to amax (rows,) float32 and neither xq nor scale (both may be null); given-amax,
+// which reads it from amax. Returns the launch's cudaError.
 extern "C" int atlas_quantize_rows_s8(int prologue, int x_is_bf16, int rows, int cols, const void* a, long long a_sb,
                                       long long a_st, int a_t, long long a_sh, int a_d, const void* b, long long ldb,
                                       const void* gamma, const void* beta, float eps, void* xq, void* scale,
-                                      void* mean, void* rstd, void* stream) {
+                                      void* mean, void* rstd, int mode, void* amax, void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kQuantMaxCols || a_t <= 0 || a_d <= 0 || prologue < kIdentity ||
       prologue > kRelu || (prologue == kLayerNorm && (gamma == nullptr || beta == nullptr)) ||
-      ((mean == nullptr) != (rstd == nullptr)))
+      ((mean == nullptr) != (rstd == nullptr)) || mode < kOnePass || mode > kGivenAmax ||
+      ((mode == kOnePass) != (amax == nullptr)) || (mode != kAmaxOnly && (xq == nullptr || scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, gamma, beta, eps, xq, scale, mean, rstd, rows, cols};
+  const QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, gamma, beta, eps, xq, scale, mean, rstd, mode, amax,
+                    rows, cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16 ? dispatch_prologue<__nv_bfloat16>(prologue, c, s) : dispatch_prologue<float>(prologue, c, s));
 }
 
+// The out types of atlas_int8_linear_s8, in ops/int8.py::_OUT_CODES's order.
+enum OutType : int { kOutF32, kOutBF16, kOutS32 };
+
 // xq (M, K) int8, w (N, K) int8, s_x (M,) and qscale (N,) float32, bias (N,)
-// float32 or bfloat16 or null, all contiguous -> out (M, N) float32 or
-// bfloat16. Returns the launch's cudaError.
+// float32 or bfloat16 or null, all contiguous -> out (M, N) of `out_type`
+// (OutType): float32 or bfloat16, dequantized, or int32, the accumulator as it
+// is (s_x, qscale and bias unread, and may be null). Returns the launch's
+// cudaError.
 extern "C" int atlas_int8_linear_s8(const void* xq, const void* w, const void* s_x, const void* qscale,
-                                    const void* bias, int bias_is_bf16, void* out, int out_is_bf16, int M,
+                                    const void* bias, int bias_is_bf16, void* out, int out_type, int M,
                                     int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || (N + kBN - 1) / kBN > 65535)
+  if (M <= 0 || N <= 0 || K <= 0 || (N + kBN - 1) / kBN > 65535 || out_type < kOutF32 || out_type > kOutS32 ||
+      (out_type != kOutS32 && (s_x == nullptr || qscale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (out_type) {
+    case kOutBF16: return (int)launch_linear<__nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
+    case kOutS32: return (int)launch_linear<int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
+    default: return (int)launch_linear<float>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
+  }
+}
+
+// partials: a host array of n_parts (1 to kMaxPartials) pointers to (M, N) int32,
+// contiguous, on one card; s_x (M,), qscale (N,) float32, bias (N,) float32 or
+// bfloat16 or null -> out (M, N) float32 or bfloat16. Returns the launch's cudaError.
+extern "C" int atlas_dequant_sum_s32(const void* const* partials, int n_parts, const void* s_x, const void* qscale,
+                                     const void* bias, int bias_is_bf16, void* out, int out_is_bf16, int M, int N,
+                                     void* stream) {
+  if (M <= 0 || N <= 0 || n_parts < 1 || n_parts > kMaxPartials || (long long)M * N >= (1LL << 38))
+    return (int)cudaErrorInvalidValue;
+  Partials parts{};
+  for (int i = 0; i < n_parts; ++i) parts.p[i] = static_cast<const int32_t*>(partials[i]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(out_is_bf16
-                   ? launch_linear<__nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s)
-                   : launch_linear<float>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s));
+                   ? dispatch_dequant_sum<__nv_bfloat16>(parts, n_parts, s_x, qscale, bias, bias_is_bf16, out, M, N, s)
+                   : dispatch_dequant_sum<float>(parts, n_parts, s_x, qscale, bias, bias_is_bf16, out, M, N, s));
 }

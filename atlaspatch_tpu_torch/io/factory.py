@@ -91,7 +91,8 @@ class WSIFactory:
 
     # Containers recognized but not decoded get a clear error instead of a
     # misleading parse failure. Empty, as in the JAX factory, whose refusal
-    # this mirrors; see ROADMAP.md for removing it from both.
+    # this mirrors (none at present; the extension point for a container
+    # recognized but not decoded).
     _known_unsupported: dict[str, str] = {}
 
     @classmethod

@@ -31,8 +31,10 @@ cast back to float32). Host stages: ``embed_prep``, ``embed_dispatch``,
 With a ``mesh`` (``parallel/mesh.py``) batches pad to a multiple of its data
 size and split contiguously over the data rows; each row holds one replica
 of the encoder, or with ``tensor_parallel`` one group of shards over the
-row's 'model' devices (``parallel/sharding.py::shard_vit``). Each row's
-features come back through its own pinned fetch, in patch order.
+row's 'model' devices (``parallel/sharding.py::shard_vit``), in the int8
+serving mode too: the replicas and shards are made after the cast, which
+keeps ``qscale`` float32. Each row's features come back through its own
+pinned fetch, in patch order.
 """
 
 from __future__ import annotations

@@ -37,7 +37,13 @@ Tensor parallelism (``parallel/sharding.py``): ``Attention`` and ``Mlp``
 take ``shards``, and then hold one slice of the heads or hidden units and
 map the whole input to a partial output without its bias; a
 :class:`RowParallel` sums the shards' partials, each on its own device, and
-adds the bias once; the block adds layerscale and residual after that.
+adds the bias once; the block adds layerscale and residual after that. In
+the int8 serving mode the shards hand ``RowParallel`` two halves instead
+(``row_amax``, ``row_partial``): the abs-max of their slice of the
+row-parallel linear's input rows, maxed across the shards, then that slice
+quantized with the whole row's scale and multiplied in int32; the int32
+partials are summed and dequantized once (``dequant_sum``), as the JAX
+program's collectives do, so the result is one device's bit for bit.
 """
 
 from __future__ import annotations
@@ -52,8 +58,8 @@ import torch
 from torch import nn
 
 from atlaspatch_tpu_torch.ops.int8 import (
-    ACTIVATIONS, act_quantize_rows, int8_linear, int_product, layernorm_quantize_rows, quantize_heads, quantize_plain,
-    quantize_rows,
+    ACTIVATIONS, act_quantize_rows, act_row_amax, dequant_sum, heads_amax, int8_linear, int8_linear_s32, int_product,
+    layernorm_quantize_rows, quantize_heads, quantize_plain, quantize_rows,
 )
 
 
@@ -166,6 +172,10 @@ class QuantizedRows:
     s_x: torch.Tensor
     shape: tuple
     dtype: torch.dtype
+
+    def to(self, device: torch.device | str) -> "QuantizedRows":
+        """The same rows on ``device`` (a tensor-parallel shard's)."""
+        return QuantizedRows(self.xq.to(device), self.s_x.to(device), self.shape, self.dtype)
 
 
 class Int8Linear(nn.Module):
@@ -295,10 +305,37 @@ class Attention(nn.Module):
             self.register_buffer("rope_cos", cos, persistent=False)
             self.register_buffer("rope_sin", sin, persistent=False)
 
+    @property
+    def row_linear(self) -> nn.Module:
+        """The row-parallel linear under tensor parallelism."""
+        return self.proj
+
     def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
+        out = self.attend(x)
+        B, T = out.shape[:2]
+        width = self.heads * self.head_dim
+        if self.spec.quant_int8:  # (B, T, H, D) quantized where it lies, not reshaped into a copy first
+            return self.proj(QuantizedRows(*quantize_heads(out), (B, T, width), out.dtype))
+        return self.proj(out.reshape(B, T, width))
+
+    def row_amax(self, x: QuantizedRows) -> tuple[torch.Tensor, torch.Tensor]:
+        """Tensor-parallel int8, a shard's first half: its heads' output (B,
+        T, H, D) before ``proj`` and the (B T,) abs-max of its slice of each
+        row."""
+        out = self.attend(x)
+        return out, heads_amax(out)
+
+    def row_partial(self, out: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The second half: ``out`` quantized with the whole row's ``amax``,
+        times ``proj``'s input columns of these heads, in int32: ((B T, dim)
+        int32 partial, s_x (B T,))."""
+        xq, s_x = quantize_heads(out, amax)
+        return int8_linear_s32(xq, self.proj.weight_q), s_x
+
+    def attend(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
+        """The heads' output before ``proj``, (B, T, H, D) in x's dtype."""
         s = self.spec
         B, T, _ = x.shape
-        width = self.heads * self.head_dim
         # token-major (B, T, H, D) throughout, as the reference keeps it
         q, k, v = self.qkv(x).reshape(B, T, 3, self.heads, self.head_dim).unbind(2)
         if s.pos_mode == "rope":
@@ -311,12 +348,8 @@ class Attention(nn.Module):
             q = torch.cat([q[:, :n_prefix], qp], dim=1)
             k = torch.cat([k[:, :n_prefix], kp], dim=1)
         if s.quant_int8 and s.quant_int8_attn:
-            out = _int8_attention(q, k, v).to(x.dtype)
-        else:
-            out = _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
-        if s.quant_int8:  # (B, T, H, D) quantized where it lies, not reshaped into a copy first
-            return self.proj(QuantizedRows(*quantize_heads(out), (B, T, width), out.dtype))
-        return self.proj(out.reshape(B, T, width))
+            return _int8_attention(q, k, v).to(x.dtype)
+        return _softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
 
 
 class Mlp(nn.Module):
@@ -337,18 +370,45 @@ class Mlp(nn.Module):
             self.fc1 = _linear(spec, spec.dim, 2 * hidden if spec.swiglu else hidden)
         self.fc2 = _linear(spec, hidden, spec.dim, bias=shards == 1)
 
+    @property
+    def row_linear(self) -> nn.Module:
+        """The row-parallel linear under tensor parallelism."""
+        return self.fc2
+
     def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
-        if self.spec.gated_mlp:
-            a, b = self.fc_gate(x), self.fc_up(x)
-        elif self.spec.swiglu:
-            a, b = self.fc1(x).chunk(2, dim=-1)
-        else:
-            a, b = self.fc1(x), None
+        a, b = self._hidden(x)
         if self.spec.quant_int8:  # act(a) (* b) quantized in one pass, never stored
-            rows = (a.reshape(-1, a.shape[-1]), None if b is None else b.reshape(-1, b.shape[-1]))
+            rows = _rows(a, b)
             return self.fc2(QuantizedRows(*act_quantize_rows(rows[0], self.act_name, rows[1]), tuple(a.shape),
                                           a.dtype))
         return self.fc2(self.act(a) if b is None else self.act(a) * b)
+
+    def row_amax(self, x: QuantizedRows) -> tuple[tuple, torch.Tensor]:
+        """Tensor-parallel int8, a shard's first half: its hidden units' (M,
+        F) rows ``a`` and ``b`` (None without a gate) and the (M,) abs-max of
+        its slice of each row of ``act(a) (* b)``."""
+        rows = _rows(*self._hidden(x))
+        return rows, act_row_amax(rows[0], self.act_name, rows[1])
+
+    def row_partial(self, rows: tuple, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The second half: ``act(a) (* b)`` quantized with the whole row's
+        ``amax``, times ``fc2``'s input columns of these units, in int32:
+        ((M, dim) int32 partial, s_x (M,))."""
+        xq, s_x = act_quantize_rows(rows[0], self.act_name, rows[1], amax)
+        return int8_linear_s32(xq, self.fc2.weight_q), s_x
+
+    def _hidden(self, x):
+        """The hidden units before the activation: (a, b), b None without a gate."""
+        if self.spec.gated_mlp:
+            return self.fc_gate(x), self.fc_up(x)
+        if self.spec.swiglu:
+            return self.fc1(x).chunk(2, dim=-1)
+        return self.fc1(x), None
+
+
+def _rows(a: torch.Tensor, b: torch.Tensor | None) -> tuple:
+    """(..., F) hidden units → (M, F) rows, views where they lie."""
+    return a.reshape(-1, a.shape[-1]), None if b is None else b.reshape(-1, b.shape[-1])
 
 
 class RowParallel(nn.Module):
@@ -356,16 +416,24 @@ class RowParallel(nn.Module):
     with ``shards`` > 1, on its own device) maps the same input to a
     partial output; the partials are summed on the first shard's device in
     shard order, in float32, and the layer's output bias is added once,
-    after the sum. Built by ``parallel/sharding.py::shard_vit``; never moved
-    as a whole (``Module.to`` would gather the shards on one device)."""
+    after the sum. In the int8 serving mode the shards' row-parallel
+    quantizer takes the row's abs-max across them, their partials are int32
+    and ``dequant_sum`` sums and dequantizes them once on the first device,
+    with the row-parallel linear's whole ``qscale`` (every shard holds it;
+    the first's is read) and the bias: one device's result, bit for bit.
+    Built by ``parallel/sharding.py::shard_vit``; never moved as a whole
+    (``Module.to`` would gather the shards on one device)."""
 
     def __init__(self, shards: list[nn.Module], bias: torch.Tensor | None) -> None:
         super().__init__()
         self.shards = nn.ModuleList(shards)
         self.devices = [next(s.parameters()).device for s in shards]
         self.bias = None if bias is None else nn.Parameter(bias.detach().to(self.devices[0]), requires_grad=False)
+        self.quantized = shards[0].spec.quant_int8
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | QuantizedRows) -> torch.Tensor:
+        if self.quantized:
+            return self._int8_forward(x)
         out = None
         for shard, device in zip(self.shards, self.devices):
             part = shard(x.to(device)).to(self.devices[0], torch.float32)
@@ -373,6 +441,19 @@ class RowParallel(nn.Module):
         if self.bias is not None:
             out = out + self.bias.float()
         return out.to(x.dtype)
+
+    def _int8_forward(self, x: QuantizedRows) -> torch.Tensor:
+        first = self.devices[0]
+        halves = [shard.row_amax(x.to(device)) for shard, device in zip(self.shards, self.devices)]
+        amax = halves[0][1]
+        for _, part in halves[1:]:
+            amax = torch.maximum(amax, part.to(first))
+        results = [shard.row_partial(rows, amax.to(device))
+                   for shard, device, (rows, _) in zip(self.shards, self.devices, halves)]
+        s_x = results[0][1]  # every shard's: one amax
+        y = dequant_sum([partial.to(first) for partial, _ in results], s_x, self.shards[0].row_linear.qscale,
+                        self.bias, x.dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 class Block(nn.Module):

@@ -83,7 +83,6 @@ from atlaspatch_tpu_torch.models.encoders.swin import (
     timm_swin_to_flax,
 )
 from atlaspatch_tpu_torch.models.encoders.vit import ViT, ViTSpec, flax_tree_to_torch, quantize_vit_state_dict
-from atlaspatch_tpu_torch.parallel.sharding import TP_INT8_REFUSED
 from atlaspatch_tpu_torch.utils import safetensors
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders.zoo")
@@ -909,8 +908,6 @@ def build_extractor(
             f"not yet implemented in this build: {entry.notes}"
         )
     quant_int8 = compute_dtype == "int8"
-    if quant_int8 and tensor_parallel and entry.family in _VIT_FAMILIES:
-        raise NotImplementedError(f"{entry.name}: {TP_INT8_REFUSED}")
     if quant_int8 and entry.family not in _VIT_FAMILIES:
         logger.warning(
             "int8 precision requested for %s (%s family): no int8 plan for this "

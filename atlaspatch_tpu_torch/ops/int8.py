@@ -15,6 +15,19 @@ The two halves of ``atlaspatch_tpu/models/encoders/vit.py::Int8Dense``
   weight_q^T`` in int32, then ``float32(acc) * (s_x * qscale)``, then ``+
   bias``, then the cast to ``out_dtype`` (``vit.py:146-156``, in that order).
 
+Tensor-parallel int8 splits a row-parallel linear's K over shards, and the
+JAX program still computes one device's result: the row's abs-max is taken
+across the shards and the int32 partials are summed before the one
+dequantization. Its halves here: ``row_amax``, ``heads_amax`` and
+``act_row_amax`` (the quantizer's prologue and reduction: a shard's (M,)
+abs-max of its slice of the rows); the quantizers' ``amax=`` (the row's
+scale from the abs-max given, max over the shards, instead of the rows
+read); ``int8_linear_s32`` (the int32 product, no dequantization); and
+``dequant_sum`` (the shards' int32 partials summed, then ``int8_linear``'s
+epilogue), each with its plain version (``row_amax_plain``,
+``int8_linear_s32_plain``, ``dequant_sum_plain``; the quantizers' plain
+versions take ``amax`` too).
+
 Each dispatches on the tensor's device: a CPU tensor runs the plain PyTorch
 version beside it (``quantize_rows_plain``, ``layernorm_quantize_rows_plain``,
 ``act_quantize_rows_plain``, ``int8_linear_plain``: the unfused chain the
@@ -23,16 +36,18 @@ kernel of the ``atlas_int8_linear`` library (nvcc, sm_90a, built at first use
 and loaded with ctypes): ``quantize_rows_s8`` of ``csrc/int8_linear.cu`` with
 the prologue of ``PROLOGUES`` the call names (``identity`` equal to the plain
 version bit for bit, ``layernorm`` and the activations where their float
-arithmetic equals ATen's), and one of ``int8_linear_s8``'s two bodies (equal
-bit for bit), picked by ``linear_variant``: ``wgmma``
-(``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by TMA, bfloat16 out) or ``mma``
-(``csrc/int8_linear.cu``, mma.sync fed by cp.async). A build, tensor-map
-encode or launch failure on a CUDA tensor raises: nothing retries on the
-other body or falls back to the plain version or to ``torch._int_mm``.
-``quantize_rows.launches`` and ``int8_linear.launches`` count kernel
-launches, ``quantize_rows.prologue_launches`` the former by prologue,
-``int8_linear.variant_launches`` the latter by body; ``reset_launch_counts()``
-zeroes all four.
+arithmetic equals ATen's) in one of ``QUANT_MODES``, one of
+``int8_linear_s8``'s two bodies (equal bit for bit), picked by
+``linear_variant``: ``wgmma`` (``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by
+TMA, bfloat16 out) or ``mma`` (``csrc/int8_linear.cu``, mma.sync fed by
+cp.async; the int32 output too), and ``dequant_sum_s32`` (``csrc/int8_linear.cu``).
+A build, tensor-map encode or launch failure on a CUDA tensor raises:
+nothing retries on the other body or falls back to the plain version or to
+``torch._int_mm``. ``quantize_rows.launches``, ``int8_linear.launches`` and
+``dequant_sum.launches`` count kernel launches,
+``quantize_rows.prologue_launches`` and ``.mode_launches`` the first by
+prologue and by mode, ``int8_linear.variant_launches`` the second by body;
+``reset_launch_counts()`` zeroes them all.
 """
 
 from __future__ import annotations
@@ -69,8 +84,12 @@ ACTIVATIONS = {
     "silu": F.silu,
     "relu": F.relu,
 }
-# quantize_rows_s8's prologues, in the order of csrc/int8_linear.cu's codes.
+# quantize_rows_s8's prologues and modes, in the order of csrc/int8_linear.cu's codes.
 PROLOGUES = ("identity", "layernorm", *ACTIVATIONS)
+QUANT_MODES = ("one_pass", "amax_only", "given_amax")
+# int8_linear_s8's output types, by csrc/int8_linear.cu's codes (the wgmma body writes bfloat16 only)
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+MAX_PARTIALS = 8  # dequant_sum_s32's most partials (kMaxPartials)
 QUANT_MAX_K = 8192  # the longest row quantize_rows_s8 holds in registers (256 threads x 32 values)
 
 
@@ -87,9 +106,11 @@ def load_int8_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.atlas_quantize_rows_s8.restype = _INT
             lib.atlas_quantize_rows_s8.argtypes = [_INT] * 4 + [_PTR, _LL, _LL, _INT, _LL, _INT, _PTR, _LL, _PTR,
-                                                                _PTR, ctypes.c_float] + [_PTR] * 5
+                                                                _PTR, ctypes.c_float] + [_PTR] * 4 + [_INT, _PTR, _PTR]
             lib.atlas_int8_linear_s8.restype = _INT
             lib.atlas_int8_linear_s8.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_PTR]
+            lib.atlas_dequant_sum_s32.restype = _INT
+            lib.atlas_dequant_sum_s32.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _PTR]
             lib.atlas_int8_linear_s8_wgmma.restype = _INT
             lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 5 + [_PTR]
             _LIB.append(lib)
@@ -140,10 +161,13 @@ def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
-def quantize_plain(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_plain(x: torch.Tensor, dim: int, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric dynamic abs-max int8 along ``dim`` of a float32 tensor, the
-    JAX ``_q8_dyn``: (int8 values, float32 scales with ``dim`` kept)."""
-    s = _divide(x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8), 127.0)
+    JAX ``_q8_dyn``: (int8 values, float32 scales with ``dim`` kept). A given
+    ``amax`` (``dim`` kept) takes the place of the abs-max of x."""
+    if amax is None:
+        amax = x.abs().amax(dim=dim, keepdim=True)
+    s = _divide(amax.clamp_min(1e-8), 127.0)
     return torch.round(x / s).clamp(-127.0, 127.0).to(torch.int8), s
 
 
@@ -157,9 +181,17 @@ def int_product(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.einsum(equation, a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
 
 
-def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(M, K) float32 or bfloat16 → (xq (M, K) int8, s_x (M,) float32)."""
-    xq, s = quantize_plain(x.float(), -1)
+def row_amax_plain(rows: torch.Tensor) -> torch.Tensor:
+    """(M, K) float32 or bfloat16 rows (a prologue's output) → their (M,)
+    float32 abs-max: what the quantizer reduces before s = max(amax, 1e-8) /
+    127."""
+    return rows.float().abs().amax(dim=-1)
+
+
+def quantize_rows_plain(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float32 or bfloat16 → (xq (M, K) int8, s_x (M,) float32); s_x
+    from the given (M,) ``amax`` where there is one."""
+    xq, s = quantize_plain(x.float(), -1, None if amax is None else amax[:, None])
     return xq, s[:, 0]
 
 
@@ -169,21 +201,52 @@ def layernorm_quantize_rows_plain(x, weight, bias, eps) -> tuple[torch.Tensor, t
     return quantize_rows_plain(F.layer_norm(x, (x.shape[-1],), weight, bias, eps))
 
 
-def act_quantize_rows_plain(a, act: str, b=None) -> tuple[torch.Tensor, torch.Tensor]:
+def _plain_rows(x: torch.Tensor, amax: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_rows_plain(x)``, called as the one-pass quantizer always
+    called it, or with the given ``amax``."""
+    return quantize_rows_plain(x) if amax is None else quantize_rows_plain(x, amax)
+
+
+def _act_rows(a, act: str, b=None) -> torch.Tensor:
+    """``act(a)``, or ``act(a) * b`` (SwiGLU, the gated MLP), each op stored
+    in a's dtype."""
+    h = ACTIVATIONS[act](a)
+    return h if b is None else h * b
+
+
+def act_quantize_rows_plain(a, act: str, b=None, amax=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``quantize_rows_plain(act(a))``, or of ``act(a) * b`` (SwiGLU, the
     gated MLP), over (M, K) rows, each op stored in a's dtype."""
-    h = ACTIVATIONS[act](a)
-    return quantize_rows_plain(h if b is None else h * b)
+    return _plain_rows(_act_rows(a, act, b), amax)
+
+
+def _dequantize(acc, s_x, qscale, bias, out_dtype) -> torch.Tensor:
+    """The int32 (M, N) ``acc`` → float32(acc) * (s_x[m] * qscale[n]) +
+    bias[n], cast to ``out_dtype``."""
+    y = acc.float() * (s_x[:, None] * qscale.float())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+def int8_linear_s32_plain(xq, weight_q) -> torch.Tensor:
+    """(M, K) int8 · (N, K) int8 → the exact (M, N) int32 product."""
+    return int_product("mk,nk->mn", xq, weight_q)
 
 
 def int8_linear_plain(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
     """(M, K) int8 · (N, K) int8 → (M, N) ``out_dtype``, dequantized by
     float32(acc) * (s_x[m] * qscale[n]) + bias[n]."""
-    acc = int_product("mk,nk->mn", xq, weight_q)
-    y = acc.float() * (s_x[:, None] * qscale.float())
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(out_dtype)
+    return _dequantize(int8_linear_s32_plain(xq, weight_q), s_x, qscale, bias, out_dtype)
+
+
+def dequant_sum_plain(partials, s_x, qscale, bias, out_dtype) -> torch.Tensor:
+    """(M, N) int32 partials of one product whose K was split → their int32
+    sum, dequantized as ``int8_linear_plain`` dequantizes."""
+    acc = partials[0]
+    for part in partials[1:]:
+        acc = acc + part
+    return _dequantize(acc, s_x, qscale, bias, out_dtype)
 
 
 def _check_2d(name: str, t: torch.Tensor, dtype=None) -> None:
@@ -207,36 +270,78 @@ def _check_rows(name: str, x: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
 
 
-def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(M, K) float32 or bfloat16 → (xq (M, K) int8, s_x (M,) float32): the
-    plain version on the CPU, ``quantize_rows_s8`` (``identity``) on the card,
-    which reads rows of any stride where they lie."""
-    _check_rows("quantize_rows", x, 2)
-    if x.is_cpu:
-        return quantize_rows_plain(x)
-    M, K = x.shape
-    if M == 0 or K == 0:
-        raise ValueError(f"quantize_rows got an empty input: {tuple(x.shape)}")
+def _check_amax(name: str, amax: torch.Tensor | None, rows: int, x: torch.Tensor) -> None:
+    if amax is not None and (amax.shape != (rows,) or amax.dtype != torch.float32 or amax.device != x.device):
+        raise ValueError(f"{name} takes a ({rows},) torch.float32 amax on {x.device}, got "
+                         f"{tuple(amax.shape)} {amax.dtype} on {amax.device}")
+
+
+def _rows_layout(name: str, x: torch.Tensor):
+    """A CUDA (M, K) operand → (x with unit column stride, its layout)."""
+    if x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"{name} got an empty input: {tuple(x.shape)}")
     if x.stride(1) != 1:
         x = x.contiguous()
-    return _launch_quantize("identity", x, (0, x.stride(0), M, 0, K))
+    return x, (0, x.stride(0), x.shape[0], 0, x.shape[1])
 
 
-def quantize_heads(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float32 or bfloat16 → (xq (M, K) int8, s_x (M,) float32): the
+    plain version on the CPU, ``quantize_rows_s8`` (``identity``) on the card,
+    which reads rows of any stride where they lie. With ``amax`` (M,) float32,
+    s_x comes from it (given-amax), not from the rows read."""
+    _check_rows("quantize_rows", x, 2)
+    _check_amax("quantize_rows", amax, x.shape[0], x)
+    if x.is_cpu:
+        return _plain_rows(x, amax)
+    return _launch_quantize("identity", *_rows_layout("quantize_rows", x), amax=amax)
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """(M, K) float32 or bfloat16 → the rows' (M,) float32 abs-max: the plain
+    version on the CPU, ``quantize_rows_s8`` (``identity``, amax-only) on the
+    card."""
+    _check_rows("row_amax", x, 2)
+    if x.is_cpu:
+        return row_amax_plain(x)
+    return _launch_quantize("identity", *_rows_layout("row_amax", x), mode="amax_only")
+
+
+def _heads_layout(name: str, x: torch.Tensor):
+    """A CUDA (B, T, H, D) operand → (x with unit stride along D, its layout,
+    B T rows, H D columns)."""
+    B, T, H, D = x.shape
+    if x.numel() == 0:
+        raise ValueError(f"{name} got an empty input: {tuple(x.shape)}")
+    if x.stride(3) != 1:
+        x = x.contiguous()
+    return x, (x.stride(0), x.stride(1), T, x.stride(2), D), B * T, H * D
+
+
+def quantize_heads(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, T, H, D) float32 or bfloat16 → the quantized rows of its (B T, H D)
     reshape: (xq (B T, H D) int8, s_x (B T,) float32). The attention's output
     as its einsum leaves it, (B, H, T, D) in memory: the card reads it there,
     where a reshape would copy it first; the CPU runs the plain version on
-    the reshape."""
+    the reshape. With ``amax`` (B T,) float32, s_x comes from it."""
     _check_rows("quantize_heads", x, 4)
     B, T, H, D = x.shape
+    _check_amax("quantize_heads", amax, B * T, x)
     if x.is_cpu:
-        return quantize_rows_plain(x.reshape(B * T, H * D))
-    if x.numel() == 0:
-        raise ValueError(f"quantize_heads got an empty input: {tuple(x.shape)}")
-    if x.stride(3) != 1:
-        x = x.contiguous()
-    return _launch_quantize("identity", x, (x.stride(0), x.stride(1), T, x.stride(2), D), rows=B * T, cols=H * D)
+        return _plain_rows(x.reshape(B * T, H * D), amax)
+    x, layout, rows, cols = _heads_layout("quantize_heads", x)
+    return _launch_quantize("identity", x, layout, rows=rows, cols=cols, amax=amax)
+
+
+def heads_amax(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) float32 or bfloat16 → the (B T,) float32 abs-max of its
+    (B T, H D) rows, read where they lie on the card (amax-only)."""
+    _check_rows("heads_amax", x, 4)
+    B, T, H, D = x.shape
+    if x.is_cpu:
+        return row_amax_plain(x.reshape(B * T, H * D))
+    x, layout, rows, cols = _heads_layout("heads_amax", x)
+    return _launch_quantize("identity", x, layout, rows=rows, cols=cols, mode="amax_only")
 
 
 def layernorm_quantize_rows(x, weight, bias, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -262,62 +367,93 @@ def layernorm_quantize_rows(x, weight, bias, eps: float) -> tuple[torch.Tensor, 
                             beta=bias.contiguous(), eps=eps)
 
 
-def act_quantize_rows(a: torch.Tensor, act: str, b: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def _check_act(name: str, a: torch.Tensor, act: str, b: torch.Tensor | None):
+    """The activation prologue's operands, checked; on the card with unit
+    column strides."""
+    _check_rows(name, a, 2)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"{name} has no activation {act!r}; it has {tuple(ACTIVATIONS)}")
+    if b is not None and (b.shape != a.shape or b.dtype != a.dtype or b.get_device() != a.get_device()):
+        raise ValueError(f"{name} takes b like a, {tuple(a.shape)} {a.dtype} on {a.device}, got "
+                         f"{tuple(b.shape)} {b.dtype} on {b.device}")
+    if a.shape[0] == 0 or a.shape[1] == 0:
+        raise ValueError(f"{name} got an empty input: {tuple(a.shape)}")
+    if a.is_cuda:
+        if a.stride(1) != 1:
+            a = a.contiguous()
+        if b is not None and b.stride(1) != 1:
+            b = b.contiguous()
+    return a, b
+
+
+def act_quantize_rows(a: torch.Tensor, act: str, b: torch.Tensor | None = None,
+                      amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(M, K) float32 or bfloat16 rows ``a`` (and ``b`` of the same shape and
     dtype, for SwiGLU and the gated MLP) → the quantized ``act(a)`` or
     ``act(a) * b``, ``act`` one of ``ACTIVATIONS``: (xq (M, K) int8, s_x (M,)
     float32). The plain version on the CPU, ``quantize_rows_s8`` (the
     activation's prologue) on the card, which reads a and b where they lie
     (the two halves of one fc1 output: row-strided views) and never stores
-    the activation."""
-    _check_rows("act_quantize_rows", a, 2)
-    if act not in ACTIVATIONS:
-        raise ValueError(f"act_quantize_rows has no activation {act!r}; it has {tuple(ACTIVATIONS)}")
-    if b is not None and (b.shape != a.shape or b.dtype != a.dtype or b.get_device() != a.get_device()):
-        raise ValueError(f"act_quantize_rows takes b like a, {tuple(a.shape)} {a.dtype} on {a.device}, got "
-                         f"{tuple(b.shape)} {b.dtype} on {b.device}")
-    M, K = a.shape
-    if M == 0 or K == 0:
-        raise ValueError(f"act_quantize_rows got an empty input: {tuple(a.shape)}")
+    the activation. With ``amax`` (M,) float32, s_x comes from it."""
+    a, b = _check_act("act_quantize_rows", a, act, b)
+    _check_amax("act_quantize_rows", amax, a.shape[0], a)
     if a.is_cpu:
-        return act_quantize_rows_plain(a, act, b)
-    if a.stride(1) != 1:
-        a = a.contiguous()
-    if b is not None and b.stride(1) != 1:
-        b = b.contiguous()
-    return _launch_quantize(act, a, (0, a.stride(0), M, 0, K), b=b)
+        return act_quantize_rows_plain(a, act, b) if amax is None else act_quantize_rows_plain(a, act, b, amax)
+    return _launch_quantize(act, a, (0, a.stride(0), a.shape[0], 0, a.shape[1]), b=b, amax=amax)
+
+
+def act_row_amax(a: torch.Tensor, act: str, b: torch.Tensor | None = None) -> torch.Tensor:
+    """The (M,) float32 abs-max of ``act(a)`` or ``act(a) * b``'s rows, as
+    ``act_quantize_rows`` computes them: the plain version on the CPU,
+    ``quantize_rows_s8`` (the activation's prologue, amax-only) on the card."""
+    a, b = _check_act("act_row_amax", a, act, b)
+    if a.is_cpu:
+        return row_amax_plain(_act_rows(a, act, b))
+    return _launch_quantize(act, a, (0, a.stride(0), a.shape[0], 0, a.shape[1]), b=b, mode="amax_only")
 
 
 def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gamma=None, beta=None, eps=0.0,
-                     stats: bool = False):
+                     stats: bool = False, mode: str | None = None, amax=None):
     """Launch ``quantize_rows_s8`` with ``prologue`` over a CUDA operand x
     whose element (m, k) lies at (m / t) sb + (m % t) st + (k / d) sh + k % d
     (``layout`` = (sb, st, t, sh, d); sh = 0: + k), as the public wrappers
-    checked it: (xq, s_x), and with ``stats`` (layernorm) also the rows' mean
-    and 1 / sqrt(var + eps) as the kernel computed them. A row longer than
-    ``QUANT_MAX_K`` is refused before any launch; a failed launch raises and
-    nothing runs in its place."""
+    checked it, in ``mode`` (default: given-amax with ``amax``, else
+    one-pass): (xq, s_x); with ``stats`` (layernorm) also the rows' mean
+    and 1 / sqrt(var + eps) as the kernel computed them; amax-only: the (M,)
+    amax. A row longer than ``QUANT_MAX_K`` is refused before any launch; a
+    failed launch raises and nothing runs in its place."""
     M = x.shape[0] if rows is None else rows
     K = x.shape[1] if cols is None else cols
     if K > QUANT_MAX_K:
         raise ValueError(f"quantize_rows_s8 holds rows of at most {QUANT_MAX_K} values, got {K}")
+    mode = mode or ("one_pass" if amax is None else "given_amax")
     dev = x.device
-    xq = torch.empty(M, K, dtype=torch.int8, device=dev)
-    s_x = torch.empty(M, dtype=torch.float32, device=dev)
-    mean = rstd = None
+    xq = s_x = mean = rstd = None
+    if mode == "amax_only":
+        amax = torch.empty(M, dtype=torch.float32, device=dev)
+    else:
+        xq = torch.empty(M, K, dtype=torch.int8, device=dev)
+        s_x = torch.empty(M, dtype=torch.float32, device=dev)
+    if amax is not None:
+        amax = amax.contiguous()
     if stats:
         mean, rstd = torch.empty(M, dtype=torch.float32, device=dev), torch.empty(M, dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     sb, st, t, sh, d = layout
     err = load_int8_library().atlas_quantize_rows_s8(
         PROLOGUES.index(prologue), x.dtype == torch.bfloat16, M, K, x.data_ptr(), sb, st, t, sh, d,
-        None if b is None else b.data_ptr(), 0 if b is None else b.stride(0),
-        None if gamma is None else gamma.data_ptr(), None if beta is None else beta.data_ptr(), eps,
-        xq.data_ptr(), s_x.data_ptr(), None if mean is None else mean.data_ptr(),
-        None if rstd is None else rstd.data_ptr(), _stream(x))
+        ptr(b), 0 if b is None else b.stride(0), ptr(gamma), ptr(beta), eps, ptr(xq), ptr(s_x), ptr(mean),
+        ptr(rstd), QUANT_MODES.index(mode), ptr(amax), _stream(x))
     if err != 0:
-        raise RuntimeError(f"quantize_rows_s8 ({prologue}) launch failed: cudaError {err}")
+        raise RuntimeError(f"quantize_rows_s8 ({prologue}) launch failed: cudaError {err} ({mode})")
     quantize_rows.launches += 1
     quantize_rows.prologue_launches[prologue] += 1
+    quantize_rows.mode_launches[mode] += 1
+    if mode == "amax_only":
+        return amax
     return (xq, s_x, mean, rstd) if stats else (xq, s_x)
 
 
@@ -354,6 +490,74 @@ def int8_linear(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
     return _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype)
 
 
+def int8_linear_s32(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 · (N, K) int8 → the (M, N) int32 product, not
+    dequantized: a row-parallel shard's partial. The plain version on the CPU,
+    ``int8_linear_s8``'s int32 output on the card, the body ``linear_variant``
+    picks (``mma``: the wgmma body writes bfloat16 only)."""
+    _check_2d("xq", xq, torch.int8)
+    _check_2d("weight_q", weight_q, torch.int8)
+    M, K = xq.shape
+    N = weight_q.shape[0]
+    if weight_q.shape[1] != K:
+        raise ValueError(f"int8_linear_s32 shapes do not match: xq {tuple(xq.shape)}, weight_q "
+                         f"{tuple(weight_q.shape)}")
+    if xq.is_cpu and weight_q.is_cpu:
+        return int8_linear_s32_plain(xq, weight_q)
+    if not (xq.is_cuda and weight_q.device == xq.device):
+        raise ValueError(f"int8_linear_s32 needs its tensors on one device, got {xq.device} and {weight_q.device}")
+    if M == 0 or N == 0 or K == 0:
+        raise ValueError(f"int8_linear_s32 got an empty product: M {M}, N {N}, K {K}")
+    xq, weight_q = xq.contiguous(), weight_q.contiguous()
+    variant = linear_variant(M, N, K, torch.int32, xq.data_ptr(), weight_q.data_ptr())
+    return _launch_linear(variant, xq, None, weight_q, None, None, torch.int32)
+
+
+def dequant_sum(partials, s_x, qscale, bias, out_dtype) -> torch.Tensor:
+    """The int32 (M, N) partials of one product whose K was split over
+    shards (1 to ``MAX_PARTIALS``, on one device), (M,) float32 row scales,
+    (N,) float32 ``qscale`` and an (N,) bias (float32, bfloat16 or None) →
+    (M, N) ``out_dtype`` (float32 or bfloat16): their int32 sum, dequantized
+    as ``int8_linear`` dequantizes, so equal to it on the whole K. The plain
+    version on the CPU, ``dequant_sum_s32`` on the card."""
+    partials = list(partials)
+    if not 1 <= len(partials) <= MAX_PARTIALS:
+        raise ValueError(f"dequant_sum takes 1 to {MAX_PARTIALS} partials, got {len(partials)}")
+    first = partials[0]
+    _check_2d("a partial", first, torch.int32)
+    M, N = first.shape
+    if any(p.shape != (M, N) or p.dtype != torch.int32 for p in partials):
+        raise ValueError(f"dequant_sum takes int32 partials of one shape, got "
+                         f"{[(tuple(p.shape), p.dtype) for p in partials]}")
+    if s_x.shape != (M,) or qscale.shape != (N,) or s_x.dtype != torch.float32 or qscale.dtype != torch.float32:
+        raise ValueError(f"dequant_sum takes ({M},) and ({N},) float32 scales, got {s_x.dtype} "
+                         f"{tuple(s_x.shape)} and {qscale.dtype} {tuple(qscale.shape)}")
+    if bias is not None and (bias.shape != (N,) or bias.dtype not in _FLOATS):
+        raise ValueError(f"dequant_sum takes an (N,) float32 or bfloat16 bias, got {bias.dtype} {tuple(bias.shape)}")
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"dequant_sum writes float32 or bfloat16, got {out_dtype}")
+    tensors = [*partials, s_x, qscale] + ([] if bias is None else [bias])
+    if all(t.is_cpu for t in tensors):
+        return dequant_sum_plain(partials, s_x, qscale, bias, out_dtype)
+    if not all(t.is_cuda and t.device == first.device for t in tensors):
+        raise ValueError(f"dequant_sum needs its tensors on one device, got {[str(t.device) for t in tensors]}")
+    if M == 0 or N == 0:
+        raise ValueError(f"dequant_sum got an empty output: M {M}, N {N}")
+    partials = [p.contiguous() for p in partials]
+    s_x, qscale = s_x.contiguous(), qscale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    out = torch.empty(M, N, dtype=out_dtype, device=first.device)
+    pointers = (ctypes.c_void_p * len(partials))(*(p.data_ptr() for p in partials))
+    err = load_int8_library().atlas_dequant_sum_s32(
+        pointers, len(partials), s_x.data_ptr(), qscale.data_ptr(), None if bias is None else bias.data_ptr(),
+        int(bias is not None and bias.dtype == torch.bfloat16), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        M, N, _stream(first))
+    if err != 0:
+        raise RuntimeError(f"dequant_sum_s32 launch failed: cudaError {err}")
+    dequant_sum.launches += 1
+    return out
+
+
 def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=None) -> torch.Tensor:
     """Launch ``variant`` of ``int8_linear_s8`` on contiguous CUDA operands
     ``int8_linear`` has checked; the wgmma body in tiles ``block_n`` wide
@@ -361,7 +565,9 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
     to hold every body a shape admits against the plain version. A body that
     does not take the shape (``wgmma`` where ``wgmma_admits`` is false) or an
     unknown tile width raises ValueError before any launch; a failed encode
-    or launch raises RuntimeError and is never retried on the other body."""
+    or launch raises RuntimeError and is never retried on the other body.
+    An int32 ``out_dtype`` is the accumulator itself (s_x, qscale and bias
+    None)."""
     if variant not in LINEAR_VARIANTS:
         raise ValueError(f"int8_linear has no body {variant!r}; it has {LINEAR_VARIANTS}")
     M, K = xq.shape
@@ -378,13 +584,13 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
             raise ValueError(f"the wgmma body's tiles are {WGMMA_BLOCK_NS} wide, got {block_n}")
     out = torch.empty(M, N, dtype=out_dtype, device=xq.device)
     lib = load_int8_library()
-    args = (xq.data_ptr(), weight_q.data_ptr(), s_x.data_ptr(), qscale.data_ptr(),
-            None if bias is None else bias.data_ptr(), int(bias is not None and bias.dtype == torch.bfloat16),
-            out.data_ptr())
+    args = (xq.data_ptr(), weight_q.data_ptr(), None if s_x is None else s_x.data_ptr(),
+            None if qscale is None else qscale.data_ptr(), None if bias is None else bias.data_ptr(),
+            int(bias is not None and bias.dtype == torch.bfloat16), out.data_ptr())
     if variant == "wgmma":
         err = lib.atlas_int8_linear_s8_wgmma(*args, M, N, K, block_n, sms, _stream(xq))
     else:
-        err = lib.atlas_int8_linear_s8(*args, int(out_dtype == torch.bfloat16), M, N, K, _stream(xq))
+        err = lib.atlas_int8_linear_s8(*args, _OUT_CODES[out_dtype], M, N, K, _stream(xq))
     if err >= _NO_DRIVER_ENTRY:
         raise RuntimeError(f"the CUDA driver has no cuTensorMapEncodeTiled: cudaError {err - _NO_DRIVER_ENTRY}")
     if err >= _ENCODE_FAILED:
@@ -398,14 +604,19 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
 
 quantize_rows.launches = 0
 quantize_rows.prologue_launches = Counter()
+quantize_rows.mode_launches = Counter()
 int8_linear.launches = 0
 int8_linear.variant_launches = Counter()
+dequant_sum.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero ``quantize_rows.launches`` and ``.prologue_launches``,
-    ``int8_linear.launches`` and ``.variant_launches``."""
+    """Zero ``quantize_rows.launches``, ``.prologue_launches`` and
+    ``.mode_launches``, ``int8_linear.launches`` and ``.variant_launches``,
+    and ``dequant_sum.launches``."""
     quantize_rows.launches = 0
     quantize_rows.prologue_launches.clear()
+    quantize_rows.mode_launches.clear()
     int8_linear.launches = 0
     int8_linear.variant_launches.clear()
+    dequant_sum.launches = 0

@@ -19,10 +19,12 @@ computes whole heads, and a ``RowParallel`` sums the partials on the data
 row's first device in shard order and adds the bias once. Activations stay
 batch-split over 'data' (``models/encoders/engine.py``).
 
-Tensor-parallel int8 is refused: the JAX row-parallel ``Int8Dense`` takes
-its row scale over the whole row across shards (a max all-reduce before
-the quantizer), which the port's fused quantizer, computing the scale from
-the rows it reads, cannot take yet.
+The int8 serving mode's linears split the same way: ``weight_q`` and
+``qscale`` of the column-parallel ones by head column or hidden unit,
+``weight_q`` of ``proj`` and ``fc2`` by input column, their ``qscale`` whole
+on every shard (the plan replicates it). Their ``RowParallel`` takes the
+row scale across the shards and sums int32 partials before one
+dequantization, as the JAX program does (``models/encoders/vit.py``).
 """
 
 from __future__ import annotations
@@ -36,11 +38,6 @@ from atlaspatch_tpu_torch.models.encoders.vit import Attention, Int8Linear, Mlp,
 
 _COL_PARALLEL = ("qkv", "fc1", "fc_gate", "fc_up")
 COLUMN, ROW = (None, "model"), ("model", None)
-TP_INT8_REFUSED = (
-    "tensor-parallel int8 is not ported: the row-parallel int8 linears need their row scale reduced "
-    "across the shards before quantizing, which the fused quantize_rows_s8 kernel cannot take yet; "
-    "run int8 data-parallel (--feature-parallel data) or tensor-parallel in bfloat16/float32"
-)
 
 
 def _spec_for_key(flax_key: str) -> tuple:
@@ -108,16 +105,34 @@ def _row_parallel_owners(model: ViT) -> list[str]:
     keys = vit_flax_key_map(model)
     plan = vit_tp_plan(model)
     owners = []
+    kernels = (".weight", ".weight_q")  # a float or an int8 linear's
     for key, flax in keys.items():
-        if key.endswith(".weight") and plan[flax] == ROW:
+        if key.endswith(kernels) and plan[flax] == ROW:
             owner = key.rsplit(".", 2)[0]
             module = model.get_submodule(owner)
-            column = [k for k in keys if k.startswith(owner + ".") and k.endswith(".weight")
+            column = [k for k in keys if k.startswith(owner + ".") and k.endswith(kernels)
                       and k.split(".")[-2] in _COL_PARALLEL]
             if not isinstance(module, (Attention, Mlp)) or any(plan[keys[k]] != COLUMN for k in column):
                 raise ValueError(f"{owner}: no column-parallel input for its row-parallel layer")
             owners.append(owner)
     return owners
+
+
+def _slice(sd: dict, columns: tuple[str, ...], outputs: torch.Tensor, row: str, inputs: torch.Tensor) -> dict:
+    """A shard's part of a state_dict: each column-parallel linear's weight
+    (or int8 ``weight_q``), ``qscale`` and bias at ``outputs``; the
+    row-parallel linear's weight at input columns ``inputs``, its int8
+    ``qscale`` whole, its bias left to ``RowParallel``."""
+    part = {}
+    for key, t in sd.items():
+        owner, leaf = key.rsplit(".", 1)
+        if owner in columns:
+            part[key] = t[outputs.to(t.device)]
+        elif owner == row and leaf in ("weight", "weight_q"):
+            part[key] = t[:, inputs.to(t.device)]
+        elif owner == row and leaf == "qscale":
+            part[key] = t.clone()
+    return part
 
 
 def _attention_shard(module: Attention, i: int, n: int) -> tuple[Attention, dict]:
@@ -126,11 +141,7 @@ def _attention_shard(module: Attention, i: int, n: int) -> tuple[Attention, dict
     hd = spec.dim // spec.heads
     cols = torch.arange(3 * spec.dim).reshape(3, spec.heads, hd)[:, heads].reshape(-1)
     ins = torch.arange(spec.dim).reshape(spec.heads, hd)[heads].reshape(-1)
-    sd = module.state_dict()
-    part = {"qkv.weight": sd["qkv.weight"][cols.to(sd["qkv.weight"].device)],
-            "proj.weight": sd["proj.weight"][:, ins.to(sd["proj.weight"].device)]}
-    if "qkv.bias" in sd:
-        part["qkv.bias"] = sd["qkv.bias"][cols.to(sd["qkv.bias"].device)]
+    part = _slice(module.state_dict(), ("qkv",), cols, "proj", ins)
     shard = Attention(spec, shards=n)
     for name, buf in module.named_buffers(recurse=False):  # the RoPE tables, as cast
         setattr(shard, name, buf.clone())
@@ -141,15 +152,9 @@ def _mlp_shard(module: Mlp, i: int, n: int) -> tuple[Mlp, dict]:
     spec = module.spec
     hidden = spec.hidden_dim
     units = torch.arange(hidden)[i * hidden // n : (i + 1) * hidden // n]
-    sd = module.state_dict()
     names = ("fc_gate", "fc_up") if spec.gated_mlp else ("fc1",)
     rows = torch.cat([units, units + hidden]) if spec.swiglu and not spec.gated_mlp else units
-    part = {"fc2.weight": sd["fc2.weight"][:, units.to(sd["fc2.weight"].device)]}
-    for name in names:
-        for leaf in ("weight", "bias"):
-            t = sd[f"{name}.{leaf}"]
-            part[f"{name}.{leaf}"] = t[rows.to(t.device)]
-    return Mlp(spec, shards=n), part
+    return Mlp(spec, shards=n), _slice(module.state_dict(), names, rows, "fc2", units)
 
 
 def _shard(module: Attention | Mlp, devices: list[torch.device]) -> RowParallel:
@@ -168,12 +173,15 @@ def shard_vit(model: ViT, mesh) -> list[ViT]:
     every module the plan makes row-parallel (the blocks' attention and
     MLP, a MAP head's MLP) becomes a ``RowParallel`` over the row's 'model'
     devices; the rest (embeddings, norms, heads) lies on the row's first
-    device. ``model`` itself is left as it is."""
-    if model.spec.quant_int8:
-        raise NotImplementedError(TP_INT8_REFUSED)
+    device. ``model`` itself is left as it is. In the int8 serving mode a
+    float MLP (the MAP head's, which stays float) stays whole on the row's
+    first device too: a float row-parallel sums float partials, which one
+    device's product does not, and tensor-parallel int8 computes one
+    device's result bit for bit."""
     n = mesh.shape["model"]
     _check_divides(model, n)
-    owners = _row_parallel_owners(model)
+    owners = [owner for owner in _row_parallel_owners(model)
+              if model.get_submodule(owner).spec.quant_int8 == model.spec.quant_int8]
     replicas = []
     for row in mesh.grid:
         replica = copy.deepcopy(model)

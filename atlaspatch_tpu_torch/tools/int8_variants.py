@@ -397,7 +397,7 @@ def _launch_quant_variant(fn, prologue, x, *ln):
     gamma, beta, eps = ln if ln else (None, None, 0.0)
     err = fn(I.PROLOGUES.index(prologue), 1, rows, cols, x.data_ptr(), *layout, None, 0,
              None if gamma is None else gamma.data_ptr(), None if beta is None else beta.data_ptr(), eps,
-             xq.data_ptr(), s_x.data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
+             xq.data_ptr(), s_x.data_ptr(), None, None, 0, None, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return xq, s_x

@@ -250,7 +250,17 @@ Phases, one line each (any failure exits non-zero with no result line):
           twice (MULTI_CARD) and two processes share. (k0) the attention
           kernel at the --fast trunk's shapes at 4 rows a replica and the
           int8 kernels at 16 patches a replica (M 3,152), against their
-          plain versions at the kernel and int8 phases' bars. (k1)
+          plain versions at the kernel and int8 phases' bars; tensor-parallel
+          int8's kernels at the (1, 2) mesh's shard shapes (vit_l_16's proj
+          and fc2 rows, K 512 / 2,048 a shard, and dinov3_vit7b16's, K
+          2,048 / 4,096 a shard, tanh GELU and SiLU of a gated pair; batch
+          32): quantize_rows_s8's amax-only mode against its plain version,
+          the shards' amaxes maxed equal to the whole row's and given-amax on
+          each shard equal to the one-pass kernel's columns (max-abs 0),
+          int8_linear_s8's int32 output (mma) against int_product and
+          dequant_sum_s32 of the two shards' partials against int8_linear_s8
+          on the whole K (max-abs 0), with device ms, bound, plain ms and
+          (int32) torch._int_mm's. (k1)
           SAM2SegmentationService on a (2, 1) mesh at full Hiera-tiny width:
           --fast (bfloat16, 768, batch 8: 4 rows a replica) on the seg
           phase's 16 thumbnails and float32 at 1024 (batch 2: 1 a replica;
@@ -264,7 +274,11 @@ Phases, one line each (any failure exits non-zero with no result line):
           build), bfloat16 at full depth per-patch cosine >= 0.999, int8
           data-parallel cosine >= 0.999 with 96 launches of each int8
           kernel per replica forward (48 / 24 / 24 by prologue, every linear
-          on wgmma). (k3) finetune-sam2 at the JAX defaults (1024, float32,
+          on wgmma); int8 tensor-parallel (1, 2) at full depth against one
+          device's int8, cosine >= 0.999, with one forward's launches by
+          prologue, mode, body and dequant_sum_s32 (VITL_TP_LAUNCHES); and
+          dinov3_vit7b16 at full width, depth 2, int8 tensor-parallel
+          against one device, the same. (k3) finetune-sam2 at the JAX defaults (1024, float32,
           global batch 2) on 5 synthetic 1024x768 pairs from one init
           archive: one process; --data-parallel 2 through the command line
           (losses at rtol 2e-3, 12 launches in its validation forward); two
@@ -295,8 +309,11 @@ the encoder path holds no TPU kernel of its own; ``finetune_launches``: the
 finetune phase's validation and detect-tissue forwards; ``multi_launches``: the
 multi phase's data-parallel segmentation, data-parallel and two-rank
 fine-tuning and two-rank command line; the int8 records' ``multi_launches``:
-its data-parallel int8 extract_batch), the card's name and power limit,
-and last the result line. Needs no network, no JAX and no h5py: the H5 files
+its data-parallel int8 extract_batch) and tensor-parallel int8's four
+records (quantize_rows_s8's amax-only and given-amax modes, int8_linear_s8's
+int32 output, dequant_sum_s32: ms, bound and plain ms summed over one
+vit_l_16 TP (1, 2) forward at batch 32, launches in (k2)'s forward), the
+card's name and power limit, and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
 
@@ -506,11 +523,12 @@ def _ptxas_by_body(log: str) -> dict:
 
 def _ptxas_int8(log: str) -> dict:
     """ptxas -v of int8_linear.so: per kernel (int8_linear_s8_wgmma /
-    int8_linear_s8 / quantize_rows_s8), its instantiations, the most registers
-    and those with stack or spills."""
+    int8_linear_s8 / quantize_rows_s8 / dequant_sum_s32), its instantiations,
+    the most registers and those with stack or spills."""
     kernels: dict = {}
     for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
-        kind = re.search(r"(int8_linear_s8_wgmma|int8_linear_s8|quantize_rows_s8)_kernel", name).group(1)
+        kind = re.search(r"(int8_linear_s8_wgmma|int8_linear_s8|quantize_rows_s8|dequant_sum_s32)_kernel",
+                         name).group(1)
         entry = kernels.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
         entry["kernels"] += 1
         entry["max_registers"] = max(entry["max_registers"], int(re.search(r"Used (\d+) registers", body).group(1)))
@@ -568,7 +586,7 @@ def phase_build(state):
     imma = Counter(re.findall(r"\bI(?:G)?MMA\.[\w.]+|\bUTMALDG[\w.]*", int8_sass))
     int8_ops = {op: sum(n for name, n in imma.items() if name.split(".")[0] == op)
                 for op in ("IMMA", "IGMMA", "UTMALDG")}
-    if set(int8_kernels) != {"int8_linear_s8", "int8_linear_s8_wgmma", "quantize_rows_s8"} \
+    if set(int8_kernels) != {"int8_linear_s8", "int8_linear_s8_wgmma", "quantize_rows_s8", "dequant_sum_s32"} \
             or not all(int8_ops.values()):
         raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS {dict(imma)}")
     if any(k["spilling"] for k in int8_kernels.values()):
@@ -3328,6 +3346,224 @@ def _multi_kernel_checks(state):
         f"{time.perf_counter() - t0:.1f} s wall [{state['card']}]")
 
 
+# Tensor-parallel int8 on the (1, 2) mesh: the row-parallel layers' shard rows at batch 32.
+# vit_l_16 (197 tokens): proj's input 8 heads of 64 (K 512 a shard), fc2's 2,048 tanh-GELU units;
+# dinov3_vit7b16 (201 tokens: cls, 4 registers): proj's 16 heads of 128 (2,048), fc2's 4,096 gated units.
+TP_ROWS = {"vit_l_16": 32 * 197, "dinov3_vit7b16": 32 * 201}
+TP_QUANT_CASES = [  # (model, layer, whole K, prologue, operand)
+    ("vit_l_16", "proj", 1024, "identity", "heads"), ("vit_l_16", "fc2", 4096, "gelu_tanh", None),
+    ("dinov3_vit7b16", "proj", 4096, "identity", "heads"), ("dinov3_vit7b16", "fc2", 8192, "gelu_tanh", "gated"),
+    ("dinov3_vit7b16", "fc2", 8192, "silu", "gated"),
+]
+TP_LINEAR_CASES = [  # (model, layer, whole K, N)
+    ("vit_l_16", "proj", 1024, 1024), ("vit_l_16", "fc2", 4096, 1024),
+    ("dinov3_vit7b16", "proj", 4096, 4096), ("dinov3_vit7b16", "fc2", 8192, 4096),
+]
+# the new launches in one vit_l_16 TP (1, 2) int8 forward: per block and shard an amax-only and a
+# given-amax quantizer before proj (identity) and before fc2 (gelu_tanh) and their int32 partials on
+# the mma body; per block one dequant_sum_s32 for each; the layernorm quantizers and the
+# column-parallel linears (qkv, fc1 on each shard, wgmma) as on one device
+VITL_TP_LAUNCHES = {"prologue": {"layernorm": 48, "identity": 96, "gelu_tanh": 96},
+                    "mode": {"one_pass": 48, "amax_only": 96, "given_amax": 96},
+                    "variant": {"wgmma": 96, "mma": 96}, "dequant_sum": 48}
+TP_INT8_REPLACES = {"amax_only": "atlaspatch_tpu/models/encoders/vit.py:143",
+                    "given_amax": "atlaspatch_tpu/models/encoders/vit.py:143",
+                    "int32": "atlaspatch_tpu/models/encoders/vit.py:146",
+                    "dequant_sum_s32": "atlaspatch_tpu/models/encoders/vit.py:152"}
+
+
+def _tp_heads(m, k, dtype, gen):
+    """The attention's whole (B, T, H, D) output of a TP case (stored (B, H, T, D), as the einsum
+    leaves it) and its two shards' heads."""
+    import torch
+
+    b, t = (m // 197, 197) if k == 1024 else (m // 201, 201)
+    h, d = (16, 64) if k == 1024 else (32, 128)
+    attn = torch.softmax(torch.randn(b, h, t, t, device="cuda", generator=gen) * 3, dim=-1).to(dtype)
+    v = torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
+    whole = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    return whole, [whole[:, :, : h // 2], whole[:, :, h // 2:]]
+
+
+def _tp_ms(fn, kernel: str | None, what: str, state) -> float:
+    """device_ms of fn; where the profiler kept none of its launches in any window (seen now and then
+    late in a run, for cuBLASLt's _int_mm), its CUDA-event time, which counts host gaps too, said so."""
+    try:
+        return device_ms(fn, kernel=kernel)
+    except AssertionError as e:
+        ms = cuda_ms(fn)
+        log(f"multi (k0) tp int8 {what}: {e}; timed by CUDA events instead: {ms:.4f} ms [{state['card']}]")
+        return ms
+
+
+def _tp_int8_kernel_rows(state) -> dict:
+    """(k0) tensor-parallel int8's kernels at the (1, 2) mesh's shard shapes: quantize_rows_s8's
+    amax-only mode against its plain version (identity max-abs 0, the activations within 2^-8), the
+    shards' amaxes maxed equal to the whole row's, given-amax on each shard with them equal to the
+    one-pass kernel's columns and scale (max-abs 0) and to the plain version (identity max-abs 0, the
+    activations at the int8 phase's bars); int8_linear_s8's int32 output (mma) against int_product
+    and dequant_sum_s32 of the two shards' partials against int8_linear_s8 on the whole K, max-abs 0.
+    Device ms of each at vit_l_16's shapes, beside bound, plain and (int32) torch._int_mm."""
+    import torch
+
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, worst = {}, {"amax_abs": 0.0, "given_abs": 0, "flip_share": 0.0}
+    for model, layer, k, prologue, operand in TP_QUANT_CASES:
+        m = TP_ROWS[model]
+        if operand == "heads":
+            whole, halves = _tp_heads(m, k, torch.bfloat16, gen)
+            args, parts = (whole,), [(h,) for h in halves]
+            quantize, amax_of = I.quantize_heads, I.heads_amax
+
+            def values(x):
+                return x.reshape(x.shape[0] * x.shape[1], -1)
+        else:
+            a = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+            b = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16) if operand else None
+            args = (a, prologue, b)
+            parts = [(a[:, c].contiguous(), prologue, None if b is None else b[:, c].contiguous())
+                     for c in (slice(0, k // 2), slice(k // 2, k))]
+            quantize, amax_of = I.act_quantize_rows, I.act_row_amax
+
+            def values(x, act, y=None):
+                return I._act_rows(x, act, y)
+        I.reset_launch_counts()
+        one_xq, one_s = quantize(*args)
+        amaxes = [amax_of(*part) for part in parts]
+        maxed = torch.maximum(*amaxes)
+        given = [quantize(*part, amax=maxed) for part in parts]
+        torch.cuda.synchronize()
+        if dict(I.quantize_rows.mode_launches) != {"one_pass": 1, "amax_only": 2, "given_amax": 2}:
+            raise AssertionError(f"multi tp {model} {layer}: quantizer modes {dict(I.quantize_rows.mode_launches)}")
+        plain_amax = [I.row_amax_plain(values(*part)) for part in parts]
+        amax_rel = max(((x - want).abs() / want.clamp_min(1e-30)).max().item() for x, want in zip(amaxes, plain_amax))
+        amax_abs = max((x - want).abs().max().item() for x, want in zip(amaxes, plain_amax))
+        exact = (torch.equal(I._divide(maxed.clamp_min(1e-8), 127.0), one_s)
+                 and torch.equal(torch.cat([q for q, _ in given], dim=1), one_xq)
+                 and all(torch.equal(s_x, one_s) for _, s_x in given))
+        plain_given = [I.quantize_rows_plain(values(*part), maxed) for part in parts]
+        diff = torch.cat([(q.int() - pq.int()).abs() for (q, _), (pq, _) in zip(given, plain_given)], dim=1)
+        share = (diff > 0).float().mean().item()
+        ok = (amax_rel == 0 and diff.max().item() == 0) if prologue == "identity" else \
+            (amax_rel <= 2.0**-8 and diff.max().item() <= 1 and share <= FUSED_FLIP_SHARE)
+        if not (exact and ok):
+            raise AssertionError(f"multi tp {model} {layer} {prologue} M={m} K={k}: shards equal the one-pass "
+                                 f"kernel {exact}; amax rel {amax_rel}, given vs plain |dxq| {diff.max().item()} "
+                                 f"share {share}")
+        worst = {"amax_abs": max(worst["amax_abs"], amax_abs), "given_abs": max(worst["given_abs"], diff.max().item()),
+                 "flip_share": max(worst["flip_share"], share)}
+        row = dict(amax_rel=amax_rel, share=share)
+        if model == "vit_l_16":
+            part = parts[0]
+            kk = k // 2
+            row.update(amax_ms=_tp_ms(lambda: amax_of(*part), "quantize_rows_s8", f"{layer} amax-only", state),
+                       given_ms=_tp_ms(lambda: quantize(*part, amax=maxed), "quantize_rows_s8",
+                                       f"{layer} given-amax", state),
+                       amax_plain_ms=cuda_ms(lambda: I.row_amax_plain(values(*part)), max_reps=10),
+                       given_plain_ms=cuda_ms(lambda: I.quantize_rows_plain(values(*part), maxed), max_reps=10),
+                       amax_bound_ms=1e3 * (2 * m * kk + 4 * m) / H100_BYTES_PER_S,
+                       given_bound_ms=1e3 * (3 * m * kk + 8 * m) / H100_BYTES_PER_S)
+        rows[(model, layer, prologue)] = row
+        log(f"multi (k0) tp int8 quantize_rows_s8 {model} {layer} {prologue}{' * b' if operand == 'gated' else ''} "
+            f"M={m} K={k} over 2 shards: amax-only vs plain rel {amax_rel:.3e}, maxed = the whole row's, given-amax "
+            f"shards = the one-pass kernel (max-abs 0), vs plain flip share {share:.3e}"
+            + ("" if "amax_ms" not in row else
+               f"; a shard's call dev_ms amax-only {row['amax_ms']:.4f} (bound {row['amax_bound_ms']:.4f}, plain "
+               f"{row['amax_plain_ms']:.4f}), given-amax {row['given_ms']:.4f} (bound {row['given_bound_ms']:.4f}, "
+               f"plain {row['given_plain_ms']:.4f})") + f" [{state['card']}]")
+        del args, parts, given, plain_given, one_xq
+    linear_err = 0
+    for model, layer, k, n in TP_LINEAR_CASES:
+        m = TP_ROWS[model]
+        xq, s_x = I.quantize_rows((torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16))
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+        qscale = (torch.rand(n, device="cuda", generator=gen) + 0.5) / 127.0
+        bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+        halves = [(xq[:, c].contiguous(), w[:, c].contiguous()) for c in (slice(0, k // 2), slice(k // 2, k))]
+        I.reset_launch_counts()
+        partials = [I.int8_linear_s32(a, b) for a, b in halves]
+        got = I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        if dict(I.int8_linear.variant_launches) != {"mma": 2} or I.dequant_sum.launches != 1:
+            raise AssertionError(f"multi tp {model} {layer}: {dict(I.int8_linear.variant_launches)}, "
+                                 f"{I.dequant_sum.launches} dequant_sum")
+        want = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+        s32_err = max((p.long() - I.int8_linear_s32_plain(a, b).long()).abs().max().item()
+                      for p, (a, b) in zip(partials, halves))
+        sum_err = max((got.float() - want.float()).abs().max().item(),
+                      (got.float() - I.dequant_sum_plain(partials, s_x, qscale, bias, torch.bfloat16).float())
+                      .abs().max().item())
+        if s32_err != 0 or sum_err != 0:
+            raise AssertionError(f"multi tp {model} {layer} M={m} K={k} N={n}: int32 partials vs int_product "
+                                 f"{s32_err}, dequant_sum vs int8_linear_s8 on the whole K {sum_err}")
+        linear_err = max(linear_err, s32_err, sum_err)
+        row = {}
+        if model == "vit_l_16":
+            a, b = halves[0]
+            kk = k // 2
+            row = dict(s32_ms=_tp_ms(lambda: I.int8_linear_s32(a, b), "int8_linear_s8", f"{layer} int32", state),
+                       s32_plain_ms=cuda_ms(lambda: I.int8_linear_s32_plain(a, b), max_reps=5),
+                       int_mm_ms=_tp_ms(lambda: torch._int_mm(a, b.t()), None, f"{layer} _int_mm", state),
+                       s32_op_ms=1e3 * 2.0 * m * n * kk / H100_INT8_OPS,
+                       s32_byte_ms=1e3 * (m * kk + n * kk + 4 * m * n) / H100_BYTES_PER_S,
+                       sum_ms=_tp_ms(lambda: I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16),
+                                     "dequant_sum_s32", f"{layer} dequant_sum_s32", state),
+                       sum_plain_ms=cuda_ms(lambda: I.dequant_sum_plain(partials, s_x, qscale, bias, torch.bfloat16),
+                                            max_reps=10),
+                       sum_bound_ms=1e3 * (2 * 4 * m * n + 4 * m + 4 * n + 2 * n + 2 * m * n) / H100_BYTES_PER_S)
+        rows[(model, layer, "linear")] = row
+        log(f"multi (k0) tp int8 {model} {layer} M={m} K={k}={k // 2}+{k // 2} N={n}: int8_linear_s8 int32 (mma) "
+            f"vs int_product max-abs 0, dequant_sum_s32 of the 2 partials vs int8_linear_s8 (wgmma) on the whole K "
+            f"max-abs 0" + ("" if not row else
+                            f"; a shard's int32 product dev_ms {row['s32_ms']:.4f} (bound "
+                            f"{max(row['s32_op_ms'], row['s32_byte_ms']):.4f}, _int_mm {row['int_mm_ms']:.4f}, plain "
+                            f"{row['s32_plain_ms']:.4f}), dequant_sum_s32 {row['sum_ms']:.4f} (bound "
+                            f"{row['sum_bound_ms']:.4f}, plain {row['sum_plain_ms']:.4f})") + f" [{state['card']}]")
+        del xq, w, halves, partials, got, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst, "linear_err": linear_err}
+
+
+def _tp_int8_records(tp, launches) -> list[dict]:
+    """The new modes' and kernels' records over one vit_l_16 TP (1, 2) int8 forward at batch 32 (24
+    blocks, 2 shards): ms, bound and plain ms summed over its calls (per block and shard one amax-only
+    and one given-amax before proj and before fc2, two int32 partials; per block two dequant_sum_s32),
+    launches from (k2)'s run."""
+    r = tp["rows"]
+    proj, fc2 = r[("vit_l_16", "proj", "identity")], r[("vit_l_16", "fc2", "gelu_tanh")]
+    lp, lf = r[("vit_l_16", "proj", "linear")], r[("vit_l_16", "fc2", "linear")]
+    calls = 24 * 2
+    s32_op = calls * (lp["s32_op_ms"] + lf["s32_op_ms"])
+    s32_byte = calls * (lp["s32_byte_ms"] + lf["s32_byte_ms"])
+    base = {"route": "cuda", "source": INT8_SOURCE}
+    return [
+        {**base, "name": "quantize_rows_s8:amax_only", "replaces": TP_INT8_REPLACES["amax_only"],
+         "launches": launches["mode"]["amax_only"], "max_abs_err": tp["worst"]["amax_abs"],
+         "ms": calls * (proj["amax_ms"] + fc2["amax_ms"]),
+         "plain_ms": calls * (proj["amax_plain_ms"] + fc2["amax_plain_ms"]),
+         "bound_ms": calls * (proj["amax_bound_ms"] + fc2["amax_bound_ms"]), "bound_by": "bytes",
+         "library_ms": None},
+        {**base, "name": "quantize_rows_s8:given_amax", "replaces": TP_INT8_REPLACES["given_amax"],
+         "launches": launches["mode"]["given_amax"], "max_abs_err": tp["worst"]["given_abs"],
+         "flip_share": tp["worst"]["flip_share"],
+         "ms": calls * (proj["given_ms"] + fc2["given_ms"]),
+         "plain_ms": calls * (proj["given_plain_ms"] + fc2["given_plain_ms"]),
+         "bound_ms": calls * (proj["given_bound_ms"] + fc2["given_bound_ms"]), "bound_by": "bytes",
+         "library_ms": None},
+        {**base, "name": "int8_linear_s8:int32", "replaces": TP_INT8_REPLACES["int32"],
+         "launches": launches["variant"]["mma"], "max_abs_err": tp["linear_err"],
+         "ms": calls * (lp["s32_ms"] + lf["s32_ms"]), "plain_ms": calls * (lp["s32_plain_ms"] + lf["s32_plain_ms"]),
+         "bound_ms": max(s32_op, s32_byte), "bound_by": "operations" if s32_op >= s32_byte else "bytes",
+         "library_ms": calls * (lp["int_mm_ms"] + lf["int_mm_ms"])},
+        {**base, "name": "dequant_sum_s32", "replaces": TP_INT8_REPLACES["dequant_sum_s32"],
+         "launches": launches["dequant_sum"], "max_abs_err": tp["linear_err"],
+         "ms": 24 * (lp["sum_ms"] + lf["sum_ms"]), "plain_ms": 24 * (lp["sum_plain_ms"] + lf["sum_plain_ms"]),
+         "bound_ms": 24 * (lp["sum_bound_ms"] + lf["sum_bound_ms"]), "bound_by": "bytes", "library_ms": None},
+    ]
+
+
 def _multi_seg(state, mesh) -> int:
     """(k1) SAM2SegmentationService on the data-parallel mesh at full
     Hiera-tiny width (random weights): the --fast preset on the seg phase's
@@ -3452,7 +3688,7 @@ def _multi_embed(state) -> tuple[int, int]:
             cos[label] = float(_cos_rows(bf16["one"], bf16[label]).min())
             if not cos[label] >= 0.999:
                 raise AssertionError(f"multi {label}: bfloat16 per-patch cosine {cos[label]} against one device")
-    i8 = {}
+    i8, one_wall = {}, 0.0
     for label, mesh in (("one", None), ("dp (2, 1)", meshes["dp (2, 1)"][0])):
         ext = build_default_registry(device="cuda", dtype="int8", mesh=mesh).create("vit_l_16")
         ext.extract_batch(patches[:4], batch_size=32)  # warm-up
@@ -3461,6 +3697,8 @@ def _multi_embed(state) -> tuple[int, int]:
         i8[label] = ext.extract_batch(patches, batch_size=32)
         torch.cuda.synchronize()
         i8_wall = time.perf_counter() - t1
+        if label == "one":
+            one_wall = i8_wall
         counts = _int8_launches()
         if label != "one":
             replica_fwd = len(ext.replicas)
@@ -3470,6 +3708,7 @@ def _multi_embed(state) -> tuple[int, int]:
                                      f"{dict(I.int8_linear.variant_launches)} in {replica_fwd} replica forwards")
             int8_launches = counts
         ext.cleanup()
+    state["multi_int8_one"] = (patches, i8["one"], one_wall)  # (k2)'s tensor-parallel int8 is held against it
     i8_cos = float(_cos_rows(i8["one"], i8["dp (2, 1)"]).min())
     if not i8_cos >= 0.999:
         raise AssertionError(f"multi int8 dp: per-patch cosine {i8_cos} against one device")
@@ -3481,6 +3720,103 @@ def _multi_embed(state) -> tuple[int, int]:
         f"{VITL_PROLOGUE_LAUNCHES} by prologue, all linears wgmma), int8 dp extract_batch {i8_wall:.3f} s; "
         f"part {time.perf_counter() - t0:.1f} s wall [{state['card']}]")
     return int8_launches
+
+
+def _int8_counts() -> dict:
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    return {"prologue": dict(I.quantize_rows.prologue_launches), "mode": dict(I.quantize_rows.mode_launches),
+            "variant": dict(I.int8_linear.variant_launches), "dequant_sum": I.dequant_sum.launches}
+
+
+def _feature_gap(want, got) -> str:
+    cos = _cos_rows(want, got)
+    return (f"per-patch cosine min {cos.min():.7f}, max-abs {float(abs(got - want).max()):.4g} of "
+            f"{float(abs(want).max()):.4g}, {float((got != want).mean()):.3e} of the features differ")
+
+
+def _multi_tp_int8(state) -> dict:
+    """(k2) tensor-parallel int8 on the (1, 2) mesh over the card named twice, against one-device
+    int8 on the same 32 patches at batch 32: vit_l_16 at full width and depth from the registry
+    (process --feature-parallel tensor --feature-precision int8's extractor), and dinov3_vit7b16 at
+    full width (dim 4,096, 32 heads, gated MLP of 8,192), depth cut to 2, random weights. Per-patch
+    cosine >= 0.999 (max-abs and the share of features that differ printed); the launches of one
+    forward by prologue, mode, body and dequant_sum_s32 as the design gives them. Returns vit_l_16's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import RowParallel, ViT, quantize_vit_state_dict
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
+
+    t0 = time.perf_counter()
+    patches, want, one_wall = state.pop("multi_int8_one")
+    tp = build_default_registry(device="cuda", dtype="int8", mesh=embedding_mesh(2, MULTI_CARD),
+                                tensor_parallel=True).create("vit_l_16")
+    attn = tp.replicas[0].blocks[0].attn
+    if len(tp.replicas) != 1 or not (isinstance(attn, RowParallel) and attn.quantized and len(attn.shards) == 2) \
+            or tp.replicas[0].spec.depth != 24:
+        raise AssertionError(f"multi tp int8: replicas {len(tp.replicas)}, block attention {attn}")
+    tp.extract_batch(patches[:4], batch_size=32)  # warm-up
+    I.reset_launch_counts()
+    t1 = time.perf_counter()
+    got = tp.extract_batch(patches, batch_size=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _int8_counts()
+    if launches != VITL_TP_LAUNCHES:
+        raise AssertionError(f"multi tp int8 vit_l_16: launches in one forward {launches}, want {VITL_TP_LAUNCHES}")
+    cos = _cos_rows(want, got)
+    if not (np.isfinite(got).all() and got.shape == want.shape and cos.min() >= 0.999):
+        raise AssertionError(f"multi tp int8 vit_l_16: {_feature_gap(want, got)}")
+    tp.cleanup()
+    log(f"multi (k2) vit_l_16 int8 tensor-parallel (1, 2) on {MULTI_CARD}, full depth, 32 patches at batch 32 "
+        f"against one device's int8: {_feature_gap(want, got)} (>= 0.999); one forward's launches {launches}; "
+        f"extract_batch {wall:.3f} s (one device {one_wall:.3f} s, same run) [{state['card']}]")
+
+    entry = ENTRIES["dinov3_vit7b16"]
+    spec = dataclasses.replace(entry.spec, depth=2)
+    if (spec.dim, spec.heads, spec.hidden_dim, spec.gated_mlp) != (4096, 32, 8192, True):
+        raise AssertionError(f"dinov3_vit7b16 is not at full width: {spec}")
+    state_dict = quantize_vit_state_dict(init_random_weights_(ViT(spec).cuda(), seed=0).state_dict())
+    model = ViT(dataclasses.replace(spec, quant_int8=True)).cuda()
+    model.load_state_dict(state_dict, strict=True)
+    del state_dict
+    kw = dict(name="dinov3_vit7b16", embedding_dim=entry.embedding_dim, spec=entry.preprocess, compute_dtype="int8")
+    one7 = TorchFeatureExtractor(model=copy.deepcopy(model), device="cuda", **kw)
+    want7 = one7.extract_batch(patches, batch_size=32)
+    one7.cleanup()
+    tp7 = TorchFeatureExtractor(model=model, mesh=embedding_mesh(2, MULTI_CARD), tensor_parallel=True, **kw)
+    tp7.extract_batch(patches[:4], batch_size=32)
+    I.reset_launch_counts()
+    got7 = tp7.extract_batch(patches, batch_size=32)
+    torch.cuda.synchronize()
+    launches7 = _int8_counts()
+    # per block: one layernorm quantizer a norm; a shard's amax-only and given-amax before proj
+    # (identity) and fc2 (gelu_tanh of fc_gate times fc_up); qkv, fc_gate, fc_up on wgmma, proj and
+    # fc2's int32 partials on mma; a dequant_sum_s32 for proj and one for fc2
+    want_launches = {"prologue": {"layernorm": 4, "identity": 8, "gelu_tanh": 8},
+                     "mode": {"one_pass": 4, "amax_only": 8, "given_amax": 8},
+                     "variant": {"wgmma": 12, "mma": 8}, "dequant_sum": 4}
+    cos7 = _cos_rows(want7, got7)
+    if launches7 != want_launches or not (np.isfinite(got7).all() and got7.shape == (32, 4096)
+                                          and cos7.min() >= 0.999):
+        raise AssertionError(f"multi tp int8 dinov3_vit7b16: launches {launches7} (want {want_launches}); "
+                             f"{_feature_gap(want7, got7)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tp7.cleanup()
+    del model, one7, tp7
+    torch.cuda.empty_cache()
+    log(f"multi (k2) dinov3_vit7b16 int8 (dim 4096, 32 heads, gated MLP 8192; depth 2 of 40, random weights) "
+        f"tensor-parallel (1, 2) on {MULTI_CARD}, 32 patches at batch 32, against one device's int8: "
+        f"{_feature_gap(want7, got7)} (>= 0.999); one forward's launches {launches7}; peak memory {peak:.1f} GiB; "
+        f"part {time.perf_counter() - t0:.1f} s wall [{state['card']}]")
+    return launches
 
 
 def _multi_finetune(state, tmp) -> int:
@@ -3690,8 +4026,15 @@ def phase_multi(state):
 
     t0 = time.perf_counter()
     _multi_kernel_checks(state)
+    tp_kernels = _tp_int8_kernel_rows(state)
     launches = _multi_seg(state, embedding_mesh(1, MULTI_CARD))
     state["multi_int8_launches"] = _multi_embed(state)
+    state["tp_int8_records"] = _tp_int8_records(tp_kernels, _multi_tp_int8(state))
+    for rec in state["tp_int8_records"]:
+        log(f"multi tp int8 record {rec['name']}: per vit_l_16 TP (1, 2) forward (batch 32) {rec['ms']:.3f} ms "
+            f"device, bound {rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
+            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in one forward "
+            f"[{state['card']}]")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
     try:
         (tmp / "ft").mkdir()
@@ -3746,8 +4089,11 @@ def main() -> int:
     for rec, launches in zip(state["int8_records"], state["multi_int8_launches"]):
         rec["multi_launches"] = launches  # the multi phase's data-parallel int8 extract_batch
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
+    tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+    tp_int8 = [{k: rec[k] for k in tp_keys if k in rec} for rec in state["tp_int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8]}))
+    print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8, *tp_int8]}))
     print(state["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -374,8 +374,8 @@ def test_multi_gpu_flags_are_refused_with_more_than_one_card(tmp_path, monkeypat
     """Named when the multi-GPU flags were refused with more than one card:
     now each builds a mesh of every visible card (segmentation data-parallel
     over both; embedding data-parallel (2, 1) or tensor-parallel (1, 2)),
-    recorded where the services take it, before any slide. The one refusal
-    left is tensor-parallel int8, by name, before any slide."""
+    recorded where the services take it, before any slide; tensor-parallel
+    int8 (named when it was refused) builds the tensor-parallel mesh too."""
     from atlaspatch_tpu_torch.models import encoders
     from atlaspatch_tpu_torch.services import segmentation
 
@@ -410,11 +410,12 @@ def test_multi_gpu_flags_are_refused_with_more_than_one_card(tmp_path, monkeypat
         assert mesh.grid == want[0], mesh
         if key == "features":
             assert seen[key][1] is want[1]
+    # named when tensor-parallel int8 was refused: it builds the same tensor-parallel mesh
+    seen.clear()
     result = invoke_cli(CLI_PACKAGES[1], ["process", *base, *_FEATURE_ARGS[2:], "--feature-parallel", "tensor",
                                           "--feature-precision", "int8"])
-    assert result.exit_code == 2, result.output
-    assert "tensor-parallel int8 is not ported" in result.output
-    assert not (tmp_path / "o" / "patches").exists()
+    assert isinstance(result.exception, Built), result.output
+    assert seen["features"][0].grid == [cards] and seen["features"][1] is True
 
 
 def test_seg_data_parallel_on_one_device_warns_and_runs(tmp_path, monkeypatch, caplog):

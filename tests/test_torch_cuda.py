@@ -1016,3 +1016,160 @@ def test_int8_blocks_launch_each_prologue_on_the_card(card, monkeypatch, kw):
     assert I.int8_linear.launches == 2 * (5 if kw.get("gated_mlp") else 4)
     cos = torch.nn.functional.cosine_similarity(got, want)
     assert cos.min().item() > 0.999, cos
+
+
+# --- tensor-parallel int8: amax-only, given-amax, the int32 output and dequant_sum_s32 ---
+SPLIT_CASES = [  # (M, K, prologue, operand): vit_l_16's proj / fc2 rows at batch 8, a gated row, ragged ones
+    (1576, 1024, "identity", "heads"), (1576, 4096, "gelu_tanh", None), (1576, 1024, "identity", None),
+    (1000, 8192, "silu", "gated"), (37, 3416, "silu", "swiglu"), (37, 96, "gelu", None), (9, 90, "relu", None),
+]
+
+
+def _split(args, operand, parts=2):
+    """The prologue's operands cut into ``parts`` slices of each row (heads: of the heads)."""
+    if operand == "heads":
+        return [(h,) for h in args[0].chunk(parts, dim=2)]
+    if len(args) == 1:
+        return [(x,) for x in args[0].chunk(parts, dim=1)]
+    a, act, b = args
+    return [(x, act, None if y is None else y) for x, y in
+            zip(a.chunk(parts, dim=1), b.chunk(parts, dim=1) if b is not None else [None] * parts)]
+
+
+def _amax_call(prologue, operand):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    if prologue == "identity":
+        if operand == "heads":
+            return I.heads_amax, lambda x: I.row_amax_plain(x.reshape(x.shape[0] * x.shape[1], -1))
+        return I.row_amax, I.row_amax_plain
+    return I.act_row_amax, lambda a, act, b=None: I.row_amax_plain(I._act_rows(a, act, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,prologue,operand", SPLIT_CASES)
+def test_amax_modes_split_a_row_into_the_one_pass_bytes(card, m, k, prologue, operand, dtype):
+    """amax-only against its plain version (identity max-abs 0; the activations' prologue values are
+    ATen's where test_quantize_prologue_matches_plain says, so their abs-max within 2^-8); given-amax
+    on the row's own amax equal to the one-pass kernel (max-abs 0), and on each half of the row with
+    the halves' amaxes maxed, equal to the one-pass kernel's columns (the tensor-parallel split)."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    args = _fused_operands(card, m, k, prologue, operand, dtype)
+    quantize, _ = _fused_call(prologue, operand)
+    amax_of, amax_plain = _amax_call(prologue, operand)
+    I.reset_launch_counts()
+    whole_xq, whole_s = quantize(*args)
+    amax = amax_of(*args)
+    torch.cuda.synchronize()
+    assert I.quantize_rows.mode_launches == {"one_pass": 1, "amax_only": 1}
+    assert amax.shape == (m,) and amax.dtype == torch.float32
+    want = amax_plain(*args)
+    rel = ((amax - want).abs() / want.clamp_min(1e-30)).max().item()
+    assert rel == 0 if prologue == "identity" else rel <= 2.0**-8, rel
+    assert torch.equal(I._divide(amax.clamp_min(1e-8), 127.0), whole_s)
+    given = quantize(*args, amax=amax)
+    assert torch.equal(given[0], whole_xq) and torch.equal(given[1], whole_s)
+    if prologue == "identity":  # given-amax against its plain version
+        plain = I.quantize_rows_plain(args[0].reshape(m, k), want)
+        assert torch.equal(given[0], plain[0]) and torch.equal(given[1], plain[1])
+    halves = _split(args, operand)
+    maxed = torch.maximum(*(amax_of(*h) for h in halves))
+    assert torch.equal(maxed, amax)
+    cols = [quantize(*h, amax=maxed) for h in halves]
+    assert torch.equal(torch.cat([c[0] for c in cols], dim=1), whole_xq)
+    assert all(torch.equal(c[1], whole_s) for c in cols)
+    assert I.quantize_rows.mode_launches == {"one_pass": 1, "amax_only": 3, "given_amax": 3}
+
+
+@pytest.mark.parametrize("m,n,k", INT8_SHAPES)
+def test_int32_output_matches_int_product(card, m, n, k):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, _, w, _, _ = _int8_operands(card, m, n, k)
+    I.reset_launch_counts()
+    got = I.int8_linear_s32(xq, w)
+    torch.cuda.synchronize()
+    assert I.int8_linear.variant_launches == {"mma": 1}
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, I.int8_linear_s32_plain(xq, w))
+    assert torch.equal(got.cpu(), I.int8_linear_s32_plain(xq.cpu(), w.cpu()))
+
+
+@pytest.mark.parametrize("parts", [2, 3, 8])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", [(37, 1024, 1536), (130, 72, 96), (33, 17, 48), (5, 4304, 4608)])
+def test_dequant_sum_of_split_k_equals_the_whole_product(card, m, n, k, out_dtype, bias_dtype, parts):
+    """dequant_sum_s32 over the int32 partials of K cut in ``parts`` equals int8_linear_s8 on the
+    whole K (the routed body) and the plain version, max-abs 0."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, m, n, k)
+    bias = None if bias_dtype is None else bias.to(bias_dtype)
+    partials = [I.int8_linear_s32(a.contiguous(), b.contiguous())
+                for a, b in zip(xq.chunk(parts, dim=1), w.chunk(parts, dim=1))]
+    I.reset_launch_counts()
+    got = I.dequant_sum(partials, s_x, qscale, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert I.dequant_sum.launches == 1 and got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, I.int8_linear(xq, s_x, w, qscale, bias, out_dtype))
+    assert torch.equal(got, I.dequant_sum_plain(partials, s_x, qscale, bias, out_dtype))
+
+
+def test_dequant_sum_refuses_what_it_does_not_take(card):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    part = torch.zeros(4, 8, dtype=torch.int32, device=card)
+    s_x, qscale = torch.ones(4, device=card), torch.ones(8, device=card)
+    with pytest.raises(ValueError, match="1 to 8 partials"):
+        I.dequant_sum([part] * 9, s_x, qscale, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="on one device"):
+        I.dequant_sum([part, part.cpu()], s_x, qscale, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="int32 partials of one shape"):
+        I.dequant_sum([part, part[:, :4]], s_x, qscale, None, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kw", [dict(gated_mlp=True, mlp_hidden=256, layerscale=True, act="silu"),
+                                dict(swiglu=True, act="silu", mlp_hidden=192, pos_mode="rope", reg_tokens=2)])
+def test_tensor_parallel_int8_equals_one_device_on_the_card(card, monkeypatch, kw):
+    """A bfloat16 int8 ViT sharded over the card named twice equals the same model on one device bit
+    for bit; per block the row-parallel quantizers run amax-only and given-amax on each shard, the
+    partials come from the mma body in int32 and dequant_sum_s32 runs once per row-parallel layer;
+    no plain version runs."""
+    import dataclasses
+
+    from atlaspatch_tpu_torch.models.encoders.engine import _cast_floating_, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import RowParallel, ViT, ViTSpec, quantize_vit_state_dict
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
+    from atlaspatch_tpu_torch.parallel.sharding import shard_vit
+
+    spec = ViTSpec(img_size=64, patch_size=16, dim=128, depth=2, heads=4, **kw)
+    state = quantize_vit_state_dict(init_random_weights_(ViT(spec), seed=0).state_dict())
+    model = ViT(dataclasses.replace(spec, quant_int8=True))
+    model.load_state_dict(state, strict=True)
+    model = _cast_floating_(model, torch.bfloat16, keep=("qscale",)).eval().requires_grad_(False)
+    (tp,) = shard_vit(model, embedding_mesh(2, [card, card]))
+    model.to(card)
+    assert isinstance(tp.blocks[0].attn, RowParallel) and tp.blocks[0].attn.quantized
+    x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16).to(card)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    with torch.no_grad():
+        want = model(x)
+        for name in ("quantize_rows_plain", "layernorm_quantize_rows_plain", "act_quantize_rows_plain",
+                     "int8_linear_plain", "int8_linear_s32_plain", "dequant_sum_plain", "row_amax_plain"):
+            monkeypatch.setattr(I, name, refuse)
+        I.reset_launch_counts()
+        got = tp(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    linears = 5 if kw.get("gated_mlp") else 4
+    assert I.quantize_rows.mode_launches == {"one_pass": 4, "amax_only": 8, "given_amax": 8}
+    assert I.quantize_rows.prologue_launches == {"layernorm": 4, "identity": 8, "silu": 8}
+    # per block and shard: the column-parallel linears on wgmma, proj and fc2's int32 partials on mma
+    assert I.int8_linear.variant_launches == {"wgmma": 2 * 2 * (linears - 2), "mma": 2 * 2 * 2}
+    assert I.dequant_sum.launches == 4

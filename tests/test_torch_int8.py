@@ -260,6 +260,142 @@ def test_plain_versions_run_on_the_cpu_without_a_launch():
     assert not I.int8_linear.variant_launches
 
 
+# --- tensor-parallel int8's halves: a row split over shards --------------------------------
+def _cuts(k: int, parts: int) -> list[slice]:
+    edges = [k * i // parts for i in range(parts + 1)]
+    return [slice(a, b) for a, b in zip(edges, edges[1:])]
+
+
+@pytest.mark.parametrize("parts", [2, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(48, 40), (64, 192), (37, 5)])
+def test_split_row_equals_int8_dense_on_the_whole_row(dtype, K, N, parts):
+    """A row-parallel Int8Dense as the JAX program computes it under the TP
+    plan, against the port's halves on K cut in ``parts``: the slices'
+    abs-maxes maxed equal the whole row's (``row_amax_plain``); each slice
+    quantized with it (``quantize_rows_plain(amax=)``) equals the whole row's
+    xq there and its s_x; the slices' int32 products
+    (``int8_linear_s32_plain``) sum to the whole dot_general's; and
+    ``dequant_sum_plain`` of them equals Int8Dense's output, bit for bit."""
+    kernel_q, qscale, bias = _dense_case(K, N, seed=K * N)
+    x = np.random.default_rng(K + parts).normal(0.0, 2.0, (2, 7, K)).astype(np.float32)
+    x[0, 0, :4] = [127.0, 2.5, -3.5, 0.5]  # ties, and the row's max in the first slice
+    x[0, 0, 4:] = 0.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x).astype(jdt)
+    bj = jnp.asarray(bias).astype(jdt)
+    want_xq, want_s, want_acc, want_y = _jax_dense_parts(xj, kernel_q, qscale, bj)
+    rows = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt).reshape(-1, K)
+    w = torch.from_numpy(np.ascontiguousarray(kernel_q.T))
+    cuts = _cuts(K, parts)
+    amax = torch.stack([I.row_amax_plain(rows[:, c]) for c in cuts]).amax(dim=0)
+    np.testing.assert_array_equal(amax.numpy(), np.abs(np.asarray(xj.astype(jnp.float32))).max(-1).reshape(-1))
+    slices = [I.quantize_rows_plain(rows[:, c], amax) for c in cuts]
+    np.testing.assert_array_equal(torch.cat([q for q, _ in slices], dim=1).numpy(), want_xq.reshape(-1, K))
+    for _, s_x in slices:
+        np.testing.assert_array_equal(s_x.numpy(), want_s.reshape(-1))
+    partials = [I.int8_linear_s32_plain(q, w[:, c].contiguous()) for (q, _), c in zip(slices, cuts)]
+    assert all(p.dtype == torch.int32 for p in partials)
+    np.testing.assert_array_equal(sum(p.numpy() for p in partials), want_acc.reshape(-1, N))
+    bias_t = torch.from_numpy(np.asarray(bj.astype(jnp.float32))).to(tdt)
+    got = I.dequant_sum_plain(partials, slices[0][1], torch.from_numpy(qscale), bias_t, tdt)
+    assert got.dtype == tdt and got.shape == (14, N)
+    np.testing.assert_array_equal(got.float().numpy(), want_y.reshape(-1, N))
+    # the wrappers run the same plain versions on CPU tensors, and launch nothing
+    I.reset_launch_counts()
+    assert torch.equal(I.dequant_sum(partials, slices[0][1], torch.from_numpy(qscale), bias_t, tdt), got)
+    assert torch.equal(I.int8_linear_s32(slices[0][0], w[:, cuts[0]].contiguous()), partials[0])
+    assert torch.equal(I.row_amax(rows[:, cuts[0]]), I.row_amax_plain(rows[:, cuts[0]]))
+    assert I.quantize_rows.launches == I.int8_linear.launches == I.dequant_sum.launches == 0
+
+
+@pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
+@pytest.mark.parametrize("act", ACTS)
+def test_split_act_quantizer_matches_the_whole_row(act, gate):
+    """The activation before a row-parallel fc2, its hidden units split over
+    two shards, each holding its operands as its own linears leave them: the
+    halves' abs-maxes (``act_row_amax``) maxed are the JAX MLP's row abs-max
+    (within 2^-8, the bar of the fused quantizers), and each half quantized
+    with it (``act_quantize_rows(amax=)``) gives the bytes and the scale of
+    the one-pass quantizer over the whole row of those activation values, bit
+    for bit. They are the whole row's own values but where ATen's CPU kernels
+    round a strided row's vector tail otherwise: a SwiGLU half's row of 48
+    values, no multiple of their 32-value vectors, for GELU, tanh GELU and
+    SiLU here. The card's prologue computes each value alike wherever it
+    lies."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32)
+    b = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32) if gate else None
+    h = jvit._act(act)(jnp.asarray(a))
+    jax_amax = np.abs(np.asarray(h if b is None else h * jnp.asarray(b))).max(-1)
+    if gate == "swiglu":
+        ta, tb = torch.from_numpy(np.concatenate([a, b], axis=1)).chunk(2, dim=-1)
+    else:
+        ta, tb = torch.from_numpy(a), None if b is None else torch.from_numpy(b)
+    halves = [(ta[:, c].contiguous(), None if tb is None else tb[:, c].contiguous()) for c in _cuts(96, 2)]
+    if gate == "swiglu":
+        halves = [torch.cat(h, dim=1).chunk(2, dim=-1) for h in halves]
+    values = torch.cat([I._act_rows(x, act, y) for x, y in halves], dim=1)
+    moved = int((values != I._act_rows(ta, act, tb)).sum())
+    print(f"{act} {gate}: {moved} of {values.numel()} activation values rounded otherwise on the halves")
+    assert moved == 0 or gate == "swiglu"
+    whole = I.quantize_rows_plain(values)
+    amax = torch.maximum(*(I.act_row_amax(x, act, y) for x, y in halves))
+    assert np.abs(amax.numpy() / jax_amax - 1).max() <= 2.0**-8
+    got = [I.act_quantize_rows(x, act, y, amax) for x, y in halves]
+    assert torch.equal(torch.cat([q for q, _ in got], dim=1), whole[0])
+    assert all(torch.equal(s_x, whole[1]) for _, s_x in got)
+
+
+def test_split_heads_quantizer_matches_the_whole_rows():
+    """The attention's (B, T, H, D) output before a row-parallel proj, its
+    heads split over two shards: heads_amax of each maxed, then
+    quantize_heads with it, give the whole rows' xq and s_x."""
+    attn = torch.softmax(_rows(2 * 4 * 5, 5, torch.bfloat16, seed=9).reshape(2, 4, 5, 5), dim=-1)
+    v = _rows(2 * 5 * 4, 8, torch.bfloat16, seed=10).reshape(2, 5, 4, 8)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    whole = I.quantize_heads(out)
+    amax = torch.maximum(I.heads_amax(out[:, :, :2]), I.heads_amax(out[:, :, 2:]))
+    assert torch.equal(amax, out.float().abs().amax(dim=(2, 3)).reshape(-1))
+    got = [I.quantize_heads(out[:, :, h], amax) for h in (slice(0, 2), slice(2, 4))]
+    assert torch.equal(torch.cat([q for q, _ in got], dim=1), whole[0])
+    assert all(torch.equal(s_x, whole[1]) for _, s_x in got)
+
+
+def test_split_quantizers_refuse_what_they_do_not_take():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match=r"takes a \(4,\) torch.float32 amax"):
+        I.quantize_rows(x, torch.zeros(3))
+    with pytest.raises(ValueError, match=r"takes a \(4,\) torch.float32 amax"):
+        I.act_quantize_rows(x, "silu", None, torch.zeros(4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"takes a \(6,\) torch.float32 amax"):
+        I.quantize_heads(torch.zeros(2, 3, 2, 4), torch.zeros(4))
+    with pytest.raises(ValueError, match="no activation 'tanh'"):
+        I.act_row_amax(x, "tanh")
+    part = torch.zeros(4, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 8 partials"):
+        I.dequant_sum([], torch.ones(4), torch.ones(8), None, torch.float32)
+    with pytest.raises(ValueError, match="int32 partials of one shape"):
+        I.dequant_sum([part, part.float()], torch.ones(4), torch.ones(8), None, torch.float32)
+    with pytest.raises(ValueError, match=r"\(4,\) and \(8,\) float32 scales"):
+        I.dequant_sum([part], torch.ones(4), torch.ones(7), None, torch.float32)
+    with pytest.raises(ValueError, match="writes float32 or bfloat16"):
+        I.dequant_sum([part], torch.ones(4), torch.ones(8), None, torch.int32)
+    with pytest.raises(ValueError, match="shapes do not match"):
+        I.int8_linear_s32(torch.zeros(4, 8, dtype=torch.int8), torch.zeros(3, 7, dtype=torch.int8))
+
+
+def test_quant_modes_match_the_kernel_source():
+    src = (Path(I.__file__).parents[1] / "csrc" / "int8_linear.cu").read_text()
+    modes = re.search(r"enum Mode : int \{([^}]*)\}", src).group(1)
+    assert [m.strip() for m in modes.split(",")] == ["kOnePass", "kAmaxOnly", "kGivenAmax"]
+    assert I.QUANT_MODES == ("one_pass", "amax_only", "given_amax")
+    outs = re.search(r"enum OutType : int \{([^}]*)\}", src).group(1)
+    assert [m.strip() for m in outs.split(",")] == ["kOutF32", "kOutBF16", "kOutS32"]
+    assert list(I._OUT_CODES) == [torch.float32, torch.bfloat16, torch.int32]
+    assert f"kMaxPartials = {I.MAX_PARTIALS};" in src
+
+
 # --- the quantizer fused with the op before it -------------------------------------------
 def _rows(m: int, k: int, dtype, seed: int, scale: float = 2.0) -> torch.Tensor:
     x = np.random.default_rng(seed).normal(0.3, scale, (m, k)).astype(np.float32)

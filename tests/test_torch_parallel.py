@@ -16,15 +16,20 @@ inputs, made from a numpy seed, with the same weights:
     equals one device at that bar, and JAX's mesh except within 2^-5 of the
     largest |logit| (four bfloat16 ulps) of the threshold;
   * the tensor-parallel plan shards the axis ``vit_tp_shardings`` shards,
-    for every float and int8 parameter; the TP forward on a (4, 2) mesh
-    is within rtol 2e-4 / atol 2e-5 of JAX's mesh forward and of the
-    replicated one (tests/test_train_and_parallel.py:325);
+    for every float and int8 parameter, and ``shard_vit`` slices the int8
+    buffers so; the TP forward on a (4, 2) mesh is within rtol 2e-4 / atol
+    2e-5 of JAX's mesh forward and of the replicated one
+    (tests/test_train_and_parallel.py:325); the TP int8 forward equals the
+    port's one-device int8 bit for bit and is within 1e-3 of the largest
+    |feature| of JAX's int8 mesh forward (``test_torch_int8.py``'s bar);
   * the engine's DP and TP ``extract_batch`` equal one device's
-    (tests/test_engine_mesh.py:35-62), int8 DP too;
+    (tests/test_engine_mesh.py:35-62), in int8 too;
   * ``process --seg-data-parallel --feature-parallel tensor`` on 8 CPU
     "devices" (``local_devices`` patched) gives one device's coordinates
     byte for byte and features at cosine > 0.9999
-    (tests/test_cli_mesh_process.py:66-91, vit_l_32 at depth 2);
+    (tests/test_cli_mesh_process.py:66-91, vit_l_32 at depth 2), and
+    ``--feature-parallel tensor --feature-precision int8`` one device's
+    int8 features bit for bit;
   * ``finetune_sam2(data_parallel=2)`` over two CPU replicas follows the
     one-device loop at rtol 2e-3.
 """
@@ -253,9 +258,29 @@ def test_tp_plan_shards_the_axes_of_vit_tp_shardings(quant):
          "mlp/fc2/kernel_q"} if quant else
         {"attn/qkv/kernel", "attn/qkv/bias", "attn/proj/kernel", "mlp/fc_gate/kernel", "mlp/fc_gate/bias",
          "mlp/fc_up/kernel", "mlp/fc_up/bias", "mlp/fc2/kernel"})
-    if quant:  # tensor-parallel int8 is refused by name (the row scale crosses the shards)
-        with pytest.raises(NotImplementedError, match="tensor-parallel int8 is not ported"):
-            shard_vit(vit, mesh.embedding_mesh(2, _cpus(8)))
+    # shard_vit splits those axes: by head columns, hidden units and input columns; the row-parallel
+    # layers' int8 qscale whole on every shard, as the plan replicates it
+    replicas = shard_vit(vit, mesh.embedding_mesh(2, _cpus(8)))
+    weight = "weight_q" if quant else "weight"
+    sd = vit.state_dict()
+    for replica in replicas:
+        attn, mlp = replica.blocks[0].attn, replica.blocks[0].mlp
+        assert attn.quantized == mlp.quantized == quant
+        qkv = torch.cat([getattr(sh.qkv, weight) for sh in attn.shards]).reshape(2, 3, 2, 16, 64)
+        torch.testing.assert_close(qkv.transpose(0, 1).reshape(3 * 64, 64), sd[f"blocks.0.attn.qkv.{weight}"],
+                                   rtol=0, atol=0)
+        for owner, layer, dim in (("attn", "proj", 1), ("mlp", "fc_gate", 0), ("mlp", "fc_up", 0), ("mlp", "fc2", 1)):
+            got = torch.cat([getattr(getattr(sh, layer), weight) for sh in (attn if owner == "attn" else mlp).shards],
+                            dim=dim)
+            torch.testing.assert_close(got, sd[f"blocks.0.{owner}.{layer}.{weight}"], rtol=0, atol=0)
+        if quant:
+            qkv_scale = torch.cat([sh.qkv.qscale for sh in attn.shards]).reshape(2, 3, 2, 16).permute(1, 0, 2, 3)
+            torch.testing.assert_close(qkv_scale.reshape(-1), sd["blocks.0.attn.qkv.qscale"], rtol=0, atol=0)
+            for sh in attn.shards:
+                torch.testing.assert_close(sh.proj.qscale, sd["blocks.0.attn.proj.qscale"], rtol=0, atol=0)
+            for sh in mlp.shards:
+                torch.testing.assert_close(sh.fc2.qscale, sd["blocks.0.mlp.fc2.qscale"], rtol=0, atol=0)
+        assert all(sh.proj.bias is None for sh in attn.shards) and all(sh.fc2.bias is None for sh in mlp.shards)
 
 
 @pytest.mark.parametrize("name", sorted(_TP_SPECS))
@@ -285,6 +310,51 @@ def test_tp_forward_matches_jax_mesh_and_replicated(name):
     block = replicas[0].blocks[0]
     assert [s.heads for s in block.attn.shards] == [2, 2] and block.attn.shards[0].proj.bias is None
     assert block.mlp.shards[0].fc2.weight.shape[1] == spec.hidden_dim // 2
+
+
+@pytest.mark.parametrize("name,int8_attn", [*((name, False) for name in sorted(_TP_SPECS)),
+                                            ("rope_registers", True)])
+def test_tp_int8_forward_matches_one_device_and_jax_mesh(name, int8_attn, monkeypatch):
+    """Tensor-parallel int8 on a (4, 2) mesh: each replica's rows equal the
+    one-device int8 model's on the same rows bit for bit (the row-parallel
+    quantizers take the row's abs-max across the shards, the int32 partials
+    are summed before one dequantization), and the whole is within
+    test_torch_int8.py's bar of JAX's int8 forward under vit_tp_shardings."""
+    from atlaspatch_tpu_torch.models.encoders.vit import RowParallel
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    kw = dict(_TP_SPECS[name], quant_int8_attn=int8_attn)
+    spec = JaxViTSpec(**kw, quant_int8=True)
+    qtree = quantize_vit_params(shared_vit_params(JaxViTSpec(**_TP_SPECS[name]), seed=5))
+    jvit = JaxViT(spec)
+    imgs = np.random.default_rng(1).uniform(size=(8, 32, 32, 3)).astype(np.float32)
+    jmesh = _jax_mesh(4, 2)
+    sp = jax.tree.map(jax.device_put, qtree, vit_tp_shardings(qtree, jmesh))
+    with jmesh:
+        want = np.asarray(jax.jit(lambda p, x: jvit.apply({"params": p}, x))(
+            sp, jax.device_put(jnp.asarray(imgs), NamedSharding(jmesh, P("data")))))
+
+    vit = ViT(ViTSpec(**kw, quant_int8=True))
+    vit.load_state_dict(flax_tree_to_torch(qtree), strict=True)
+    vit.eval()
+    replicas = shard_vit(vit, mesh.embedding_mesh(2, _cpus(8)))
+    amaxes, plain = [], I.row_amax_plain
+    monkeypatch.setattr(I, "row_amax_plain", lambda rows: amaxes.append(rows.shape) or plain(rows))
+    with torch.inference_mode():
+        got = [r(torch.from_numpy(imgs[2 * i: 2 * i + 2])).numpy() for i, r in enumerate(replicas)]
+        assert len(amaxes) == 4 * spec.depth * 2 * 2  # replicas x blocks x (attn, mlp) x shards
+        one = [vit(torch.from_numpy(imgs[2 * i: 2 * i + 2])).numpy() for i in range(4)]
+    for g, o in zip(got, one):
+        np.testing.assert_array_equal(g, o)
+    got = np.concatenate(got)
+    err = np.abs(got - want).max()
+    print(f"{name} (int8 attention {int8_attn}): TP int8 vs JAX's mesh max-abs {err:.3g} of {np.abs(want).max():.3g}")
+    assert got.shape == want.shape and err <= 1e-3 * np.abs(want).max()
+    block = replicas[0].blocks[0]
+    assert isinstance(block.attn, RowParallel) and block.attn.quantized and block.mlp.quantized
+    assert [s.heads for s in block.attn.shards] == [2, 2] and block.attn.shards[0].proj.bias is None
+    if spec.pool == "map":  # the MAP head's MLP stays float, and whole: one device's result
+        assert not isinstance(replicas[0].head.mlp, RowParallel)
 
 
 def test_tp_refuses_a_model_axis_that_does_not_divide():
@@ -324,10 +394,15 @@ def test_engine_dp_and_tp_match_single_device(compute_dtype):
     got = dp.extract_batch(patches, batch_size=8)
     assert got.shape == (13, 32)
     np.testing.assert_allclose(got, single, rtol=1e-5, atol=1e-5)
-    if compute_dtype == "float32":
-        tp = _toy_extractor(vit, mesh=mesh.embedding_mesh(2, _cpus(8)), tensor_parallel=True)
-        np.testing.assert_allclose(tp.extract_batch(patches[:8], batch_size=8), single[:8], rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(tp.extract_batch(patches, batch_size=4), single, rtol=1e-5, atol=1e-5)
+    tp = _toy_extractor(vit, compute_dtype=compute_dtype, mesh=mesh.embedding_mesh(2, _cpus(8)),
+                        tensor_parallel=True)
+    assert tp.replicas[0].blocks[0].attn.quantized == (compute_dtype == "int8")
+    np.testing.assert_allclose(tp.extract_batch(patches[:8], batch_size=8), single[:8], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tp.extract_batch(patches, batch_size=4), single, rtol=1e-5, atol=1e-5)
+    if compute_dtype == "int8":  # qscale kept float32 through the cast, the rest bfloat16, on every shard
+        shard = tp.replicas[0].blocks[0].mlp.shards[1]
+        assert shard.fc2.qscale.dtype == torch.float32 and shard.fc1.bias.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tp.extract_batch(patches, batch_size=4), single)
 
 
 # ---------------------------------------------------------------- the command line
@@ -388,11 +463,38 @@ def test_process_on_an_8_device_mesh_matches_one_device(mesh_cli, tmp_path, monk
 
 
 def test_tensor_parallel_int8_is_refused_before_any_slide(mesh_cli, tmp_path, monkeypatch):
+    """Named when tensor-parallel int8 was refused: ``process --feature-parallel
+    tensor --feature-precision int8`` on 8 CPU "devices" (one (1, 8) mesh)
+    gives one device's coordinates byte for byte and its int8 features bit
+    for bit. On the CPU ``int8`` resolves to float32, as in the JAX package;
+    here it is held at int8 so the W8A8 shards run (their plain versions)."""
+    from atlaspatch_tpu_torch.models.encoders.vit import RowParallel
+    from atlaspatch_tpu_torch.services import feature_embedding
+    from atlaspatch_tpu_torch.utils.h5 import read_h5
+
     slides, csv = mesh_cli
+    monkeypatch.setattr(feature_embedding, "resolve_feature_dtype", lambda device, precision: precision)
+    result = _process(slides, csv, tmp_path / "one", "--feature-precision", "int8")
+    assert result.exit_code == 0 and "failures: 0" in result.output, result.output
+    built = []
+    shard = RowParallel._int8_forward
+
+    def record(self, x):
+        built.append(len(self.shards))
+        return shard(self, x)
+
+    monkeypatch.setattr(RowParallel, "_int8_forward", record)
     monkeypatch.setattr(mesh, "local_devices", lambda kind="cuda": _cpus(8))
     result = _process(slides, csv, tmp_path / "o", "--feature-parallel", "tensor", "--feature-precision", "int8")
-    assert result.exit_code == 2 and "tensor-parallel int8 is not ported" in result.output, result.output
-    assert not (tmp_path / "o").exists()
+    assert result.exit_code == 0 and "failures: 0" in result.output, result.output
+    assert built and set(built) == {8}
+    for stem in ("s0", "s1"):
+        a = read_h5(tmp_path / "one" / "patches" / f"{stem}.h5")[0]
+        b = read_h5(tmp_path / "o" / "patches" / f"{stem}.h5")[0]
+        assert a["coords"].shape[0] > 0 and a["coords"].tobytes() == b["coords"].tobytes()
+        fa, fb = a["features/vit_l_32"], b["features/vit_l_32"]
+        assert fa.shape == (a["coords"].shape[0], 1024) and np.isfinite(fa).all()
+        np.testing.assert_array_equal(fb, fa)
 
 
 # ------------------------------------------------------------------- fine-tuning

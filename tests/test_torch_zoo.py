@@ -177,12 +177,18 @@ def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
     int8 = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8")
     assert int8.compute_dtype == "int8" and int8.model.spec.quant_int8
     # named when meshes were refused: data-parallel int8 builds one replica per data device
-    # (tests/test_torch_parallel.py); tensor-parallel int8 is refused by name
+    # (tests/test_torch_parallel.py); named when tensor-parallel int8 was refused too: it builds a
+    # replica of int8 shards over the mesh's model devices, or, with no mesh, one int8 model
     dp = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=embedding_mesh(1, ["cpu", "cpu"]))
     assert len(dp.replicas) == 2 and all(r.spec.quant_int8 for r in dp.replicas)
-    for mesh in (None, embedding_mesh(2, ["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="tensor-parallel int8 is not ported"):
-            zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=mesh, tensor_parallel=True)
+    one = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", tensor_parallel=True)
+    assert one.replicas == [one.model] and one.model.spec.quant_int8
+    tp = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=embedding_mesh(2, ["cpu", "cpu"]),
+                             tensor_parallel=True)
+    assert len(tp.replicas) == 1 and tp.compute_dtype == "int8"
+    attn = tp.model.blocks[0].attn
+    assert attn.quantized and len(attn.shards) == 2 and all(s.spec.quant_int8 for s in attn.shards)
+    np.testing.assert_array_equal(tp.extract_batch(_patches(2)), one.extract_batch(_patches(2)))
 
 
 def test_safetensors_without_the_module_raises(tmp_path, monkeypatch):
