@@ -366,6 +366,33 @@ _arrays = st.tuples(
 )
 
 
+def _utf8_encodable(text: str) -> bool:
+    try:
+        text.encode("utf-8")
+    except UnicodeEncodeError:
+        return False
+    return True
+
+
+def _assert_both_refuse(tmp: Path, datasets: dict, attrs: dict) -> None:
+    """HDF5 holds attribute strings as UTF-8, which cannot hold a lone
+    surrogate: the JAX writer refuses such a value, and so must the port, with
+    the same error and no file, published or staged, left by either."""
+    for writer, sub in ((JaxAtomicH5, "jax"), (AtomicH5, "port")):
+        path = tmp / sub / "s.h5"
+        path.parent.mkdir()
+        with pytest.raises(UnicodeEncodeError):
+            with writer(path) as store:
+                for key, arr in datasets.items():
+                    store.put_all(key, arr)
+                store.set_attrs(attrs)
+        assert os.listdir(path.parent) == []
+
+
+def test_lone_surrogate_attr_is_refused_like_the_jax_writer(tmp_path):
+    _assert_both_refuse(tmp_path, {"coords": np.zeros((2, 5), np.int32)}, {"a_str": "ok", "bad": "x\ud800"})
+
+
 @settings(max_examples=25, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(attrs=_attr_sets, arrays=st.lists(_arrays, max_size=3))
 def test_random_shapes_and_attr_sets_match_the_jax_writer(tmp_path_factory, attrs, arrays):
@@ -379,6 +406,9 @@ def test_random_shapes_and_attr_sets_match_the_jax_writer(tmp_path_factory, attr
         else:
             arr = (rng.normal(0, 1e3, size=shape)).astype(dtype)
         datasets[f"d{i}"] = arr
+    if any(isinstance(v, str) and not _utf8_encodable(v) for v in attrs.values()):
+        _assert_both_refuse(tmp, datasets, attrs)
+        return
     jax_path, port_path = _write_both(tmp, datasets, attrs)
     _assert_same_files(jax_path, port_path)
     _assert_read_h5_agrees(port_path)
