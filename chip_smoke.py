@@ -395,10 +395,12 @@ def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fw
     kernel's device time, over the launches of the one that took the most of
     it, the call's product kernel (so that a helper kernel launched more
     often than once a call does not shrink the mean). The profiler may drop
-    some of a burst of launches, or now and then all of them: the mean is
-    over those it kept, and a window that kept none is run again, up to
-    ``tries`` times. With ``seen``, fills it with the kernels' names and
-    launches in the window it read."""
+    some of a burst of launches, or now and then all of them (seen for
+    cuBLASLt's _int_mm): the mean is over those it kept, a window that kept
+    none is run again, up to ``tries`` times, and where no window kept one,
+    fn() is timed by CUDA events instead (host gaps between launches
+    included) and the log says so. With ``seen``, fills it with the kernels'
+    names and launches in the window it read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -420,8 +422,10 @@ def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fw
             if seen is not None:
                 seen.update((e.key, e.count) for e in events)
             return sum(e.self_device_time_total for e in events) / 1e3 / count
-    raise AssertionError(f"the profiler saw {[(e.key, e.count) for e in events]} of {reps} launches "
-                         f"in each of {tries} windows")
+    ms = cuda_ms(fn)
+    log(f"device_ms: the profiler saw {[(e.key, e.count) for e in events]} of {reps} launches of "
+        f"{kernel or 'the call'} in each of {tries} windows; timed by CUDA events instead: {ms:.4f} ms")
+    return ms
 
 
 def other_float32_body(variant: str, tq: int, tk: int, d: int) -> str | None:
@@ -1805,7 +1809,8 @@ def _int8_kernel_rows(state) -> dict:
             + " ".join(f"{v}_dev_ms={t:.4f}" for v, t in body_ms.items())
             + f" bound_ms={max(op_ms, byte_ms):.4f} ({'operations' if op_ms >= byte_ms else 'bytes'}) "
             f"plain_ms={row['plain_ms']:.4f} library_ms={lib} (_int_mm + dequant) _int_mm alone dev_ms={int_mm} "
-            f"({int_mm_ran or 'not run'} in 20 calls) "
+            f"({int_mm_ran or ('not run' if row['int_mm_ms'] is None else 'no launch kept by the profiler')} "
+            "in 20 calls) "
             f"bf16 F.linear dev_ms={row['bf16_ms']:.4f} [{state['card']}]")
         del x, w, w16, xq, s_x
     torch.cuda.empty_cache()
@@ -3385,17 +3390,6 @@ def _tp_heads(m, k, dtype, gen):
     return whole, [whole[:, :, : h // 2], whole[:, :, h // 2:]]
 
 
-def _tp_ms(fn, kernel: str | None, what: str, state) -> float:
-    """device_ms of fn; where the profiler kept none of its launches in any window (seen now and then
-    late in a run, for cuBLASLt's _int_mm), its CUDA-event time, which counts host gaps too, said so."""
-    try:
-        return device_ms(fn, kernel=kernel)
-    except AssertionError as e:
-        ms = cuda_ms(fn)
-        log(f"multi (k0) tp int8 {what}: {e}; timed by CUDA events instead: {ms:.4f} ms [{state['card']}]")
-        return ms
-
-
 def _tp_int8_kernel_rows(state) -> dict:
     """(k0) tensor-parallel int8's kernels at the (1, 2) mesh's shard shapes: quantize_rows_s8's
     amax-only mode against its plain version (identity max-abs 0, the activations within 2^-8), the
@@ -3458,9 +3452,8 @@ def _tp_int8_kernel_rows(state) -> dict:
         if model == "vit_l_16":
             part = parts[0]
             kk = k // 2
-            row.update(amax_ms=_tp_ms(lambda: amax_of(*part), "quantize_rows_s8", f"{layer} amax-only", state),
-                       given_ms=_tp_ms(lambda: quantize(*part, amax=maxed), "quantize_rows_s8",
-                                       f"{layer} given-amax", state),
+            row.update(amax_ms=device_ms(lambda: amax_of(*part), kernel="quantize_rows_s8"),
+                       given_ms=device_ms(lambda: quantize(*part, amax=maxed), kernel="quantize_rows_s8"),
                        amax_plain_ms=cuda_ms(lambda: I.row_amax_plain(values(*part)), max_reps=10),
                        given_plain_ms=cuda_ms(lambda: I.quantize_rows_plain(values(*part), maxed), max_reps=10),
                        amax_bound_ms=1e3 * (2 * m * kk + 4 * m) / H100_BYTES_PER_S,
@@ -3503,13 +3496,13 @@ def _tp_int8_kernel_rows(state) -> dict:
         if model == "vit_l_16":
             a, b = halves[0]
             kk = k // 2
-            row = dict(s32_ms=_tp_ms(lambda: I.int8_linear_s32(a, b), "int8_linear_s8", f"{layer} int32", state),
+            row = dict(s32_ms=device_ms(lambda: I.int8_linear_s32(a, b), kernel="int8_linear_s8"),
                        s32_plain_ms=cuda_ms(lambda: I.int8_linear_s32_plain(a, b), max_reps=5),
-                       int_mm_ms=_tp_ms(lambda: torch._int_mm(a, b.t()), None, f"{layer} _int_mm", state),
+                       int_mm_ms=device_ms(lambda: torch._int_mm(a, b.t()), kernel=None),
                        s32_op_ms=1e3 * 2.0 * m * n * kk / H100_INT8_OPS,
                        s32_byte_ms=1e3 * (m * kk + n * kk + 4 * m * n) / H100_BYTES_PER_S,
-                       sum_ms=_tp_ms(lambda: I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16),
-                                     "dequant_sum_s32", f"{layer} dequant_sum_s32", state),
+                       sum_ms=device_ms(lambda: I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16),
+                                        kernel="dequant_sum_s32"),
                        sum_plain_ms=cuda_ms(lambda: I.dequant_sum_plain(partials, s_x, qscale, bias, torch.bfloat16),
                                             max_reps=10),
                        sum_bound_ms=1e3 * (2 * 4 * m * n + 4 * m + 4 * n + 2 * n + 2 * m * n) / H100_BYTES_PER_S)
