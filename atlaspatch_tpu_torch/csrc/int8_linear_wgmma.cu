@@ -1,15 +1,19 @@
 // int8_linear_s8 for Hopper (sm_90a) on wgmma s8 fed by TMA: the second,
 // faster body of the W8A8 linear Y (M, N) = dequant(Xq (M, K) . Wq (N, K)^T),
-// the same function as the mma.sync body in int8_linear.cu, bit for bit.
+// the same function as the mma.sync body in int8_linear.cu, bit for bit; and
+// its int32 output, Xq . Wq^T not dequantized: a row-parallel shard's partial
+// under tensor-parallel int8, which int8_linear.cu's dequant_sum_s32 sums.
 //
 // Replaces, with int8_linear.cu's quantizer, atlaspatch_tpu/models/encoders/
 // vit.py::Int8Dense (:124-157): the int8 dot_general accumulating in int32
-// (:146-151) and the dequantization acc * (s_x * qscale) + bias, cast to the
-// activations' dtype (:152-156), which XLA fuses on the TPU. The dispatch
-// between the two bodies is ops/int8.py::linear_variant: this one takes K a
-// multiple of 16 and 16-byte-aligned operands (a TMA map's row stride and
-// base) and writes bfloat16 with N a multiple of 8, int8_linear.cu the rest
-// (virchow's fc2, K = 3,416; float32 output).
+// (:146-151; split over K by the TP plan, whose int32 partials XLA sums) and
+// the dequantization acc * (s_x * qscale) + bias, cast to the activations'
+// dtype (:152-156), which XLA fuses on the TPU. The dispatch between the two
+// bodies is ops/int8.py::linear_variant: this one takes K a multiple of 16
+// and 16-byte-aligned operands (a TMA map's row stride and base) and writes
+// bfloat16 with N a multiple of 8 or int32 with N a multiple of 4 (output
+// rows of a multiple of 16 bytes, a TMA map's row stride); int8_linear.cu the
+// rest (virchow's fc2, K = 3,416; float32 output; other N).
 //
 // Bound on an H100 SXM: operations at ViT widths (2 M N K over 1,979 TOPS
 // int8 against M K + N K + 2 M N bytes over 3.35 TB/s: vit_l_16's fc1 at
@@ -18,21 +22,28 @@
 // N K bytes are the work. Short of that, what holds it back on the card is
 // the L2 traffic of the operand tiles (a 128 x 256 tile reads 48 KB per
 // 128-byte K step, which at the int8 rate would be ~11 TB/s over 132 SMs)
-// and the epilogue between tiles. The design (each choice measured against
-// the alternative by tools/int8_variants.py; numbers in PERF.md):
+// and the epilogue between tiles. The int32 output writes 4 bytes a value,
+// so its bytes weigh more: at vit_l_16's proj shard under TP (1, 2), M =
+// 6,304, K = 512, N = 1,024, they are 6,304 x 512 + 1,024 x 512 + 4 x 6,304
+// x 1,024 = 29.5 MB, 0.0088 ms, against 0.0033 ms of products; at its fc2
+// shard (K = 2,048) the products bind, 2 x 6,304 x 1,024 x 2,048 over 1,979
+// TOPS = 0.0134 ms, against 0.0122 ms of bytes. The design (each choice
+// measured against the alternative by tools/int8_variants.py; numbers in
+// PERF.md):
 //
 // - A CTA is one producer warpgroup and two consumer warpgroups; a CTA tile
 //   is 128 rows (64 per consumer) by BN = 128 or 256 columns (a template
-//   parameter, picked per shape by ops/int8.py::wgmma_block_n: 256 unless
-//   its tiles are fewer than the SMs). setmaxnreg hands the producer's
+//   parameter beside the output type, picked per shape by
+//   ops/int8.py::wgmma_block_n: for bfloat16 256 unless its tiles are fewer
+//   than the SMs; for int32 see below). setmaxnreg hands the producer's
 //   registers to the consumers (40 and 232): a 64 x 256 int32 accumulator
 //   is 128 registers a thread.
 // - One producer thread issues TMA loads of 128-byte K blocks of Xq (128
 //   rows) and Wq (BN rows) under CU_TENSOR_MAP_SWIZZLE_128B into a ring of
 //   stages (as many as fit beside the output tile, at most 6: 3 of 48 KB
-//   for BN = 256, 6 of 32 KB for BN = 128), with full
-//   mbarriers carrying the byte counts and empty mbarriers, arrived at by
-//   each consumer warp, handing stages back. TMA zero-fills rows past M and
+//   for BN = 256, 6 of 32 KB for BN = 128, 5 beside a 128-wide int32 tile),
+//   with full mbarriers carrying the byte counts and empty mbarriers,
+//   arrived at by each consumer warp, handing stages back. TMA zero-fills rows past M and
 //   N and bytes past K, and a zero int8 adds nothing to an int32 sum, so
 //   medsiglip's K = 4,304 (33.6 blocks) needs no tail code.
 // - Each consumer issues, per stage, four wgmma.mma_async m64nBNk32
@@ -55,12 +66,32 @@
 //   cores take it, so this body equals the plain version, and the mma.sync
 //   body, bit for bit. It writes bfloat16 with N a multiple of 8 (every ViT
 //   shape in the int8 engine, which runs bfloat16): each consumer writes its
-//   64 x BN slice to shared memory as swizzled 64 x 64 panels and one thread
-//   stores them with TMA, which drains while the consumers go on to the next
-//   tile. float32 output and other N go to the mma.sync body.
-// - Left out, measured slower (PERF.md): stores from registers (1.4x
-//   per forward), clusters of two CTAs sharing the weight tile by TMA
-//   multicast (1.7-1.9x), 64-byte K blocks with more stages.
+//   64 x BN slice to shared memory as swizzled panels of 64 rows by 128
+//   bytes (64 columns) and one thread stores them with TMA, which drains
+//   while the consumers go on to the next tile.
+// - The int32 output stores the accumulator as it is, with no s_x, qscale
+//   or bias: the int32 sum is exact in any order, so it equals the plain
+//   product bit for bit, and dequant_sum_s32 of a row's partials equals
+//   this body's bfloat16 output on the whole K. Each consumer stages its
+//   slice as panels of 32 columns (128-byte rows, SWIZZLE_128B) with 8-byte
+//   stores, the threads with t >= 2 storing column group j ^ 2 where the
+//   others store j, so that a half-warp's 16 stores fill the 8 16-byte
+//   chunks of its rows once each (no bank conflict); the panels leave by
+//   TMA under the bfloat16 tile's bulk_wait_read handshake. At 4 bytes a
+//   value a 128 x 256 tile is 128 KB and would leave 2 stages, so a 128-wide
+//   int32 tile (64 KB, beside 5 stages) is staged whole, and a 256-wide one
+//   in two halves through one 64 KB buffer (beside 3 stages), its second
+//   half staged once the first half's store has read the buffer.
+//   wgmma_block_n takes 256 only for long products (128 or more K blocks an
+//   SM in 256-wide tiles: dinov3_vit7b16's fc2 shard), where reading Xq half
+//   as often repays the wait between the halves; vit_l_16's shards run 128.
+//   At M = 6,304, N = 1,024 that is 400 tiles, 3.03 waves over 132 SMs: the
+//   fourth wave's 4 tiles cost ~15% of a call (M = 6,144, 2.91 waves, runs
+//   12-15% faster).
+// - Left out, measured slower (PERF.md): stores from registers (bfloat16
+//   1.4x per forward; int32 1.1-1.3x a call, 2.200 against 1.962 ms per TP
+//   forward), clusters of two CTAs sharing the weight tile by TMA multicast
+//   (1.7-1.9x), 64-byte K blocks with more stages.
 
 // Shared-memory layout under SWIZZLE_128B (TMA writes it, wgmma reads it):
 // row r of a tile is 128 bytes at r * 128 from a 1024-byte-aligned base, its
@@ -77,6 +108,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -89,18 +121,23 @@ constexpr int kConsumerRegs = 232;        // 128 * 40 + 256 * 232 <= 65,536
 constexpr int kEncodeFailed = 1000000;    // + CUresult of cuTensorMapEncodeTiled
 constexpr int kNoDriverEntry = 2000000;   // + cudaError of cudaGetDriverEntryPoint
 
-// The ring, and the bfloat16 output tile the TMA store reads: BN / 64
-// panels of 64 rows x 64 columns (128-byte rows, SWIZZLE_128B) per consumer.
-// Stages: as many as fit in 227 KB, at most 6. The shared memory fits one
-// CTA on an SM.
-template <int BN>
+// The ring, and the output tile the TMA store reads: per consumer, its 64 x
+// BN slice (or half of it) as panels of 64 rows x 128 bytes (SWIZZLE_128B),
+// 64 bfloat16 or 32 int32 columns each. Stages: as many as fit in 227 KB, at
+// most 6. The shared memory fits one CTA on an SM.
+template <int BN, typename OutT>
 struct Tile {
   static_assert(BN == 128 || BN == 256, "the tile is 128 or 256 columns wide");
   static constexpr int kABytes = kBM * kBK;
   static constexpr int kBBytes = BN * kBK;
   static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kPanels = BN / 64;                   // output panels per consumer
-  static constexpr int kOutBytes = kBM * BN * 2;
+  static constexpr int kPanelCols = 128 / (int)sizeof(OutT);  // columns of a panel
+  static constexpr int kPanels = BN / kPanelCols;             // output panels per consumer
+  // a 256-wide int32 slice is staged in two halves through one buffer (a whole tile, 128 KB,
+  // would leave 2 stages)
+  static constexpr int kParts = sizeof(OutT) == 4 && BN == 256 ? 2 : 1;
+  static constexpr int kPartPanels = kPanels / kParts;        // panels a consumer stages at once
+  static constexpr int kOutBytes = kBM * BN * (int)sizeof(OutT) / kParts;
   static constexpr int kFree = 232448 - 1024 - kOutBytes;  // less the base's alignment slack
   static constexpr int S = kFree / (kStageBytes + 16) < kMaxStages ? kFree / (kStageBytes + 16) : kMaxStages;
   static constexpr int kOutOff = S * kStageBytes;
@@ -286,6 +323,10 @@ __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ void sts64(uint32_t addr, uint32_t lo, uint32_t hi) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(lo), "r"(hi) : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v;
   v.x = __float2bfloat16_rn(lo);
@@ -293,16 +334,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Each consumer writes its 64 x BN slice of the bfloat16 output tile to
-// shared memory and one of its threads stores it with TMA, asynchronously,
-// so the consumers go on to the next tile's products while the store drains.
-template <int BN>
+// One thread's int32 accumulators of part PART of PARTS of its consumer's
+// slice (rows r and r + 8, r % 8 == g; column groups PART BN / 8 / PARTS on)
+// into that part's panels of 32 columns: columns 8i + 2t and + 1 of the part
+// are 8 bytes at 8 (t % 2) in chunk 2 (i % 4) + t / 2 of panel i / 4, stored
+// at chunk ^ g. Threads with t >= 2 store group i ^ 2 (the same panel) where
+// the others store i: a half-warp (g < 4 or g >= 4) then writes chunks
+// 2 (i % 4) ^ 5 (t / 2) ^ g, all 8 of them, each once.
+template <int BN, int PART, int PARTS>
+__device__ __forceinline__ void stage_s32(const int (&acc)[BN / 2], uint32_t slice, int r, int g, int t) {
+  constexpr int kGroups = BN / 8 / PARTS;
+  const bool flip = t & 2;
+  const uint32_t row = slice + r * 128 + 8 * (t & 1);
+  const uint32_t chunk = (uint32_t)((flip ? 4 : 0) ^ (t >> 1) ^ g) << 4;
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int j = PART * kGroups + i, jf = PART * kGroups + (i ^ 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sts64(row + (i >> 2) * 8192 + h * 8 * 128 + ((32u * (i & 3)) ^ chunk),
+            flip ? acc[4 * jf + 2 * h] : acc[4 * j + 2 * h], flip ? acc[4 * jf + 2 * h + 1] : acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// One thread's TMA stores of a consumer's staged panels, part `part` of its
+// slice; columns past N are clipped, and panels wholly past N are not sent.
+template <typename T>
+__device__ __forceinline__ void store_panels(const CUtensorMap* map, uint32_t slice, int part, int n0, int row,
+                                             int N) {
+#pragma unroll
+  for (int p = 0; p < T::kPartPanels; ++p) {
+    const int col = n0 + (part * T::kPartPanels + p) * T::kPanelCols;
+    if (col < N) tma_store_2d(map, slice + p * 8192, col, row);
+  }
+  bulk_commit();
+}
+
+// Each consumer writes its 64 x BN slice of the output tile (bfloat16,
+// dequantized, or the int32 accumulator) to shared memory and one of its
+// threads stores it with TMA, asynchronously, so the consumers go on to the
+// next tile's products while the store drains.
+template <int BN, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_linear_s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                             const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ s_x,
                             const float* __restrict__ qscale, const void* __restrict__ bias, int bias_is_bf16,
                             int M, int N, int K) {
-  using T = Tile<BN>;
+  using T = Tile<BN, OutT>;
+  constexpr bool kS32 = std::is_same<OutT, int32_t>::value;
   constexpr int S = T::S;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -378,48 +457,61 @@ int8_linear_s8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __gr
     fence_regs(acc);
     if (lane == 0) mbar_arrive(empty(s_prev));
 
-    // Epilogue: the dequantization in the plain version's order.
+    // Epilogue: bfloat16, the dequantization in the plain version's order;
+    // int32, the accumulator as it is.
     const int r0 = m0 + cw * 64 + wq * 16 + g;
-    const float sx0 = r0 < M ? s_x[r0] : 0.0f;
-    const float sx1 = r0 + 8 < M ? s_x[r0 + 8] : 0.0f;
+    float sx0 = 0.0f, sx1 = 0.0f;
+    if (!kS32) {
+      sx0 = r0 < M ? s_x[r0] : 0.0f;
+      sx1 = r0 + 8 < M ? s_x[r0 + 8] : 0.0f;
+    }
     // this consumer's output panels; row r of a panel at r * 128, its 16-byte
     // chunk c at chunk c ^ (r % 8), and r % 8 == g for this thread's rows
-    const uint32_t out_tile = base + T::kOutOff + cw * T::kPanels * 8192;
+    const uint32_t out_tile = base + T::kOutOff + cw * T::kPartPanels * 8192;
     if (wq == 0 && lane == 0) bulk_wait_read();  // the last tile's store has read the panels
     warpgroup_sync(1 + cw);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
-      if (n0 + 8 * j >= N) continue;  // N % 8 == 0: all 8 columns of the group or none
-      const float qs[2] = {qscale[n], qscale[n + 1]};
-      float bv[2] = {0.0f, 0.0f};
-      if (bias != nullptr) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          bv[e] = bias_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n + e])
-                               : static_cast<const float*>(bias)[n + e];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows past M: the TMA store clips them
-        const float sx = h ? sx1 : sx0;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          y[e] = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), __fmul_rn(sx, qs[e]));
-          if (bias != nullptr) y[e] = __fadd_rn(y[e], bv[e]);
+    if constexpr (kS32) {  // rows and columns past the ends: the store clips them
+      stage_s32<BN, 0, T::kParts>(acc, out_tile, wq * 16 + g, g, t);
+      if constexpr (T::kParts == 2) {  // send the first half, and stage the second once it has been read
+        fence_async_shared();
+        warpgroup_sync(1 + cw);
+        if (wq == 0 && lane == 0) {
+          store_panels<T>(&tm_out, out_tile, 0, n0, m0 + cw * 64, N);
+          bulk_wait_read();
         }
-        const int r = wq * 16 + g + 8 * h;
-        sts32(out_tile + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t, pack_bf16(y[0], y[1]));
+        warpgroup_sync(1 + cw);
+        stage_s32<BN, 1, 2>(acc, out_tile, wq * 16 + g, g, t);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        if (n0 + 8 * j >= N) continue;  // N % 8 == 0: all 8 columns of the group or none
+        const float qs[2] = {qscale[n], qscale[n + 1]};
+        float bv[2] = {0.0f, 0.0f};
+        if (bias != nullptr) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            bv[e] = bias_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n + e])
+                                 : static_cast<const float*>(bias)[n + e];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows past M: the TMA store clips them
+          const float sx = h ? sx1 : sx0;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            y[e] = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), __fmul_rn(sx, qs[e]));
+            if (bias != nullptr) y[e] = __fadd_rn(y[e], bv[e]);
+          }
+          const int r = wq * 16 + g + 8 * h;
+          sts32(out_tile + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t, pack_bf16(y[0], y[1]));
+        }
       }
     }
     fence_async_shared();
     warpgroup_sync(1 + cw);
-    if (wq == 0 && lane == 0) {
-#pragma unroll
-      for (int p = 0; p < T::kPanels; ++p)
-        if (n0 + 64 * p < N) tma_store_2d(&tm_out, out_tile + p * 8192, n0 + 64 * p, m0 + cw * 64);
-      bulk_commit();
-    }
+    if (wq == 0 && lane == 0) store_panels<T>(&tm_out, out_tile, T::kParts - 1, n0, m0 + cw * 64, N);
   }
   if (wq == 0 && lane == 0) bulk_wait();
 }
@@ -455,21 +547,25 @@ CUresult encode_operand(EncodeTiled encode, CUtensorMap* map, const void* ptr, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// A 2-d map (N, M) over the row-major (M, N) bfloat16 output, written in
-// panels of 64 columns (128 bytes) by 64 rows under SWIZZLE_128B.
+// A 2-d map (N, M) over the row-major (M, N) bfloat16 or int32 output,
+// written in panels of 128 bytes (64 or 32 columns) by 64 rows under
+// SWIZZLE_128B.
+template <typename OutT>
 CUresult encode_output(EncodeTiled encode, CUtensorMap* map, void* ptr, int M, int N) {
   const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)N * 2};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * sizeof(OutT)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(OutT)), 64};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims, strides, box, unit,
+  const CUtensorMapDataType type =
+      std::is_same<OutT, int32_t>::value ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2, ptr, dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Raises the kernel's shared-memory allowance on the current device, once
 // per device, so that a launch does not pay for the call.
-template <int BN>
+template <int BN, typename OutT>
 cudaError_t allow_smem() {
   static std::atomic<uint64_t> done{0};  // bit d: set on device d
   int device = 0;
@@ -477,13 +573,13 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(int8_linear_s8_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile<BN>::kSmemBytes);
+  err = cudaFuncSetAttribute(int8_linear_s8_wgmma_kernel<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile<BN, OutT>::kSmemBytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-template <int BN>
+template <int BN, typename OutT>
 int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qscale, const void* bias,
                  int bias_is_bf16, void* out, int M, int N, int K, int ctas, cudaStream_t stream) {
   EncodeTiled encode = nullptr;
@@ -492,14 +588,14 @@ int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qsc
   CUtensorMap tm_x, tm_w, tm_out;
   CUresult res = encode_operand(encode, &tm_x, xq, M, K, kBM);
   if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_w, w, N, K, BN);
-  if (res == CUDA_SUCCESS) res = encode_output(encode, &tm_out, out, M, N);
+  if (res == CUDA_SUCCESS) res = encode_output<OutT>(encode, &tm_out, out, M, N);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
-  const cudaError_t err = allow_smem<BN>();
+  const cudaError_t err = allow_smem<BN, OutT>();
   if (err != cudaSuccess) return (int)err;
   // Persistent CTAs, one an SM: as many as there are tiles, at most `ctas`.
   const int64_t tiles = (int64_t)((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < ctas ? tiles : ctas);
-  int8_linear_s8_wgmma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmemBytes, stream>>>(
+  int8_linear_s8_wgmma_kernel<BN, OutT><<<grid, kThreads, Tile<BN, OutT>::kSmemBytes, stream>>>(
       tm_x, tm_w, tm_out, static_cast<const float*>(s_x), static_cast<const float*>(qscale), bias, bias_is_bf16, M,
       N, K);
   return (int)cudaGetLastError();
@@ -507,22 +603,33 @@ int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qsc
 
 }  // namespace
 
-// xq (M, K) int8, w (N, K) int8, s_x (M,) and qscale (N,) float32, bias (N,)
-// float32 or bfloat16 or null, all contiguous, K a multiple of 16, N a
-// multiple of 8, and xq, w and out on 16 bytes -> out (M, N) bfloat16, in CTA
-// tiles of 128 x block_n (128 or 256), at most `ctas` CTAs (the card's SM
-// count). Launches on `stream` and does not synchronise. Returns 0, a
-// cudaError (cudaErrorInvalidValue for a shape, block_n or ctas it does not
-// take), 1000000 + the CUresult of a tensor map that would not encode, or
-// 2000000 + the cudaError of a driver without cuTensorMapEncodeTiled.
+// xq (M, K) int8, w (N, K) int8, all contiguous, K a multiple of 16, xq, w
+// and out on 16 bytes -> out (M, N): out_code 1, bfloat16 dequantized by s_x
+// (M,) and qscale (N,) float32 and bias (N,) float32 or bfloat16 or null, N a
+// multiple of 8; out_code 2, the int32 product (s_x, qscale and bias
+// unused), N a multiple of 4. In CTA tiles of 128 x block_n (128 or 256), at
+// most `ctas` CTAs (the card's SM count). Launches on `stream` and
+// does not synchronise. Returns 0, a cudaError (cudaErrorInvalidValue for a
+// shape, output, block_n or ctas it does not take), 1000000 + the CUresult of
+// a tensor map that would not encode, or 2000000 + the cudaError of a driver
+// without cuTensorMapEncodeTiled.
 extern "C" int atlas_int8_linear_s8_wgmma(const void* xq, const void* w, const void* s_x, const void* qscale,
-                                          const void* bias, int bias_is_bf16, void* out, int M, int N, int K,
-                                          int block_n, int ctas, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 8 || ctas <= 0 || (uintptr_t)xq % 16 || (uintptr_t)w % 16 ||
+                                          const void* bias, int bias_is_bf16, void* out, int out_code, int M, int N,
+                                          int K, int block_n, int ctas, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || ctas <= 0 || (uintptr_t)xq % 16 || (uintptr_t)w % 16 ||
       (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (block_n == 256) return launch_wgmma<256>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
-  if (block_n == 128) return launch_wgmma<128>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+  if (out_code == 2 && N % 4 == 0) {
+    if (block_n == 256)
+      return launch_wgmma<256, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+    if (block_n == 128)
+      return launch_wgmma<128, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+  }
+  if (out_code != 1 || N % 8) return (int)cudaErrorInvalidValue;
+  if (block_n == 256)
+    return launch_wgmma<256, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+  if (block_n == 128)
+    return launch_wgmma<128, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -39,15 +39,18 @@ version bit for bit, ``layernorm`` and the activations where their float
 arithmetic equals ATen's) in one of ``QUANT_MODES``, one of
 ``int8_linear_s8``'s two bodies (equal bit for bit), picked by
 ``linear_variant``: ``wgmma`` (``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by
-TMA, bfloat16 out) or ``mma`` (``csrc/int8_linear.cu``, mma.sync fed by
-cp.async; the int32 output too), and ``dequant_sum_s32`` (``csrc/int8_linear.cu``).
-A build, tensor-map encode or launch failure on a CUDA tensor raises:
-nothing retries on the other body or falls back to the plain version or to
-``torch._int_mm``. ``quantize_rows.launches``, ``int8_linear.launches`` and
+TMA; bfloat16 out, and the int32 output of ``int8_linear_s32``) or ``mma``
+(``csrc/int8_linear.cu``, mma.sync fed by cp.async: float32 out, K no
+multiple of 16, misaligned bases, and N its TMA store cannot take), and
+``dequant_sum_s32`` (``csrc/int8_linear.cu``). A build, tensor-map encode or
+launch failure on a CUDA tensor raises: nothing retries on the other body or
+falls back to the plain version or to ``torch._int_mm``.
+``quantize_rows.launches``, ``int8_linear.launches`` and
 ``dequant_sum.launches`` count kernel launches,
 ``quantize_rows.prologue_launches`` and ``.mode_launches`` the first by
-prologue and by mode, ``int8_linear.variant_launches`` the second by body;
-``reset_launch_counts()`` zeroes them all.
+prologue and by mode, ``int8_linear.variant_launches`` and
+``.out_launches`` the second by body and by output dtype (``bfloat16``,
+``float32``, ``int32``); ``reset_launch_counts()`` zeroes them all.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ _LOCK = threading.Lock()
 # The wgmma body's return codes beyond a cudaError (csrc/int8_linear_wgmma.cu).
 _ENCODE_FAILED, _NO_DRIVER_ENTRY = 1_000_000, 2_000_000
 LINEAR_VARIANTS = ("wgmma", "mma")
-WGMMA_BLOCK_NS = (128, 256)  # the wgmma body's CTA tile widths (its two instantiations)
+WGMMA_BLOCK_NS = (128, 256)  # the wgmma body's CTA tile widths (its two instantiations a dtype)
 WGMMA_BLOCK_M = 128
 # The activations by name, as the ViT's MLP runs them (models/encoders/vit.py::_act).
 ACTIVATIONS = {
@@ -87,7 +90,7 @@ ACTIVATIONS = {
 # quantize_rows_s8's prologues and modes, in the order of csrc/int8_linear.cu's codes.
 PROLOGUES = ("identity", "layernorm", *ACTIVATIONS)
 QUANT_MODES = ("one_pass", "amax_only", "given_amax")
-# int8_linear_s8's output types, by csrc/int8_linear.cu's codes (the wgmma body writes bfloat16 only)
+# int8_linear_s8's output types, by the C entries' codes (the wgmma body writes bfloat16 and int32)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 MAX_PARTIALS = 8  # dequant_sum_s32's most partials (kMaxPartials)
 QUANT_MAX_K = 8192  # the longest row quantize_rows_s8 holds in registers (256 threads x 32 values)
@@ -112,40 +115,62 @@ def load_int8_library() -> ctypes.CDLL:
             lib.atlas_dequant_sum_s32.restype = _INT
             lib.atlas_dequant_sum_s32.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _PTR]
             lib.atlas_int8_linear_s8_wgmma.restype = _INT
-            lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 5 + [_PTR]
+            lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 6 + [_PTR]
             _LIB.append(lib)
         return _LIB[0]
+
+
+# the wgmma body's output rows: a multiple of 16 bytes (a TMA map's row stride), N a multiple of this
+_WGMMA_N_MULTIPLE = {torch.bfloat16: 8, torch.int32: 4}
 
 
 def wgmma_admits(N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> bool:
     """Whether the wgmma body takes an (M, K) x (N, K) product to ``out_dtype``
     over operands at these addresses. Its TMA maps want the operands' row
     stride (K bytes) and bases on 16 bytes, and its epilogue stores bfloat16
-    rows of 2 N bytes by TMA, so N a multiple of 8."""
-    return (out_dtype == torch.bfloat16 and N % 8 == 0 and K % 16 == 0
+    or int32 rows by TMA, whose stride must be a multiple of 16 bytes too: N
+    a multiple of 8 (bfloat16) or 4 (int32)."""
+    multiple = _WGMMA_N_MULTIPLE.get(out_dtype)
+    return (multiple is not None and N % multiple == 0 and K % 16 == 0
             and xq_ptr % 16 == 0 and w_ptr % 16 == 0)
 
 
 def linear_variant(M: int, N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> str:
-    """The body ``int8_linear`` launches for an (M, K) x (N, K) product to
-    ``out_dtype`` whose operands start at these addresses: ``wgmma`` where
-    ``wgmma_admits`` (every vit_l_16, uni and medsiglip linear of the int8
-    engine, which runs bfloat16), else ``mma``: virchow's fc2 (K = 3,416 =
-    16 x 213.5), float32 output, N not a multiple of 8. M does not decide:
-    at M = 5 the wgmma body is faster than the mma body too (both are bound
-    by reading the weights; PERF.md), so small batches stay on it."""
+    """The body ``int8_linear`` or ``int8_linear_s32`` launches for an (M, K)
+    x (N, K) product to ``out_dtype`` whose operands start at these
+    addresses: ``wgmma`` where ``wgmma_admits`` (every vit_l_16, uni and
+    medsiglip linear of the int8 engine, which runs bfloat16, and the int32
+    partials of their row-parallel shards and dinov3_vit7b16's under
+    tensor-parallel int8), else ``mma``: virchow's fc2 and its shards (K =
+    3,416 = 16 x 213.5, 1,708 a shard of two), float32 output, N not a
+    multiple of 8 (bfloat16) or 4 (int32), bases off 16 bytes. M does not
+    decide: at M = 5 the wgmma body is faster than the mma body too (both
+    are bound by reading the weights; PERF.md), so small batches stay on
+    it."""
     return "wgmma" if wgmma_admits(N, K, out_dtype, xq_ptr, w_ptr) else "mma"
 
 
-def wgmma_block_n(M: int, N: int, sms: int = 132) -> int:
-    """The wgmma body's CTA tile width for an (M, N) output on a card of
-    ``sms`` SMs: 256, whose tiles read less from L2 per product, unless its
-    tiles are fewer than the SMs, where 128 doubles the CTAs at work (at M =
-    5, medsiglip's MLP runs 1.7-1.9x faster so). Measured on an H100
-    (``tools/int8_variants.py``, PERF.md): at vit_l_16's batch-256
-    shapes 256 is level with 128 or up to 26% faster, but for qkv (2-4%
-    slower); at batch 32 the two are within the run-to-run spread."""
+def wgmma_block_n(M: int, N: int, sms: int = 132, out_dtype: torch.dtype = torch.bfloat16, K: int = 0) -> int:
+    """The wgmma body's CTA tile width for an (M, N) ``out_dtype`` output on
+    a card of ``sms`` SMs. bfloat16: 256, whose tiles read less from L2 per
+    product, unless its tiles are fewer than the SMs, where 128 doubles the
+    CTAs at work (at M = 5, medsiglip's MLP runs 1.7-1.9x faster so).
+    Measured on an H100 (``tools/int8_variants.py``, PERF.md): at vit_l_16's
+    batch-256 shapes 256 is level with 128 or up to 26% faster, but for qkv
+    (2-4% slower); at batch 32 the two are within the run-to-run spread.
+    int32 (K needed): 128, whose 64 KB tile leaves 5 ring stages, unless
+    the 256-wide tiles give each SM 128 or more 128-byte K blocks to run (a
+    256-wide int32 slice is staged in two halves through one 64 KB buffer,
+    beside 3 stages: it reads Xq half as often, but waits between its halves
+    and makes the last wave coarser, which only long products repay).
+    Measured on an H100 (PERF.md), it picks the faster width at every TP
+    (1, 2) shard of vit_l_16 and dinov3_vit7b16 at batch 32 and 256: 128 at
+    vit_l_16's batch-32 shards, its batch-256 proj and the 7B's batch-32
+    proj (by 2-13%), 256 at the 7B's batch-32 fc2 (9%) and the other
+    batch-256 shards (2-24%)."""
     tiles = -(-M // WGMMA_BLOCK_M) * -(-N // 256)
+    if out_dtype == torch.int32:
+        return 256 if tiles * -(-K // 128) >= 128 * sms else 128
     return 256 if tiles >= sms else 128
 
 
@@ -494,7 +519,8 @@ def int8_linear_s32(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 · (N, K) int8 → the (M, N) int32 product, not
     dequantized: a row-parallel shard's partial. The plain version on the CPU,
     ``int8_linear_s8``'s int32 output on the card, the body ``linear_variant``
-    picks (``mma``: the wgmma body writes bfloat16 only)."""
+    picks (``wgmma`` at every shard of the zoo's TP (1, 2) int8 but
+    medsiglip's and virchow's fc2, K 2,152 and 1,708)."""
     _check_2d("xq", xq, torch.int8)
     _check_2d("weight_q", weight_q, torch.int8)
     M, K = xq.shape
@@ -563,11 +589,11 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
     ``int8_linear`` has checked; the wgmma body in tiles ``block_n`` wide
     (default ``wgmma_block_n``). The card tests and ``chip_smoke.py`` call it
     to hold every body a shape admits against the plain version. A body that
-    does not take the shape (``wgmma`` where ``wgmma_admits`` is false) or an
-    unknown tile width raises ValueError before any launch; a failed encode
-    or launch raises RuntimeError and is never retried on the other body.
-    An int32 ``out_dtype`` is the accumulator itself (s_x, qscale and bias
-    None)."""
+    does not take the shape (``wgmma`` where ``wgmma_admits`` is false) or a
+    tile width it has no instantiation of for ``out_dtype`` raises
+    ValueError before any launch; a failed encode or launch raises
+    RuntimeError and is never retried on the other body. An int32
+    ``out_dtype`` is the accumulator itself (s_x, qscale and bias None)."""
     if variant not in LINEAR_VARIANTS:
         raise ValueError(f"int8_linear has no body {variant!r}; it has {LINEAR_VARIANTS}")
     M, K = xq.shape
@@ -575,20 +601,21 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
     if variant == "wgmma":
         if not wgmma_admits(N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr()):
             raise ValueError(f"variant 'wgmma' takes K a multiple of 16 and operands on 16 bytes, and writes "
-                             f"bfloat16 with N a multiple of 8: got K {K}, xq at {xq.data_ptr() % 16} and weight_q "
-                             f"at {weight_q.data_ptr() % 16} mod 16, N {N}, {out_dtype}")
+                             f"bfloat16 with N a multiple of 8 or int32 with N a multiple of 4: got K {K}, xq at "
+                             f"{xq.data_ptr() % 16} and weight_q at {weight_q.data_ptr() % 16} mod 16, N {N}, "
+                             f"{out_dtype}")
+        if block_n is not None and block_n not in WGMMA_BLOCK_NS:
+            raise ValueError(f"the wgmma body's tiles are {WGMMA_BLOCK_NS} wide, got {block_n}")
         sms = _sm_count(xq.get_device())
         if block_n is None:
-            block_n = wgmma_block_n(M, N, sms)
-        if block_n not in WGMMA_BLOCK_NS:
-            raise ValueError(f"the wgmma body's tiles are {WGMMA_BLOCK_NS} wide, got {block_n}")
+            block_n = wgmma_block_n(M, N, sms, out_dtype, K)
     out = torch.empty(M, N, dtype=out_dtype, device=xq.device)
     lib = load_int8_library()
     args = (xq.data_ptr(), weight_q.data_ptr(), None if s_x is None else s_x.data_ptr(),
             None if qscale is None else qscale.data_ptr(), None if bias is None else bias.data_ptr(),
             int(bias is not None and bias.dtype == torch.bfloat16), out.data_ptr())
     if variant == "wgmma":
-        err = lib.atlas_int8_linear_s8_wgmma(*args, M, N, K, block_n, sms, _stream(xq))
+        err = lib.atlas_int8_linear_s8_wgmma(*args, _OUT_CODES[out_dtype], M, N, K, block_n, sms, _stream(xq))
     else:
         err = lib.atlas_int8_linear_s8(*args, _OUT_CODES[out_dtype], M, N, K, _stream(xq))
     if err >= _NO_DRIVER_ENTRY:
@@ -599,6 +626,7 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
         raise RuntimeError(f"int8_linear_s8 ({variant}) launch failed: cudaError {err}")
     int8_linear.launches += 1
     int8_linear.variant_launches[variant] += 1
+    int8_linear.out_launches[str(out_dtype).removeprefix("torch.")] += 1
     return out
 
 
@@ -607,16 +635,18 @@ quantize_rows.prologue_launches = Counter()
 quantize_rows.mode_launches = Counter()
 int8_linear.launches = 0
 int8_linear.variant_launches = Counter()
+int8_linear.out_launches = Counter()
 dequant_sum.launches = 0
 
 
 def reset_launch_counts() -> None:
     """Zero ``quantize_rows.launches``, ``.prologue_launches`` and
-    ``.mode_launches``, ``int8_linear.launches`` and ``.variant_launches``,
-    and ``dequant_sum.launches``."""
+    ``.mode_launches``, ``int8_linear.launches``, ``.variant_launches`` and
+    ``.out_launches``, and ``dequant_sum.launches``."""
     quantize_rows.launches = 0
     quantize_rows.prologue_launches.clear()
     quantize_rows.mode_launches.clear()
     int8_linear.launches = 0
     int8_linear.variant_launches.clear()
+    int8_linear.out_launches.clear()
     dequant_sum.launches = 0

@@ -1,6 +1,6 @@
-"""Time the int8 serving mode's kernels at its shapes: int8_linear_s8's two bodies and the wgmma body's two tile widths, and quantize_rows_s8's prologues against the unfused chain they replace.
+"""Time the int8 serving mode's kernels at its shapes: int8_linear_s8's two bodies and the wgmma body's tile widths, in bfloat16 and int32, and quantize_rows_s8's prologues against the unfused chain they replace.
 
-    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|quantize|host_times]
+    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|int32|quantize|host_times]
 
 Builds the ``atlas_int8_linear`` library (``csrc/int8_linear.cu`` and
 ``csrc/int8_linear_wgmma.cu``) and prints, per kernel instantiation, its
@@ -22,6 +22,16 @@ lines replaced, all in parallel, and times each build's two tile widths at
 vit_l_16's shapes (the median of three profiler windows), each build's
 output equal to the committed body's.
 
+``int32`` times int8_linear_s8's int32 output (``int8_linear_s32``, a
+row-parallel shard's partial under tensor-parallel int8) at the (1, 2)
+mesh's shard shapes of vit_l_16 and dinov3_vit7b16 at batch 32 and 256 and
+two rows that show the tile grid's last wave (``SHARDS``): the ``mma`` body
+and the ``wgmma`` body at both tile widths (128 staged whole, 256 staged in
+two halves), forced, the width ``wgmma_block_n`` routes to named, beside
+``torch._int_mm`` and the bound, and builds of the wgmma body that store
+the int32 tile otherwise (``S32_VARIANTS``: from registers), each equal to
+the plain product; then the sums over one vit_l_16 TP forward.
+
 ``quantize`` times ``quantize_rows_s8``'s prologues at vit_l_16's rows at
 batch 32 and 256 (layernorm at K 1,024, tanh GELU at 4,096, the attention's
 output at 1,024) beside what they replace, timed on the same inputs: the
@@ -30,7 +40,7 @@ output, and the earlier two-read body (``OLD_QUANTIZE_SOURCE``, kept here only,
 built as its own library), with the sums over one forward (96 quantizers)
 and the bound; then builds of ``csrc/int8_linear.cu`` that undo one design
 choice each (``QUANT_VARIANTS``). ``host_times`` times one call's host time
-of each wrapper. With no argument it runs all three. Needs an NVIDIA Hopper
+of each wrapper. With no argument it runs all four. Needs an NVIDIA Hopper
 card and nvcc.
 """
 
@@ -56,15 +66,50 @@ VITL = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (
 MEDSIGLIP = {"fc1": (1152, 4304), "fc2": (4304, 1152)}
 INT8_OPS, BYTES_PER_S = 1979e12, 3.35e12  # H100 SXM: dense int8 tensor cores, HBM3
 BODIES = {"mma": ("mma", None), "wgmma/128": ("wgmma", 128), "wgmma/256": ("wgmma", 256)}
-_STORE = "        sts32(out_tile + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t, pack_bf16(y[0], y[1]));"
+_STORE = "          sts32(out_tile + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ g) << 4) + 4 * t, pack_bf16(y[0], y[1]));"
 # variant -> (text of the committed int8_linear_wgmma.cu, its replacement) pairs
 VARIANTS = {
     "committed": [],
     "a plain store to shared memory, which the compiler may move": [(_STORE, (
-        "        *reinterpret_cast<uint32_t*>(smem_raw + (out_tile - smem_u32(smem_raw)) + (j >> 3) * 8192 + "
+        "          *reinterpret_cast<uint32_t*>(smem_raw + (out_tile - smem_u32(smem_raw)) + (j >> 3) * 8192 + "
         "r * 128 + (((j & 7) ^ g) << 4) + 4 * t) = pack_bf16(y[0], y[1]);"))],
     "at most 4 stages": [("constexpr int kMaxStages = 6;", "constexpr int kMaxStages = 4;")],
 }
+# TP (1, 2) int8's row-parallel shard products, (M, K, N): batch 32, vit_l_16 (197 tokens) and
+# dinov3_vit7b16 (201); proj's half of the heads and fc2's half of the hidden units. At M 6,304 and
+# N 1,024 a 128 x 128 tile grid is 400 tiles, 3.03 waves over 132 SMs: the "tail" rows cut M to
+# 6,144 (384 tiles, 2.91 waves), so that the time of the fourth wave's 4 tiles shows
+SHARDS = {"vit_l_16 proj": (32 * 197, 512, 1024), "vit_l_16 fc2": (32 * 197, 2048, 1024),
+          "dinov3_vit7b16 proj": (32 * 201, 2048, 4096), "dinov3_vit7b16 fc2": (32 * 201, 4096, 4096),
+          "tail: proj at M 6,144": (6144, 512, 1024), "tail: fc2 at M 6,144": (6144, 2048, 1024),
+          "b256 vit_l_16 proj": (256 * 197, 512, 1024), "b256 vit_l_16 fc2": (256 * 197, 2048, 1024),
+          "b256 dinov3_vit7b16 proj": (256 * 201, 2048, 4096), "b256 dinov3_vit7b16 fc2": (256 * 201, 4096, 4096)}
+_S32_STAGE = """      stage_s32<BN, 0, T::kParts>(acc, out_tile, wq * 16 + g, g, t);
+      if constexpr (T::kParts == 2) {"""
+_TILE_STORE = "    if (wq == 0 && lane == 0) store_panels<T>("
+# int32 variant -> (text of the committed int8_linear_wgmma.cu, its replacement) pairs, and the tile width
+S32_VARIANTS = {
+    "stores from registers (st.global.v2), no staging": ([
+        ("                            int M, int N, int K) {\n  using T = Tile<BN, OutT>;",
+         "                            int M, int N, int K, int32_t* __restrict__ out_s32) {\n"
+         "  using T = Tile<BN, OutT>;"),
+        ("      N, K);", "      N, K, static_cast<int32_t*>(out));"),
+        (_S32_STAGE, r"""      const int row0 = m0 + cw * 64 + wq * 16 + g;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        if (n >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row0 + 8 * h < M)
+            asm volatile("st.global.v2.b32 [%0], {%1, %2};\n" ::"l"(out_s32 + (int64_t)(row0 + 8 * h) * N + n),
+                         "r"(acc[4 * j + 2 * h]), "r"(acc[4 * j + 2 * h + 1]) : "memory");
+      }
+      if constexpr (false) {"""),
+        (_TILE_STORE, "    if (!kS32 && wq == 0 && lane == 0) store_panels<T>("),
+    ], 128),
+}
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _card() -> str:
@@ -98,12 +143,14 @@ def _device_ms(fn, reps: int = 20, kernel: str | None = None, seen: dict | None 
     raise RuntimeError(f"the profiler kept none of {reps} launches in 3 windows")
 
 
-def bound_ms(m: int, n: int, k: int) -> tuple[float, str]:
+def bound_ms(m: int, n: int, k: int, s32: bool = False) -> tuple[float, str]:
     """The least time of one (M, K) x (N, K) product to bfloat16: 2 M N K
     int8 operations at the tensor-core peak, or xq, W, both scales, the bias
-    and the output over HBM once, whichever is longer."""
+    and the output over HBM once, whichever is longer. With ``s32``, of the
+    int32 product: xq, W and 4 bytes a value out."""
     ops = 1e3 * 2.0 * m * n * k / INT8_OPS
-    nbytes = 1e3 * (m * k + n * k + 4 * m + 6 * n + 2 * m * n) / BYTES_PER_S
+    moved = m * k + n * k + (4 * m * n if s32 else 4 * m + 6 * n + 2 * m * n)
+    nbytes = 1e3 * moved / BYTES_PER_S
     return (ops, "operations") if ops >= nbytes else (nbytes, "bytes")
 
 
@@ -132,16 +179,16 @@ def _source(patches, name: str = "int8_linear_wgmma.cu") -> str:
     return src
 
 
-def _build_variant(item):
+def _build_variant(item, prefix: str = "variant"):
     """(name, the variant's atlas_int8_linear_s8_wgmma, its ptxas summary)."""
     i, (name, patches) = item
-    cu = BUILD_DIR / "int8_variants" / f"variant{i}.cu"
+    cu = BUILD_DIR / "int8_variants" / f"{prefix}{i}.cu"
     cu.parent.mkdir(parents=True, exist_ok=True)
     cu.write_text(_source(patches))
-    path = build_shared_library(f"atlas_int8_wgmma_variant{i}", [cu], [nvcc_path(), *I._NVCC_FLAGS])
+    path = build_shared_library(f"atlas_int8_wgmma_{prefix}{i}", [cu], [nvcc_path(), *I._NVCC_FLAGS])
     fn = ctypes.CDLL(str(path)).atlas_int8_linear_s8_wgmma
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = _WGMMA_ARGTYPES
     found = re.findall(r"(\d+ bytes spill stores).*?Used (\d+) registers", build_log(path), re.S)
     return name, fn, "; ".join(f"{regs} registers, {spill}" for spill, regs in sorted(set(found)))
 
@@ -151,10 +198,67 @@ def _launch_variant(fn, xq, s_x, w, qscale, bias, block_n: int) -> torch.Tensor:
     n = w.shape[0]
     out = torch.empty(m, n, dtype=torch.bfloat16, device=xq.device)
     err = fn(xq.data_ptr(), w.data_ptr(), s_x.data_ptr(), qscale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
-             m, n, k, block_n, I._sm_count(0), torch.cuda.current_stream().cuda_stream)
+             1, m, n, k, block_n, I._sm_count(0), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return out
+
+
+def _launch_s32_variant(fn, xq, w, block_n: int) -> torch.Tensor:
+    """One int32 product of a variant build's C entry (code 2)."""
+    m, k = xq.shape
+    n = w.shape[0]
+    out = torch.empty(m, n, dtype=torch.int32, device=xq.device)
+    err = fn(xq.data_ptr(), w.data_ptr(), None, None, None, 0, out.data_ptr(), 2, m, n, k, block_n,
+             I._sm_count(0), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: {err}")
+    return out
+
+
+def linear_s32_times(card: str) -> None:
+    """int8_linear_s8's int32 output at each SHARDS shape: the mma body and the wgmma body in both
+    tile widths (forced; the routed body and width named), each S32_VARIANTS build, every one equal
+    to the plain product (max-abs 0), and torch._int_mm, by device time per launch (the median of
+    three profiler windows), beside the bound; then the sums over one vit_l_16 TP (1, 2) forward at
+    batch 32 (24 blocks, 2 shards: 48 products each of proj and fc2)."""
+    with ThreadPoolExecutor(len(S32_VARIANTS)) as pool:
+        built = list(pool.map(lambda item: _build_variant((item[0], (item[1][0], item[1][1][0])), "s32_variant"),
+                              enumerate(S32_VARIANTS.items())))
+    for name, _, ptxas in built:
+        print(f"int32 variant {name}: {ptxas}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sums: dict = {}
+    for label, (m, k, n) in SHARDS.items():
+        xq, w = (torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+                 for shape in ((m, k), (n, k)))
+        want = I.int8_linear_s32_plain(xq, w)
+        routed = I.linear_variant(m, n, k, torch.int32, xq.data_ptr(), w.data_ptr())
+        if routed == "wgmma":
+            routed += f"/{I.wgmma_block_n(m, n, I._sm_count(0), torch.int32, k)}"
+        calls = {"mma": lambda: I._launch_linear("mma", xq, None, w, None, None, torch.int32),
+                 **{f"wgmma/{bn}": (lambda bn=bn: I._launch_linear("wgmma", xq, None, w, None, None, torch.int32, bn))
+                    for bn in I.WGMMA_BLOCK_NS}}
+        for name, fn, _ in built:
+            calls[name] = lambda fn=fn, bn=S32_VARIANTS[name][1]: _launch_s32_variant(fn, xq, w, bn)
+        for name, fn in calls.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{label}: int32 {name} differs from the plain product")
+        del want
+        times = {name: sorted(_device_ms(fn, kernel="int8_linear_s8") for _ in range(3))[1]
+                 for name, fn in calls.items()}
+        times["_int_mm"] = sorted(_device_ms(lambda: torch._int_mm(xq, w.t())) for _ in range(3))[1]
+        bound, by = bound_ms(m, n, k, s32=True)
+        print(f"int32 {label:20s} M={m} K={k} N={n} (routed {routed}): "
+              + "; ".join(f"{name} {ms:.4f} ({100 * bound / ms:.1f}% of bound)" for name, ms in times.items())
+              + f"; bound {bound:.4f} ({by}) (device ms per launch, median of 3 windows) [{card}]")
+        if label.startswith("vit_l_16"):
+            for name, ms in {**times, "routed": times[routed], "bound": bound}.items():
+                sums[name] = sums.get(name, 0.0) + 48 * ms
+        del xq, w
+        torch.cuda.empty_cache()
+    print("int32 per vit_l_16 TP (1, 2) forward (48 proj + 48 fc2 shard products), ms: "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in sums.items()) + f" [{card}]")
 
 
 def variants(card: str) -> None:
@@ -413,12 +517,14 @@ def _operands(m: int, n: int, k: int, gen: torch.Generator):
 
 
 def main(argv: list[str] | None = None) -> None:
-    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "quantize", "host_times"]
+    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "int32", "quantize", "host_times"]
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_report()
     if "linear" in parts:
         linear_times(card)
+    if "int32" in parts:
+        linear_s32_times(card)
     if "quantize" in parts:
         quantize_times(card)
     if "host_times" in parts:
@@ -505,7 +611,7 @@ def host_times(card: str) -> None:
         ln_b = torch.zeros(k, dtype=torch.bfloat16, device="cuda")
         heads = x.view(m, 1, k // 16, 16)
         out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-        args = (xq.data_ptr(), w.data_ptr(), s_x.data_ptr(), qscale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
+        args = (xq.data_ptr(), w.data_ptr(), s_x.data_ptr(), qscale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(), 1,
                 m, n, k, I.wgmma_block_n(m, n, I._sm_count(0)), I._sm_count(0),
                 torch.cuda.current_stream().cuda_stream)
         w16 = w.to(torch.bfloat16)

@@ -257,10 +257,11 @@ Phases, one line each (any failure exits non-zero with no result line):
           32): quantize_rows_s8's amax-only mode against its plain version,
           the shards' amaxes maxed equal to the whole row's and given-amax on
           each shard equal to the one-pass kernel's columns (max-abs 0),
-          int8_linear_s8's int32 output (mma) against int_product and
+          int8_linear_s8's int32 output (routed to the wgmma body; the mma
+          body and both wgmma tile widths forced) against int_product and
           dequant_sum_s32 of the two shards' partials against int8_linear_s8
           on the whole K (max-abs 0), with device ms, bound, plain ms and
-          (int32) torch._int_mm's. (k1)
+          (int32) the mma body's and torch._int_mm's. (k1)
           SAM2SegmentationService on a (2, 1) mesh at full Hiera-tiny width:
           --fast (bfloat16, 768, batch 8: 4 rows a replica) on the seg
           phase's 16 thumbnails and float32 at 1024 (batch 2: 1 a replica;
@@ -311,8 +312,9 @@ multi phase's data-parallel segmentation, data-parallel and two-rank
 fine-tuning and two-rank command line; the int8 records' ``multi_launches``:
 its data-parallel int8 extract_batch) and tensor-parallel int8's four
 records (quantize_rows_s8's amax-only and given-amax modes, int8_linear_s8's
-int32 output, dequant_sum_s32: ms, bound and plain ms summed over one
-vit_l_16 TP (1, 2) forward at batch 32, launches in (k2)'s forward), the
+int32 output with its mma body's time as mma_ms, dequant_sum_s32: ms, bound
+and plain ms summed over one vit_l_16 TP (1, 2) forward at batch 32,
+launches in (k2)'s forward), the
 card's name and power limit, and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -3366,11 +3368,11 @@ TP_LINEAR_CASES = [  # (model, layer, whole K, N)
 ]
 # the new launches in one vit_l_16 TP (1, 2) int8 forward: per block and shard an amax-only and a
 # given-amax quantizer before proj (identity) and before fc2 (gelu_tanh) and their int32 partials on
-# the mma body; per block one dequant_sum_s32 for each; the layernorm quantizers and the
-# column-parallel linears (qkv, fc1 on each shard, wgmma) as on one device
+# the wgmma body; per block one dequant_sum_s32 for each; the layernorm quantizers and the
+# column-parallel linears (qkv, fc1 on each shard, wgmma, bfloat16) as on one device
 VITL_TP_LAUNCHES = {"prologue": {"layernorm": 48, "identity": 96, "gelu_tanh": 96},
                     "mode": {"one_pass": 48, "amax_only": 96, "given_amax": 96},
-                    "variant": {"wgmma": 96, "mma": 96}, "dequant_sum": 48}
+                    "variant": {"wgmma": 192}, "out": {"bfloat16": 96, "int32": 96}, "dequant_sum": 48}
 TP_INT8_REPLACES = {"amax_only": "atlaspatch_tpu/models/encoders/vit.py:143",
                     "given_amax": "atlaspatch_tpu/models/encoders/vit.py:143",
                     "int32": "atlaspatch_tpu/models/encoders/vit.py:146",
@@ -3395,9 +3397,11 @@ def _tp_int8_kernel_rows(state) -> dict:
     amax-only mode against its plain version (identity max-abs 0, the activations within 2^-8), the
     shards' amaxes maxed equal to the whole row's, given-amax on each shard with them equal to the
     one-pass kernel's columns and scale (max-abs 0) and to the plain version (identity max-abs 0, the
-    activations at the int8 phase's bars); int8_linear_s8's int32 output (mma) against int_product
-    and dequant_sum_s32 of the two shards' partials against int8_linear_s8 on the whole K, max-abs 0.
-    Device ms of each at vit_l_16's shapes, beside bound, plain and (int32) torch._int_mm."""
+    activations at the int8 phase's bars); int8_linear_s8's int32 output (routed: wgmma; the mma body
+    and both wgmma widths, forced) against int_product and dequant_sum_s32 of the two shards' partials against
+    int8_linear_s8 on the whole K, max-abs 0. Device ms of each at vit_l_16's shapes, beside bound,
+    plain and (int32) torch._int_mm and the mma body, and the given-amax calls timed in three
+    windows beside the one-pass kernel on the same shard."""
     import torch
 
     from atlaspatch_tpu_torch.ops import int8 as I
@@ -3452,8 +3456,11 @@ def _tp_int8_kernel_rows(state) -> dict:
         if model == "vit_l_16":
             part = parts[0]
             kk = k // 2
+            given = sorted(device_ms(lambda: quantize(*part, amax=maxed), kernel="quantize_rows_s8", reps=50)
+                           for _ in range(3))
             row.update(amax_ms=device_ms(lambda: amax_of(*part), kernel="quantize_rows_s8"),
-                       given_ms=device_ms(lambda: quantize(*part, amax=maxed), kernel="quantize_rows_s8"),
+                       given_ms=given[1], given_windows=given,
+                       one_pass_ms=device_ms(lambda: quantize(*part), kernel="quantize_rows_s8", reps=50),
                        amax_plain_ms=cuda_ms(lambda: I.row_amax_plain(values(*part)), max_reps=10),
                        given_plain_ms=cuda_ms(lambda: I.quantize_rows_plain(values(*part), maxed), max_reps=10),
                        amax_bound_ms=1e3 * (2 * m * kk + 4 * m) / H100_BYTES_PER_S,
@@ -3464,8 +3471,11 @@ def _tp_int8_kernel_rows(state) -> dict:
             f"shards = the one-pass kernel (max-abs 0), vs plain flip share {share:.3e}"
             + ("" if "amax_ms" not in row else
                f"; a shard's call dev_ms amax-only {row['amax_ms']:.4f} (bound {row['amax_bound_ms']:.4f}, plain "
-               f"{row['amax_plain_ms']:.4f}), given-amax {row['given_ms']:.4f} (bound {row['given_bound_ms']:.4f}, "
-               f"plain {row['given_plain_ms']:.4f})") + f" [{state['card']}]")
+               f"{row['amax_plain_ms']:.4f}), given-amax {row['given_ms']:.4f} (3 windows "
+               f"{' / '.join(f'{x:.4f}' for x in row['given_windows'])}; "
+               f"{100 * row['given_bound_ms'] / row['given_ms']:.1f}% of bound {row['given_bound_ms']:.4f}; the "
+               f"one-pass kernel on the same shard {row['one_pass_ms']:.4f}; plain {row['given_plain_ms']:.4f})")
+            + f" [{state['card']}]")
         del args, parts, given, plain_given, one_xq
     linear_err = 0
     for model, layer, k, n in TP_LINEAR_CASES:
@@ -3479,12 +3489,15 @@ def _tp_int8_kernel_rows(state) -> dict:
         partials = [I.int8_linear_s32(a, b) for a, b in halves]
         got = I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16)
         torch.cuda.synchronize()
-        if dict(I.int8_linear.variant_launches) != {"mma": 2} or I.dequant_sum.launches != 1:
-            raise AssertionError(f"multi tp {model} {layer}: {dict(I.int8_linear.variant_launches)}, "
-                                 f"{I.dequant_sum.launches} dequant_sum")
+        if dict(I.int8_linear.variant_launches) != {"wgmma": 2} or dict(I.int8_linear.out_launches) != {"int32": 2} \
+                or I.dequant_sum.launches != 1:
+            raise AssertionError(f"multi tp {model} {layer}: {dict(I.int8_linear.variant_launches)} by body, "
+                                 f"{dict(I.int8_linear.out_launches)} by output, {I.dequant_sum.launches} dequant_sum")
         want = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+        forced = [[I._launch_linear(v, a, None, b, None, None, torch.int32, bn) for a, b in halves]
+                  for v, bn in [("mma", None)] + [("wgmma", bn) for bn in I.WGMMA_BLOCK_NS]]
         s32_err = max((p.long() - I.int8_linear_s32_plain(a, b).long()).abs().max().item()
-                      for p, (a, b) in zip(partials, halves))
+                      for ps in (partials, *forced) for p, (a, b) in zip(ps, halves))
         sum_err = max((got.float() - want.float()).abs().max().item(),
                       (got.float() - I.dequant_sum_plain(partials, s_x, qscale, bias, torch.bfloat16).float())
                       .abs().max().item())
@@ -3497,6 +3510,8 @@ def _tp_int8_kernel_rows(state) -> dict:
             a, b = halves[0]
             kk = k // 2
             row = dict(s32_ms=device_ms(lambda: I.int8_linear_s32(a, b), kernel="int8_linear_s8"),
+                       s32_mma_ms=device_ms(lambda: I._launch_linear("mma", a, None, b, None, None, torch.int32),
+                                            kernel="int8_linear_s8"),
                        s32_plain_ms=cuda_ms(lambda: I.int8_linear_s32_plain(a, b), max_reps=5),
                        int_mm_ms=device_ms(lambda: torch._int_mm(a, b.t()), kernel=None),
                        s32_op_ms=1e3 * 2.0 * m * n * kk / H100_INT8_OPS,
@@ -3507,14 +3522,19 @@ def _tp_int8_kernel_rows(state) -> dict:
                                             max_reps=10),
                        sum_bound_ms=1e3 * (2 * 4 * m * n + 4 * m + 4 * n + 2 * n + 2 * m * n) / H100_BYTES_PER_S)
         rows[(model, layer, "linear")] = row
-        log(f"multi (k0) tp int8 {model} {layer} M={m} K={k}={k // 2}+{k // 2} N={n}: int8_linear_s8 int32 (mma) "
-            f"vs int_product max-abs 0, dequant_sum_s32 of the 2 partials vs int8_linear_s8 (wgmma) on the whole K "
-            f"max-abs 0" + ("" if not row else
-                            f"; a shard's int32 product dev_ms {row['s32_ms']:.4f} (bound "
-                            f"{max(row['s32_op_ms'], row['s32_byte_ms']):.4f}, _int_mm {row['int_mm_ms']:.4f}, plain "
-                            f"{row['s32_plain_ms']:.4f}), dequant_sum_s32 {row['sum_ms']:.4f} (bound "
-                            f"{row['sum_bound_ms']:.4f}, plain {row['sum_plain_ms']:.4f})") + f" [{state['card']}]")
-        del xq, w, halves, partials, got, want
+        bound = max(row["s32_op_ms"], row["s32_byte_ms"]) if row else 0.0
+        log(f"multi (k0) tp int8 {model} {layer} M={m} K={k}={k // 2}+{k // 2} N={n}: int8_linear_s8 int32 (wgmma/"
+            f"{I.wgmma_block_n(m, n, I._sm_count(0), torch.int32, k // 2)}; mma and both wgmma widths forced) vs "
+            f"int_product max-abs 0, dequant_sum_s32 of the 2 partials vs int8_linear_s8 (wgmma) "
+            f"on the whole K max-abs 0" + ("" if not row else
+                                          f"; a shard's int32 product dev_ms wgmma {row['s32_ms']:.4f} "
+                                          f"({100 * bound / row['s32_ms']:.1f}% of bound {bound:.4f}), mma "
+                                          f"{row['s32_mma_ms']:.4f} ({100 * bound / row['s32_mma_ms']:.1f}%), _int_mm "
+                                          f"{row['int_mm_ms']:.4f} ({100 * bound / row['int_mm_ms']:.1f}%), plain "
+                                          f"{row['s32_plain_ms']:.4f}; dequant_sum_s32 {row['sum_ms']:.4f} (bound "
+                                          f"{row['sum_bound_ms']:.4f}, plain {row['sum_plain_ms']:.4f})")
+            + f" [{state['card']}]")
+        del xq, w, halves, partials, forced, got, want
     torch.cuda.empty_cache()
     return {"rows": rows, "worst": worst, "linear_err": linear_err}
 
@@ -3523,7 +3543,8 @@ def _tp_int8_records(tp, launches) -> list[dict]:
     """The new modes' and kernels' records over one vit_l_16 TP (1, 2) int8 forward at batch 32 (24
     blocks, 2 shards): ms, bound and plain ms summed over its calls (per block and shard one amax-only
     and one given-amax before proj and before fc2, two int32 partials; per block two dequant_sum_s32),
-    launches from (k2)'s run."""
+    the int32 partials' mma body on the same shards as mma_ms (their body before PR 17), launches
+    from (k2)'s run."""
     r = tp["rows"]
     proj, fc2 = r[("vit_l_16", "proj", "identity")], r[("vit_l_16", "fc2", "gelu_tanh")]
     lp, lf = r[("vit_l_16", "proj", "linear")], r[("vit_l_16", "fc2", "linear")]
@@ -3545,9 +3566,11 @@ def _tp_int8_records(tp, launches) -> list[dict]:
          "plain_ms": calls * (proj["given_plain_ms"] + fc2["given_plain_ms"]),
          "bound_ms": calls * (proj["given_bound_ms"] + fc2["given_bound_ms"]), "bound_by": "bytes",
          "library_ms": None},
-        {**base, "name": "int8_linear_s8:int32", "replaces": TP_INT8_REPLACES["int32"],
-         "launches": launches["variant"]["mma"], "max_abs_err": tp["linear_err"],
-         "ms": calls * (lp["s32_ms"] + lf["s32_ms"]), "plain_ms": calls * (lp["s32_plain_ms"] + lf["s32_plain_ms"]),
+        {**base, "name": "int8_linear_s8:int32", "source": INT8_LINEAR_SOURCES[0],
+         "replaces": TP_INT8_REPLACES["int32"],
+         "launches": launches["out"]["int32"], "max_abs_err": tp["linear_err"],
+         "ms": calls * (lp["s32_ms"] + lf["s32_ms"]), "mma_ms": calls * (lp["s32_mma_ms"] + lf["s32_mma_ms"]),
+         "plain_ms": calls * (lp["s32_plain_ms"] + lf["s32_plain_ms"]),
          "bound_ms": max(s32_op, s32_byte), "bound_by": "operations" if s32_op >= s32_byte else "bytes",
          "library_ms": calls * (lp["int_mm_ms"] + lf["int_mm_ms"])},
         {**base, "name": "dequant_sum_s32", "replaces": TP_INT8_REPLACES["dequant_sum_s32"],
@@ -3719,7 +3742,8 @@ def _int8_counts() -> dict:
     from atlaspatch_tpu_torch.ops import int8 as I
 
     return {"prologue": dict(I.quantize_rows.prologue_launches), "mode": dict(I.quantize_rows.mode_launches),
-            "variant": dict(I.int8_linear.variant_launches), "dequant_sum": I.dequant_sum.launches}
+            "variant": dict(I.int8_linear.variant_launches), "out": dict(I.int8_linear.out_launches),
+            "dequant_sum": I.dequant_sum.launches}
 
 
 def _feature_gap(want, got) -> str:
@@ -3732,9 +3756,10 @@ def _multi_tp_int8(state) -> dict:
     """(k2) tensor-parallel int8 on the (1, 2) mesh over the card named twice, against one-device
     int8 on the same 32 patches at batch 32: vit_l_16 at full width and depth from the registry
     (process --feature-parallel tensor --feature-precision int8's extractor), and dinov3_vit7b16 at
-    full width (dim 4,096, 32 heads, gated MLP of 8,192), depth cut to 2, random weights. Per-patch
-    cosine >= 0.999 (max-abs and the share of features that differ printed); the launches of one
-    forward by prologue, mode, body and dequant_sum_s32 as the design gives them. Returns vit_l_16's."""
+    full width (dim 4,096, 32 heads, gated MLP of 8,192), depth cut to 2, random weights. Features
+    equal to one device's bit for bit (the int8 parts are exact; cosine, max-abs and the share of
+    features that differ printed); the launches of one forward by prologue, mode, body, output dtype
+    and dequant_sum_s32 as the design gives them. Returns vit_l_16's."""
     import dataclasses
 
     import numpy as np
@@ -3764,12 +3789,11 @@ def _multi_tp_int8(state) -> dict:
     launches = _int8_counts()
     if launches != VITL_TP_LAUNCHES:
         raise AssertionError(f"multi tp int8 vit_l_16: launches in one forward {launches}, want {VITL_TP_LAUNCHES}")
-    cos = _cos_rows(want, got)
-    if not (np.isfinite(got).all() and got.shape == want.shape and cos.min() >= 0.999):
+    if not (np.isfinite(got).all() and np.array_equal(got, want)):
         raise AssertionError(f"multi tp int8 vit_l_16: {_feature_gap(want, got)}")
     tp.cleanup()
     log(f"multi (k2) vit_l_16 int8 tensor-parallel (1, 2) on {MULTI_CARD}, full depth, 32 patches at batch 32 "
-        f"against one device's int8: {_feature_gap(want, got)} (>= 0.999); one forward's launches {launches}; "
+        f"against one device's int8: {_feature_gap(want, got)} (bit for bit); one forward's launches {launches}; "
         f"extract_batch {wall:.3f} s (one device {one_wall:.3f} s, same run) [{state['card']}]")
 
     entry = ENTRIES["dinov3_vit7b16"]
@@ -3791,14 +3815,14 @@ def _multi_tp_int8(state) -> dict:
     torch.cuda.synchronize()
     launches7 = _int8_counts()
     # per block: one layernorm quantizer a norm; a shard's amax-only and given-amax before proj
-    # (identity) and fc2 (gelu_tanh of fc_gate times fc_up); qkv, fc_gate, fc_up on wgmma, proj and
-    # fc2's int32 partials on mma; a dequant_sum_s32 for proj and one for fc2
+    # (identity) and fc2 (gelu_tanh of fc_gate times fc_up); qkv, fc_gate, fc_up on wgmma in bfloat16,
+    # proj and fc2's partials on wgmma in int32 (shard K 2,048 and 4,096); a dequant_sum_s32 for proj
+    # and one for fc2
     want_launches = {"prologue": {"layernorm": 4, "identity": 8, "gelu_tanh": 8},
                      "mode": {"one_pass": 4, "amax_only": 8, "given_amax": 8},
-                     "variant": {"wgmma": 12, "mma": 8}, "dequant_sum": 4}
-    cos7 = _cos_rows(want7, got7)
+                     "variant": {"wgmma": 20}, "out": {"bfloat16": 12, "int32": 8}, "dequant_sum": 4}
     if launches7 != want_launches or not (np.isfinite(got7).all() and got7.shape == (32, 4096)
-                                          and cos7.min() >= 0.999):
+                                          and np.array_equal(got7, want7)):
         raise AssertionError(f"multi tp int8 dinov3_vit7b16: launches {launches7} (want {want_launches}); "
                              f"{_feature_gap(want7, got7)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3807,7 +3831,7 @@ def _multi_tp_int8(state) -> dict:
     torch.cuda.empty_cache()
     log(f"multi (k2) dinov3_vit7b16 int8 (dim 4096, 32 heads, gated MLP 8192; depth 2 of 40, random weights) "
         f"tensor-parallel (1, 2) on {MULTI_CARD}, 32 patches at batch 32, against one device's int8: "
-        f"{_feature_gap(want7, got7)} (>= 0.999); one forward's launches {launches7}; peak memory {peak:.1f} GiB; "
+        f"{_feature_gap(want7, got7)} (bit for bit); one forward's launches {launches7}; peak memory {peak:.1f} GiB; "
         f"part {time.perf_counter() - t0:.1f} s wall [{state['card']}]")
     return launches
 
@@ -4082,8 +4106,8 @@ def main() -> int:
     for rec, launches in zip(state["int8_records"], state["multi_int8_launches"]):
         rec["multi_launches"] = launches  # the multi phase's data-parallel int8 extract_batch
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
-    tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "plain_ms",
-               "bound_ms", "bound_by", "library_ms")
+    tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "mma_ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
     tp_int8 = [{k: rec[k] for k in tp_keys if k in rec} for rec in state["tp_int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8, *tp_int8]}))

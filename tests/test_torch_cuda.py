@@ -1082,18 +1082,59 @@ def test_amax_modes_split_a_row_into_the_one_pass_bytes(card, m, k, prologue, op
     assert I.quantize_rows.mode_launches == {"one_pass": 1, "amax_only": 3, "given_amax": 3}
 
 
-@pytest.mark.parametrize("m,n,k", INT8_SHAPES)
+# (M, N, K) of the int32 output beyond INT8_SHAPES: TP (1, 2) int8's shard products at batch 32,
+# vit_l_16's proj and fc2 (M 6,304 = 49.25 tiles of 128 rows) and dinov3_vit7b16's (M 6,432); N no
+# multiple of the 128-column tile (1,000) or of 8 (1,004); the TMA's zero-filled K tail (4,304 =
+# 33.6 blocks of 128); virchow's and medsiglip's fc2 shards (K 1,708, 2,152: mma)
+S32_SHAPES = [(6304, 1024, 512), (6304, 1024, 2048), (6432, 4096, 2048), (6432, 4096, 4096), (6304, 1000, 512),
+              (37, 1004, 48), (6304, 1024, 4304), (130, 1280, 1708), (37, 1152, 2152)]
+
+
+@pytest.mark.parametrize("m,n,k", INT8_SHAPES + S32_SHAPES)
 def test_int32_output_matches_int_product(card, m, n, k):
+    """The int32 product launches the body linear_variant picks (wgmma where it admits the shape);
+    every body and tile width the shape admits, forced, equals the plain product bit for bit."""
     from atlaspatch_tpu_torch.ops import int8 as I
 
     xq, _, w, _, _ = _int8_operands(card, m, n, k)
+    routed = I.linear_variant(m, n, k, torch.int32, xq.data_ptr(), w.data_ptr())
+    assert routed == ("wgmma" if k % 16 == 0 and n % 4 == 0 else "mma")
     I.reset_launch_counts()
     got = I.int8_linear_s32(xq, w)
     torch.cuda.synchronize()
-    assert I.int8_linear.variant_launches == {"mma": 1}
+    assert I.int8_linear.variant_launches == {routed: 1}
+    assert I.int8_linear.out_launches == {"int32": 1}
     assert got.dtype == torch.int32 and got.shape == (m, n)
-    assert torch.equal(got, I.int8_linear_s32_plain(xq, w))
-    assert torch.equal(got.cpu(), I.int8_linear_s32_plain(xq.cpu(), w.cpu()))
+    want = I.int8_linear_s32_plain(xq, w)
+    assert torch.equal(got, want)
+    bodies = [("mma", None)] + ([("wgmma", bn) for bn in I.WGMMA_BLOCK_NS] if routed == "wgmma" else [])
+    forced = {(v, bn): I._launch_linear(v, xq, None, w, None, None, torch.int32, bn) for v, bn in bodies}
+    torch.cuda.synchronize()
+    for variant, y in forced.items():
+        assert y.dtype == torch.int32 and torch.equal(y, want), variant
+    if routed == "mma":
+        with pytest.raises(ValueError, match="int32 with N a multiple of 4"):
+            I._launch_linear("wgmma", xq, None, w, None, None, torch.int32)
+    if m * n * k <= 37 * 4304 * 1152:  # the host's int32 product, at the small shapes
+        assert torch.equal(got.cpu(), I.int8_linear_s32_plain(xq.cpu(), w.cpu()))
+
+
+def test_a_failed_int32_wgmma_encode_raises_and_never_retries(card, monkeypatch):
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, _, w, _, _ = _int8_operands(card, 37, 72, 4304)
+    monkeypatch.setattr(I, "load_int8_library", lambda: _FailingLibrary())
+
+    def refuse(*a, **k):
+        raise AssertionError("a fallback ran")
+
+    for name in ("int8_linear_s32_plain", "int_product"):
+        monkeypatch.setattr(I, name, refuse)
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    I.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="encode failed: CUresult 1"):
+        I.int8_linear_s32(xq, w)
+    assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches and not I.int8_linear.out_launches
 
 
 @pytest.mark.parametrize("parts", [2, 3, 8])
@@ -1135,7 +1176,7 @@ def test_dequant_sum_refuses_what_it_does_not_take(card):
 def test_tensor_parallel_int8_equals_one_device_on_the_card(card, monkeypatch, kw):
     """A bfloat16 int8 ViT sharded over the card named twice equals the same model on one device bit
     for bit; per block the row-parallel quantizers run amax-only and given-amax on each shard, the
-    partials come from the mma body in int32 and dequant_sum_s32 runs once per row-parallel layer;
+    partials come from the wgmma body in int32 and dequant_sum_s32 runs once per row-parallel layer;
     no plain version runs."""
     import dataclasses
 
@@ -1170,6 +1211,8 @@ def test_tensor_parallel_int8_equals_one_device_on_the_card(card, monkeypatch, k
     linears = 5 if kw.get("gated_mlp") else 4
     assert I.quantize_rows.mode_launches == {"one_pass": 4, "amax_only": 8, "given_amax": 8}
     assert I.quantize_rows.prologue_launches == {"layernorm": 4, "identity": 8, "silu": 8}
-    # per block and shard: the column-parallel linears on wgmma, proj and fc2's int32 partials on mma
-    assert I.int8_linear.variant_launches == {"wgmma": 2 * 2 * (linears - 2), "mma": 2 * 2 * 2}
+    # per block and shard: the column-parallel linears on wgmma in bfloat16, proj and fc2's partials
+    # on wgmma in int32 (shard K 64 and 128 or 96)
+    assert I.int8_linear.variant_launches == {"wgmma": 2 * 2 * linears}
+    assert I.int8_linear.out_launches == {"bfloat16": 2 * 2 * (linears - 2), "int32": 2 * 2 * 2}
     assert I.dequant_sum.launches == 4

@@ -309,6 +309,37 @@ def test_split_row_equals_int8_dense_on_the_whole_row(dtype, K, N, parts):
     assert I.quantize_rows.launches == I.int8_linear.launches == I.dequant_sum.launches == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(1024, 1024), (4096, 1024), (4096, 4096), (8192, 4096)])
+def test_split_row_at_the_zoo_tp_widths_equals_int8_dense(dtype, K, N):
+    """The row-parallel products at the TP (1, 2) plan's widths (vit_l_16's
+    proj and fc2, K 1,024 and 4,096, N 1,024; dinov3_vit7b16's, K 4,096 and
+    8,192, N 4,096): ``int8_linear_s32_plain`` on each half of K (the
+    partials the card's wgmma int32 output equals bit for bit), summed and
+    dequantized by ``dequant_sum_plain``, equals JAX ``Int8Dense`` on the
+    whole row; tolerance 0 (max-abs 0: int32 sums are exact in any order)."""
+    kernel_q, qscale, bias = _dense_case(K, N, seed=K + 3 * N)
+    x = np.random.default_rng(K + N).normal(0.0, 2.0, (2, 3, K)).astype(np.float32)
+    x[0, 0, :4] = [127.0, 2.5, -3.5, 0.5]
+    x[0, 0, 4:] = 0.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x).astype(jdt)
+    bj = jnp.asarray(bias).astype(jdt)
+    _, _, want_acc, want_y = _jax_dense_parts(xj, kernel_q, qscale, bj)
+    rows = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt).reshape(-1, K)
+    w = torch.from_numpy(np.ascontiguousarray(kernel_q.T))
+    cuts = _cuts(K, 2)
+    amax = torch.maximum(*(I.row_amax_plain(rows[:, c]) for c in cuts))
+    slices = [I.quantize_rows_plain(rows[:, c], amax) for c in cuts]
+    partials = [I.int8_linear_s32_plain(q, w[:, c].contiguous()) for (q, _), c in zip(slices, cuts)]
+    assert [p.shape for p in partials] == [(6, N)] * 2 and all(p.dtype == torch.int32 for p in partials)
+    np.testing.assert_array_equal((partials[0] + partials[1]).numpy(), want_acc.reshape(-1, N))
+    bias_t = torch.from_numpy(np.asarray(bj.astype(jnp.float32))).to(tdt)
+    got = I.dequant_sum_plain(partials, slices[0][1], torch.from_numpy(qscale), bias_t, tdt)
+    assert got.dtype == tdt
+    assert np.abs(got.float().numpy() - want_y.reshape(-1, N)).max() == 0
+
+
 @pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
 @pytest.mark.parametrize("act", ACTS)
 def test_split_act_quantizer_matches_the_whole_row(act, gate):
@@ -638,43 +669,66 @@ def _int8_widths(name: str) -> dict:
     return {"qkv": (spec.dim, 3 * spec.dim), "proj": (spec.dim, spec.dim), **mlp, "fc2": (hidden, spec.dim)}
 
 
-@pytest.mark.parametrize("name,layer,want", [
-    *[("vit_l_16", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
-    *[("medsiglip", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
-    *[("uni_v1", layer, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
-    ("virchow_v1", "qkv", "wgmma"), ("virchow_v1", "fc1", "wgmma"),
-    ("virchow_v1", "fc2", "mma"), ("virchow_v2", "fc2", "mma"),
+# the row-parallel shards of the TP (1, 2) int8 plan whose K (half of the whole) is no multiple of 16:
+# medsiglip's fc2 (2,152 of 4,304) and virchow's (1,708 of the SwiGLU half-width 3,416)
+_TP_S32_ON_MMA = {("medsiglip", "fc2"), ("virchow_v1", "fc2"), ("virchow_v2", "fc2")}
+
+
+@pytest.mark.parametrize("name,layer,out_dtype,want", [
+    *[("vit_l_16", layer, torch.bfloat16, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    *[("medsiglip", layer, torch.bfloat16, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    *[("uni_v1", layer, torch.bfloat16, "wgmma") for layer in ("qkv", "proj", "fc1", "fc2")],
+    ("virchow_v1", "qkv", torch.bfloat16, "wgmma"), ("virchow_v1", "fc1", torch.bfloat16, "wgmma"),
+    ("virchow_v1", "fc2", torch.bfloat16, "mma"), ("virchow_v2", "fc2", torch.bfloat16, "mma"),
+    *[(name, layer, torch.int32, "mma" if (name, layer) in _TP_S32_ON_MMA else "wgmma")
+      for name, entry in zoo.ENTRIES.items() if isinstance(getattr(entry, "spec", None), pvit.ViTSpec)
+      for layer in ("proj", "fc2")],
 ])
-def test_linear_variant_over_the_zoo_int8_widths(name, layer, want):
+def test_linear_variant_over_the_zoo_int8_widths(name, layer, out_dtype, want):
     """The wgmma body takes K a multiple of 16 (a TMA map's row stride):
     every vit_l_16, medsiglip and uni linear in bfloat16, the int8 engine's
     dtype; virchow's fc2 reads the SwiGLU half-width, K = 3,416 = 16 x
-    213.5, and stays on mma.sync, as does every float32 output."""
+    213.5, and stays on mma.sync, as does every float32 output. Under
+    tensor-parallel int8 (the (1, 2) plan: half the heads or hidden units a
+    shard) each zoo ViT's row-parallel shards write int32 partials, on
+    wgmma (vit_l_16's proj K 512 and fc2 K 2,048, N 1,024;
+    dinov3_vit7b16's 2,048 and 4,096, N 4,096) but where half of K is no
+    multiple of 16: medsiglip's fc2 (2,152) and virchow's (1,708)."""
     k, n = _int8_widths(name)[layer]
-    bf16 = torch.bfloat16
+    if out_dtype == torch.int32:
+        k //= 2
     for m in (1, 5, 32 * 197, 256 * 197):
-        assert I.linear_variant(m, n, k, bf16) == want, (name, layer, m, k, n)
-        assert I.linear_variant(m, n, k, bf16, xq_ptr=1 << 20, w_ptr=3 << 20) == want
-        assert I.linear_variant(m, n, k, bf16, xq_ptr=(1 << 20) + 8) == "mma"  # a base off 16 bytes
-        assert I.linear_variant(m, n, k, bf16, w_ptr=(1 << 20) + 1) == "mma"
+        assert I.linear_variant(m, n, k, out_dtype) == want, (name, layer, m, k, n)
+        assert I.linear_variant(m, n, k, out_dtype, xq_ptr=1 << 20, w_ptr=3 << 20) == want
+        assert I.linear_variant(m, n, k, out_dtype, xq_ptr=(1 << 20) + 8) == "mma"  # a base off 16 bytes
+        assert I.linear_variant(m, n, k, out_dtype, w_ptr=(1 << 20) + 1) == "mma"
         assert I.linear_variant(m, n, k, torch.float32) == "mma"
 
 
 @pytest.mark.parametrize("k,want", [(45, "mma"), (44, "mma"), (40, "mma"), (48, "wgmma"), (1040, "wgmma"),
-                                    (3416, "mma"), (4304, "wgmma"), (4308, "mma")])
+                                    (3416, "mma"), (4304, "wgmma"), (4308, "mma"), (512, "wgmma"), (2048, "wgmma"),
+                                    (1708, "mma"), (2152, "mma")])
 def test_linear_variant_by_depth(k, want):
-    assert I.linear_variant(37, 72, k, torch.bfloat16) == want
-    assert I.wgmma_admits(72, k, torch.bfloat16) == (want == "wgmma")
+    """bfloat16 and int32 output alike: K a multiple of 16 on wgmma (the
+    TMA zero-fills the last 128-byte block's tail: 4,304), the rest on mma
+    (virchow's and medsiglip's fc2 shards under TP (1, 2): 1,708, 2,152)."""
+    for out_dtype in (torch.bfloat16, torch.int32):
+        assert I.linear_variant(37, 72, k, out_dtype) == want
+        assert I.wgmma_admits(72, k, out_dtype) == (want == "wgmma")
 
 
 @pytest.mark.parametrize("n,out_dtype,want", [
     (72, torch.bfloat16, "wgmma"), (8, torch.bfloat16, "wgmma"), (4304, torch.bfloat16, "wgmma"),
     (72, torch.float32, "mma"), (4304, torch.float32, "mma"), (130, torch.bfloat16, "mma"),
     (17, torch.bfloat16, "mma"), (4, torch.bfloat16, "mma"),
+    (72, torch.int32, "wgmma"), (4, torch.int32, "wgmma"), (1000, torch.int32, "wgmma"), (1004, torch.int32, "wgmma"),
+    (4096, torch.int32, "wgmma"), (130, torch.int32, "mma"), (6, torch.int32, "mma"), (17, torch.int32, "mma"),
+    (72, torch.float16, "mma"),
 ])
 def test_linear_variant_by_output(n, out_dtype, want):
-    """The wgmma body stores its tile by TMA in bfloat16 rows of 2 N bytes:
-    float32 output and N no multiple of 8 go to the mma body."""
+    """The wgmma body stores its tile by TMA in rows whose stride must be a
+    multiple of 16 bytes: bfloat16 with N a multiple of 8, int32 with N a
+    multiple of 4; float32 output and other N go to the mma body."""
     assert I.linear_variant(37, n, 1024, out_dtype) == want
     assert I.wgmma_admits(n, 1024, out_dtype) == (want == "wgmma")
 
@@ -688,6 +742,21 @@ def test_wgmma_block_n_rule(m, n, sms, want):
     """256-column tiles unless they are fewer than the SMs (132 on an H100
     SXM), where 128-column ones double the CTAs at work."""
     assert I.wgmma_block_n(m, n, sms=sms) == want
+    assert I.wgmma_block_n(m, n, sms=sms, out_dtype=torch.bfloat16, K=4096) == want
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (32 * 197, 512, 1024, 128), (32 * 197, 2048, 1024, 128), (32 * 201, 2048, 4096, 128), (32 * 201, 4096, 4096, 256),
+    (256 * 197, 512, 1024, 128), (256 * 197, 2048, 1024, 256), (256 * 201, 2048, 4096, 256),
+    (256 * 201, 4096, 4096, 256), (6144, 2048, 1024, 128), (37, 4304, 72, 128), (5, 2048, 4096, 128),
+])
+def test_wgmma_int32_block_n_rule(m, k, n, want):
+    """The int32 tile is 128 wide unless its 256-wide tiles give each of
+    the 132 SMs at least 128 K blocks of 128 bytes: at the TP (1, 2) shards
+    of vit_l_16 (M 6,304) and dinov3_vit7b16 (6,432) at batch 32 only the
+    7B's fc2 (K 4,096) takes 256; at batch 256 all but vit_l_16's proj do,
+    as measured (PERF.md)."""
+    assert I.wgmma_block_n(m, n, 132, torch.int32, k) == want
 
 
 @pytest.mark.parametrize("k,offset,match", [
@@ -708,15 +777,68 @@ def test_forced_wgmma_refused_before_any_launch(k, offset, match):
     assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches
 
 
-@pytest.mark.parametrize("n,out_dtype", [(8, torch.float32), (130, torch.bfloat16), (130, torch.float32)])
+@pytest.mark.parametrize("n,out_dtype", [(8, torch.float32), (130, torch.bfloat16), (130, torch.float32),
+                                         (130, torch.int32), (6, torch.int32)])
 def test_forced_wgmma_refused_for_its_output(n, out_dtype):
-    """A forced wgmma body that would write float32 or rows of N no multiple
-    of 8 is refused before any launch."""
+    """A forced wgmma body that would write float32, bfloat16 rows of N no
+    multiple of 8 or int32 rows of N no multiple of 4 is refused before any
+    launch."""
     I.reset_launch_counts()
     xq, w = torch.zeros(5, 1024, dtype=torch.int8), torch.zeros(n, 1024, dtype=torch.int8)
-    with pytest.raises(ValueError, match=f"writes bfloat16 with N a multiple of 8: .* N {n}, {out_dtype}"):
+    with pytest.raises(ValueError, match=f"writes bfloat16 with N a multiple of 8 or int32 with N a multiple of 4: "
+                                         f".* N {n}, {out_dtype}"):
         I._launch_linear("wgmma", xq, torch.ones(5), w, torch.ones(n), None, out_dtype)
     assert I.int8_linear.launches == 0 and not I.int8_linear.variant_launches
+
+
+@pytest.mark.parametrize("out_dtype,block_n", [(torch.int32, 192), (torch.int32, 64), (torch.bfloat16, 64)])
+def test_forced_wgmma_refuses_a_tile_width_it_has_no_instantiation_of(out_dtype, block_n):
+    """Both outputs have two tile widths (128, 256): any other is refused
+    before any launch."""
+    I.reset_launch_counts()
+    xq, w = torch.zeros(5, 1024, dtype=torch.int8), torch.zeros(72, 1024, dtype=torch.int8)
+    s_x, qscale = (None, None) if out_dtype == torch.int32 else (torch.ones(5), torch.ones(72))
+    with pytest.raises(ValueError, match=f"tiles are .* wide, got {block_n}"):
+        I._launch_linear("wgmma", xq, s_x, w, qscale, None, out_dtype, block_n)
+    assert I.int8_linear.launches == 0 and not I.int8_linear.out_launches
+
+
+def _staged_int32_addresses(block_n: int = 128) -> np.ndarray:
+    """csrc/int8_linear_wgmma.cu's stage_s32, emulated: per (warp, j, h, lane) the shared-memory
+    byte offset in one consumer's slice where the lane stores its 8 bytes, and the (row, column) of
+    the slice those bytes hold (the wgmma accumulator layout: thread 32 w + 4 g + t holds rows
+    16 w + g and + 8, columns 8 j + 2 t and + 1)."""
+    out = []
+    for w in range(4):
+        for j in range(block_n // 8):
+            for h in range(2):
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    flip = bool(t & 2)
+                    jj = j ^ 2 if flip else j
+                    r = w * 16 + g
+                    chunk = ((4 if flip else 0) ^ (t >> 1) ^ g) << 4
+                    addr = r * 128 + 8 * (t & 1) + (j >> 2) * 8192 + h * 8 * 128 + ((32 * (j & 3)) ^ chunk)
+                    out.append((w, j, h, lane, addr, r + 8 * h, 8 * jj + 2 * t))
+    return np.array(out)
+
+
+def test_int32_staging_fills_the_swizzled_panels_once_without_bank_conflicts():
+    """The int32 epilogue's staging, emulated: every 8 bytes of a consumer's four 32-column panels
+    written once, each with the column pair that TMA's SWIZZLE_128B layout puts there (row r's
+    16-byte chunk c at c ^ (r % 8), 128 bytes a row, 8 KB a panel), and each half-warp's store
+    touching all 32 banks once (16 lanes x 8 bytes)."""
+    a = _staged_int32_addresses()
+    addr, row, col = a[:, 4], a[:, 5], a[:, 6]
+    assert sorted(addr) == list(range(0, 4 * 8192, 8))
+    panel, within = col // 32, col % 32
+    want = panel * 8192 + row * 128 + (((4 * within // 16) ^ (row % 8)) << 4) + (4 * within) % 16
+    assert np.array_equal(addr, want)
+    for key in {(w, j, h) for w, j, h in a[:, :3].tolist()}:
+        sel = a[(a[:, 0] == key[0]) & (a[:, 1] == key[1]) & (a[:, 2] == key[2])]
+        for half in (sel[:16], sel[16:]):
+            banks = sorted(b for x in half[:, 4] for b in ((x // 4) % 32, (x // 4 + 1) % 32))
+            assert banks == list(range(32)), key
 
 
 # --- the int8 attention branch -------------------------------------------------------------
