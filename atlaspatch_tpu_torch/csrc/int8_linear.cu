@@ -56,7 +56,25 @@
 // prologue, then s from an abs-max read per row instead of reduced). The max
 // is exact in any order, so a row split over shards, its slices' amaxes
 // maxed and handed back, quantizes each slice to the bytes and the scale of
-// the whole row's one pass.
+// the whole row's one pass. The two tensor-parallel modes run on bodies of
+// their own (quantize_stream_*, atlas_quantize_rows_s8_stream), which need
+// neither the held row nor the group reduction one-pass needs: amax-only a
+// warp per row keeping a running max over units loaded ahead, and for an
+// activation also storing its values (rows, cols) in the input dtype;
+// given-amax (the identity prologue only) an elementwise pass over 32-, 16-
+// or 8-byte units, the row's scale read first. Under the TP plan given-amax
+// quantizes the attention's heads and those stored values, so fc2's
+// activation runs once, not in both modes (measured faster at every shard,
+// PERF.md); an activation's given-amax stays on the template. Both reuse the
+// template's prologue functions and quantize_one, so their values and bytes
+// are the template modes' bit for bit (which stay, forced only by tests and
+// tools/int8_variants.py). Bound: bytes; the function they replace (the
+// row's abs-max of the shard, then its quantization with the maxed abs-max)
+// reads the shard twice (2 bytes an element a read, 4 with the gated b
+// operand) and writes 1 byte an element; storing the activation's values
+// (2 bytes written, 2 read again, in place of the second read) adds 2 bytes
+// an element ungated and none gated. The activations' tanhf and expf make
+// fc2's amax-only partly issue-bound.
 //
 // int8_linear_s8: Y (M, N) = dequant(Xq (M, K) . Wq (N, K)^T). Bound on an
 // H100 SXM: operations at ViT widths (2 M N K over 1,979 TOPS int8 against
@@ -454,6 +472,7 @@ struct QuantCall {
   int mode;
   void* amax;
   int rows, cols;
+  void* act;  // the streamed amax-only body's stored prologue values, or null
 };
 
 template <typename T, int E, int U, int P>
@@ -515,6 +534,226 @@ cudaError_t dispatch_prologue(int prologue, const QuantCall& c, cudaStream_t str
     case kQuickGelu: return dispatch_quantize<T, kQuickGelu>(c, stream);
     case kSilu: return dispatch_quantize<T, kSilu>(c, stream);
     default: return dispatch_quantize<T, kRelu>(c, stream);
+  }
+}
+
+// --------------------------------------------------------- quantizer, streamed
+
+// The tensor-parallel modes without the template's held row: given-amax knows each row's scale before
+// it reads a value, and amax-only writes 4 bytes a row (and, for an activation, the values), so neither
+// waits for a whole row in registers or reduces across a group through shared memory. Units are E
+// elements of one row (32, 16 or 8 bytes, or one element), as stream_unit_fits admits them.
+// tools/int8_variants.py STREAM_VARIANTS measures the choices: the rows a given-amax warp loads before
+// it uses the first, the units an amax-only lane loads before it uses the first, by prologue (the
+// activations' tanhf, erff and expf are the work there, and more values in flight only cost
+// registers), and the CTAs an SM the registers must allow (4: 64 a thread, none spilling).
+constexpr int kStreamThreads = 256;
+constexpr int kGivenRows = 2;
+constexpr int kAmaxAhead[7] = {2, 0, 1, 1, 1, 1, 1};
+constexpr int kStreamCtas = 4;
+
+// A unit's column offset in an operand's row: unit u holds elements u E ..; heads of `hu` units (d / E)
+// lie sh apart (sh == 0: one run). The head's index by a shift where hu is a power of two.
+struct UnitColumns {
+  long long sh;
+  int hu, log2_hu;  // log2_hu < 0: hu is no power of two
+  __device__ __forceinline__ UnitColumns(const Rows& r, int e) : sh(r.sh), hu(r.d / e), log2_hu(-1) {
+    if (sh != 0 && (hu & (hu - 1)) == 0) log2_hu = __ffs(hu) - 1;
+  }
+  template <int E>
+  __device__ __forceinline__ long long at(int u) const {
+    if (sh == 0) return (long long)u * E;
+    const int h = log2_hu >= 0 ? u >> log2_hu : u / hu;
+    return h * sh + (long long)(u - h * hu) * E;
+  }
+};
+
+// The prologue's value of one element: x, act(x), or act(x) * y, each op rounded to T as the template rounds it.
+template <typename T, int P>
+__device__ __forceinline__ float prologue_value(T x, T y, bool gated) {
+  float v = to_float(x);
+  if constexpr (P >= kGelu) {
+    v = rnd<T>(activation<P, T>(v));
+    if (gated) v = rnd<T>(__fmul_rn(v, to_float(y)));
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(v);
+  else return v;
+}
+
+// given-amax, the identity prologue: an elementwise pass over the rows x units (units = cols / E) in
+// tiles of 8 kGivenRows rows x 32 units, a CTA a tile, the tiles of a row block consecutive (CTAs in
+// flight read whole rows, not a column of pieces of many): warp w takes rows w + 8 j (j < kGivenRows)
+// of it, lane l unit l, so a warp reads 32 consecutive units of a row and a lane's column offset is
+// computed once. Every load is issued first, the rows' amax with the values; then per row s and 1 / s
+// (the template's arithmetic: div_rn, then the refined reciprocal: a warp's lanes compute their row's
+// alike, which measured faster than a table in shared memory behind a barrier), the first column of
+// tiles writing the rows' scales, and quantize_one per element, E bytes stored a unit.
+template <typename T, int E>
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtas)
+quantize_stream_given_kernel(const Rows a, const float* __restrict__ amax, int8_t* __restrict__ xq,
+                             float* __restrict__ scale, const int rows, const int cols) {
+  constexpr int kAhead = kGivenRows;
+  constexpr int kWarps = kStreamThreads / 32;
+  const int units = cols / E;
+  const int chunks = (units + 31) / 32;  // a row block's tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = (blockIdx.x % chunks) * 32 + lane;
+  const int m0 = (blockIdx.x / chunks) * kWarps * kAhead + warp;  // the warp's first row
+  const bool in_row = u < units;
+  const long long col = UnitColumns(a, E).at<E>(u);
+
+  Unit<T, E> ua[kAhead];
+  float row_amax[kAhead];
+  int m = m0, mb = m / a.t, mt = m - mb * a.t;  // the row's place in the (B, T) layout
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (m < rows) {
+      row_amax[j] = amax[m];
+      if (in_row)
+        ua[j] = *reinterpret_cast<const Unit<T, E>*>(static_cast<const T*>(a.p) + mb * a.sb + mt * a.st + col);
+    }
+    m += kWarps;
+    mt += kWarps;
+    while (mt >= a.t) {
+      mt -= a.t;
+      ++mb;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int row = m0 + j * kWarps;
+    if (row >= rows) continue;
+    const float s = div_rn(fmaxf(row_amax[j], 1e-8f), 127.0f);
+    const float r0 = __fdividef(1.0f, s);
+    const float r = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
+    if (u == 0) scale[row] = s;
+    if (!in_row) continue;
+    uint32_t f[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = quantize_one(to_float(ua[j].v[e]), s, r);
+    int8_t* out = xq + (long long)row * cols + (long long)u * E;
+    if constexpr (E == 1) {
+      *out = (int8_t)(f[0] & 0xffu);
+    } else if constexpr (E == 2) {
+      *reinterpret_cast<uint16_t*>(out) = (uint16_t)__byte_perm(f[0], f[1], 0x0040);
+    } else {
+      uint32_t w[E / 4];
+#pragma unroll
+      for (int i = 0; i < E / 4; ++i)
+        w[i] = __byte_perm(__byte_perm(f[4 * i], f[4 * i + 1], 0x0040), __byte_perm(f[4 * i + 2], f[4 * i + 3], 0x0040),
+                           0x5410);
+      if constexpr (E == 16) *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+      if constexpr (E == 8) *reinterpret_cast<uint2*>(out) = make_uint2(w[0], w[1]);
+      if constexpr (E == 4) *reinterpret_cast<uint32_t*>(out) = w[0];
+    }
+  }
+}
+
+// amax-only: a row per warp, 8 a CTA. Lane l keeps a running max over the row's units l + 32 i, loading
+// A = kAmaxAhead[P] of them before it uses the first; one shuffle reduction a row, and lane 0 writes its
+// amax. An activation's values are also stored to `act`, (rows, cols) in T: the one-pass chain's values,
+// which given-amax's identity prologue then quantizes.
+template <typename T, int E, int P>
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtas)
+quantize_stream_amax_kernel(const Rows a, const T* __restrict__ b, const long long ldb, float* __restrict__ amax,
+                            T* __restrict__ act, const int rows, const int cols) {
+  constexpr int kAhead = kAmaxAhead[P];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kStreamThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  const int units = cols / E;
+  const UnitColumns columns(a, E);
+  const T* arow = row_start<T>(a, row);
+  const T* brow = b == nullptr ? nullptr : b + (long long)row * ldb;
+  T* out = nullptr;  // an activation's stored values
+  if constexpr (P >= kGelu) out = act + (long long)row * cols;
+  float mx = 0.0f;
+  for (int u0 = lane; u0 < units; u0 += 32 * kAhead) {
+    Unit<T, E> ua[kAhead], ub[kAhead] = {};
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int u = u0 + 32 * j;
+      if (u < units) {
+        ua[j] = *reinterpret_cast<const Unit<T, E>*>(arow + columns.at<E>(u));
+        if constexpr (P >= kGelu)
+          if (brow != nullptr) ub[j] = *reinterpret_cast<const Unit<T, E>*>(brow + u * E);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int u = u0 + 32 * j;
+      if (u >= units) continue;
+      Unit<T, E> h;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float v = prologue_value<T, P>(ua[j].v[e], ub[j].v[e], brow != nullptr);
+        mx = fmaxf(mx, fabsf(v));
+        h.v[e] = from_float<T>(v);
+      }
+      if constexpr (P >= kGelu) *reinterpret_cast<Unit<T, E>*>(out + u * E) = h;
+    }
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, offset));
+  if (lane == 0) amax[row] = mx;
+}
+
+// Whether units of `bytes` (32, 16 or 8, or one element) tile the row (and each head) and start on their
+// loads' width (at most 16 bytes) in every operand: a's base and strides (and its heads' stride), b's,
+// the stored values' and xq's.
+template <typename T>
+bool stream_unit_fits(const QuantCall& c, int bytes) {
+  if (bytes != 32 && bytes != 16 && bytes != 8 && bytes != (int)sizeof(T)) return false;
+  const int e = bytes / (int)sizeof(T), load = bytes < 16 ? bytes : 16, ea = load / (int)sizeof(T);
+  const bool heads_ok = c.a.sh == 0 || (c.a.sh % ea == 0 && c.a.d % e == 0);
+  return (uintptr_t)c.a.p % load == 0 && c.a.sb % ea == 0 && c.a.st % ea == 0 && heads_ok && c.cols % e == 0 &&
+         (c.b == nullptr || ((uintptr_t)c.b % load == 0 && c.ldb % ea == 0)) &&
+         (c.act == nullptr || (uintptr_t)c.act % load == 0) &&
+         (c.xq == nullptr || (uintptr_t)c.xq % (e < 16 ? e : 16) == 0);
+}
+
+template <typename T, int E, int P>
+cudaError_t launch_stream(const QuantCall& c, cudaStream_t stream) {
+  if constexpr (P == kIdentity) {
+    if (c.mode == kGivenAmax) {
+      constexpr int per_cta = kStreamThreads / 32 * kGivenRows;
+      const long long ctas = (long long)((c.rows + per_cta - 1) / per_cta) * ((c.cols / E + 31) / 32);
+      if (ctas >= (1LL << 31)) return cudaErrorInvalidValue;
+      quantize_stream_given_kernel<T, E><<<(unsigned)ctas, kStreamThreads, 0, stream>>>(
+          c.a, static_cast<const float*>(c.amax), static_cast<int8_t*>(c.xq), static_cast<float*>(c.scale), c.rows,
+          c.cols);
+      return cudaGetLastError();
+    }
+  }
+  constexpr int per_cta = kStreamThreads / 32;
+  quantize_stream_amax_kernel<T, E, P><<<(c.rows + per_cta - 1) / per_cta, kStreamThreads, 0, stream>>>(
+      c.a, static_cast<const T*>(c.b), c.ldb, static_cast<float*>(c.amax), static_cast<T*>(c.act), c.rows, c.cols);
+  return cudaGetLastError();
+}
+
+template <typename T, int P>
+cudaError_t dispatch_stream_unit(const QuantCall& c, int bytes, cudaStream_t stream) {
+  if (bytes == 32) return launch_stream<T, 32 / sizeof(T), P>(c, stream);
+  if (bytes == 16) return launch_stream<T, 16 / sizeof(T), P>(c, stream);
+  if (bytes == 8) return launch_stream<T, 8 / sizeof(T), P>(c, stream);
+  return launch_stream<T, 1, P>(c, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_stream(int prologue, const QuantCall& c, int bytes, cudaStream_t stream) {
+  if (!stream_unit_fits<T>(c, bytes)) return cudaErrorInvalidValue;
+  switch (prologue) {
+    case kIdentity: return dispatch_stream_unit<T, kIdentity>(c, bytes, stream);
+    case kGelu: return dispatch_stream_unit<T, kGelu>(c, bytes, stream);
+    case kGeluTanh: return dispatch_stream_unit<T, kGeluTanh>(c, bytes, stream);
+    case kQuickGelu: return dispatch_stream_unit<T, kQuickGelu>(c, bytes, stream);
+    case kSilu: return dispatch_stream_unit<T, kSilu>(c, bytes, stream);
+    default: return dispatch_stream_unit<T, kRelu>(c, bytes, stream);
   }
 }
 
@@ -846,6 +1085,28 @@ extern "C" int atlas_quantize_rows_s8(int prologue, int x_is_bf16, int rows, int
                     rows, cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16 ? dispatch_prologue<__nv_bfloat16>(prologue, c, s) : dispatch_prologue<float>(prologue, c, s));
+}
+
+// The tensor-parallel modes on their streamed bodies: atlas_quantize_rows_s8's operands, prologue (not
+// layernorm) and mode, in units of `unit_bytes` (32, 16 or 8, or one element's size) that must fit every
+// operand (stream_unit_fits). Amax-only writes amax (rows,) and, for an activation, its values to act
+// (rows, cols) contiguous in x's dtype (act is required there and refused for the identity); given-amax
+// takes the identity prologue only, reads amax and writes xq and scale. Returns the launch's cudaError.
+extern "C" int atlas_quantize_rows_s8_stream(int prologue, int x_is_bf16, int rows, int cols, const void* a,
+                                             long long a_sb, long long a_st, int a_t, long long a_sh, int a_d,
+                                             const void* b, long long ldb, int unit_bytes, void* xq, void* scale,
+                                             int mode, void* amax, void* act, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols > kQuantMaxCols || a_t <= 0 || a_d <= 0 || prologue < kIdentity ||
+      prologue > kRelu || prologue == kLayerNorm || amax == nullptr ||
+      (mode != kAmaxOnly && mode != kGivenAmax) ||
+      (mode == kGivenAmax && (prologue != kIdentity || xq == nullptr || scale == nullptr)) ||
+      (prologue == kIdentity ? (b != nullptr || act != nullptr) : act == nullptr))
+    return (int)cudaErrorInvalidValue;
+  QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, nullptr, nullptr, 0.0f, xq, scale, nullptr, nullptr, mode, amax,
+              rows, cols, act};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(x_is_bf16 ? dispatch_stream<__nv_bfloat16>(prologue, c, unit_bytes, s)
+                         : dispatch_stream<float>(prologue, c, unit_bytes, s));
 }
 
 // The out types of atlas_int8_linear_s8, in ops/int8.py::_OUT_CODES's order.

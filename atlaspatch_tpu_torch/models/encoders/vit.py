@@ -383,18 +383,21 @@ class Mlp(nn.Module):
                                           a.dtype))
         return self.fc2(self.act(a) if b is None else self.act(a) * b)
 
-    def row_amax(self, x: QuantizedRows) -> tuple[tuple, torch.Tensor]:
-        """Tensor-parallel int8, a shard's first half: its hidden units' (M,
-        F) rows ``a`` and ``b`` (None without a gate) and the (M,) abs-max of
-        its slice of each row of ``act(a) (* b)``."""
-        rows = _rows(*self._hidden(x))
-        return rows, act_row_amax(rows[0], self.act_name, rows[1])
+    def row_amax(self, x: QuantizedRows) -> tuple[torch.Tensor, torch.Tensor]:
+        """Tensor-parallel int8, a shard's first half: the (M, F) values of
+        ``act(a) (* b)`` over its hidden units, stored in the pass that takes
+        the (M,) abs-max of its slice of each row (the activation then runs
+        once, not again in ``row_partial``), and that abs-max."""
+        a, b = _rows(*self._hidden(x))
+        amax, values = act_row_amax(a, self.act_name, b)
+        return values, amax
 
-    def row_partial(self, rows: tuple, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The second half: ``act(a) (* b)`` quantized with the whole row's
-        ``amax``, times ``fc2``'s input columns of these units, in int32:
-        ((M, dim) int32 partial, s_x (M,))."""
-        xq, s_x = act_quantize_rows(rows[0], self.act_name, rows[1], amax)
+    def row_partial(self, values: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The second half: the activation's ``values`` quantized with the
+        whole row's ``amax`` (the identity prologue), times ``fc2``'s input
+        columns of these units, in int32: ((M, dim) int32 partial, s_x
+        (M,))."""
+        xq, s_x = quantize_rows(values, amax)
         return int8_linear_s32(xq, self.fc2.weight_q), s_x
 
     def _hidden(self, x):

@@ -26,7 +26,10 @@ read); ``int8_linear_s32`` (the int32 product, no dequantization); and
 ``dequant_sum`` (the shards' int32 partials summed, then ``int8_linear``'s
 epilogue), each with its plain version (``row_amax_plain``,
 ``int8_linear_s32_plain``, ``dequant_sum_plain``; the quantizers' plain
-versions take ``amax`` too).
+versions take ``amax`` too). The two tensor-parallel modes run on streamed
+bodies of their own (``quant_variant``); ``act_row_amax`` also returns the
+activation's values, for ``quantize_rows(values, amax)`` to quantize, so
+that the activation is computed once.
 
 Each dispatches on the tensor's device: a CPU tensor runs the plain PyTorch
 version beside it (``quantize_rows_plain``, ``layernorm_quantize_rows_plain``,
@@ -36,7 +39,10 @@ kernel of the ``atlas_int8_linear`` library (nvcc, sm_90a, built at first use
 and loaded with ctypes): ``quantize_rows_s8`` of ``csrc/int8_linear.cu`` with
 the prologue of ``PROLOGUES`` the call names (``identity`` equal to the plain
 version bit for bit, ``layernorm`` and the activations where their float
-arithmetic equals ATen's) in one of ``QUANT_MODES``, one of
+arithmetic equals ATen's) in one of ``QUANT_MODES``, on the body
+``quant_variant`` picks (``template``, the one-pass kernel, or ``stream``,
+the tensor-parallel modes' warp-per-row amax-only and, for the identity
+prologue, elementwise given-amax bodies), one of
 ``int8_linear_s8``'s two bodies (equal bit for bit), picked by
 ``linear_variant``: ``wgmma`` (``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by
 TMA; bfloat16 out, and the int32 output of ``int8_linear_s32``) or ``mma``
@@ -47,8 +53,9 @@ launch failure on a CUDA tensor raises: nothing retries on the other body or
 falls back to the plain version or to ``torch._int_mm``.
 ``quantize_rows.launches``, ``int8_linear.launches`` and
 ``dequant_sum.launches`` count kernel launches,
-``quantize_rows.prologue_launches`` and ``.mode_launches`` the first by
-prologue and by mode, ``int8_linear.variant_launches`` and
+``quantize_rows.prologue_launches``, ``.mode_launches`` and
+``.body_launches`` the first by prologue, by mode and by body,
+``int8_linear.variant_launches`` and
 ``.out_launches`` the second by body and by output dtype (``bfloat16``,
 ``float32``, ``int32``); ``reset_launch_counts()`` zeroes them all.
 """
@@ -90,6 +97,7 @@ ACTIVATIONS = {
 # quantize_rows_s8's prologues and modes, in the order of csrc/int8_linear.cu's codes.
 PROLOGUES = ("identity", "layernorm", *ACTIVATIONS)
 QUANT_MODES = ("one_pass", "amax_only", "given_amax")
+QUANT_BODIES = ("template", "stream")
 # int8_linear_s8's output types, by the C entries' codes (the wgmma body writes bfloat16 and int32)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 MAX_PARTIALS = 8  # dequant_sum_s32's most partials (kMaxPartials)
@@ -110,6 +118,9 @@ def load_int8_library() -> ctypes.CDLL:
             lib.atlas_quantize_rows_s8.restype = _INT
             lib.atlas_quantize_rows_s8.argtypes = [_INT] * 4 + [_PTR, _LL, _LL, _INT, _LL, _INT, _PTR, _LL, _PTR,
                                                                 _PTR, ctypes.c_float] + [_PTR] * 4 + [_INT, _PTR, _PTR]
+            lib.atlas_quantize_rows_s8_stream.restype = _INT
+            lib.atlas_quantize_rows_s8_stream.argtypes = [_INT] * 4 + [_PTR, _LL, _LL, _INT, _LL, _INT, _PTR, _LL,
+                                                                       _INT, _PTR, _PTR, _INT, _PTR, _PTR, _PTR]
             lib.atlas_int8_linear_s8.restype = _INT
             lib.atlas_int8_linear_s8.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_PTR]
             lib.atlas_dequant_sum_s32.restype = _INT
@@ -172,6 +183,47 @@ def wgmma_block_n(M: int, N: int, sms: int = 132, out_dtype: torch.dtype = torch
     if out_dtype == torch.int32:
         return 256 if tiles * -(-K // 128) >= 128 * sms else 128
     return 256 if tiles >= sms else 128
+
+
+def quant_variant(mode: str, prologue: str, run: int, elem: int = 2, align: int = 16) -> tuple[str, int]:
+    """The body ``quantize_rows_s8`` runs a call on, and the streamed body's
+    unit in bytes: ``("template", 0)`` for the one-pass mode, the layernorm
+    prologue and an activation's given-amax (the template picks its own
+    units; the forward's given-amax quantizes stored activation values by the
+    identity prologue instead); else ``("stream", w)``, the tensor-parallel
+    modes' own bodies, in units of w = 32, 16 or 8 bytes where w divides a
+    ``run`` of values of ``elem`` bytes (the row of K values; a head's D in
+    the attention's (B, T, H, D) layout) and its loads' width, min(w, 16),
+    divides ``align`` (the largest power of two, at most 16, that divides
+    every operand's base address and strides in bytes), else of one element
+    (w = ``elem``). Wider units run faster on an H100 (PERF.md): every zoo
+    ViT's TP (1, 2) shards in bfloat16 take 32 but medsiglip's (D 72, fc2 K
+    2,152: 16) and virchow's fc2 (K 1,708: 8)."""
+    if mode not in QUANT_MODES or prologue not in PROLOGUES:
+        raise ValueError(f"quantize_rows_s8 has modes {QUANT_MODES} and prologues {PROLOGUES}, got {mode!r}, "
+                         f"{prologue!r}")
+    if mode == "one_pass" or prologue == "layernorm" or (mode == "given_amax" and prologue != "identity"):
+        return "template", 0
+    for width in (32, 16, 8):
+        if align % min(width, 16) == 0 and run * elem % width == 0:
+            return "stream", width
+    return "stream", elem
+
+
+def _operand_alignment(x, layout, b=None) -> int:
+    """The largest power of two, at most 16, that divides a quantizer call's
+    operands' offsets in bytes: x's base and its layout's strides, b's base
+    and row stride."""
+    sb, st, _, sh, _ = layout
+    elem = x.element_size()
+    offsets = [x.data_ptr(), sb * elem, st * elem, sh * elem]
+    if b is not None:
+        offsets += [b.data_ptr(), b.stride(0) * elem]
+    align = 16
+    for offset in offsets:
+        while offset % align:
+            align //= 2
+    return align
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,35 +479,59 @@ def act_quantize_rows(a: torch.Tensor, act: str, b: torch.Tensor | None = None,
     return _launch_quantize(act, a, (0, a.stride(0), a.shape[0], 0, a.shape[1]), b=b, amax=amax)
 
 
-def act_row_amax(a: torch.Tensor, act: str, b: torch.Tensor | None = None) -> torch.Tensor:
+def act_row_amax(a: torch.Tensor, act: str, b: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The (M,) float32 abs-max of ``act(a)`` or ``act(a) * b``'s rows, as
-    ``act_quantize_rows`` computes them: the plain version on the CPU,
-    ``quantize_rows_s8`` (the activation's prologue, amax-only) on the card."""
+    ``act_quantize_rows`` computes them, and those rows' values (M, K) in a's
+    dtype, which ``quantize_rows(values, amax)`` quantizes to
+    ``act_quantize_rows(a, act, b, amax)``'s bytes: the plain version on the
+    CPU, ``quantize_rows_s8`` (the activation's prologue, amax-only, storing
+    the values) on the card."""
     a, b = _check_act("act_row_amax", a, act, b)
     if a.is_cpu:
-        return row_amax_plain(_act_rows(a, act, b))
+        values = _act_rows(a, act, b)
+        return row_amax_plain(values), values
     return _launch_quantize(act, a, (0, a.stride(0), a.shape[0], 0, a.shape[1]), b=b, mode="amax_only")
 
 
 def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gamma=None, beta=None, eps=0.0,
-                     stats: bool = False, mode: str | None = None, amax=None):
+                     stats: bool = False, mode: str | None = None, amax=None, body: str | None = None,
+                     unit: int | None = None):
     """Launch ``quantize_rows_s8`` with ``prologue`` over a CUDA operand x
     whose element (m, k) lies at (m / t) sb + (m % t) st + (k / d) sh + k % d
     (``layout`` = (sb, st, t, sh, d); sh = 0: + k), as the public wrappers
     checked it, in ``mode`` (default: given-amax with ``amax``, else
-    one-pass): (xq, s_x); with ``stats`` (layernorm) also the rows' mean
-    and 1 / sqrt(var + eps) as the kernel computed them; amax-only: the (M,)
-    amax. A row longer than ``QUANT_MAX_K`` is refused before any launch; a
-    failed launch raises and nothing runs in its place."""
+    one-pass) on ``body`` in units of ``unit`` bytes (default: what
+    ``quant_variant`` picks; the card tests and the tools force the
+    template's modes, or a narrower unit, to hold them against each other):
+    (xq, s_x); with ``stats`` (layernorm) also the rows' mean and 1 /
+    sqrt(var + eps) as the kernel computed them; amax-only: the (M,) amax,
+    and on the streamed body of an activation (amax, the activation's values
+    (M, K) in x's dtype). A row longer than ``QUANT_MAX_K`` is refused before
+    any launch; a failed launch raises and nothing runs in its place."""
     M = x.shape[0] if rows is None else rows
     K = x.shape[1] if cols is None else cols
     if K > QUANT_MAX_K:
         raise ValueError(f"quantize_rows_s8 holds rows of at most {QUANT_MAX_K} values, got {K}")
     mode = mode or ("one_pass" if amax is None else "given_amax")
+    sb, st, t, sh, d = layout
+    if mode == "one_pass":  # the one-device path: no alignment to read
+        routed, routed_unit = "template", 0
+    else:
+        routed, routed_unit = quant_variant(mode, prologue, d, x.element_size(), _operand_alignment(x, layout, b))
+    if body is None:
+        body = routed
+    elif body not in QUANT_BODIES:
+        raise ValueError(f"quantize_rows_s8 has no body {body!r}; it has {QUANT_BODIES}")
+    elif body == "stream" and routed == "template":
+        raise ValueError(f"the streamed body takes the amax-only mode of the identity and activation prologues "
+                         f"and the identity's given-amax, got {mode} {prologue}")
+    store = body == "stream" and mode == "amax_only" and prologue != "identity"
     dev = x.device
-    xq = s_x = mean = rstd = None
+    xq = s_x = mean = rstd = values = None
     if mode == "amax_only":
         amax = torch.empty(M, dtype=torch.float32, device=dev)
+        if store:
+            values = torch.empty(M, K, dtype=x.dtype, device=dev)
     else:
         xq = torch.empty(M, K, dtype=torch.int8, device=dev)
         s_x = torch.empty(M, dtype=torch.float32, device=dev)
@@ -467,18 +543,23 @@ def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gam
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    sb, st, t, sh, d = layout
-    err = load_int8_library().atlas_quantize_rows_s8(
-        PROLOGUES.index(prologue), x.dtype == torch.bfloat16, M, K, x.data_ptr(), sb, st, t, sh, d,
-        ptr(b), 0 if b is None else b.stride(0), ptr(gamma), ptr(beta), eps, ptr(xq), ptr(s_x), ptr(mean),
-        ptr(rstd), QUANT_MODES.index(mode), ptr(amax), _stream(x))
+    lib = load_int8_library()
+    operands = (PROLOGUES.index(prologue), x.dtype == torch.bfloat16, M, K, x.data_ptr(), sb, st, t, sh, d, ptr(b),
+                0 if b is None else b.stride(0))
+    if body == "template":
+        err = lib.atlas_quantize_rows_s8(*operands, ptr(gamma), ptr(beta), eps, ptr(xq), ptr(s_x), ptr(mean),
+                                         ptr(rstd), QUANT_MODES.index(mode), ptr(amax), _stream(x))
+    else:
+        err = lib.atlas_quantize_rows_s8_stream(*operands, unit or routed_unit, ptr(xq), ptr(s_x),
+                                                QUANT_MODES.index(mode), ptr(amax), ptr(values), _stream(x))
     if err != 0:
-        raise RuntimeError(f"quantize_rows_s8 ({prologue}) launch failed: cudaError {err} ({mode})")
+        raise RuntimeError(f"quantize_rows_s8 ({prologue}) launch failed: cudaError {err} ({mode}, {body})")
     quantize_rows.launches += 1
     quantize_rows.prologue_launches[prologue] += 1
     quantize_rows.mode_launches[mode] += 1
+    quantize_rows.body_launches[body] += 1
     if mode == "amax_only":
-        return amax
+        return (amax, values) if store else amax
     return (xq, s_x, mean, rstd) if stats else (xq, s_x)
 
 
@@ -633,6 +714,7 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
 quantize_rows.launches = 0
 quantize_rows.prologue_launches = Counter()
 quantize_rows.mode_launches = Counter()
+quantize_rows.body_launches = Counter()
 int8_linear.launches = 0
 int8_linear.variant_launches = Counter()
 int8_linear.out_launches = Counter()
@@ -640,12 +722,14 @@ dequant_sum.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero ``quantize_rows.launches``, ``.prologue_launches`` and
-    ``.mode_launches``, ``int8_linear.launches``, ``.variant_launches`` and
-    ``.out_launches``, and ``dequant_sum.launches``."""
+    """Zero ``quantize_rows.launches``, ``.prologue_launches``,
+    ``.mode_launches`` and ``.body_launches``, ``int8_linear.launches``,
+    ``.variant_launches`` and ``.out_launches``, and
+    ``dequant_sum.launches``."""
     quantize_rows.launches = 0
     quantize_rows.prologue_launches.clear()
     quantize_rows.mode_launches.clear()
+    quantize_rows.body_launches.clear()
     int8_linear.launches = 0
     int8_linear.variant_launches.clear()
     int8_linear.out_launches.clear()

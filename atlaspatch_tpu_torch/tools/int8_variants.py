@@ -1,6 +1,6 @@
-"""Time the int8 serving mode's kernels at its shapes: int8_linear_s8's two bodies and the wgmma body's tile widths, in bfloat16 and int32, and quantize_rows_s8's prologues against the unfused chain they replace.
+"""Time the int8 serving mode's kernels at its shapes: int8_linear_s8's two bodies and the wgmma body's tile widths, in bfloat16 and int32, quantize_rows_s8's prologues against the unfused chain they replace, and its tensor-parallel modes' streamed bodies against the template's modes.
 
-    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|int32|quantize|host_times]
+    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|int32|quantize|tp|host_times]
 
 Builds the ``atlas_int8_linear`` library (``csrc/int8_linear.cu`` and
 ``csrc/int8_linear_wgmma.cu``) and prints, per kernel instantiation, its
@@ -39,9 +39,20 @@ output at 1,024) beside what they replace, timed on the same inputs: the
 output, and the earlier two-read body (``OLD_QUANTIZE_SOURCE``, kept here only,
 built as its own library), with the sums over one forward (96 quantizers)
 and the bound; then builds of ``csrc/int8_linear.cu`` that undo one design
-choice each (``QUANT_VARIANTS``). ``host_times`` times one call's host time
-of each wrapper. With no argument it runs all four. Needs an NVIDIA Hopper
-card and nvcc.
+choice each (``QUANT_VARIANTS``). ``tp`` times quantize_rows_s8's amax-only
+and given-amax modes at the (1, 2) mesh's shard rows of vit_l_16 and
+dinov3_vit7b16 at batch 32 and 256 (``TP_QUANT``), each call after an L2
+flush: as the forward routes them (the streamed bodies; an activation's
+amax-only stores its values and given-amax quantizes them by the identity
+prologue), the template's modes (forced; their body before),
+torch.linalg.vector_norm for the identity amax-only, and the byte bounds of
+the function replaced, each equal to the template's output (max-abs 0), with
+the sums over one vit_l_16 TP forward; the SASS instructions per element of
+the template and the streamed bodies (``cuobjdump -sass``, static counts);
+and builds of the streamed bodies that undo one choice each
+(``STREAM_VARIANTS``). ``host_times`` times one
+call's host time of each wrapper. With no argument it runs all five. Needs
+an NVIDIA Hopper card and nvcc.
 """
 
 from __future__ import annotations
@@ -118,13 +129,28 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _device_ms(fn, reps: int = 20, kernel: str | None = None, seen: dict | None = None) -> float:
+_L2_FLUSH: list = []
+
+
+def _l2_flush() -> None:
+    """Overwrite a 256 MB buffer (five times the H100's 50 MB L2), so that the next call reads from HBM."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(64 << 20, dtype=torch.float32, device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
+def _device_ms(fn, reps: int = 20, kernel: str | None = None, seen: dict | None = None, cold: bool = False) -> float:
     """Mean device time of one fn() call: the self device time of the kernels
     whose name holds ``kernel`` (every kernel for None) over the launches the
     profiler kept of the one that took the most of it (the call's product
     kernel: a library call may launch a helper more often, and the profiler
     may drop some launches of a burst). With ``seen``, fills it with the
-    kernels' names and launches in the window."""
+    kernels' names and launches in the window. With ``cold``, every call
+    follows an L2 flush, whose fill kernel is not counted."""
+    if cold:
+        def fn(call=fn):
+            _l2_flush()
+            return call()
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -134,7 +160,7 @@ def _device_ms(fn, reps: int = 20, kernel: str | None = None, seen: dict | None 
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-                  and (kernel is None or kernel in e.key)]
+                  and (kernel is None or kernel in e.key) and not (cold and "FillFunctor" in e.key)]
         count = max(events, key=lambda e: e.self_device_time_total).count if events else 0
         if 0 < count <= reps:
             if seen is not None:
@@ -507,6 +533,213 @@ def _launch_quant_variant(fn, prologue, x, *ln):
     return xq, s_x
 
 
+# TP (1, 2) int8's row-parallel quantizer rows, a shard's half: (label, tokens, whole K, prologue,
+# operand): vit_l_16's proj (8 of 16 heads of 64) and fc2 (tanh GELU), dinov3_vit7b16's proj (16 of 32
+# heads of 128) and fc2 (tanh GELU or SiLU of fc_gate, times fc_up)
+TP_QUANT = [("vit_l_16 proj", 197, 1024, "identity", "heads"), ("vit_l_16 fc2", 197, 4096, "gelu_tanh", None),
+            ("7B proj", 201, 4096, "identity", "heads"), ("7B fc2", 201, 8192, "gelu_tanh", "gated"),
+            ("7B fc2 silu", 201, 8192, "silu", "gated")]
+_S_LANE = """    const float s = div_rn(fmaxf(row_amax[j], 1e-8f), 127.0f);
+    const float r0 = __fdividef(1.0f, s);
+    const float r = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
+    if (u == 0) scale[row] = s;"""
+_LOOP = """#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int row = m0 + j * kWarps;"""
+# variant -> (text of the committed int8_linear.cu, its replacement) pairs: the streamed bodies' choices undone
+STREAM_VARIANTS = {
+    "given 4 rows a warp": [("constexpr int kGivenRows = 2;", "constexpr int kGivenRows = 4;")],
+    "given: s and 1 / s once a row, in shared memory behind a barrier": [
+        (_LOOP, """  __shared__ float s_tile[kWarps * kAhead], r_tile[kWarps * kAhead];
+  if (lane == 0)
+    for (int j = 0; j < kAhead; ++j)
+      if (m0 + j * kWarps < rows) {
+        const float s = div_rn(fmaxf(row_amax[j], 1e-8f), 127.0f), r0 = __fdividef(1.0f, s);
+        s_tile[warp + j * kWarps] = s;
+        r_tile[warp + j * kWarps] = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
+      }
+  __syncthreads();
+""" + _LOOP),
+        (_S_LANE, """    const float s = s_tile[warp + j * kWarps], r = r_tile[warp + j * kWarps];
+    if (u == 0) scale[row] = s;""")],
+    "16-byte units where 32 fit": [("  if (bytes == 32) return launch_stream<T, 32 / sizeof(T), P>(c, stream);",
+                                    "  if (bytes == 32) return launch_stream<T, 16 / sizeof(T), P>(c, stream);")],
+    "amax 4 units ahead (identity), 2 (activations)": [("constexpr int kAmaxAhead[7] = {2, 0, 1, 1, 1, 1, 1};",
+                                                        "constexpr int kAmaxAhead[7] = {4, 0, 2, 2, 2, 2, 2};")],
+    "3 CTAs an SM": [("constexpr int kStreamCtas = 4;", "constexpr int kStreamCtas = 3;")],
+}
+
+
+def _tp_operands(tokens: int, k: int, operand, gen: torch.Generator, batch: int):
+    """A shard's operands: the half of the attention's (B, T, H, D) output (stored (B, H, T, D)) a
+    shard holds, or fc1's half rows (a, and b for a gated MLP), bfloat16."""
+    m, kk = batch * tokens, k // 2
+    if operand == "heads":
+        d = 64 if k == 1024 else 128
+        whole = torch.randn(batch, k // d, tokens, d, device="cuda", generator=gen).to(torch.bfloat16)
+        return (whole.transpose(1, 2)[:, :, : k // d // 2],)
+    a = (torch.randn(m, kk, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+    return a, (torch.randn(m, kk, device="cuda", generator=gen) * 2).to(torch.bfloat16) if operand else None
+
+
+def _tp_call(prologue: str, ops, mode: str, body: str | None, amax=None, fn=None):
+    """One quantizer call on a shard's operands (the heads, (a, b), or stored values (v, None) with the
+    identity prologue) through _launch_quantize, or through a variant build's
+    atlas_quantize_rows_s8_stream (``fn``: the routed unit, no counting). An activation's amax-only
+    on the streamed body returns (amax, values)."""
+    if ops[0].ndim == 4:
+        x, layout, rows, cols = I._heads_layout("tp", ops[0])
+        b = None
+    else:
+        (x, b), rows, cols = ops, ops[0].shape[0], ops[0].shape[1]
+        layout = (0, x.stride(0), rows, 0, cols)
+    if fn is None:
+        return I._launch_quantize(prologue, x, layout, rows=rows, cols=cols, b=b, mode=mode, amax=amax, body=body)
+    _, unit = I.quant_variant(mode, prologue, layout[4], x.element_size(), 16)
+    store = mode == "amax_only" and prologue != "identity"
+    out = torch.empty(rows, dtype=torch.float32, device=x.device) if mode == "amax_only" else None
+    xq = None if mode == "amax_only" else torch.empty(rows, cols, dtype=torch.int8, device=x.device)
+    s_x = None if mode == "amax_only" else torch.empty(rows, dtype=torch.float32, device=x.device)
+    values = torch.empty(rows, cols, dtype=x.dtype, device=x.device) if store else None
+    err = fn(I.PROLOGUES.index(prologue), 1, rows, cols, x.data_ptr(), *layout, None if b is None else b.data_ptr(),
+             0 if b is None else b.stride(0), unit, None if xq is None else xq.data_ptr(),
+             None if s_x is None else s_x.data_ptr(), I.QUANT_MODES.index(mode),
+             (out if amax is None else amax).data_ptr(), None if values is None else values.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: {err}")
+    if mode == "amax_only":
+        return (out, values) if store else out
+    return xq, s_x
+
+
+def _sass_per_element(lib) -> dict:
+    """Static SASS instructions (and MUFU among them) per element of bfloat16 kernels of the
+    quantizer, identity and tanh GELU: each kernel's instructions over the values a thread holds at
+    once (the template: 2 units of 16; the streamed bodies' 32-byte units of 16: given-amax 2 rows',
+    the identity only, amax-only an iteration's 2 (identity) or 1 (tanh GELU, storing)). Static
+    counts include the rare paths (quantize_one's near-tie residual, tanhf's two ranges)."""
+    sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    functions = re.split(r"\n\s*Function : ", sass)
+    out = {}
+    for label, pattern, values in (
+            ("template", r"quantize_rows_s8_kernelI13__nv_bfloat16Li16ELi2ELi{p}E", {"identity": 32, "gelu_tanh": 32}),
+            ("stream amax-only", r"quantize_stream_amax_kernelI13__nv_bfloat16Li16ELi{p}E",
+             {"identity": 32, "gelu_tanh": 16}),
+            ("stream given-amax", r"quantize_stream_given_kernelI13__nv_bfloat16Li16EE", {"identity": 32})):
+        for prologue, n in values.items():
+            code = next((f for f in functions if re.match(r"\S*" + pattern.format(p=I.PROLOGUES.index(prologue)), f)),
+                        "")
+            instrs = re.findall(r"/\*[0-9a-f]{4}\*/\s+([A-Z][\w.]*)", code)
+            if not instrs:
+                raise AssertionError(f"no SASS of {label} {prologue} in {lib._name}")
+            out[f"{label} {prologue}"] = (len(instrs) / n, sum(op.startswith("MUFU") for op in instrs) / n)
+    return out
+
+
+def tp_quantize_times(card: str) -> None:
+    """The tensor-parallel modes at each TP_QUANT shard at batch 32 and 256, each call after an L2
+    flush: as the forward routes them (the streamed bodies; an activation's amax-only storing its
+    values, given-amax quantizing them by the identity prologue), the template's modes (forced; the
+    activation computed in both) and vector_norm (identity amax-only), each equal to the template's
+    output, by device time per launch (the median of three profiler windows) beside the byte bounds
+    (amax-only: the function it replaces, the shard read once and 4 bytes a row; given-amax: what it
+    reads on the route, the heads or the stored values, once, xq and the scales written; the pair:
+    the function both replace, the shard read twice and xq written once) and the bytes the routed
+    pair moves;
+    the sums over one vit_l_16 TP forward (48 calls each of proj and fc2); the static SASS
+    instructions per element; then STREAM_VARIANTS builds."""
+    lib = I.load_int8_library()
+    for name, (per_elem, mufu) in _sass_per_element(lib).items():
+        print(f"tp SASS {name} (bfloat16): {per_elem:.2f} instructions per element, {mufu:.3f} MUFU (static) [{card}]")
+    with ThreadPoolExecutor(len(STREAM_VARIANTS)) as pool:
+        built = list(pool.map(_build_stream_variant, enumerate(STREAM_VARIANTS.items())))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def median(fn, kernel):
+        return sorted(_device_ms(fn, kernel=kernel, cold=True) for _ in range(3))[1]
+
+    for batch in (32, 256):
+        sums = Counter()
+        for label, tokens, k, prologue, operand in TP_QUANT:
+            ops = _tp_operands(tokens, k, operand, gen, batch)
+            m, kk = batch * tokens, k // 2
+            act = prologue != "identity"
+            amax = _tp_call(prologue, ops, "amax_only", "template")
+            want = _tp_call(prologue, ops, "given_amax", "template", amax)
+            # what given-amax quantizes on the route: the heads, or the activation's stored values
+            src = (_tp_call(prologue, ops, "amax_only", None)[1], None) if act else ops
+            given_p = "identity"
+            calls = {"amax-only": (lambda: _tp_call(prologue, ops, "amax_only", None), "quantize_stream_amax"),
+                     "amax-only template": (lambda: _tp_call(prologue, ops, "amax_only", "template"),
+                                            "quantize_rows_s8"),
+                     "given-amax": (lambda: _tp_call(given_p, src, "given_amax", None, amax), "quantize_stream_given"),
+                     "given-amax template": (lambda: _tp_call(prologue, ops, "given_amax", "template", amax),
+                                             "quantize_rows_s8")}
+            if not act:
+                calls["vector_norm"] = (lambda: torch.linalg.vector_norm(ops[0], float("inf"), dim=(-2, -1),
+                                                                         dtype=torch.float32), None)
+            for name, fn in built:
+                calls[f"amax-only {name}"] = (lambda fn=fn: _tp_call(prologue, ops, "amax_only", None, fn=fn),
+                                              "quantize_stream_amax")
+                calls[f"given-amax {name}"] = (lambda fn=fn: _tp_call(given_p, src, "given_amax", None, amax, fn=fn),
+                                               "quantize_stream_given")
+            for name, (fn, _) in calls.items():
+                got = fn()
+                if name == "vector_norm":
+                    same = torch.equal(got.reshape(-1), amax)
+                elif name.startswith("amax") and act and "template" not in name:
+                    same = torch.equal(got[0], amax) and torch.equal(got[1], src[0])
+                elif name.startswith("amax"):
+                    same = torch.equal(got, amax)
+                else:
+                    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                if not same:
+                    raise AssertionError(f"{label} b{batch}: {name} differs from the template's mode")
+            times = {name: median(fn, kernel) for name, (fn, kernel) in calls.items()}
+            n_in = 2 if operand == "gated" else 1
+            again = 4 if act else 2 * n_in  # the pair's second pass: the stored values written and read
+            bounds = {"amax-only": 2 * n_in * m * kk + 4 * m, "given-amax": 3 * m * kk + 8 * m}
+            bounds = {name: 1e3 * n / BYTES_PER_S for name, n in bounds.items()}
+            pair, pair_t = times["amax-only"] + times["given-amax"], (times["amax-only template"]
+                                                                    + times["given-amax template"])
+            pair_bound = 1e3 * ((4 * n_in + 1) * m * kk + 12 * m) / BYTES_PER_S
+            moved = 1e3 * ((2 * n_in + again + 1) * m * kk + 12 * m) / BYTES_PER_S
+            gated = " * b" if operand == "gated" else ""
+            print(f"tp b{batch} {label:12s} {prologue}{gated} M={m} K={kk} (a shard, L2 cold): "
+                  + "; ".join(f"{name} {ms:.4f}" + (f" ({100 * bounds[name] / ms:.1f}% of bound {bounds[name]:.4f})"
+                                                    if name in bounds else "") for name, ms in times.items())
+                  + f"; the pair {pair:.4f} ({100 * pair_bound / pair:.1f}% of bound {pair_bound:.4f}; it moves "
+                  f"{moved:.4f} of bytes, {100 * moved / pair:.1f}%), template {pair_t:.4f} "
+                  f"({100 * pair_bound / pair_t:.1f}%)"
+                  f" (device ms per launch, median of 3 windows) [{card}]")
+            if label.startswith("vit_l_16"):
+                for mode in ("amax-only", "given-amax"):
+                    sums[f"{mode} routed"] += 48 * times[mode]
+                    sums[f"{mode} template"] += 48 * times[f"{mode} template"]
+                    sums[f"{mode} bound"] += 48 * bounds[mode]
+                sums["pair bound"] += 48 * pair_bound
+                sums["pair bytes moved"] += 48 * moved
+            del ops, amax, want, src
+            torch.cuda.empty_cache()
+        print(f"tp b{batch} per vit_l_16 TP (1, 2) forward (48 proj + 48 fc2 shard calls a mode), ms: "
+              + ", ".join(f"{name} {ms:.3f}" for name, ms in sums.items()) + f" [{card}]")
+
+
+def _build_stream_variant(item):
+    """(name, the build's atlas_quantize_rows_s8_stream) of a STREAM_VARIANTS entry."""
+    i, (name, patches) = item
+    cu = BUILD_DIR / "int8_variants" / f"stream_variant{i}.cu"
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(_source(patches, "int8_linear.cu"))
+    path = build_shared_library(f"atlas_int8_stream_variant{i}", [cu], [nvcc_path(), *I._NVCC_FLAGS])
+    fn = ctypes.CDLL(str(path)).atlas_quantize_rows_s8_stream
+    fn.restype = ctypes.c_int
+    fn.argtypes = I.load_int8_library().atlas_quantize_rows_s8_stream.argtypes
+    return name, fn
+
+
 def _operands(m: int, n: int, k: int, gen: torch.Generator):
     x = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16)
     xq, s_x = I.quantize_rows(x)
@@ -517,7 +750,7 @@ def _operands(m: int, n: int, k: int, gen: torch.Generator):
 
 
 def main(argv: list[str] | None = None) -> None:
-    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "int32", "quantize", "host_times"]
+    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "int32", "quantize", "tp", "host_times"]
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_report()
@@ -527,6 +760,8 @@ def main(argv: list[str] | None = None) -> None:
         linear_s32_times(card)
     if "quantize" in parts:
         quantize_times(card)
+    if "tp" in parts:
+        tp_quantize_times(card)
     if "host_times" in parts:
         host_times(card)
 

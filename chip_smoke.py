@@ -256,8 +256,14 @@ Phases, one line each (any failure exits non-zero with no result line):
           2,048 / 4,096 a shard, tanh GELU and SiLU of a gated pair; batch
           32): quantize_rows_s8's amax-only mode against its plain version,
           the shards' amaxes maxed equal to the whole row's and given-amax on
-          each shard equal to the one-pass kernel's columns (max-abs 0),
-          int8_linear_s8's int32 output (routed to the wgmma body; the mma
+          each shard equal to the one-pass kernel's columns (max-abs 0), as
+          the forward routes them (streamed bodies; an activation's
+          amax-only stores its values and given-amax quantizes them by the
+          identity prologue), and against the template's modes on each
+          shard (max-abs 0), each call timed L2-cold beside the template's
+          mode, the one-pass kernel, the plain version,
+          torch.linalg.vector_norm (identity amax-only) and the byte bound
+          of the function it replaces, int8_linear_s8's int32 output (routed to the wgmma body; the mma
           body and both wgmma tile widths forced) against int_product and
           dequant_sum_s32 of the two shards' partials against int8_linear_s8
           on the whole K (max-abs 0), with device ms, bound, plain ms and
@@ -277,7 +283,8 @@ Phases, one line each (any failure exits non-zero with no result line):
           kernel per replica forward (48 / 24 / 24 by prologue, every linear
           on wgmma); int8 tensor-parallel (1, 2) at full depth against one
           device's int8, cosine >= 0.999, with one forward's launches by
-          prologue, mode, body and dequant_sum_s32 (VITL_TP_LAUNCHES); and
+          prologue, mode, quantizer body, linear body and dequant_sum_s32
+          (_tp_launches); and
           dinov3_vit7b16 at full width, depth 2, int8 tensor-parallel
           against one device, the same. (k3) finetune-sam2 at the JAX defaults (1024, float32,
           global batch 2) on 5 synthetic 1024x768 pairs from one init
@@ -311,10 +318,13 @@ finetune phase's validation and detect-tissue forwards; ``multi_launches``: the
 multi phase's data-parallel segmentation, data-parallel and two-rank
 fine-tuning and two-rank command line; the int8 records' ``multi_launches``:
 its data-parallel int8 extract_batch) and tensor-parallel int8's four
-records (quantize_rows_s8's amax-only and given-amax modes, int8_linear_s8's
-int32 output with its mma body's time as mma_ms, dequant_sum_s32: ms, bound
-and plain ms summed over one vit_l_16 TP (1, 2) forward at batch 32,
-launches in (k2)'s forward), the
+records (quantize_rows_s8's amax-only and given-amax modes on their streamed
+bodies, the template's modes on the same shards as before_ms, and for
+amax-only proj's calls as proj_ms beside vector_norm's as proj_library_ms
+and both modes as pair_ms, pair_before_ms and pair_bound_ms;
+int8_linear_s8's int32 output with its mma body's time as mma_ms;
+dequant_sum_s32: ms, bound and plain ms summed over one vit_l_16 TP (1, 2)
+forward at batch 32, launches in (k2)'s forward), the
 card's name and power limit, and last the result line. Needs no network, no JAX and no h5py: the H5 files
 are written and read by the port's own HDF5 code.
 """
@@ -387,7 +397,21 @@ def cuda_ms(fn, min_total_ms: float = 60.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fwd", seen: dict | None = None) -> float:
+def _l2_flush():
+    """Overwrite a 256 MB buffer (five times the H100's 50 MB L2), so that the next call reads from HBM."""
+    import torch
+
+    global _L2_BUFFER
+    if _L2_BUFFER is None:
+        _L2_BUFFER = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    _L2_BUFFER.zero_()
+
+
+_L2_BUFFER = None
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fwd", seen: dict | None = None,
+              cold: bool = False) -> float:
     """Mean device time in ms of one fn() call, by torch.profiler, after a
     warm-up (host time between launches is not counted).
 
@@ -402,10 +426,16 @@ def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fw
     none is run again, up to ``tries`` times, and where no window kept one,
     fn() is timed by CUDA events instead (host gaps between launches
     included) and the log says so. With ``seen``, fills it with the kernels'
-    names and launches in the window it read."""
+    names and launches in the window it read. With ``cold``, every call
+    follows an L2 flush (``_l2_flush``, whose fill kernel is not counted; the
+    CUDA-event fallback counts it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if cold:
+        def fn(call=fn):
+            _l2_flush()
+            return call()
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -415,7 +445,7 @@ def device_ms(fn, reps: int = 20, tries: int = 3, kernel: str | None = "flash_fw
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-                  and (kernel is None or kernel in e.key)]
+                  and (kernel is None or kernel in e.key) and not (cold and "FillFunctor" in e.key)]
         if kernel is None:
             count = max(events, key=lambda e: e.self_device_time_total).count if events else 0
         else:
@@ -529,12 +559,13 @@ def _ptxas_by_body(log: str) -> dict:
 
 def _ptxas_int8(log: str) -> dict:
     """ptxas -v of int8_linear.so: per kernel (int8_linear_s8_wgmma /
-    int8_linear_s8 / quantize_rows_s8 / dequant_sum_s32), its instantiations,
-    the most registers and those with stack or spills."""
+    int8_linear_s8 / quantize_rows_s8 / quantize_stream_amax /
+    quantize_stream_given / dequant_sum_s32), its instantiations, the most
+    registers and those with stack or spills."""
     kernels: dict = {}
     for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)", log, re.S):
-        kind = re.search(r"(int8_linear_s8_wgmma|int8_linear_s8|quantize_rows_s8|dequant_sum_s32)_kernel",
-                         name).group(1)
+        kind = re.search(r"(int8_linear_s8_wgmma|int8_linear_s8|quantize_rows_s8|quantize_stream_amax|"
+                         r"quantize_stream_given|dequant_sum_s32)_kernel", name).group(1)
         entry = kernels.setdefault(kind, {"kernels": 0, "max_registers": 0, "spilling": []})
         entry["kernels"] += 1
         entry["max_registers"] = max(entry["max_registers"], int(re.search(r"Used (\d+) registers", body).group(1)))
@@ -592,7 +623,8 @@ def phase_build(state):
     imma = Counter(re.findall(r"\bI(?:G)?MMA\.[\w.]+|\bUTMALDG[\w.]*", int8_sass))
     int8_ops = {op: sum(n for name, n in imma.items() if name.split(".")[0] == op)
                 for op in ("IMMA", "IGMMA", "UTMALDG")}
-    if set(int8_kernels) != {"int8_linear_s8", "int8_linear_s8_wgmma", "quantize_rows_s8", "dequant_sum_s32"} \
+    if set(int8_kernels) != {"int8_linear_s8", "int8_linear_s8_wgmma", "quantize_rows_s8", "quantize_stream_amax",
+                             "quantize_stream_given", "dequant_sum_s32"} \
             or not all(int8_ops.values()):
         raise AssertionError(f"int8_linear.so: kernels {int8_kernels}, SASS {dict(imma)}")
     if any(k["spilling"] for k in int8_kernels.values()):
@@ -1879,9 +1911,12 @@ VITL_PROLOGUE_LAUNCHES = {"layernorm": 48, "gelu_tanh": 24, "identity": 24}
 
 
 def _prologue_launches_are(forwards: int) -> bool:
+    """The one-device forwards' quantizers: VITL_PROLOGUE_LAUNCHES by prologue, all one-pass on the template."""
     from atlaspatch_tpu_torch.ops import int8 as I
 
-    return dict(I.quantize_rows.prologue_launches) == {k: n * forwards for k, n in VITL_PROLOGUE_LAUNCHES.items()}
+    return (dict(I.quantize_rows.prologue_launches) == {k: n * forwards for k, n in VITL_PROLOGUE_LAUNCHES.items()}
+            and dict(I.quantize_rows.mode_launches) == {"one_pass": 96 * forwards}
+            and dict(I.quantize_rows.body_launches) == {"template": 96 * forwards})
 
 
 def phase_int8(state):
@@ -3366,13 +3401,17 @@ TP_LINEAR_CASES = [  # (model, layer, whole K, N)
     ("vit_l_16", "proj", 1024, 1024), ("vit_l_16", "fc2", 4096, 1024),
     ("dinov3_vit7b16", "proj", 4096, 4096), ("dinov3_vit7b16", "fc2", 8192, 4096),
 ]
-# the new launches in one vit_l_16 TP (1, 2) int8 forward: per block and shard an amax-only and a
-# given-amax quantizer before proj (identity) and before fc2 (gelu_tanh) and their int32 partials on
-# the wgmma body; per block one dequant_sum_s32 for each; the layernorm quantizers and the
-# column-parallel linears (qkv, fc1 on each shard, wgmma, bfloat16) as on one device
-VITL_TP_LAUNCHES = {"prologue": {"layernorm": 48, "identity": 96, "gelu_tanh": 96},
-                    "mode": {"one_pass": 48, "amax_only": 96, "given_amax": 96},
-                    "variant": {"wgmma": 192}, "out": {"bfloat16": 96, "int32": 96}, "dequant_sum": 48}
+# the new launches in one TP (1, 2) int8 forward: per block and shard an amax-only and a given-amax
+# quantizer before proj (identity) and before fc2 (the amax-only storing the activation's values, the
+# given-amax quantizing them by the identity prologue), on the streamed body, and their int32
+# partials on the wgmma body; per block one dequant_sum_s32 for each; the layernorm quantizers
+# (one-pass, the template) and the column-parallel linears (qkv and fc1, or fc_gate and fc_up, on
+# each shard, wgmma, bfloat16) as on one device
+def _tp_launches(blocks: int, act: str, linears: int) -> dict:
+    return {"prologue": {"layernorm": 2 * blocks, "identity": 6 * blocks, act: 2 * blocks},
+            "mode": {"one_pass": 2 * blocks, "amax_only": 4 * blocks, "given_amax": 4 * blocks},
+            "body": {"template": 2 * blocks, "stream": 8 * blocks}, "variant": {"wgmma": 2 * linears * blocks},
+            "out": {"bfloat16": 2 * (linears - 2) * blocks, "int32": 4 * blocks}, "dequant_sum": 2 * blocks}
 TP_INT8_REPLACES = {"amax_only": "atlaspatch_tpu/models/encoders/vit.py:143",
                     "given_amax": "atlaspatch_tpu/models/encoders/vit.py:143",
                     "int32": "atlaspatch_tpu/models/encoders/vit.py:146",
@@ -3397,11 +3436,16 @@ def _tp_int8_kernel_rows(state) -> dict:
     amax-only mode against its plain version (identity max-abs 0, the activations within 2^-8), the
     shards' amaxes maxed equal to the whole row's, given-amax on each shard with them equal to the
     one-pass kernel's columns and scale (max-abs 0) and to the plain version (identity max-abs 0, the
-    activations at the int8 phase's bars); int8_linear_s8's int32 output (routed: wgmma; the mma body
-    and both wgmma widths, forced) against int_product and dequant_sum_s32 of the two shards' partials against
-    int8_linear_s8 on the whole K, max-abs 0. Device ms of each at vit_l_16's shapes, beside bound,
-    plain and (int32) torch._int_mm and the mma body, and the given-amax calls timed in three
-    windows beside the one-pass kernel on the same shard."""
+    activations at the int8 phase's bars); both modes on their streamed body (routed) against the
+    template's modes (forced) on each shard, and an activation's amax-only that stores its values with
+    those values quantized by the identity prologue, max-abs 0; int8_linear_s8's int32 output
+    (routed: wgmma; the mma body and both wgmma widths, forced) against int_product and
+    dequant_sum_s32 of the two shards' partials against int8_linear_s8 on the whole K, max-abs 0.
+    Device ms of each quantizer call on a shard at every case (the streamed body, the template's mode
+    in the same run, the stored-activation pair, the one-pass kernel over the shard, the plain
+    version, torch.linalg.vector_norm for the identity amax-only, the byte bounds) and of the int32
+    products and dequant_sum_s32 at vit_l_16's shapes, beside bound, plain, torch._int_mm and the
+    mma body."""
     import torch
 
     from atlaspatch_tpu_torch.ops import int8 as I
@@ -3410,73 +3454,127 @@ def _tp_int8_kernel_rows(state) -> dict:
     rows, worst = {}, {"amax_abs": 0.0, "given_abs": 0, "flip_share": 0.0}
     for model, layer, k, prologue, operand in TP_QUANT_CASES:
         m = TP_ROWS[model]
+        # routed_amax(part): (amax, what given-amax then quantizes) as the forward routes a shard
         if operand == "heads":
             whole, halves = _tp_heads(m, k, torch.bfloat16, gen)
             args, parts = (whole,), [(h,) for h in halves]
-            quantize, amax_of = I.quantize_heads, I.heads_amax
+            quantize = I.quantize_heads
+
+            def routed_amax(part):
+                return I.heads_amax(*part), part
+
+            def routed_given(src, amax):
+                return I.quantize_heads(*src, amax)
 
             def values(x):
                 return x.reshape(x.shape[0] * x.shape[1], -1)
+
+            def forced(x, mode, body, amax=None):
+                x, layout, r, c = I._heads_layout("heads", x)
+                return I._launch_quantize("identity", x, layout, rows=r, cols=c, mode=mode, amax=amax, body=body)
+
+            def library(x):
+                return torch.linalg.vector_norm(x, float("inf"), dim=(-2, -1), dtype=torch.float32)
         else:
             a = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16)
             b = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16) if operand else None
             args = (a, prologue, b)
             parts = [(a[:, c].contiguous(), prologue, None if b is None else b[:, c].contiguous())
                      for c in (slice(0, k // 2), slice(k // 2, k))]
-            quantize, amax_of = I.act_quantize_rows, I.act_row_amax
+            quantize, library = I.act_quantize_rows, None
+
+            def routed_amax(part):  # amax-only stores the activation's values
+                amax, stored = I.act_row_amax(*part)
+                return amax, (stored,)
+
+            def routed_given(src, amax):  # the identity prologue over the stored values
+                return I.quantize_rows(*src, amax)
 
             def values(x, act, y=None):
                 return I._act_rows(x, act, y)
+
+            def forced(x, act, y, mode, body, amax=None):
+                return I._launch_quantize(act, x, (0, x.stride(0), x.shape[0], 0, x.shape[1]), b=y, mode=mode,
+                                          amax=amax, body=body)
         I.reset_launch_counts()
         one_xq, one_s = quantize(*args)
-        amaxes = [amax_of(*part) for part in parts]
+        routed = [routed_amax(part) for part in parts]
+        amaxes = [amax for amax, _ in routed]
         maxed = torch.maximum(*amaxes)
-        given = [quantize(*part, amax=maxed) for part in parts]
+        given = [routed_given(src, maxed) for _, src in routed]
         torch.cuda.synchronize()
-        if dict(I.quantize_rows.mode_launches) != {"one_pass": 1, "amax_only": 2, "given_amax": 2}:
-            raise AssertionError(f"multi tp {model} {layer}: quantizer modes {dict(I.quantize_rows.mode_launches)}")
+        if dict(I.quantize_rows.mode_launches) != {"one_pass": 1, "amax_only": 2, "given_amax": 2} \
+                or dict(I.quantize_rows.body_launches) != {"template": 1, "stream": 4}:
+            raise AssertionError(f"multi tp {model} {layer}: quantizer modes {dict(I.quantize_rows.mode_launches)}, "
+                                 f"bodies {dict(I.quantize_rows.body_launches)}")
         plain_amax = [I.row_amax_plain(values(*part)) for part in parts]
         amax_rel = max(((x - want).abs() / want.clamp_min(1e-30)).max().item() for x, want in zip(amaxes, plain_amax))
         amax_abs = max((x - want).abs().max().item() for x, want in zip(amaxes, plain_amax))
         exact = (torch.equal(I._divide(maxed.clamp_min(1e-8), 127.0), one_s)
                  and torch.equal(torch.cat([q for q, _ in given], dim=1), one_xq)
                  and all(torch.equal(s_x, one_s) for _, s_x in given))
+        # the streamed bodies against the template's modes (an activation's computing it in both)
+        body_err = 0.0
+        for part, amax, (q, s_x) in zip(parts, amaxes, given):
+            t_amax = forced(*part, "amax_only", "template")
+            t_q, t_s = forced(*part, "given_amax", "template", maxed)
+            body_err = max(body_err, (amax - t_amax).abs().max().item(), (q.int() - t_q.int()).abs().max().item(),
+                           (s_x - t_s).abs().max().item())
         plain_given = [I.quantize_rows_plain(values(*part), maxed) for part in parts]
         diff = torch.cat([(q.int() - pq.int()).abs() for (q, _), (pq, _) in zip(given, plain_given)], dim=1)
         share = (diff > 0).float().mean().item()
         ok = (amax_rel == 0 and diff.max().item() == 0) if prologue == "identity" else \
             (amax_rel <= 2.0**-8 and diff.max().item() <= 1 and share <= FUSED_FLIP_SHARE)
-        if not (exact and ok):
+        if not (exact and ok and body_err == 0):
             raise AssertionError(f"multi tp {model} {layer} {prologue} M={m} K={k}: shards equal the one-pass "
-                                 f"kernel {exact}; amax rel {amax_rel}, given vs plain |dxq| {diff.max().item()} "
-                                 f"share {share}")
+                                 f"kernel {exact}; streamed bodies vs the template's modes max-abs {body_err}; amax "
+                                 f"rel {amax_rel}, given vs plain |dxq| {diff.max().item()} share {share}")
         worst = {"amax_abs": max(worst["amax_abs"], amax_abs), "given_abs": max(worst["given_abs"], diff.max().item()),
                  "flip_share": max(worst["flip_share"], share)}
-        row = dict(amax_rel=amax_rel, share=share)
-        if model == "vit_l_16":
-            part = parts[0]
-            kk = k // 2
-            given = sorted(device_ms(lambda: quantize(*part, amax=maxed), kernel="quantize_rows_s8", reps=50)
-                           for _ in range(3))
-            row.update(amax_ms=device_ms(lambda: amax_of(*part), kernel="quantize_rows_s8"),
-                       given_ms=given[1], given_windows=given,
-                       one_pass_ms=device_ms(lambda: quantize(*part), kernel="quantize_rows_s8", reps=50),
-                       amax_plain_ms=cuda_ms(lambda: I.row_amax_plain(values(*part)), max_reps=10),
-                       given_plain_ms=cuda_ms(lambda: I.quantize_rows_plain(values(*part), maxed), max_reps=10),
-                       amax_bound_ms=1e3 * (2 * m * kk + 4 * m) / H100_BYTES_PER_S,
-                       given_bound_ms=1e3 * (3 * m * kk + 8 * m) / H100_BYTES_PER_S)
+        (part, (_, src)), kk = (parts[0], routed[0]), k // 2
+        n_in = 1 if operand != "gated" else 2  # bfloat16 operands read a value
+        again = 2 * n_in if prologue == "identity" else 4  # the shard read again, or the values stored and read
+
+        def median_ms(fn, kernel):  # one window can misread a short kernel: the median of three, L2 cold
+            return sorted(device_ms(fn, kernel=kernel, reps=50, cold=True) for _ in range(3))[1]
+
+        # bounds: amax-only, the function it replaces (the shard read once, 4 bytes a row written);
+        # given-amax, what it reads on the route (the heads or the stored values, 2 bytes an element)
+        # read once and xq and the scales written; the pair, the function both replace (the shard read
+        # twice, xq written once: no route moves less). moved: what the routed pair moves (an
+        # activation's stored values written once and read once in place of the shard's second read)
+        row = dict(
+            amax_rel=amax_rel, share=share,
+            amax_ms=median_ms(lambda: routed_amax(part), "quantize_stream_amax"),
+            amax_template_ms=median_ms(lambda: forced(*part, "amax_only", "template"), "quantize_rows_s8"),
+            given_ms=median_ms(lambda: routed_given(src, maxed), "quantize_stream_given"),
+            given_template_ms=median_ms(lambda: forced(*part, "given_amax", "template", maxed), "quantize_rows_s8"),
+            one_pass_ms=median_ms(lambda: quantize(*part), "quantize_rows_s8"),
+            amax_plain_ms=cuda_ms(lambda: I.row_amax_plain(values(*part)), max_reps=10),
+            given_plain_ms=cuda_ms(lambda: I.quantize_rows_plain(values(*part), maxed), max_reps=10),
+            amax_bound_ms=1e3 * (2 * n_in * m * kk + 4 * m) / H100_BYTES_PER_S,
+            given_bound_ms=1e3 * (3 * m * kk + 8 * m) / H100_BYTES_PER_S,
+            pair_bound_ms=1e3 * ((4 * n_in + 1) * m * kk + 12 * m) / H100_BYTES_PER_S,
+            pair_moved_ms=1e3 * ((2 * n_in + again + 1) * m * kk + 12 * m) / H100_BYTES_PER_S,
+            library_ms=None if library is None else median_ms(lambda: library(*part), None))
+        row["pair_ms"] = row["amax_ms"] + row["given_ms"]
+        row["pair_template_ms"] = row["amax_template_ms"] + row["given_template_ms"]
         rows[(model, layer, prologue)] = row
+        lib_s = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(f"multi (k0) tp int8 quantize_rows_s8 {model} {layer} {prologue}{' * b' if operand == 'gated' else ''} "
             f"M={m} K={k} over 2 shards: amax-only vs plain rel {amax_rel:.3e}, maxed = the whole row's, given-amax "
-            f"shards = the one-pass kernel (max-abs 0), vs plain flip share {share:.3e}"
-            + ("" if "amax_ms" not in row else
-               f"; a shard's call dev_ms amax-only {row['amax_ms']:.4f} (bound {row['amax_bound_ms']:.4f}, plain "
-               f"{row['amax_plain_ms']:.4f}), given-amax {row['given_ms']:.4f} (3 windows "
-               f"{' / '.join(f'{x:.4f}' for x in row['given_windows'])}; "
-               f"{100 * row['given_bound_ms'] / row['given_ms']:.1f}% of bound {row['given_bound_ms']:.4f}; the "
-               f"one-pass kernel on the same shard {row['one_pass_ms']:.4f}; plain {row['given_plain_ms']:.4f})")
-            + f" [{state['card']}]")
-        del args, parts, given, plain_given, one_xq
+            f"shards = the one-pass kernel (max-abs 0), streamed bodies = the template's modes (max-abs 0), vs "
+            f"plain flip share {share:.3e}; a shard's call dev_ms, L2 cold: amax-only"
+            f"{'' if prologue == 'identity' else ' storing the values'} {row['amax_ms']:.4f} "
+            f"({100 * row['amax_bound_ms'] / row['amax_ms']:.1f}% of bound {row['amax_bound_ms']:.4f}; template "
+            f"{row['amax_template_ms']:.4f}; plain {row['amax_plain_ms']:.4f}; vector_norm {lib_s}), given-amax"
+            f"{'' if prologue == 'identity' else ' (identity, over them)'} {row['given_ms']:.4f} "
+            f"({100 * row['given_bound_ms'] / row['given_ms']:.1f}% of bound {row['given_bound_ms']:.4f}; template "
+            f"{row['given_template_ms']:.4f}; the one-pass kernel on the shard {row['one_pass_ms']:.4f}; plain "
+            f"{row['given_plain_ms']:.4f}); the pair {row['pair_ms']:.4f} "
+            f"({100 * row['pair_bound_ms'] / row['pair_ms']:.1f}% of bound {row['pair_bound_ms']:.4f}; the bytes it moves {row['pair_moved_ms']:.4f}; template "
+            f"{row['pair_template_ms']:.4f}) [{state['card']}]")
+        del args, parts, routed, src, given, plain_given, one_xq
     linear_err = 0
     for model, layer, k, n in TP_LINEAR_CASES:
         m = TP_ROWS[model]
@@ -3543,8 +3641,16 @@ def _tp_int8_records(tp, launches) -> list[dict]:
     """The new modes' and kernels' records over one vit_l_16 TP (1, 2) int8 forward at batch 32 (24
     blocks, 2 shards): ms, bound and plain ms summed over its calls (per block and shard one amax-only
     and one given-amax before proj and before fc2, two int32 partials; per block two dequant_sum_s32),
-    the int32 partials' mma body on the same shards as mma_ms (their body before PR 17), launches
-    from (k2)'s run."""
+    the quantizers' template modes on the same shards as before_ms (their body before the streamed
+    ones), the int32 partials' mma body as mma_ms (their body before the wgmma one), launches from
+    (k2)'s run. fc2's amax-only also stores tanh GELU's values and its given-amax runs the identity
+    prologue over them, as the forward routes them, while the template computes the activation in
+    both: so amax-only's bound is that of the function it replaces (the shard read once, 4 bytes a
+    row written), given-amax's the bytes it must move on the route (the heads or the stored values
+    read once, xq and the scales written), and the amax-only record also carries the pair, both
+    modes, against the bound of the function both replace (the shard read twice, xq written once:
+    pair_ms, pair_before_ms, pair_bound_ms). The amax-only's library call
+    (torch.linalg.vector_norm, inf) computes proj's calls only: proj_library_ms beside proj_ms."""
     r = tp["rows"]
     proj, fc2 = r[("vit_l_16", "proj", "identity")], r[("vit_l_16", "fc2", "gelu_tanh")]
     lp, lf = r[("vit_l_16", "proj", "linear")], r[("vit_l_16", "fc2", "linear")]
@@ -3556,13 +3662,18 @@ def _tp_int8_records(tp, launches) -> list[dict]:
         {**base, "name": "quantize_rows_s8:amax_only", "replaces": TP_INT8_REPLACES["amax_only"],
          "launches": launches["mode"]["amax_only"], "max_abs_err": tp["worst"]["amax_abs"],
          "ms": calls * (proj["amax_ms"] + fc2["amax_ms"]),
+         "before_ms": calls * (proj["amax_template_ms"] + fc2["amax_template_ms"]),
          "plain_ms": calls * (proj["amax_plain_ms"] + fc2["amax_plain_ms"]),
          "bound_ms": calls * (proj["amax_bound_ms"] + fc2["amax_bound_ms"]), "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "proj_ms": calls * proj["amax_ms"], "proj_library_ms": calls * proj["library_ms"],
+         "pair_ms": calls * (proj["pair_ms"] + fc2["pair_ms"]),
+         "pair_before_ms": calls * (proj["pair_template_ms"] + fc2["pair_template_ms"]),
+         "pair_bound_ms": calls * (proj["pair_bound_ms"] + fc2["pair_bound_ms"])},
         {**base, "name": "quantize_rows_s8:given_amax", "replaces": TP_INT8_REPLACES["given_amax"],
          "launches": launches["mode"]["given_amax"], "max_abs_err": tp["worst"]["given_abs"],
          "flip_share": tp["worst"]["flip_share"],
          "ms": calls * (proj["given_ms"] + fc2["given_ms"]),
+         "before_ms": calls * (proj["given_template_ms"] + fc2["given_template_ms"]),
          "plain_ms": calls * (proj["given_plain_ms"] + fc2["given_plain_ms"]),
          "bound_ms": calls * (proj["given_bound_ms"] + fc2["given_bound_ms"]), "bound_by": "bytes",
          "library_ms": None},
@@ -3742,6 +3853,7 @@ def _int8_counts() -> dict:
     from atlaspatch_tpu_torch.ops import int8 as I
 
     return {"prologue": dict(I.quantize_rows.prologue_launches), "mode": dict(I.quantize_rows.mode_launches),
+            "body": dict(I.quantize_rows.body_launches),
             "variant": dict(I.int8_linear.variant_launches), "out": dict(I.int8_linear.out_launches),
             "dequant_sum": I.dequant_sum.launches}
 
@@ -3787,8 +3899,9 @@ def _multi_tp_int8(state) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = _int8_counts()
-    if launches != VITL_TP_LAUNCHES:
-        raise AssertionError(f"multi tp int8 vit_l_16: launches in one forward {launches}, want {VITL_TP_LAUNCHES}")
+    want_launches = _tp_launches(24, "gelu_tanh", 4)
+    if launches != want_launches:
+        raise AssertionError(f"multi tp int8 vit_l_16: launches in one forward {launches}, want {want_launches}")
     if not (np.isfinite(got).all() and np.array_equal(got, want)):
         raise AssertionError(f"multi tp int8 vit_l_16: {_feature_gap(want, got)}")
     tp.cleanup()
@@ -3818,9 +3931,7 @@ def _multi_tp_int8(state) -> dict:
     # (identity) and fc2 (gelu_tanh of fc_gate times fc_up); qkv, fc_gate, fc_up on wgmma in bfloat16,
     # proj and fc2's partials on wgmma in int32 (shard K 2,048 and 4,096); a dequant_sum_s32 for proj
     # and one for fc2
-    want_launches = {"prologue": {"layernorm": 4, "identity": 8, "gelu_tanh": 8},
-                     "mode": {"one_pass": 4, "amax_only": 8, "given_amax": 8},
-                     "variant": {"wgmma": 20}, "out": {"bfloat16": 12, "int32": 8}, "dequant_sum": 4}
+    want_launches = _tp_launches(2, "gelu_tanh", 5)
     if launches7 != want_launches or not (np.isfinite(got7).all() and got7.shape == (32, 4096)
                                           and np.array_equal(got7, want7)):
         raise AssertionError(f"multi tp int8 dinov3_vit7b16: launches {launches7} (want {want_launches}); "
@@ -4048,10 +4159,12 @@ def phase_multi(state):
     state["multi_int8_launches"] = _multi_embed(state)
     state["tp_int8_records"] = _tp_int8_records(tp_kernels, _multi_tp_int8(state))
     for rec in state["tp_int8_records"]:
+        before = "" if "before_ms" not in rec else f" (the template mode {rec['before_ms']:.3f}, same run)"
         log(f"multi tp int8 record {rec['name']}: per vit_l_16 TP (1, 2) forward (batch 32) {rec['ms']:.3f} ms "
-            f"device, bound {rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
-            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in one forward "
-            f"[{state['card']}]")
+            f"device{before}, bound {rec['bound_ms']:.3f} ({rec['bound_by']}), plain {rec['plain_ms']:.3f}, library "
+            f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in one forward"
+            + ("" if "pair_ms" not in rec else f"; both modes {rec['pair_ms']:.3f} (template "
+               f"{rec['pair_before_ms']:.3f}, bound {rec['pair_bound_ms']:.3f})") + f" [{state['card']}]")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
     try:
         (tmp / "ft").mkdir()
@@ -4106,8 +4219,9 @@ def main() -> int:
     for rec, launches in zip(state["int8_records"], state["multi_int8_launches"]):
         rec["multi_launches"] = launches  # the multi phase's data-parallel int8 extract_batch
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
-    tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "mma_ms",
-               "plain_ms", "bound_ms", "bound_by", "library_ms")
+    tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "before_ms",
+               "mma_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "proj_ms", "proj_library_ms", "pair_ms",
+               "pair_before_ms", "pair_bound_ms")
     tp_int8 = [{k: rec[k] for k in tp_keys if k in rec} for rec in state["tp_int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8, *tp_int8]}))

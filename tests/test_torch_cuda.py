@@ -1043,7 +1043,8 @@ def _amax_call(prologue, operand):
         if operand == "heads":
             return I.heads_amax, lambda x: I.row_amax_plain(x.reshape(x.shape[0] * x.shape[1], -1))
         return I.row_amax, I.row_amax_plain
-    return I.act_row_amax, lambda a, act, b=None: I.row_amax_plain(I._act_rows(a, act, b))
+    return (lambda a, act, b=None: I.act_row_amax(a, act, b)[0],
+            lambda a, act, b=None: I.row_amax_plain(I._act_rows(a, act, b)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1052,7 +1053,9 @@ def test_amax_modes_split_a_row_into_the_one_pass_bytes(card, m, k, prologue, op
     """amax-only against its plain version (identity max-abs 0; the activations' prologue values are
     ATen's where test_quantize_prologue_matches_plain says, so their abs-max within 2^-8); given-amax
     on the row's own amax equal to the one-pass kernel (max-abs 0), and on each half of the row with
-    the halves' amaxes maxed, equal to the one-pass kernel's columns (the tensor-parallel split)."""
+    the halves' amaxes maxed, equal to the one-pass kernel's columns (the tensor-parallel split); an
+    activation's halves also as the forward routes them, their stored values quantized by the
+    identity prologue with the maxed amax."""
     from atlaspatch_tpu_torch.ops import int8 as I
 
     args = _fused_operands(card, m, k, prologue, operand, dtype)
@@ -1080,6 +1083,131 @@ def test_amax_modes_split_a_row_into_the_one_pass_bytes(card, m, k, prologue, op
     assert torch.equal(torch.cat([c[0] for c in cols], dim=1), whole_xq)
     assert all(torch.equal(c[1], whole_s) for c in cols)
     assert I.quantize_rows.mode_launches == {"one_pass": 1, "amax_only": 3, "given_amax": 3}
+    # an activation's given-amax runs on the template; its amax-only and the identity's on the stream
+    assert I.quantize_rows.body_launches == ({"template": 1, "stream": 6} if prologue == "identity" else
+                                             {"template": 4, "stream": 3})
+    if prologue != "identity":
+        stored = [I.act_row_amax(*h)[1] for h in halves]
+        cols = [I.quantize_rows(v, maxed) for v in stored]
+        assert torch.equal(torch.cat([c[0] for c in cols], dim=1), whole_xq)
+        assert all(torch.equal(c[1], whole_s) for c in cols)
+
+
+# --- the tensor-parallel modes' streamed bodies against the template's modes -------------------
+# Rows of the TP (1, 2) shards and ragged ones: M 1, 7, batch 32's and batch 256's vit_l_16 tokens; K
+# vit_l_16's proj and fc2 shards (512, 2,048), the 7B's fc2 shard (4,096), virchow's and medsiglip's
+# fc2 shards (1,708: 8-byte bfloat16 units; 2,152).
+STREAM_MS = [1, 7, 6304, 50432]
+STREAM_KS = [512, 1708, 2048, 2152, 4096]
+
+
+def _stream_operands(card, m, k, operand, dtype):
+    """(prologue, x, layout, rows, cols, b): plain rows, the attention's (B, T, H, D) output as the
+    einsum leaves it ((B, H, T, D) in memory; 64-wide heads, or 4 heads where K is no multiple of
+    64), fc1's tanh-GELU rows or a gated SiLU pair."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    if operand == "heads":
+        b_, t_ = (m // 197, 197) if m % 197 == 0 else (1, m)
+        h_, d_ = (k // 64, 64) if k % 64 == 0 else (4, k // 4)
+        x = torch.randn(b_, h_, t_, d_, device=card, generator=gen).to(dtype).transpose(1, 2)
+        x, layout, rows, cols = I._heads_layout("heads", x)
+        return "identity", x, layout, rows, cols, None
+    a = (torch.randn(m, k, device=card, generator=gen) * 2).to(dtype)
+    b = (torch.randn(m, k, device=card, generator=gen) * 2).to(dtype) if operand == "silu gated" else None
+    prologue = {"rows": "identity", "gelu_tanh": "gelu_tanh", "silu gated": "silu"}[operand]
+    return prologue, a, (0, a.stride(0), m, 0, k), m, k, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["rows", "heads", "gelu_tanh", "silu gated"])
+@pytest.mark.parametrize("k", STREAM_KS)
+@pytest.mark.parametrize("m", STREAM_MS)
+def test_amax_modes_stream_bodies_equal_the_template_modes(card, m, k, operand, dtype):
+    """amax-only and given-amax as the forward routes them, on the streamed body, and forced in every
+    narrower unit the operands admit, against the template's amax-only and given-amax on the same
+    inputs: amax, xq and s_x max-abs 0. An activation's amax-only also stores its values, which
+    given-amax quantizes by the identity prologue to the template's activation given-amax bytes and
+    scales."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    prologue, x, layout, rows, cols, b = _stream_operands(card, m, k, operand, dtype)
+
+    def run(mode, body, amax=None, unit=None):
+        return I._launch_quantize(prologue, x, layout, rows=rows, cols=cols, b=b, mode=mode, amax=amax, body=body,
+                                  unit=unit)
+
+    def given(values, amax, unit=None):  # the identity's given-amax over stored (rows, cols) values
+        return I._launch_quantize("identity", values, (0, cols, rows, 0, cols), mode="given_amax", amax=amax,
+                                  unit=unit)
+
+    elem = x.element_size()
+    I.reset_launch_counts()
+    want_amax = run("amax_only", "template")
+    want_xq, want_s = run("given_amax", "template", want_amax)
+    if prologue == "identity":
+        amax = run("amax_only", None)
+        xq, s_x = run("given_amax", None, want_amax)
+    else:
+        amax, values = run("amax_only", None)
+        assert values.shape == (rows, cols) and values.dtype == dtype
+        xq, s_x = given(values, want_amax)
+    assert I.quantize_rows.body_launches == {"template": 2, "stream": 2}
+    assert torch.equal(amax, want_amax) and torch.equal(xq, want_xq) and torch.equal(s_x, want_s)
+    _, routed = I.quant_variant("amax_only", prologue, layout[4], elem, I._operand_alignment(x, layout, b))
+    _, routed_given = I.quant_variant("given_amax", "identity", cols, elem)
+    for unit in (32, 16, 8, elem):
+        if unit <= routed:
+            got = run("amax_only", "stream", unit=unit)
+            if prologue != "identity":
+                got, got_values = got
+                assert torch.equal(got_values, values), unit
+            assert torch.equal(got, want_amax), unit
+        if unit <= (routed if prologue == "identity" else routed_given):
+            got = run("given_amax", "stream", want_amax, unit=unit) if prologue == "identity" else \
+                given(values, want_amax, unit)
+            assert torch.equal(got[0], want_xq) and torch.equal(got[1], want_s), unit
+    torch.cuda.synchronize()
+
+
+def test_amax_modes_stream_body_refuses_what_it_does_not_take(card):
+    """The streamed body takes amax-only of the identity and activation prologues (an activation's
+    storing its values) and the identity's given-amax, in units that fit the operands; the rest is
+    refused before a launch (ValueError) or by the C entry (a RuntimeError naming the cudaError, or
+    its code), and nothing is counted."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    x = torch.randn(8, 96, device=card, dtype=torch.bfloat16)
+    layout = (0, x.stride(0), 8, 0, 96)
+    w, bias = torch.ones(96, device=card, dtype=torch.bfloat16), torch.zeros(96, device=card, dtype=torch.bfloat16)
+    amax = torch.ones(8, device=card)
+    I.reset_launch_counts()
+    with pytest.raises(ValueError, match="streamed body takes"):
+        I._launch_quantize("identity", x, layout, body="stream")
+    with pytest.raises(ValueError, match="streamed body takes"):
+        I._launch_quantize("layernorm", x, layout, gamma=w, beta=bias, eps=1e-6, mode="amax_only", body="stream")
+    with pytest.raises(ValueError, match="streamed body takes"):
+        I._launch_quantize("silu", x, layout, mode="given_amax", amax=amax, body="stream")
+    with pytest.raises(ValueError, match="no body 'wide'"):
+        I._launch_quantize("identity", x, layout, mode="amax_only", body="wide")
+    odd = x[:, 1:]  # 95 values a row from an odd element: single elements only
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        I._launch_quantize("identity", odd, (0, odd.stride(0), 8, 0, 95), mode="amax_only", body="stream", unit=16)
+    # the C entry: an activation's amax-only without the values' buffer, the identity's with one, an
+    # activation's given-amax
+    lib, out, xq = I.load_int8_library(), torch.empty(8, 96, device=card, dtype=torch.bfloat16), torch.empty(
+        8, 96, device=card, dtype=torch.int8)
+    stream = torch.cuda.current_stream().cuda_stream
+    for prologue, mode, act in (("silu", "amax_only", None), ("identity", "amax_only", out),
+                                ("gelu_tanh", "given_amax", None)):
+        assert lib.atlas_quantize_rows_s8_stream(
+            I.PROLOGUES.index(prologue), 1, 8, 96, x.data_ptr(), *layout, None, 0, 32, xq.data_ptr(),
+            amax.data_ptr(), I.QUANT_MODES.index(mode), amax.data_ptr(), None if act is None else act.data_ptr(),
+            stream) == 1, (prologue, mode)
+    assert I.quantize_rows.launches == 0
+    assert torch.equal(I.row_amax(odd), I.row_amax_plain(odd))
+    assert I.quantize_rows.body_launches == {"stream": 1}
 
 
 # (M, N, K) of the int32 output beyond INT8_SHAPES: TP (1, 2) int8's shard products at batch 32,
@@ -1210,7 +1338,9 @@ def test_tensor_parallel_int8_equals_one_device_on_the_card(card, monkeypatch, k
     assert torch.equal(got, want)
     linears = 5 if kw.get("gated_mlp") else 4
     assert I.quantize_rows.mode_launches == {"one_pass": 4, "amax_only": 8, "given_amax": 8}
-    assert I.quantize_rows.prologue_launches == {"layernorm": 4, "identity": 8, "silu": 8}
+    assert I.quantize_rows.body_launches == {"template": 4, "stream": 16}
+    # fc2's amax-only stores SiLU's values, which its given-amax quantizes by the identity prologue
+    assert I.quantize_rows.prologue_launches == {"layernorm": 4, "identity": 12, "silu": 4}
     # per block and shard: the column-parallel linears on wgmma in bfloat16, proj and fc2's partials
     # on wgmma in int32 (shard K 64 and 128 or 96)
     assert I.int8_linear.variant_launches == {"wgmma": 2 * 2 * linears}

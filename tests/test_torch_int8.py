@@ -371,7 +371,7 @@ def test_split_act_quantizer_matches_the_whole_row(act, gate):
     print(f"{act} {gate}: {moved} of {values.numel()} activation values rounded otherwise on the halves")
     assert moved == 0 or gate == "swiglu"
     whole = I.quantize_rows_plain(values)
-    amax = torch.maximum(*(I.act_row_amax(x, act, y) for x, y in halves))
+    amax = torch.maximum(*(I.act_row_amax(x, act, y)[0] for x, y in halves))
     assert np.abs(amax.numpy() / jax_amax - 1).max() <= 2.0**-8
     got = [I.act_quantize_rows(x, act, y, amax) for x, y in halves]
     assert torch.equal(torch.cat([q for q, _ in got], dim=1), whole[0])
@@ -421,6 +421,20 @@ def test_quant_modes_match_the_kernel_source():
     modes = re.search(r"enum Mode : int \{([^}]*)\}", src).group(1)
     assert [m.strip() for m in modes.split(",")] == ["kOnePass", "kAmaxOnly", "kGivenAmax"]
     assert I.QUANT_MODES == ("one_pass", "amax_only", "given_amax")
+    # the bodies: the template's entry, and the streamed one, which takes amax-only of every prologue
+    # but layernorm (an activation's storing its values) and the identity's given-amax, in units of 32,
+    # 16 or 8 bytes or one element
+    assert I.QUANT_BODIES == ("template", "stream")
+    for entry in ("atlas_quantize_rows_s8(", "atlas_quantize_rows_s8_stream("):
+        assert f'extern "C" int {entry}' in src
+    assert "if (bytes != 32 && bytes != 16 && bytes != 8 && bytes != (int)sizeof(T)) return false;" in src
+    assert "prologue == kLayerNorm ||" in src and "(mode != kAmaxOnly && mode != kGivenAmax)" in src
+    assert "(mode == kGivenAmax && (prologue != kIdentity ||" in src
+    assert "(prologue == kIdentity ? (b != nullptr || act != nullptr) : act == nullptr)" in src
+    assert "quantize_stream_given_kernel<T, E><<<" in src and "if constexpr (P == kIdentity) {" in src
+    dispatch = re.search(r"cudaError_t dispatch_stream\(.*?\n}", src, re.S).group(0)
+    cases = re.findall(r"case k(\w+): return dispatch_stream_unit<T, k\w+>", dispatch)
+    assert [c.lower() for c in cases] + ["relu"] == [p.replace("_", "") for p in I.PROLOGUES if p != "layernorm"]
     outs = re.search(r"enum OutType : int \{([^}]*)\}", src).group(1)
     assert [m.strip() for m in outs.split(",")] == ["kOutF32", "kOutBF16", "kOutS32"]
     assert list(I._OUT_CODES) == [torch.float32, torch.bfloat16, torch.int32]
@@ -647,6 +661,88 @@ def test_fused_quantizers_refuse_what_they_do_not_take():
         I.act_quantize_rows(x, "silu", torch.zeros(4, 9))
     with pytest.raises(ValueError, match="takes b like a"):
         I.act_quantize_rows(x, "silu", x.bfloat16())
+
+
+@pytest.mark.parametrize("mode,prologue,run,elem,align,want", [
+    ("one_pass", "identity", 1024, 2, 16, ("template", 0)), ("one_pass", "gelu_tanh", 4096, 4, 16, ("template", 0)),
+    ("amax_only", "layernorm", 1024, 2, 16, ("template", 0)), ("given_amax", "layernorm", 1024, 2, 16, ("template", 0)),
+    ("amax_only", "identity", 512, 2, 16, ("stream", 32)), ("given_amax", "identity", 512, 4, 16, ("stream", 32)),
+    ("amax_only", "identity", 64, 2, 16, ("stream", 32)), ("given_amax", "identity", 72, 2, 16, ("stream", 16)),
+    ("amax_only", "gelu_tanh", 2048, 2, 16, ("stream", 32)), ("given_amax", "identity", 4096, 2, 16, ("stream", 32)),
+    ("given_amax", "identity", 1708, 2, 16, ("stream", 8)), ("amax_only", "silu", 1708, 4, 16, ("stream", 16)),
+    ("given_amax", "identity", 2152, 2, 16, ("stream", 16)), ("amax_only", "identity", 95, 2, 16, ("stream", 2)),
+    ("given_amax", "identity", 96, 2, 2, ("stream", 2)), ("given_amax", "identity", 96, 2, 8, ("stream", 8)),
+    ("amax_only", "relu", 90, 4, 16, ("stream", 8)), ("amax_only", "quick_gelu", 45, 4, 16, ("stream", 4)),
+    ("given_amax", "identity", 44, 4, 4, ("stream", 4)), ("given_amax", "silu", 4096, 2, 16, ("template", 0)),
+    ("given_amax", "gelu_tanh", 1708, 2, 16, ("template", 0)), ("given_amax", "gelu", 44, 4, 4, ("template", 0)),
+])
+def test_quant_variant_by_mode_prologue_and_alignment(mode, prologue, run, elem, align, want):
+    """The one-pass mode, layernorm and an activation's given-amax (the forward quantizes the
+    activation's stored values by the identity prologue instead) stay on the template; amax-only of
+    the identity and the activations and the identity's given-amax take the streamed body, in the
+    widest unit of 32, 16 or 8 bytes that tiles the run of values (a row, or a head) and whose loads
+    (at most 16 bytes) the operands' alignment admits, else in single elements."""
+    assert I.quant_variant(mode, prologue, run, elem, align) == want
+
+
+def test_operand_alignment_of_the_quantizers_views():
+    """The largest power of two, at most 16, dividing the operands' bases and strides in bytes: a
+    contiguous bfloat16 row of 2,048 and its (B, T, H, D) heads view; a SwiGLU half (row stride 3,416
+    values); a view from an odd element; a gated pair whose second operand starts 4 or 1 floats in."""
+    x = torch.zeros(8, 2048, dtype=torch.bfloat16)
+    assert I._operand_alignment(x, (0, 2048, 8, 0, 2048)) == 16
+    heads = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert I._operand_alignment(heads, (heads.stride(0), heads.stride(1), 4, heads.stride(2), 64)) == 16
+    half = torch.zeros(8, 2 * 1708, dtype=torch.bfloat16)[:, 1708:]
+    assert I._operand_alignment(half, (0, half.stride(0), 8, 0, 1708)) == 8
+    odd = x[:, 1:]
+    assert I._operand_alignment(odd, (0, odd.stride(0), 8, 0, 2047)) == 2
+    a = torch.zeros(8, 64)
+    assert I._operand_alignment(a, (0, 64, 8, 0, 64), torch.zeros(8, 68)[:, 4:]) == 16
+    assert I._operand_alignment(a, (0, 64, 8, 0, 64), torch.zeros(8, 65)[:, 1:]) == 4
+
+
+def test_quant_variant_refuses_unknown_names():
+    with pytest.raises(ValueError, match="has modes"):
+        I.quant_variant("two_pass", "identity", 64)
+    with pytest.raises(ValueError, match="prologues"):
+        I.quant_variant("amax_only", "tanh", 64)
+
+
+@pytest.mark.parametrize("name", sorted(n for n, e in zoo.ENTRIES.items()
+                                        if isinstance(getattr(e, "spec", None), pvit.ViTSpec)))
+def test_quant_variant_at_the_zoo_tp_shards(name):
+    """Every zoo ViT's TP (1, 2) shards in bfloat16 (the attention's heads before proj, whose units
+    tile one head of D values; half the hidden units before fc2: the activation's amax-only, then
+    given-amax over its stored rows by the identity prologue) take the streamed body in 32-byte
+    units, but medsiglip's (D 72 and fc2 K 2,152: 16 bytes) and virchow's fc2 (K 1,708: 8)."""
+    spec = zoo.ENTRIES[name].spec
+    k_fc2 = _int8_widths(name)["fc2"][0] // 2
+    want = {"medsiglip": 16, "virchow_v1": 8, "virchow_v2": 8}.get(name, 32)
+    for mode in ("amax_only", "given_amax"):
+        head = 16 if name == "medsiglip" else 32
+        assert I.quant_variant(mode, "identity", spec.dim // spec.heads) == ("stream", head)
+    assert I.quant_variant("amax_only", "gelu_tanh", k_fc2) == ("stream", want), k_fc2
+    assert I.quant_variant("given_amax", "identity", k_fc2) == ("stream", want), k_fc2
+
+
+@pytest.mark.parametrize("gate", [None, "gated"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stored_activation_quantized_by_identity_equals_the_act_quantizer(act, gate, dtype):
+    """A shard's amax-only, which also returns the activation's values: its amax is their rows'
+    abs-max, and those values quantized with a given amax by the identity prologue are
+    act_quantize_rows's bytes and scales with it, bit for bit (the plain versions; the card test
+    holds the kernels)."""
+    a = _rows(64, 96, dtype, seed=12)
+    b = _rows(64, 96, dtype, seed=13) if gate else None
+    amax, values = I.act_row_amax(a, act, b)
+    assert values.dtype == dtype and values.shape == (64, 96)
+    assert torch.equal(amax, I.row_amax_plain(I._act_rows(a, act, b)))
+    given = amax * 1.5  # the maxed amax of another shard
+    got = I.quantize_rows(values, given)
+    want = I.act_quantize_rows_plain(a, act, b, amax=given)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_rows_longer_than_the_registers_hold_are_refused_before_a_launch():
