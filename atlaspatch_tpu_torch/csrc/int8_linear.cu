@@ -25,7 +25,9 @@
 // s = max(amax, 1e-8) / 127 (IEEE) and q = clamp(rint(x / s), -127, 127),
 // rint half-to-even as jnp.round rounds. The row is read from device memory
 // once, by loads all issued before the first use, and held in registers (32
-// or 128 values a thread); xq is written as 16-byte stores. Bound on an H100
+// or 128 values a thread); xq is written as 16-byte stores, its rows `ldq`
+// bytes apart (the port passes round_up(K, 16), the row pitch the wgmma
+// product's TMA maps take; the pad bytes are not written). Bound on an H100
 // SXM: bytes (2 or 4 in, 1 out per element; per row 4 out). The design:
 //   * a row is one warp (K = 1,024: 32 bfloat16 a lane) or a group of 2, 4 or
 //     8 warps (K = 4,096: 4 warps, 32 a thread); 8 warps a CTA, and at least
@@ -89,9 +91,12 @@
 // rows a load touches in distinct banks. Tails: rows past M and columns past
 // N are zero-filled by the copy (src-size 0) and masked in the epilogue; K
 // need not be a multiple of 64 (medsiglip's MLP 4,304, virchow's 3,416):
-// the copy zero-fills past K, and its width (16, 8, 4 or 1 bytes) is the
-// largest that divides K. The epilogue is the dequantization, element by
-// element in the plain version's order: y = float(acc) * (s_x[m] *
+// the copy zero-fills past K (a copy that straddles K reads K - k bytes and
+// fills the rest), and its width (16, 8, 4 or 1 bytes) is the largest that
+// divides both operands' row pitches (ldx, ldw: K where they are
+// contiguous, round_up(K, 16) where the port pitched them) and bases. The
+// epilogue is the dequantization, element by element in the plain version's
+// order: y = float(acc) * (s_x[m] *
 // qscale[n]), then + bias[n] (read in its stored dtype), then the cast
 // (bfloat16 round-to-nearest-even or float32), all through the _rn
 // intrinsics, which the compiler never contracts into an FMA (and the
@@ -339,7 +344,7 @@ __device__ __forceinline__ uint32_t quantize_one(float x, float s, float r) {
 template <typename T, int E, int U, int P>
 __global__ void __launch_bounds__(kQuantThreads, sizeof(T) == 2 && E == 16 && U == 2 ? kQuantCtas[P] : 1)
 quantize_rows_s8_kernel(const Rows a, const T* __restrict__ b, const long long ldb, const T* __restrict__ gamma,
-                        const T* __restrict__ beta, const float eps, int8_t* __restrict__ xq,
+                        const T* __restrict__ beta, const float eps, int8_t* __restrict__ xq, const long long ldq,
                         float* __restrict__ scale, float* __restrict__ mean_out, float* __restrict__ rstd_out,
                         const int mode, float* __restrict__ amax_io, const int rows, const int cols,
                         const int group) {
@@ -437,7 +442,7 @@ quantize_rows_s8_kernel(const Rows a, const T* __restrict__ b, const long long l
   const float r0 = __fdividef(1.0f, s);
   const float r = __fmaf_rn(__fmaf_rn(-s, r0, 1.0f), r0, r0);
   if (row >= rows) return;
-  int8_t* out = xq + (long long)row * cols;
+  int8_t* out = xq + (long long)row * ldq;
 #pragma unroll
   for (int j = 0; j < U; ++j) {
     const int u = t + j * group;
@@ -468,7 +473,9 @@ struct QuantCall {
   long long ldb;
   const void *gamma, *beta;
   float eps;
-  void *xq, *scale, *mean, *rstd;
+  void* xq;
+  long long ldq;  // xq's row pitch in bytes
+  void *scale, *mean, *rstd;
   int mode;
   void* amax;
   int rows, cols;
@@ -480,7 +487,7 @@ cudaError_t launch_quantize(const QuantCall& c, int group, cudaStream_t stream) 
   const int per_cta = kQuantThreads / group;
   quantize_rows_s8_kernel<T, E, U, P><<<(c.rows + per_cta - 1) / per_cta, kQuantThreads, 0, stream>>>(
       c.a, static_cast<const T*>(c.b), c.ldb, static_cast<const T*>(c.gamma), static_cast<const T*>(c.beta), c.eps,
-      static_cast<int8_t*>(c.xq), static_cast<float*>(c.scale), static_cast<float*>(c.mean),
+      static_cast<int8_t*>(c.xq), c.ldq, static_cast<float*>(c.scale), static_cast<float*>(c.mean),
       static_cast<float*>(c.rstd), c.mode, static_cast<float*>(c.amax), c.rows, c.cols, group);
   return cudaGetLastError();
 }
@@ -488,7 +495,7 @@ cudaError_t launch_quantize(const QuantCall& c, int group, cudaStream_t stream) 
 bool on16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // Units of 16 elements where every one starts on 16 bytes (K a multiple of 16, 16-byte bases and
-// strides), else of one 16-byte vector (8 bfloat16 or 4 float32: virchow's K = 3,416; not for
+// strides, xq's pitch), else of one 16-byte vector (8 bfloat16 or 4 float32: virchow's K = 3,416; not for
 // layernorm, whose units of 16 follow ATen's threads), else single elements. A layernorm row of
 // 16-element units is one warp (ATen's statistics), the other rows the fewest threads that hold them:
 // 32 values a thread (64 or 128 for a layernorm row of 1,025 to 2,048 or 2,049 to 4,096).
@@ -499,7 +506,7 @@ cudaError_t dispatch_quantize(const QuantCall& c, cudaStream_t stream) {
                        (c.b == nullptr || (on16(c.b) && c.ldb % kVec == 0)) &&
                        (c.gamma == nullptr || (on16(c.gamma) && on16(c.beta))) && (c.xq == nullptr || on16(c.xq));
   const bool heads16 = c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % 16 == 0);
-  if (aligned && heads16 && c.cols % 16 == 0) {
+  if (aligned && heads16 && c.cols % 16 == 0 && (c.xq == nullptr || c.ldq % 16 == 0)) {
     const int units = c.cols / 16;
     if constexpr (P == kLayerNorm) {
       if (units <= 64) return launch_quantize<T, 16, 2, P>(c, 32, stream);
@@ -512,7 +519,8 @@ cudaError_t dispatch_quantize(const QuantCall& c, cudaStream_t stream) {
     }
   }
   if constexpr (P != kLayerNorm) {
-    if (aligned && (c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % kVec == 0)) && c.cols % kVec == 0) {
+    if (aligned && (c.a.sh == 0 || (c.a.sh % kVec == 0 && c.a.d % kVec == 0)) && c.cols % kVec == 0 &&
+        (c.xq == nullptr || c.ldq % kVec == 0)) {
       const int units = c.cols / kVec;
       int group = 32;
       while (units * kVec > 32 * group) group *= 2;
@@ -596,7 +604,7 @@ __device__ __forceinline__ T from_float(float v) {
 template <typename T, int E>
 __global__ void __launch_bounds__(kStreamThreads, kStreamCtas)
 quantize_stream_given_kernel(const Rows a, const float* __restrict__ amax, int8_t* __restrict__ xq,
-                             float* __restrict__ scale, const int rows, const int cols) {
+                             const long long ldq, float* __restrict__ scale, const int rows, const int cols) {
   constexpr int kAhead = kGivenRows;
   constexpr int kWarps = kStreamThreads / 32;
   const int units = cols / E;
@@ -636,7 +644,7 @@ quantize_stream_given_kernel(const Rows a, const float* __restrict__ amax, int8_
     uint32_t f[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) f[e] = quantize_one(to_float(ua[j].v[e]), s, r);
-    int8_t* out = xq + (long long)row * cols + (long long)u * E;
+    int8_t* out = xq + (long long)row * ldq + (long long)u * E;
     if constexpr (E == 1) {
       *out = (int8_t)(f[0] & 0xffu);
     } else if constexpr (E == 2) {
@@ -705,7 +713,7 @@ quantize_stream_amax_kernel(const Rows a, const T* __restrict__ b, const long lo
 
 // Whether units of `bytes` (32, 16 or 8, or one element) tile the row (and each head) and start on their
 // loads' width (at most 16 bytes) in every operand: a's base and strides (and its heads' stride), b's,
-// the stored values' and xq's.
+// the stored values' and xq's (its base and row pitch on the unit's bytes).
 template <typename T>
 bool stream_unit_fits(const QuantCall& c, int bytes) {
   if (bytes != 32 && bytes != 16 && bytes != 8 && bytes != (int)sizeof(T)) return false;
@@ -714,7 +722,7 @@ bool stream_unit_fits(const QuantCall& c, int bytes) {
   return (uintptr_t)c.a.p % load == 0 && c.a.sb % ea == 0 && c.a.st % ea == 0 && heads_ok && c.cols % e == 0 &&
          (c.b == nullptr || ((uintptr_t)c.b % load == 0 && c.ldb % ea == 0)) &&
          (c.act == nullptr || (uintptr_t)c.act % load == 0) &&
-         (c.xq == nullptr || (uintptr_t)c.xq % (e < 16 ? e : 16) == 0);
+         (c.xq == nullptr || ((uintptr_t)c.xq % (e < 16 ? e : 16) == 0 && c.ldq % (e < 16 ? e : 16) == 0));
 }
 
 template <typename T, int E, int P>
@@ -725,8 +733,8 @@ cudaError_t launch_stream(const QuantCall& c, cudaStream_t stream) {
       const long long ctas = (long long)((c.rows + per_cta - 1) / per_cta) * ((c.cols / E + 31) / 32);
       if (ctas >= (1LL << 31)) return cudaErrorInvalidValue;
       quantize_stream_given_kernel<T, E><<<(unsigned)ctas, kStreamThreads, 0, stream>>>(
-          c.a, static_cast<const float*>(c.amax), static_cast<int8_t*>(c.xq), static_cast<float*>(c.scale), c.rows,
-          c.cols);
+          c.a, static_cast<const float*>(c.amax), static_cast<int8_t*>(c.xq), c.ldq, static_cast<float*>(c.scale),
+          c.rows, c.cols);
       return cudaGetLastError();
     }
   }
@@ -784,11 +792,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy rows [row0, row0 + kBM) x bytes [k0, k0 + kBK) of a (rows, K) int8
-// matrix into a tile of pitch kRow; zeros past `rows` and past K. WIDTH bytes
-// per copy (a divisor of K); WIDTH 1 copies by plain loads and stores.
+// matrix whose rows lie `ld` bytes apart into a tile of pitch kRow; zeros
+// past `rows` and past K (a copy across K reads K - k bytes: never the bytes
+// between K and the pitch). WIDTH bytes per copy (a divisor of ld and of the
+// base's alignment); WIDTH 1 copies by plain loads and stores.
 template <int WIDTH>
 __device__ __forceinline__ void load_tile(int8_t* tile, const int8_t* __restrict__ g, int rows, int K,
-                                          int row0, int k0) {
+                                          long long ld, int row0, int k0) {
   constexpr int kPerRow = kBK / WIDTH;
   constexpr int kChunks = kBM * kPerRow;
 #pragma unroll
@@ -798,10 +808,10 @@ __device__ __forceinline__ void load_tile(int8_t* tile, const int8_t* __restrict
     const bool ok = gr < rows && gk < K;
     int8_t* dst = tile + r * kRow + kb;
     if constexpr (WIDTH == 1) {
-      *dst = ok ? g[(int64_t)gr * K + gk] : (int8_t)0;
+      *dst = ok ? g[(int64_t)gr * ld + gk] : (int8_t)0;
     } else {
-      const int8_t* src = ok ? g + (int64_t)gr * K + gk : g;
-      cp_async(dst, src, ok ? WIDTH : 0, WIDTH);
+      const int8_t* src = ok ? g + (int64_t)gr * ld + gk : g;
+      cp_async(dst, src, ok ? min(WIDTH, K - gk) : 0, WIDTH);
     }
   }
 }
@@ -845,7 +855,7 @@ __global__ void __launch_bounds__(kThreads)
 int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
                       const float* __restrict__ s_x, const float* __restrict__ qscale,
                       const void* __restrict__ bias, int bias_is_bf16, OutT* __restrict__ out,
-                      int M, int N, int K) {
+                      int M, int N, int K, long long ldx, long long ldw) {
   extern __shared__ __align__(16) int8_t smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and thread-in-group
@@ -867,8 +877,8 @@ int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < ktiles) {
-      load_tile<WIDTH>(stage_a(s), xq, M, K, m0, s * kBK);
-      load_tile<WIDTH>(stage_b(s), w, N, K, n0, s * kBK);
+      load_tile<WIDTH>(stage_a(s), xq, M, K, ldx, m0, s * kBK);
+      load_tile<WIDTH>(stage_b(s), w, N, K, ldw, n0, s * kBK);
     }
     cp_async_commit();
   }
@@ -878,8 +888,8 @@ int8_linear_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ 
     __syncthreads();  // tile kt landed for every thread; the stage read at kt - 1 is free
     const int next = kt + kStages - 1;
     if (next < ktiles) {
-      load_tile<WIDTH>(stage_a(next % kStages), xq, M, K, m0, next * kBK);
-      load_tile<WIDTH>(stage_b(next % kStages), w, N, K, n0, next * kBK);
+      load_tile<WIDTH>(stage_a(next % kStages), xq, M, K, ldx, m0, next * kBK);
+      load_tile<WIDTH>(stage_b(next % kStages), w, N, K, ldw, n0, next * kBK);
     }
     cp_async_commit();
 
@@ -1027,44 +1037,48 @@ cudaError_t dispatch_dequant_sum(const Partials& parts, int n_parts, const void*
 template <typename OutT, int WIDTH>
 cudaError_t launch_linear_width(const void* xq, const void* w, const void* s_x, const void* qscale,
                                 const void* bias, int bias_is_bf16, void* out, int M, int N, int K,
-                                cudaStream_t stream) {
+                                long long ldx, long long ldw, cudaStream_t stream) {
   auto kernel = int8_linear_s8_kernel<OutT, WIDTH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN), block(kThreads);
   kernel<<<grid, block, kSmemBytes, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w), static_cast<const float*>(s_x),
-      static_cast<const float*>(qscale), bias, bias_is_bf16, static_cast<OutT*>(out), M, N, K);
+      static_cast<const float*>(qscale), bias, bias_is_bf16, static_cast<OutT*>(out), M, N, K, ldx, ldw);
   return cudaGetLastError();
 }
 
-// The widest copy that divides K and keeps both operands' rows aligned.
-int copy_width(const void* xq, const void* w, int K) {
+// The widest copy that keeps both operands' rows aligned: it divides both
+// pitches and both bases (K need not be a multiple: the copy across K is cut
+// short).
+int copy_width(const void* xq, const void* w, long long ldx, long long ldw) {
   int width = 16;
-  while (width > 1 && (K % width || (uintptr_t)xq % width || (uintptr_t)w % width)) width = width == 4 ? 1 : width / 2;
+  while (width > 1 && (ldx % width || ldw % width || (uintptr_t)xq % width || (uintptr_t)w % width))
+    width = width == 4 ? 1 : width / 2;
   return width;
 }
 
 template <typename OutT>
 cudaError_t launch_linear(const void* xq, const void* w, const void* s_x, const void* qscale,
                           const void* bias, int bias_is_bf16, void* out, int M, int N, int K,
-                          cudaStream_t stream) {
-  switch (copy_width(xq, w, K)) {
+                          long long ldx, long long ldw, cudaStream_t stream) {
+  switch (copy_width(xq, w, ldx, ldw)) {
     case 16:
-      return launch_linear_width<OutT, 16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, stream);
+      return launch_linear_width<OutT, 16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, stream);
     case 8:
-      return launch_linear_width<OutT, 8>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, stream);
+      return launch_linear_width<OutT, 8>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, stream);
     case 4:
-      return launch_linear_width<OutT, 4>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, stream);
+      return launch_linear_width<OutT, 4>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, stream);
     default:
-      return launch_linear_width<OutT, 1>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, stream);
+      return launch_linear_width<OutT, 1>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, stream);
   }
 }
 
 }  // namespace
 
 // The quantizer of `prologue` (Prologue) over rows x cols values of float32 or
-// bfloat16 operands -> xq (rows, cols) int8 and scale (rows,) float32, contiguous.
+// bfloat16 operands -> xq (rows, cols) int8, its rows ldq >= cols bytes apart,
+// and scale (rows,) float32.
 // a's element (m, k) lies at a + (m / a_t) a_sb + (m % a_t) a_st + (k / a_d) a_sh
 // + k % a_d elements (a_sh = 0: + k); b (the activations' second operand, or
 // null) at b + m ldb + k; gamma, beta (cols,) and eps are layernorm's, which
@@ -1074,15 +1088,16 @@ cudaError_t launch_linear(const void* xq, const void* w, const void* s_x, const 
 // which reads it from amax. Returns the launch's cudaError.
 extern "C" int atlas_quantize_rows_s8(int prologue, int x_is_bf16, int rows, int cols, const void* a, long long a_sb,
                                       long long a_st, int a_t, long long a_sh, int a_d, const void* b, long long ldb,
-                                      const void* gamma, const void* beta, float eps, void* xq, void* scale,
-                                      void* mean, void* rstd, int mode, void* amax, void* stream) {
+                                      const void* gamma, const void* beta, float eps, void* xq, long long ldq,
+                                      void* scale, void* mean, void* rstd, int mode, void* amax, void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kQuantMaxCols || a_t <= 0 || a_d <= 0 || prologue < kIdentity ||
       prologue > kRelu || (prologue == kLayerNorm && (gamma == nullptr || beta == nullptr)) ||
       ((mean == nullptr) != (rstd == nullptr)) || mode < kOnePass || mode > kGivenAmax ||
-      ((mode == kOnePass) != (amax == nullptr)) || (mode != kAmaxOnly && (xq == nullptr || scale == nullptr)))
+      ((mode == kOnePass) != (amax == nullptr)) ||
+      (mode != kAmaxOnly && (xq == nullptr || scale == nullptr || ldq < cols)))
     return (int)cudaErrorInvalidValue;
-  const QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, gamma, beta, eps, xq, scale, mean, rstd, mode, amax,
-                    rows, cols};
+  const QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, gamma, beta, eps, xq, ldq, scale, mean, rstd, mode,
+                    amax, rows, cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16 ? dispatch_prologue<__nv_bfloat16>(prologue, c, s) : dispatch_prologue<float>(prologue, c, s));
 }
@@ -1091,19 +1106,20 @@ extern "C" int atlas_quantize_rows_s8(int prologue, int x_is_bf16, int rows, int
 // layernorm) and mode, in units of `unit_bytes` (32, 16 or 8, or one element's size) that must fit every
 // operand (stream_unit_fits). Amax-only writes amax (rows,) and, for an activation, its values to act
 // (rows, cols) contiguous in x's dtype (act is required there and refused for the identity); given-amax
-// takes the identity prologue only, reads amax and writes xq and scale. Returns the launch's cudaError.
+// takes the identity prologue only, reads amax and writes xq (rows ldq >= cols bytes apart) and scale.
+// Returns the launch's cudaError.
 extern "C" int atlas_quantize_rows_s8_stream(int prologue, int x_is_bf16, int rows, int cols, const void* a,
                                              long long a_sb, long long a_st, int a_t, long long a_sh, int a_d,
-                                             const void* b, long long ldb, int unit_bytes, void* xq, void* scale,
-                                             int mode, void* amax, void* act, void* stream) {
+                                             const void* b, long long ldb, int unit_bytes, void* xq, long long ldq,
+                                             void* scale, int mode, void* amax, void* act, void* stream) {
   if (rows <= 0 || cols <= 0 || cols > kQuantMaxCols || a_t <= 0 || a_d <= 0 || prologue < kIdentity ||
       prologue > kRelu || prologue == kLayerNorm || amax == nullptr ||
       (mode != kAmaxOnly && mode != kGivenAmax) ||
-      (mode == kGivenAmax && (prologue != kIdentity || xq == nullptr || scale == nullptr)) ||
+      (mode == kGivenAmax && (prologue != kIdentity || xq == nullptr || scale == nullptr || ldq < cols)) ||
       (prologue == kIdentity ? (b != nullptr || act != nullptr) : act == nullptr))
     return (int)cudaErrorInvalidValue;
-  QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, nullptr, nullptr, 0.0f, xq, scale, nullptr, nullptr, mode, amax,
-              rows, cols, act};
+  QuantCall c{{a, a_sb, a_st, a_sh, a_t, a_d}, b, ldb, nullptr, nullptr, 0.0f, xq, ldq, scale, nullptr, nullptr, mode,
+              amax, rows, cols, act};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16 ? dispatch_stream<__nv_bfloat16>(prologue, c, unit_bytes, s)
                          : dispatch_stream<float>(prologue, c, unit_bytes, s));
@@ -1112,22 +1128,26 @@ extern "C" int atlas_quantize_rows_s8_stream(int prologue, int x_is_bf16, int ro
 // The out types of atlas_int8_linear_s8, in ops/int8.py::_OUT_CODES's order.
 enum OutType : int { kOutF32, kOutBF16, kOutS32 };
 
-// xq (M, K) int8, w (N, K) int8, s_x (M,) and qscale (N,) float32, bias (N,)
-// float32 or bfloat16 or null, all contiguous -> out (M, N) of `out_type`
+// xq (M, K) int8 and w (N, K) int8 with rows ldx and ldw >= K bytes apart,
+// s_x (M,) and qscale (N,) float32, bias (N,) float32 or bfloat16 or null,
+// contiguous -> out (M, N), contiguous, of `out_type`
 // (OutType): float32 or bfloat16, dequantized, or int32, the accumulator as it
 // is (s_x, qscale and bias unread, and may be null). Returns the launch's
 // cudaError.
 extern "C" int atlas_int8_linear_s8(const void* xq, const void* w, const void* s_x, const void* qscale,
                                     const void* bias, int bias_is_bf16, void* out, int out_type, int M,
-                                    int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || (N + kBN - 1) / kBN > 65535 || out_type < kOutF32 || out_type > kOutS32 ||
-      (out_type != kOutS32 && (s_x == nullptr || qscale == nullptr)))
+                                    int N, int K, long long ldx, long long ldw, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldw < K || (N + kBN - 1) / kBN > 65535 || out_type < kOutF32 ||
+      out_type > kOutS32 || (out_type != kOutS32 && (s_x == nullptr || qscale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_type) {
-    case kOutBF16: return (int)launch_linear<__nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
-    case kOutS32: return (int)launch_linear<int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
-    default: return (int)launch_linear<float>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, s);
+    case kOutBF16:
+      return (int)launch_linear<__nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, s);
+    case kOutS32:
+      return (int)launch_linear<int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, s);
+    default:
+      return (int)launch_linear<float>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, s);
   }
 }
 

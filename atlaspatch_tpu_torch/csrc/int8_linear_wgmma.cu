@@ -9,11 +9,15 @@
 // (:146-151; split over K by the TP plan, whose int32 partials XLA sums) and
 // the dequantization acc * (s_x * qscale) + bias, cast to the activations'
 // dtype (:152-156), which XLA fuses on the TPU. The dispatch between the two
-// bodies is ops/int8.py::linear_variant: this one takes K a multiple of 16
-// and 16-byte-aligned operands (a TMA map's row stride and base) and writes
-// bfloat16 with N a multiple of 8 or int32 with N a multiple of 4 (output
-// rows of a multiple of 16 bytes, a TMA map's row stride); int8_linear.cu the
-// rest (virchow's fc2, K = 3,416; float32 output; other N).
+// bodies is ops/int8.py::linear_variant: this one takes operands whose row
+// pitch is a multiple of 16 bytes and whose bases lie on 16 bytes (a TMA
+// map's row stride and base; K itself may be anything: the port's quantizer
+// writes xq, and the model pitches its int8 weights, at round_up(K, 16)
+// bytes a row, so virchow's fc2, K = 3,416, and the TP shards of K 1,708 and
+// 2,152 come here) and writes bfloat16 with N a multiple of 8 or int32 with N
+// a multiple of 4 (output rows of a multiple of 16 bytes, a TMA map's row
+// stride); int8_linear.cu the rest (float32 output; other N; contiguous
+// operands whose K is no multiple of 16).
 //
 // Bound on an H100 SXM: operations at ViT widths (2 M N K over 1,979 TOPS
 // int8 against M K + N K + 2 M N bytes over 3.35 TB/s: vit_l_16's fc1 at
@@ -45,7 +49,10 @@
 //   with full mbarriers carrying the byte counts and empty mbarriers,
 //   arrived at by each consumer warp, handing stages back. TMA zero-fills rows past M and
 //   N and bytes past K, and a zero int8 adds nothing to an int32 sum, so
-//   medsiglip's K = 4,304 (33.6 blocks) needs no tail code.
+//   medsiglip's K = 4,304 (33.6 blocks) needs no tail code. The maps' K
+//   extent is K and their row stride the operand's pitch, so the last box
+//   of a row-pitched operand (K = 3,416: bytes 3,328 to 3,455 of a 3,424-byte
+//   row) is zero-filled past K and never reads the pad bytes.
 // - Each consumer issues, per stage, four wgmma.mma_async m64nBNk32
 //   s32.s8.s8 with both operands in shared memory: wgmma takes 8-bit
 //   operands K-major only, which is the row-major (M, K) activations and
@@ -534,12 +541,14 @@ cudaError_t encoder(EncodeTiled* fn) {
   return found ? cudaSuccess : (err != cudaSuccess ? err : cudaErrorSymbolNotFound);
 }
 
-// A 2-d map (K, rows) over a row-major (rows, K) int8 operand, read in boxes
-// of 128 bytes of K by `box_rows` rows under SWIZZLE_128B; rows and bytes
-// past the ends read as zeros.
-CUresult encode_operand(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+// A 2-d map (K, rows) over a row-major (rows, K) int8 operand whose rows lie
+// `pitch` bytes apart (a multiple of 16, at least K), read in boxes of 128
+// bytes of K by `box_rows` rows under SWIZZLE_128B; rows and bytes past the
+// ends (past K, not past the pitch) read as zeros.
+CUresult encode_operand(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int K, long long pitch,
+                        int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, unit,
@@ -581,13 +590,14 @@ cudaError_t allow_smem() {
 
 template <int BN, typename OutT>
 int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qscale, const void* bias,
-                 int bias_is_bf16, void* out, int M, int N, int K, int ctas, cudaStream_t stream) {
+                 int bias_is_bf16, void* out, int M, int N, int K, long long ldx, long long ldw, int ctas,
+                 cudaStream_t stream) {
   EncodeTiled encode = nullptr;
   const cudaError_t found = encoder(&encode);
   if (found != cudaSuccess) return kNoDriverEntry + (int)found;
   CUtensorMap tm_x, tm_w, tm_out;
-  CUresult res = encode_operand(encode, &tm_x, xq, M, K, kBM);
-  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_w, w, N, K, BN);
+  CUresult res = encode_operand(encode, &tm_x, xq, M, K, ldx, kBM);
+  if (res == CUDA_SUCCESS) res = encode_operand(encode, &tm_w, w, N, K, ldw, BN);
   if (res == CUDA_SUCCESS) res = encode_output<OutT>(encode, &tm_out, out, M, N);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
   const cudaError_t err = allow_smem<BN, OutT>();
@@ -603,8 +613,10 @@ int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qsc
 
 }  // namespace
 
-// xq (M, K) int8, w (N, K) int8, all contiguous, K a multiple of 16, xq, w
-// and out on 16 bytes -> out (M, N): out_code 1, bfloat16 dequantized by s_x
+// xq (M, K) int8 with rows ldx bytes apart, w (N, K) int8 with rows ldw
+// bytes apart (each pitch a multiple of 16 and at least K; the bytes between
+// K and the pitch are never read), xq, w and out on 16 bytes, out contiguous
+// -> out (M, N): out_code 1, bfloat16 dequantized by s_x
 // (M,) and qscale (N,) float32 and bias (N,) float32 or bfloat16 or null, N a
 // multiple of 8; out_code 2, the int32 product (s_x, qscale and bias
 // unused), N a multiple of 4. In CTA tiles of 128 x block_n (128 or 256), at
@@ -615,21 +627,22 @@ int launch_wgmma(const void* xq, const void* w, const void* s_x, const void* qsc
 // without cuTensorMapEncodeTiled.
 extern "C" int atlas_int8_linear_s8_wgmma(const void* xq, const void* w, const void* s_x, const void* qscale,
                                           const void* bias, int bias_is_bf16, void* out, int out_code, int M, int N,
-                                          int K, int block_n, int ctas, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || ctas <= 0 || (uintptr_t)xq % 16 || (uintptr_t)w % 16 ||
-      (uintptr_t)out % 16)
+                                          int K, long long ldx, long long ldw, int block_n, int ctas,
+                                          void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldx % 16 || ldw < K || ldw % 16 || ctas <= 0 ||
+      (uintptr_t)xq % 16 || (uintptr_t)w % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (out_code == 2 && N % 4 == 0) {
     if (block_n == 256)
-      return launch_wgmma<256, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+      return launch_wgmma<256, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, ctas, s);
     if (block_n == 128)
-      return launch_wgmma<128, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+      return launch_wgmma<128, int32_t>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, ctas, s);
   }
   if (out_code != 1 || N % 8) return (int)cudaErrorInvalidValue;
   if (block_n == 256)
-    return launch_wgmma<256, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+    return launch_wgmma<256, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, ctas, s);
   if (block_n == 128)
-    return launch_wgmma<128, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ctas, s);
+    return launch_wgmma<128, __nv_bfloat16>(xq, w, s_x, qscale, bias, bias_is_bf16, out, M, N, K, ldx, ldw, ctas, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,7 @@ import torch
 from torch import nn
 
 from atlaspatch_tpu_torch.models.encoders.registry import FeatureExtractor
+from atlaspatch_tpu_torch.models.encoders.vit import pitch_int8_weights
 from atlaspatch_tpu_torch.utils import perf
 
 logger = logging.getLogger("atlaspatch_tpu_torch.models.encoders")
@@ -230,6 +231,8 @@ class TorchFeatureExtractor(FeatureExtractor):
             from atlaspatch_tpu_torch.parallel.mesh import replicate
 
             self.replicas = replicate(mesh, model)
+        for replica in self.replicas:  # on their devices now: Module.to would pack the pitched rows again
+            pitch_int8_weights(replica)
         self.model = self.replicas[0]
         self._batch_align = mesh.shape["data"] if mesh is not None else 1
         self._norm = [(torch.tensor(spec.mean, dtype=torch.float32, device=d),

@@ -28,7 +28,11 @@ them on the TPU: ``Block`` quantizes ``norm1(x)`` and ``norm2(x)`` in one
 pass (``layernorm_quantize_rows``; a gated MLP's two linears share the
 rows), ``Mlp`` its activation (``act_quantize_rows``), ``Attention`` the
 attention's output where it lies (``quantize_heads``); each hands the
-linear :class:`QuantizedRows`. On the CPU these run the unfused ops. GELU is
+linear :class:`QuantizedRows`. On the card the quantizers write xq at a
+16-byte row pitch, and :func:`pitch_int8_weights`, run where the model has
+reached its device, gives every ``weight_q`` the same pitch, so that every
+product, K a multiple of 16 or not (virchow's fc2, 3,416), runs on the wgmma
+body; ``state_dict()`` is (N, K) all the same. On the CPU these run the unfused ops. GELU is
 the tanh approximation there unless ``ATLASPATCH_GELU_TANH=0``.
 ``spec.quant_int8_attn`` also runs QK^T and PV as int8 products
 (vit.py:237-260); no entry point turns it on.
@@ -59,7 +63,7 @@ from torch import nn
 
 from atlaspatch_tpu_torch.ops.int8 import (
     ACTIVATIONS, act_quantize_rows, act_row_amax, dequant_sum, heads_amax, int8_linear, int8_linear_s32, int_product,
-    layernorm_quantize_rows, quantize_heads, quantize_plain, quantize_rows,
+    layernorm_quantize_rows, pitched, quantize_heads, quantize_plain, quantize_rows, resolve_device,
 )
 
 
@@ -174,8 +178,12 @@ class QuantizedRows:
     dtype: torch.dtype
 
     def to(self, device: torch.device | str) -> "QuantizedRows":
-        """The same rows on ``device`` (a tensor-parallel shard's)."""
-        return QuantizedRows(self.xq.to(device), self.s_x.to(device), self.shape, self.dtype)
+        """The same rows on ``device`` (a tensor-parallel shard's): these
+        where they already lie there, else xq at a 16-byte row pitch
+        (``pitched``; ``Tensor.to`` would pack a pitched view's rows)."""
+        if self.xq.device == resolve_device(device):
+            return self
+        return QuantizedRows(pitched(self.xq, device), self.s_x.to(device), self.shape, self.dtype)
 
 
 class Int8Linear(nn.Module):
@@ -187,7 +195,8 @@ class Int8Linear(nn.Module):
     dynamic abs-max int8, quantized here (``quantize_rows``) or handed in as
     :class:`QuantizedRows`. The int8 product accumulates in int32 and is
     dequantized by one float32 multiply by both scales, plus the bias, in the
-    activations' dtype out (``int8_linear``)."""
+    activations' dtype out (``int8_linear``). ``weight_q`` may be a view
+    at a 16-byte row pitch (:func:`pitch_int8_weights`)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True) -> None:
         super().__init__()
@@ -201,6 +210,20 @@ class Int8Linear(nn.Module):
             x = QuantizedRows(*quantize_rows(x.reshape(-1, self.in_features)), tuple(x.shape), x.dtype)
         y = int8_linear(x.xq, x.s_x, self.weight_q, self.qscale, self.bias, x.dtype)
         return y.reshape(*x.shape[:-1], self.out_features)
+
+
+def pitch_int8_weights(model: nn.Module) -> nn.Module:
+    """Give every :class:`Int8Linear`'s ``weight_q`` in ``model`` a 16-byte row
+    pitch on its device (``ops/int8.py::pitched``), in place; returns
+    ``model``. Run once, after the model has reached its device
+    (``Module.to`` packs a pitched buffer's rows again); a weight whose K is
+    a multiple of 16 is left as it is. The pitched buffer replaces the
+    packed one, whose memory is freed with its last reference. Keys, shapes
+    and values of ``state_dict()`` do not change."""
+    for module in model.modules():
+        if isinstance(module, Int8Linear):
+            module.weight_q = pitched(module.weight_q)
+    return model
 
 
 # Block-level layers eligible for int8 (they must sit under ``blocks``).

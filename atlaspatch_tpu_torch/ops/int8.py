@@ -46,9 +46,15 @@ prologue, elementwise given-amax bodies), one of
 ``int8_linear_s8``'s two bodies (equal bit for bit), picked by
 ``linear_variant``: ``wgmma`` (``csrc/int8_linear_wgmma.cu``, wgmma s8 fed by
 TMA; bfloat16 out, and the int32 output of ``int8_linear_s32``) or ``mma``
-(``csrc/int8_linear.cu``, mma.sync fed by cp.async: float32 out, K no
-multiple of 16, misaligned bases, and N its TMA store cannot take), and
-``dequant_sum_s32`` (``csrc/int8_linear.cu``). A build, tensor-map encode or
+(``csrc/int8_linear.cu``, mma.sync fed by cp.async: float32 out, row pitches
+no multiple of 16 bytes, misaligned bases, and N its TMA store cannot take),
+and ``dequant_sum_s32`` (``csrc/int8_linear.cu``). The 16-byte row pitch:
+on the card the quantizers write ``xq`` into an (M, ``pitch16(K)``) buffer
+and return its (M, K) view, and ``pitched`` gives an int8 weight the same
+pitch (the ViT does it once, where its weights reach the card:
+``models/encoders/vit.py::pitch_int8_weights``), so that a product whose K is
+no multiple of 16 (virchow's fc2, K 3,416; the TP shards of K 1,708 and
+2,152) runs on the wgmma body; the pad bytes are never read. A build, tensor-map encode or
 launch failure on a CUDA tensor raises: nothing retries on the other body or
 falls back to the plain version or to ``torch._int_mm``.
 ``quantize_rows.launches``, ``int8_linear.launches`` and
@@ -117,16 +123,18 @@ def load_int8_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.atlas_quantize_rows_s8.restype = _INT
             lib.atlas_quantize_rows_s8.argtypes = [_INT] * 4 + [_PTR, _LL, _LL, _INT, _LL, _INT, _PTR, _LL, _PTR,
-                                                                _PTR, ctypes.c_float] + [_PTR] * 4 + [_INT, _PTR, _PTR]
+                                                                _PTR, ctypes.c_float, _PTR, _LL] + [_PTR] * 3 + [
+                                                                    _INT, _PTR, _PTR]
             lib.atlas_quantize_rows_s8_stream.restype = _INT
             lib.atlas_quantize_rows_s8_stream.argtypes = [_INT] * 4 + [_PTR, _LL, _LL, _INT, _LL, _INT, _PTR, _LL,
-                                                                       _INT, _PTR, _PTR, _INT, _PTR, _PTR, _PTR]
+                                                                       _INT, _PTR, _LL, _PTR, _INT, _PTR, _PTR, _PTR]
             lib.atlas_int8_linear_s8.restype = _INT
-            lib.atlas_int8_linear_s8.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_PTR]
+            lib.atlas_int8_linear_s8.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_LL, _LL, _PTR]
             lib.atlas_dequant_sum_s32.restype = _INT
             lib.atlas_dequant_sum_s32.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _INT, _PTR, _INT, _INT, _INT, _PTR]
             lib.atlas_int8_linear_s8_wgmma.restype = _INT
-            lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 6 + [_PTR]
+            lib.atlas_int8_linear_s8_wgmma.argtypes = [_PTR] * 5 + [_INT, _PTR] + [_INT] * 4 + [_LL, _LL] + [
+                _INT] * 2 + [_PTR]
             _LIB.append(lib)
         return _LIB[0]
 
@@ -135,30 +143,64 @@ def load_int8_library() -> ctypes.CDLL:
 _WGMMA_N_MULTIPLE = {torch.bfloat16: 8, torch.int32: 4}
 
 
-def wgmma_admits(N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> bool:
+def pitch16(k: int) -> int:
+    """The 16-byte row pitch of K int8 values: K rounded up to a multiple of 16."""
+    return -(-k // 16) * 16
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def pitched(t: torch.Tensor, device: torch.device | str | None = None) -> torch.Tensor:
+    """An int8 (rows, K) tensor on ``device`` (default: its own) whose rows lie
+    ``pitch16(K)`` bytes apart from a 16-byte-aligned base: ``t`` itself
+    where it already lies so, else an (rows, K) view of a new (rows,
+    pitch16(K)) buffer holding its values. The pad bytes are left as they
+    are: no kernel reads them."""
+    device = t.device if device is None else resolve_device(device)
+    rows, k = t.shape
+    if t.device == device and t.stride(1) == 1 and (rows == 1 or t.stride(0) == pitch16(k)) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty(rows, pitch16(k), dtype=t.dtype, device=device)[:, :k]
+    return out.copy_(t)
+
+
+def wgmma_admits(N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0,
+                 ldx: int | None = None, ldw: int | None = None) -> bool:
     """Whether the wgmma body takes an (M, K) x (N, K) product to ``out_dtype``
-    over operands at these addresses. Its TMA maps want the operands' row
-    stride (K bytes) and bases on 16 bytes, and its epilogue stores bfloat16
-    or int32 rows by TMA, whose stride must be a multiple of 16 bytes too: N
-    a multiple of 8 (bfloat16) or 4 (int32)."""
+    over operands at these addresses whose rows lie ``ldx`` and ``ldw``
+    bytes apart (default K: contiguous). Its TMA maps want each row pitch
+    and base on 16 bytes (K itself may be anything: the maps' K extent is K,
+    and the last box is zero-filled past it), and its epilogue stores
+    bfloat16 or int32 rows by TMA, whose stride must be a multiple of 16
+    bytes too: N a multiple of 8 (bfloat16) or 4 (int32)."""
     multiple = _WGMMA_N_MULTIPLE.get(out_dtype)
-    return (multiple is not None and N % multiple == 0 and K % 16 == 0
-            and xq_ptr % 16 == 0 and w_ptr % 16 == 0)
+    ldx, ldw = K if ldx is None else ldx, K if ldw is None else ldw
+    return (multiple is not None and N % multiple == 0 and ldx >= K and ldw >= K and ldx % 16 == 0
+            and ldw % 16 == 0 and xq_ptr % 16 == 0 and w_ptr % 16 == 0)
 
 
-def linear_variant(M: int, N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0) -> str:
+def linear_variant(M: int, N: int, K: int, out_dtype: torch.dtype, xq_ptr: int = 0, w_ptr: int = 0,
+                   ldx: int | None = None, ldw: int | None = None) -> str:
     """The body ``int8_linear`` or ``int8_linear_s32`` launches for an (M, K)
     x (N, K) product to ``out_dtype`` whose operands start at these
-    addresses: ``wgmma`` where ``wgmma_admits`` (every vit_l_16, uni and
-    medsiglip linear of the int8 engine, which runs bfloat16, and the int32
-    partials of their row-parallel shards and dinov3_vit7b16's under
-    tensor-parallel int8), else ``mma``: virchow's fc2 and its shards (K =
-    3,416 = 16 x 213.5, 1,708 a shard of two), float32 output, N not a
-    multiple of 8 (bfloat16) or 4 (int32), bases off 16 bytes. M does not
-    decide: at M = 5 the wgmma body is faster than the mma body too (both
-    are bound by reading the weights; PERF.md), so small batches stay on
-    it."""
-    return "wgmma" if wgmma_admits(N, K, out_dtype, xq_ptr, w_ptr) else "mma"
+    addresses with rows ``ldx`` and ``ldw`` bytes apart (default K):
+    ``wgmma`` where ``wgmma_admits`` (every linear of the int8 engine, which
+    runs bfloat16 with xq and the weights at a 16-byte pitch, and the int32
+    partials of every zoo ViT's row-parallel shards under tensor-parallel
+    int8: virchow's fc2, K = 3,416 = 16 x 213.5, and the shards of K 1,708
+    and 2,152 too), else ``mma``: contiguous operands whose K is no
+    multiple of 16, float32 output, N not a multiple of 8 (bfloat16) or 4
+    (int32), bases or pitches off 16 bytes. M does not decide: at M = 5 the
+    wgmma body is faster than the mma body too (both are bound by reading
+    the weights; PERF.md), so small batches stay on it."""
+    return "wgmma" if wgmma_admits(N, K, out_dtype, xq_ptr, w_ptr, ldx, ldw) else "mma"
 
 
 def wgmma_block_n(M: int, N: int, sms: int = 132, out_dtype: torch.dtype = torch.bfloat16, K: int = 0) -> int:
@@ -495,7 +537,7 @@ def act_row_amax(a: torch.Tensor, act: str, b: torch.Tensor | None = None) -> tu
 
 def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gamma=None, beta=None, eps=0.0,
                      stats: bool = False, mode: str | None = None, amax=None, body: str | None = None,
-                     unit: int | None = None):
+                     unit: int | None = None, pitch: int | None = None):
     """Launch ``quantize_rows_s8`` with ``prologue`` over a CUDA operand x
     whose element (m, k) lies at (m / t) sb + (m % t) st + (k / d) sh + k % d
     (``layout`` = (sb, st, t, sh, d); sh = 0: + k), as the public wrappers
@@ -506,8 +548,11 @@ def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gam
     (xq, s_x); with ``stats`` (layernorm) also the rows' mean and 1 /
     sqrt(var + eps) as the kernel computed them; amax-only: the (M,) amax,
     and on the streamed body of an activation (amax, the activation's values
-    (M, K) in x's dtype). A row longer than ``QUANT_MAX_K`` is refused before
-    any launch; a failed launch raises and nothing runs in its place."""
+    (M, K) in x's dtype). xq is the (M, K) view of an (M, ``pitch``) buffer
+    (default ``pitch16(K)``; the card tests pass K, packed rows, to hold the
+    two layouts against each other). A row longer than ``QUANT_MAX_K`` is
+    refused before any launch; a failed launch raises and nothing runs in
+    its place."""
     M = x.shape[0] if rows is None else rows
     K = x.shape[1] if cols is None else cols
     if K > QUANT_MAX_K:
@@ -528,12 +573,13 @@ def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gam
     store = body == "stream" and mode == "amax_only" and prologue != "identity"
     dev = x.device
     xq = s_x = mean = rstd = values = None
+    ldq = pitch16(K) if pitch is None else pitch
     if mode == "amax_only":
         amax = torch.empty(M, dtype=torch.float32, device=dev)
         if store:
             values = torch.empty(M, K, dtype=x.dtype, device=dev)
     else:
-        xq = torch.empty(M, K, dtype=torch.int8, device=dev)
+        xq = torch.empty(M, ldq, dtype=torch.int8, device=dev)[:, :K]
         s_x = torch.empty(M, dtype=torch.float32, device=dev)
     if amax is not None:
         amax = amax.contiguous()
@@ -547,10 +593,10 @@ def _launch_quantize(prologue: str, x, layout, rows=None, cols=None, b=None, gam
     operands = (PROLOGUES.index(prologue), x.dtype == torch.bfloat16, M, K, x.data_ptr(), sb, st, t, sh, d, ptr(b),
                 0 if b is None else b.stride(0))
     if body == "template":
-        err = lib.atlas_quantize_rows_s8(*operands, ptr(gamma), ptr(beta), eps, ptr(xq), ptr(s_x), ptr(mean),
+        err = lib.atlas_quantize_rows_s8(*operands, ptr(gamma), ptr(beta), eps, ptr(xq), ldq, ptr(s_x), ptr(mean),
                                          ptr(rstd), QUANT_MODES.index(mode), ptr(amax), _stream(x))
     else:
-        err = lib.atlas_quantize_rows_s8_stream(*operands, unit or routed_unit, ptr(xq), ptr(s_x),
+        err = lib.atlas_quantize_rows_s8_stream(*operands, unit or routed_unit, ptr(xq), ldq, ptr(s_x),
                                                 QUANT_MODES.index(mode), ptr(amax), ptr(values), _stream(x))
     if err != 0:
         raise RuntimeError(f"quantize_rows_s8 ({prologue}) launch failed: cudaError {err} ({mode}, {body})")
@@ -567,7 +613,9 @@ def int8_linear(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
     """(M, K) int8 activations with (M,) float32 scales, (N, K) int8 weights
     with (N,) float32 scales and an (N,) bias (float32, bfloat16 or None) →
     (M, N) ``out_dtype`` (float32 or bfloat16): the plain version on the CPU,
-    ``int8_linear_s8`` on the card, the body ``linear_variant`` picks."""
+    ``int8_linear_s8`` on the card, the body ``linear_variant`` picks, over
+    xq and weight_q where they lie when their rows are (row-pitched views
+    included)."""
     _check_2d("xq", xq, torch.int8)
     _check_2d("weight_q", weight_q, torch.int8)
     M, K = xq.shape
@@ -589,10 +637,10 @@ def int8_linear(xq, s_x, weight_q, qscale, bias, out_dtype) -> torch.Tensor:
         raise ValueError(f"int8_linear needs its tensors on one device, got {[str(t.device) for t in tensors]}")
     if M == 0 or N == 0 or K == 0:
         raise ValueError(f"int8_linear got an empty product: M {M}, N {N}, K {K}")
-    if not all(t.is_contiguous() for t in tensors):
-        xq, s_x, weight_q, qscale = (t.contiguous() for t in (xq, s_x, weight_q, qscale))
-        bias = None if bias is None else bias.contiguous()
-    variant = linear_variant(M, N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr())
+    xq, weight_q = _rows_of(xq), _rows_of(weight_q)
+    s_x, qscale = s_x.contiguous(), qscale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    variant = linear_variant(M, N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr(), _pitch(xq), _pitch(weight_q))
     return _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype)
 
 
@@ -600,8 +648,9 @@ def int8_linear_s32(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 · (N, K) int8 → the (M, N) int32 product, not
     dequantized: a row-parallel shard's partial. The plain version on the CPU,
     ``int8_linear_s8``'s int32 output on the card, the body ``linear_variant``
-    picks (``wgmma`` at every shard of the zoo's TP (1, 2) int8 but
-    medsiglip's and virchow's fc2, K 2,152 and 1,708)."""
+    picks (``wgmma`` at every shard of the zoo's TP (1, 2) int8: medsiglip's
+    and virchow's fc2, K 2,152 and 1,708, over the row-pitched xq and
+    weights the model hands it)."""
     _check_2d("xq", xq, torch.int8)
     _check_2d("weight_q", weight_q, torch.int8)
     M, K = xq.shape
@@ -615,8 +664,8 @@ def int8_linear_s32(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"int8_linear_s32 needs its tensors on one device, got {xq.device} and {weight_q.device}")
     if M == 0 or N == 0 or K == 0:
         raise ValueError(f"int8_linear_s32 got an empty product: M {M}, N {N}, K {K}")
-    xq, weight_q = xq.contiguous(), weight_q.contiguous()
-    variant = linear_variant(M, N, K, torch.int32, xq.data_ptr(), weight_q.data_ptr())
+    xq, weight_q = _rows_of(xq), _rows_of(weight_q)
+    variant = linear_variant(M, N, K, torch.int32, xq.data_ptr(), weight_q.data_ptr(), _pitch(xq), _pitch(weight_q))
     return _launch_linear(variant, xq, None, weight_q, None, None, torch.int32)
 
 
@@ -665,9 +714,26 @@ def dequant_sum(partials, s_x, qscale, bias, out_dtype) -> torch.Tensor:
     return out
 
 
+def _rows_of(t: torch.Tensor) -> torch.Tensor:
+    """An (R, K) CUDA operand whose rows the kernels read where they lie
+    (unit column stride, rows apart by at least K; row-pitched views
+    included), else its contiguous copy."""
+    if t.stride(1) == 1 and (t.shape[0] == 1 or t.stride(0) >= t.shape[1]):
+        return t
+    return t.contiguous()
+
+
+def _pitch(t: torch.Tensor) -> int:
+    """The row pitch in bytes of an int8 operand ``_rows_of`` returned: its
+    row stride, or for a single row, whose stride addresses nothing, the
+    16-byte pitch of its K."""
+    return t.stride(0) if t.shape[0] > 1 else max(t.stride(0), pitch16(t.shape[1]))
+
+
 def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=None) -> torch.Tensor:
-    """Launch ``variant`` of ``int8_linear_s8`` on contiguous CUDA operands
-    ``int8_linear`` has checked; the wgmma body in tiles ``block_n`` wide
+    """Launch ``variant`` of ``int8_linear_s8`` on CUDA operands
+    ``int8_linear`` has checked (xq and weight_q as ``_rows_of`` returns them,
+    their pitches read from their strides); the wgmma body in tiles ``block_n`` wide
     (default ``wgmma_block_n``). The card tests and ``chip_smoke.py`` call it
     to hold every body a shape admits against the plain version. A body that
     does not take the shape (``wgmma`` where ``wgmma_admits`` is false) or a
@@ -679,12 +745,13 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
         raise ValueError(f"int8_linear has no body {variant!r}; it has {LINEAR_VARIANTS}")
     M, K = xq.shape
     N = weight_q.shape[0]
+    ldx, ldw = _pitch(xq), _pitch(weight_q)
     if variant == "wgmma":
-        if not wgmma_admits(N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr()):
-            raise ValueError(f"variant 'wgmma' takes K a multiple of 16 and operands on 16 bytes, and writes "
-                             f"bfloat16 with N a multiple of 8 or int32 with N a multiple of 4: got K {K}, xq at "
-                             f"{xq.data_ptr() % 16} and weight_q at {weight_q.data_ptr() % 16} mod 16, N {N}, "
-                             f"{out_dtype}")
+        if not wgmma_admits(N, K, out_dtype, xq.data_ptr(), weight_q.data_ptr(), ldx, ldw):
+            raise ValueError(f"variant 'wgmma' takes row pitches of a multiple of 16 bytes and operands on 16 "
+                             f"bytes, and writes bfloat16 with N a multiple of 8 or int32 with N a multiple of 4: "
+                             f"got K {K}, row pitches {ldx} and {ldw}, xq at {xq.data_ptr() % 16} and weight_q at "
+                             f"{weight_q.data_ptr() % 16} mod 16, N {N}, {out_dtype}")
         if block_n is not None and block_n not in WGMMA_BLOCK_NS:
             raise ValueError(f"the wgmma body's tiles are {WGMMA_BLOCK_NS} wide, got {block_n}")
         sms = _sm_count(xq.get_device())
@@ -696,9 +763,10 @@ def _launch_linear(variant, xq, s_x, weight_q, qscale, bias, out_dtype, block_n=
             None if qscale is None else qscale.data_ptr(), None if bias is None else bias.data_ptr(),
             int(bias is not None and bias.dtype == torch.bfloat16), out.data_ptr())
     if variant == "wgmma":
-        err = lib.atlas_int8_linear_s8_wgmma(*args, _OUT_CODES[out_dtype], M, N, K, block_n, sms, _stream(xq))
+        err = lib.atlas_int8_linear_s8_wgmma(*args, _OUT_CODES[out_dtype], M, N, K, ldx, ldw, block_n, sms,
+                                             _stream(xq))
     else:
-        err = lib.atlas_int8_linear_s8(*args, _OUT_CODES[out_dtype], M, N, K, _stream(xq))
+        err = lib.atlas_int8_linear_s8(*args, _OUT_CODES[out_dtype], M, N, K, ldx, ldw, _stream(xq))
     if err >= _NO_DRIVER_ENTRY:
         raise RuntimeError(f"the CUDA driver has no cuTensorMapEncodeTiled: cudaError {err - _NO_DRIVER_ENTRY}")
     if err >= _ENCODE_FAILED:

@@ -22,7 +22,9 @@ batch-split over 'data' (``models/encoders/engine.py``).
 The int8 serving mode's linears split the same way: ``weight_q`` and
 ``qscale`` of the column-parallel ones by head column or hidden unit,
 ``weight_q`` of ``proj`` and ``fc2`` by input column, their ``qscale`` whole
-on every shard (the plan replicates it). Their ``RowParallel`` takes the
+on every shard (the plan replicates it); each shard's ``weight_q`` lies at a
+16-byte row pitch on its device (``pitch_int8_weights``), so that a shard's
+product runs on the wgmma body whatever its K. Their ``RowParallel`` takes the
 row scale across the shards and sums int32 partials before one
 dequantization, as the JAX program does (``models/encoders/vit.py``).
 """
@@ -34,7 +36,7 @@ import copy
 import torch
 from torch import nn
 
-from atlaspatch_tpu_torch.models.encoders.vit import Attention, Int8Linear, Mlp, RowParallel, ViT
+from atlaspatch_tpu_torch.models.encoders.vit import Attention, Int8Linear, Mlp, RowParallel, ViT, pitch_int8_weights
 
 _COL_PARALLEL = ("qkv", "fc1", "fc_gate", "fc_up")
 COLUMN, ROW = (None, "model"), ("model", None)
@@ -163,7 +165,9 @@ def _shard(module: Attention | Mlp, devices: list[torch.device]) -> RowParallel:
     for i, device in enumerate(devices):
         shard, part = (_attention_shard if isinstance(module, Attention) else _mlp_shard)(module, i, n)
         shard.load_state_dict({k: v.contiguous() for k, v in part.items()}, strict=True, assign=True)
-        shards.append(shard.eval().requires_grad_(False).to(device))
+        # each int8 weight at a 16-byte row pitch on its device: a slice of K 1,708 starting at byte
+        # 1,708 of a row (virchow's fc2, shard 1) becomes a pitched copy of its own
+        shards.append(pitch_int8_weights(shard.eval().requires_grad_(False).to(device)))
     bias = module.proj.bias if isinstance(module, Attention) else module.fc2.bias
     return RowParallel(shards, bias)
 

@@ -1,6 +1,6 @@
 """Time the int8 serving mode's kernels at its shapes: int8_linear_s8's two bodies and the wgmma body's tile widths, in bfloat16 and int32, quantize_rows_s8's prologues against the unfused chain they replace, and its tensor-parallel modes' streamed bodies against the template's modes.
 
-    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|int32|quantize|tp|host_times]
+    python3 -m atlaspatch_tpu_torch.tools.int8_variants [linear|int32|ragged|quantize|tp|host_times]
 
 Builds the ``atlas_int8_linear`` library (``csrc/int8_linear.cu`` and
 ``csrc/int8_linear_wgmma.cu``) and prints, per kernel instantiation, its
@@ -32,6 +32,17 @@ two halves), forced, the width ``wgmma_block_n`` routes to named, beside
 the int32 tile otherwise (``S32_VARIANTS``: from registers), each equal to
 the plain product; then the sums over one vit_l_16 TP forward.
 
+``ragged`` times the products whose K is no multiple of 16 (``RAGGED``:
+virchow's fc2, K 3,416, in bfloat16 at batch 32 and 256, and the int32
+partials of medsiglip's and virchow_v2's TP (1, 2) fc2 shards, K 2,152 and
+1,708, at batch 32) over xq and weights at the 16-byte row pitch (pad
+bytes 0x7f) as the port hands them over: ``wgmma`` at both tile widths (the
+width ``wgmma_block_n`` routes to named), the ``mma`` body over the pitched
+rows and over packed ones (the route before the pitch), each equal to the
+plain version, beside ``torch._int_mm`` (packed rows, K a multiple of 8
+only), bf16 ``F.linear`` and the bound, in two rounds (forward and reverse
+order).
+
 ``quantize`` times ``quantize_rows_s8``'s prologues at vit_l_16's rows at
 batch 32 and 256 (layernorm at K 1,024, tanh GELU at 4,096, the attention's
 output at 1,024) beside what they replace, timed on the same inputs: the
@@ -51,7 +62,7 @@ the sums over one vit_l_16 TP forward; the SASS instructions per element of
 the template and the streamed bodies (``cuobjdump -sass``, static counts);
 and builds of the streamed bodies that undo one choice each
 (``STREAM_VARIANTS``). ``host_times`` times one
-call's host time of each wrapper. With no argument it runs all five. Needs
+call's host time of each wrapper. With no argument it runs all six. Needs
 an NVIDIA Hopper card and nvcc.
 """
 
@@ -120,7 +131,8 @@ S32_VARIANTS = {
         (_TILE_STORE, "    if (!kS32 && wq == 0 && lane == 0) store_panels<T>("),
     ], 128),
 }
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def _card() -> str:
@@ -224,7 +236,7 @@ def _launch_variant(fn, xq, s_x, w, qscale, bias, block_n: int) -> torch.Tensor:
     n = w.shape[0]
     out = torch.empty(m, n, dtype=torch.bfloat16, device=xq.device)
     err = fn(xq.data_ptr(), w.data_ptr(), s_x.data_ptr(), qscale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
-             1, m, n, k, block_n, I._sm_count(0), torch.cuda.current_stream().cuda_stream)
+             1, m, n, k, I._pitch(xq), I._pitch(w), block_n, I._sm_count(0), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return out
@@ -235,8 +247,8 @@ def _launch_s32_variant(fn, xq, w, block_n: int) -> torch.Tensor:
     m, k = xq.shape
     n = w.shape[0]
     out = torch.empty(m, n, dtype=torch.int32, device=xq.device)
-    err = fn(xq.data_ptr(), w.data_ptr(), None, None, None, 0, out.data_ptr(), 2, m, n, k, block_n,
-             I._sm_count(0), torch.cuda.current_stream().cuda_stream)
+    err = fn(xq.data_ptr(), w.data_ptr(), None, None, None, 0, out.data_ptr(), 2, m, n, k, I._pitch(xq), I._pitch(w),
+             block_n, I._sm_count(0), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return out
@@ -527,7 +539,7 @@ def _launch_quant_variant(fn, prologue, x, *ln):
     gamma, beta, eps = ln if ln else (None, None, 0.0)
     err = fn(I.PROLOGUES.index(prologue), 1, rows, cols, x.data_ptr(), *layout, None, 0,
              None if gamma is None else gamma.data_ptr(), None if beta is None else beta.data_ptr(), eps,
-             xq.data_ptr(), s_x.data_ptr(), None, None, 0, None, torch.cuda.current_stream().cuda_stream)
+             xq.data_ptr(), cols, s_x.data_ptr(), None, None, 0, None, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return xq, s_x
@@ -602,7 +614,7 @@ def _tp_call(prologue: str, ops, mode: str, body: str | None, amax=None, fn=None
     s_x = None if mode == "amax_only" else torch.empty(rows, dtype=torch.float32, device=x.device)
     values = torch.empty(rows, cols, dtype=x.dtype, device=x.device) if store else None
     err = fn(I.PROLOGUES.index(prologue), 1, rows, cols, x.data_ptr(), *layout, None if b is None else b.data_ptr(),
-             0 if b is None else b.stride(0), unit, None if xq is None else xq.data_ptr(),
+             0 if b is None else b.stride(0), unit, None if xq is None else xq.data_ptr(), cols,
              None if s_x is None else s_x.data_ptr(), I.QUANT_MODES.index(mode),
              (out if amax is None else amax).data_ptr(), None if values is None else values.data_ptr(),
              torch.cuda.current_stream().cuda_stream)
@@ -749,8 +761,66 @@ def _operands(m: int, n: int, k: int, gen: torch.Generator):
     return x, xq, s_x, w, qscale, bias
 
 
+# products whose K is no multiple of 16, (M, K, N, output): virchow's fc2 (v1 257 tokens, v2 261) at
+# batch 32 and 256 in bfloat16; the TP (1, 2) fc2 shards of medsiglip (1,024 tokens) and virchow_v2 at
+# batch 32 in int32
+RAGGED = {"virchow_v1 fc2 b32": (32 * 257, 3416, 1280, torch.bfloat16),
+          "virchow_v2 fc2 b32": (32 * 261, 3416, 1280, torch.bfloat16),
+          "virchow_v1 fc2 b256": (256 * 257, 3416, 1280, torch.bfloat16),
+          "virchow_v2 fc2 b256": (256 * 261, 3416, 1280, torch.bfloat16),
+          "medsiglip fc2 shard b32": (32 * 1024, 2152, 1152, torch.int32),
+          "virchow_v2 fc2 shard b32": (32 * 261, 1708, 1280, torch.int32)}
+
+
+def _fill_pad(t: torch.Tensor) -> None:
+    rows, k = t.shape
+    t.as_strided((rows, I.pitch16(k)), (I.pitch16(k), 1))[:, k:].fill_(0x7F)
+
+
+def ragged_times(card: str) -> None:
+    """int8_linear_s8 at every RAGGED shape over pitched and over packed rows, each body equal to the plain
+    version, by device time per launch (min and max of two rounds), beside the library calls and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for label, (m, k, n, out_dtype) in RAGGED.items():
+        x, xq, s_x, w, qscale, bias = _operands(m, n, k, gen)
+        w = I.pitched(w)
+        _fill_pad(xq)
+        _fill_pad(w)
+        xq_p, w_p = xq.contiguous(), w.contiguous()
+        s32 = out_dtype == torch.int32
+        args = (None, None, None) if s32 else (s_x, qscale, bias)
+
+        def body(variant, a, b, bn=None):
+            return lambda: I._launch_linear(variant, a, args[0], b, args[1], args[2], out_dtype, bn)
+
+        bodies = {**{f"wgmma/{bn}": body("wgmma", xq, w, bn) for bn in I.WGMMA_BLOCK_NS},
+                  "mma pitched": body("mma", xq, w), "mma packed": body("mma", xq_p, w_p)}
+        want = I.int8_linear_s32_plain(xq_p, w_p) if s32 else I.int8_linear_plain(xq_p, s_x, w_p, qscale, bias,
+                                                                                    out_dtype)
+        for name, fn in bodies.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{label}: {name} differs from the plain version")
+        del want
+        times: dict = {name: [] for name in bodies}
+        for order in (list(bodies), list(reversed(bodies))):
+            for name in order:
+                times[name].append(_device_ms(bodies[name], kernel="int8_linear_s8"))
+        routed = I.linear_variant(m, n, k, out_dtype, xq.data_ptr(), w.data_ptr(), xq.stride(0), w.stride(0))
+        picked = I.wgmma_block_n(m, n, I._sm_count(0), out_dtype, k)
+        int_mm = _device_ms(lambda: torch._int_mm(xq_p, w_p.t())) if k % 8 == 0 else None
+        bf16 = None if s32 else _device_ms(lambda w16=w_p.to(torch.bfloat16): F.linear(x, w16, bias))
+        bound, by = bound_ms(m, n, k, s32=s32)
+        print(f"ragged {label:26s} M={m:6d} K={k:5d} N={n:5d} {str(out_dtype).removeprefix('torch.')}: "
+              + " ".join(f"{name} {min(t):.4f}/{max(t):.4f}" for name, t in times.items())
+              + f"; routed {routed}/{picked}; bound {bound:.4f} ({by}); _int_mm "
+              f"{'none (K no multiple of 8)' if int_mm is None else f'{int_mm:.4f}'}; bf16 F.linear "
+              f"{'-' if bf16 is None else f'{bf16:.4f}'} (device ms per launch, min/max of 2 rounds) [{card}]")
+        del x, xq, s_x, w, qscale, bias, xq_p, w_p
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> None:
-    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "int32", "quantize", "tp", "host_times"]
+    parts = (sys.argv[1:] if argv is None else argv) or ["linear", "int32", "ragged", "quantize", "tp", "host_times"]
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_report()
@@ -758,6 +828,8 @@ def main(argv: list[str] | None = None) -> None:
         linear_times(card)
     if "int32" in parts:
         linear_s32_times(card)
+    if "ragged" in parts:
+        ragged_times(card)
     if "quantize" in parts:
         quantize_times(card)
     if "tp" in parts:
@@ -847,7 +919,7 @@ def host_times(card: str) -> None:
         heads = x.view(m, 1, k // 16, 16)
         out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
         args = (xq.data_ptr(), w.data_ptr(), s_x.data_ptr(), qscale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(), 1,
-                m, n, k, I.wgmma_block_n(m, n, I._sm_count(0)), I._sm_count(0),
+                m, n, k, I._pitch(xq), I._pitch(w), I.wgmma_block_n(m, n, I._sm_count(0)), I._sm_count(0),
                 torch.cuda.current_stream().cuda_stream)
         w16 = w.to(torch.bfloat16)
         calls = {"int8_linear (routed)": lambda: I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16),

@@ -123,8 +123,12 @@ Phases, one line each (any failure exits non-zero with no result line):
           (a) quantize_rows_s8 (identity)
           and int8_linear_s8 against their plain versions (max-abs 0) at the
           shapes vit_l_16 hands them at batch 32 and 256 (M 6,304 and 50,432;
-          (K, N) of qkv, proj, fc1, fc2) and at medsiglip's ragged MLP
-          ((1152, 4304), (4304, 1152)) at M 8,192 and 5: the routed call and
+          (K, N) of qkv, proj, fc1, fc2), at medsiglip's ragged MLP
+          ((1152, 4304), (4304, 1152)) at M 8,192 and 5 and at virchow's fc2
+          ((3416, 1280), v1 and v2 at batch 32 and 256), over xq as the
+          quantizer writes it and weights as the model holds them (rows at
+          the 16-byte pitch, pad bytes 0x7f), every call routed to the wgmma
+          body, the mma.sync body over packed rows beside for virchow's: the routed call and
           each body of int8_linear_s8 the shape admits (the wgmma body of
           csrc/int8_linear_wgmma.cu, the mma.sync body of
           csrc/int8_linear.cu), forced, each at max-abs 0 against the plain
@@ -132,7 +136,11 @@ Phases, one line each (any failure exits non-zero with no result line):
           torch.profiler, the bound, the plain version's ms and the
           library's (torch._int_mm alone, torch._int_mm + the eager
           dequantization, bf16 F.linear), timed only; the sums over one
-          vit_l_16 forward at batch 32 and 256. (b) vit_l_16 at full width
+          vit_l_16 forward and one virchow_v2 forward's 32 fc2 at batch 32
+          and 256. (b2) virchow_v2 at full width and depth from the registry,
+          32 patches at batch 32: 128 wgmma launches, none on mma.sync,
+          features equal (max-abs 0) to the same weights packed again (fc2 on
+          mma.sync), each route's resident forward ms. (b) vit_l_16 at full width
           from the registry with --feature-precision int8's dtype and random
           weights: 96 Int8Linear, weight_q int8, qscale float32, the rest
           bfloat16; the float32 extractor's weights quantized; 96 launches of
@@ -267,7 +275,12 @@ Phases, one line each (any failure exits non-zero with no result line):
           body and both wgmma tile widths forced) against int_product and
           dequant_sum_s32 of the two shards' partials against int8_linear_s8
           on the whole K (max-abs 0), with device ms, bound, plain ms and
-          (int32) the mma body's and torch._int_mm's. (k1)
+          (int32) the mma body's and torch._int_mm's; the int32 partials of
+          medsiglip's and virchow_v2's fc2 shards (K 2,152 and 1,708: rows at
+          the 16-byte pitch, pad bytes 0x7f) routed to wgmma, every body
+          against int_product and their dequant_sum_s32 against
+          int8_linear_s8 (max-abs 0), with device ms (wgmma, mma over
+          pitched and packed rows), bound, plain and torch._int_mm. (k1)
           SAM2SegmentationService on a (2, 1) mesh at full Hiera-tiny width:
           --fast (bfloat16, 768, batch 8: 4 rows a replica) on the seg
           phase's 16 thumbnails and float32 at 1024 (batch 2: 1 a replica;
@@ -285,8 +298,9 @@ Phases, one line each (any failure exits non-zero with no result line):
           device's int8, cosine >= 0.999, with one forward's launches by
           prologue, mode, quantizer body, linear body and dequant_sum_s32
           (_tp_launches); and
-          dinov3_vit7b16 at full width, depth 2, int8 tensor-parallel
-          against one device, the same. (k3) finetune-sam2 at the JAX defaults (1024, float32,
+          dinov3_vit7b16, virchow_v2 and medsiglip at full width, depth 2,
+          int8 tensor-parallel against one device, the same (every int32
+          partial on wgmma). (k3) finetune-sam2 at the JAX defaults (1024, float32,
           global batch 2) on 5 synthetic 1024x768 pairs from one init
           archive: one process; --data-parallel 2 through the command line
           (losses at rtol 2e-3, 12 launches in its validation forward); two
@@ -308,7 +322,10 @@ Then one JSON line with the kernel records: the two int8 kernels'
 extract_batch passes; ms, bound, plain and library ms summed over one
 vit_l_16 forward at batch 32; for int8_linear_s8 also ``sources`` (both
 bodies), ``mma_ms`` (the mma.sync body, forced), ``int_mm_ms``
-(torch._int_mm alone) and ``bf16_linear_ms``) after the attention kernel's (``launches``: the seg phase's;
+(torch._int_mm alone), ``bf16_linear_ms``, ``virchow_fc2`` (the same per
+virchow_v2 forward's 32 fc2 at batch 32 and 256, with the mma.sync body
+over packed rows as packed_mma_ms), ``virchow_variant_launches`` and the
+virchow_v2 forward's ms on each route) after the attention kernel's (``launches``: the seg phase's;
 ``runner_launches``: the runner phase's; ``tiff_launches``: the tiff phase's
 (f1)+(f3) runner pass; ``process_launches``: the process phase's;
 ``cli_launches``: the cli phase's three in-process commands;
@@ -322,7 +339,9 @@ records (quantize_rows_s8's amax-only and given-amax modes on their streamed
 bodies, the template's modes on the same shards as before_ms, and for
 amax-only proj's calls as proj_ms beside vector_norm's as proj_library_ms
 and both modes as pair_ms, pair_before_ms and pair_bound_ms;
-int8_linear_s8's int32 output with its mma body's time as mma_ms;
+int8_linear_s8's int32 output with its mma body's time as mma_ms, the
+ragged shards' rows as ``ragged`` and the ragged TP forwards' launches as
+``ragged_tp_launches``;
 dequant_sum_s32: ms, bound and plain ms summed over one vit_l_16 TP (1, 2)
 forward at batch 32, launches in (k2)'s forward), the
 card's name and power limit, and last the result line. Needs no network, no JAX and no h5py: the H5 files
@@ -1653,6 +1672,12 @@ def phase_embed(state):
 # them, and medsiglip's MLP (hidden 4,304: K and N not multiples of 64).
 INT8_VITL_LINEARS = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
 INT8_RAGGED = {"fc1": (1152, 4304), "fc2": (4304, 1152)}
+# virchow's fc2 (K the SwiGLU half-width 3,416, no multiple of 16; N 1,280) and the tokens a patch
+# (v1: cls + 256; v2: cls, 4 registers, 256), and the pad bytes' value in the pitched rows: a product
+# that read them would differ from the plain version
+INT8_VIRCHOW_FC2 = (3416, 1280)
+VIRCHOW_TOKENS = {"virchow_v1": 257, "virchow_v2": 261}
+PAD_BYTE = 0x7F
 INT8_SOURCE = "atlaspatch_tpu_torch/csrc/int8_linear.cu"
 # int8_linear_s8's two bodies: the routed one on vit_l_16's path first
 INT8_LINEAR_SOURCES = ["atlaspatch_tpu_torch/csrc/int8_linear_wgmma.cu", INT8_SOURCE]
@@ -1770,13 +1795,27 @@ def _int8_prologue_rows(state) -> dict:
     return {"rows": rows, "forwards": forwards}
 
 
+def _fill_pad(t) -> None:
+    """Set the pad bytes of a row-pitched (rows, K) int8 view (columns K to its pitch) to PAD_BYTE."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    rows, k = t.shape
+    if I.pitch16(k) != k:
+        t.as_strided((rows, I.pitch16(k)), (I.pitch16(k), 1))[:, k:].fill_(PAD_BYTE)
+
+
 def _int8_kernel_rows(state) -> dict:
     """(a) Both kernels against their plain versions at vit_l_16's shapes at
-    batch 32 and 256 and medsiglip's ragged ones: max-abs 0 for the routed
-    call and for each int8_linear_s8 body the shape admits, forced, against
-    the plain version and each other; device ms per body, bound, plain ms and
-    the library's ms (torch._int_mm alone, and with the eager dequantization;
-    bf16 F.linear) per shape. Returns the rows."""
+    batch 32 and 256, medsiglip's ragged ones and virchow's fc2 (K 3,416) at
+    batch 32 and 256: max-abs 0 for the routed call and for each
+    int8_linear_s8 body the shape admits, forced, against the plain version
+    and each other, over xq as the quantizer writes it and the weights as
+    the model holds them (both at the 16-byte row pitch, the pad bytes set
+    to PAD_BYTE) and, where K is no multiple of 16, the mma body over packed
+    rows besides (the route before the pitch); device ms per body, bound,
+    plain ms and the library's ms (torch._int_mm alone, and with the eager
+    dequantization; bf16 F.linear; on packed rows) per shape. Returns the
+    rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1785,29 +1824,42 @@ def _int8_kernel_rows(state) -> dict:
     cases = [(b * 197, k, n, f"vit_l_16 {name} batch {b}") for b in (32, 256)
              for name, (k, n) in INT8_VITL_LINEARS.items()]
     cases += [(m, k, n, f"medsiglip {name} M={m}") for m in (8 * 1024, 5) for name, (k, n) in INT8_RAGGED.items()]
+    cases += [(b * t, *INT8_VIRCHOW_FC2, f"{name} fc2 batch {b}") for b in (32, 256)
+              for name, t in VIRCHOW_TOKENS.items()]
     gen = torch.Generator(device="cuda").manual_seed(0)
     quant, linear = {}, {}
     for m, k, n, label in cases:
         x = (torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16)
-        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+        w = I.pitched(torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int32)
+                      .to(torch.int8))
         qscale = (torch.rand(n, device="cuda", generator=gen) + 0.5) / 127.0
         bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
         xq, s_x = I.quantize_rows(x)
+        if xq.stride(0) != I.pitch16(k) or w.stride(0) != I.pitch16(k):
+            raise AssertionError(f"int8 {label}: xq and weight rows {xq.stride(0)}, {w.stride(0)} bytes apart")
+        _fill_pad(xq)
+        _fill_pad(w)
+        ragged = k % 16 != 0
+        xq_p, w_p = xq.contiguous(), w.contiguous()  # packed rows: the route before the pitch, the library's
         want_xq, want_s = I.quantize_rows_plain(x)
-        routed = I.linear_variant(m, n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr())
+        routed = I.linear_variant(m, n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr(), xq.stride(0), w.stride(0))
         bodies = [v for v in I.LINEAR_VARIANTS
-                  if v == "mma" or I.wgmma_admits(n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr())]
+                  if v == "mma" or I.wgmma_admits(n, k, torch.bfloat16, xq.data_ptr(), w.data_ptr(), xq.stride(0),
+                                                  w.stride(0))]
+        calls = {v: (lambda v=v: I._launch_linear(v, xq, s_x, w, qscale, bias, torch.bfloat16)) for v in bodies}
+        if ragged:
+            calls["mma packed"] = lambda: I._launch_linear("mma", xq_p, s_x, w_p, qscale, bias, torch.bfloat16)
         y = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
-        forced = {v: I._launch_linear(v, xq, s_x, w, qscale, bias, torch.bfloat16) for v in bodies}
-        want = I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16)
+        forced = {v: fn() for v, fn in calls.items()}
+        want = I.int8_linear_plain(xq_p, s_x, w_p, qscale, bias, torch.bfloat16)
         torch.cuda.synchronize()
         q_err = max((xq.int() - want_xq.int()).abs().max().item(), (s_x - want_s).abs().max().item())
         errs = {v: (out.float() - want.float()).abs().max().item() for v, out in {"routed": y, **forced}.items()}
         agree = all(torch.equal(out, forced["mma"]) for out in forced.values())
         err = max(errs.values())
-        if q_err != 0 or err != 0 or not agree:
+        if q_err != 0 or err != 0 or not agree or routed != "wgmma":
             raise AssertionError(f"int8 {label} (M={m}, K={k}, N={n}): quantize_rows max-abs {q_err}, "
-                                 f"int8_linear max-abs {errs} (must be 0), bodies equal {agree}")
+                                 f"int8_linear max-abs {errs} (must be 0), bodies equal {agree}, routed {routed}")
         del want, want_xq, want_s, y, forced
         if (m, k) not in quant:
             row = dict(err=q_err, ms=device_ms(lambda: I.quantize_rows(x), kernel="quantize_rows_s8"),
@@ -1818,20 +1870,20 @@ def _int8_kernel_rows(state) -> dict:
                 f"library_ms=null [{state['card']}]")
 
         def library():  # torch._int_mm and the eager dequantization: timed only, never called by the port
-            acc = torch._int_mm(xq, w.t())
+            acc = torch._int_mm(xq_p, w_p.t())
             return (acc.float() * (s_x[:, None] * qscale) + bias).to(torch.bfloat16)
 
-        w16 = w.to(torch.bfloat16)
+        w16 = w_p.to(torch.bfloat16)
         op_ms, byte_ms = int8_linear_bound(m, n, k)
-        body_ms = {v: device_ms(lambda v=v: I._launch_linear(v, xq, s_x, w, qscale, bias, torch.bfloat16),
-                                kernel="int8_linear_s8") for v in bodies}
+        body_ms = {v: device_ms(fn, kernel="int8_linear_s8") for v, fn in calls.items()}
         int_mm_kernels: dict = {}  # which kernels cuBLASLt ran for torch._int_mm, and how often
         row = dict(err=err, op_ms=op_ms, byte_ms=byte_ms, variant=routed, ms=body_ms[routed], mma_ms=body_ms["mma"],
+                   packed_mma_ms=body_ms.get("mma packed"),
                    plain_ms=cuda_ms(lambda: I.int8_linear_plain(xq, s_x, w, qscale, bias, torch.bfloat16),
                                     max_reps=5),
                    # torch._int_mm takes M > 16 only
                    library_ms=device_ms(library, kernel=None) if m > 16 else None,
-                   int_mm_ms=(device_ms(lambda: torch._int_mm(xq, w.t()), kernel=None, seen=int_mm_kernels)
+                   int_mm_ms=(device_ms(lambda: torch._int_mm(xq_p, w_p.t()), kernel=None, seen=int_mm_kernels)
                               if m > 16 else None),
                    bf16_ms=device_ms(lambda: F.linear(x, w16, bias), kernel=None))
         linear[(m, k, n)] = row
@@ -1839,14 +1891,14 @@ def _int8_kernel_rows(state) -> dict:
         int_mm = "null" if row["int_mm_ms"] is None else f"{row['int_mm_ms']:.4f}"
         int_mm_ran = {name.split("(")[0].split("<")[-1].rstrip(">"): n for name, n in int_mm_kernels.items()}
         log(f"int8 int8_linear_s8  M={m:6d} K={k:5d} N={n:5d} ({label}): routed {routed}, max-abs {errs} "
-            f"(bodies equal) dev_ms={row['ms']:.4f} "
-            + " ".join(f"{v}_dev_ms={t:.4f}" for v, t in body_ms.items())
+            f"(bodies equal{'; rows at the 16-byte pitch, pad bytes 0x7f' if ragged else ''}) dev_ms={row['ms']:.4f} "
+            + " ".join(f"{v.replace(' ', '_')}_dev_ms={t:.4f}" for v, t in body_ms.items())
             + f" bound_ms={max(op_ms, byte_ms):.4f} ({'operations' if op_ms >= byte_ms else 'bytes'}) "
             f"plain_ms={row['plain_ms']:.4f} library_ms={lib} (_int_mm + dequant) _int_mm alone dev_ms={int_mm} "
             f"({int_mm_ran or ('not run' if row['int_mm_ms'] is None else 'no launch kept by the profiler')} "
             "in 20 calls) "
             f"bf16 F.linear dev_ms={row['bf16_ms']:.4f} [{state['card']}]")
-        del x, w, w16, xq, s_x
+        del x, w, w16, xq, s_x, xq_p, w_p
     torch.cuda.empty_cache()
     return {"quant": quant, "linear": linear}
 
@@ -1856,7 +1908,11 @@ def _int8_records(rows, prologue_rows) -> dict:
     6,304): per block 2 layernorm quantizers of K 1,024, one tanh GELU of
     4,096 and one identity of 1,024 (the batch-256 sums beside them), and the
     4 linears, times 24 blocks; int8_linear_s8's ``ms`` is the routed body's,
-    ``mma_ms`` the mma.sync body's, forced, on the same inputs."""
+    ``mma_ms`` the mma.sync body's, forced, on the same inputs; its
+    ``virchow_fc2`` the sums over one virchow_v2 forward's 32 fc2 calls
+    (M 8,352, K 3,416) at batch 32 and 256: the routed wgmma body over the
+    pitched rows, the mma body over them and over packed ones (the route
+    before the pitch), the bound and the library calls."""
     m, depth = 32 * 197, 24
     linears = [rows["linear"][(m, k, n)] for k, n in INT8_VITL_LINEARS.values()]
     worst = max(r["err"] for r in [*rows["quant"].values(), *rows["linear"].values()])
@@ -1886,8 +1942,19 @@ def _int8_records(rows, prologue_rows) -> dict:
             "mma_ms": depth * sum(r["mma_ms"] for r in linears),
             "int_mm_ms": depth * sum(r["int_mm_ms"] for r in linears),
             "bf16_linear_ms": depth * sum(r["bf16_ms"] for r in linears),
+            "virchow_fc2": {f"batch {b}": _virchow_fc2_sums(rows["linear"][(b * VIRCHOW_TOKENS["virchow_v2"],
+                                                                            *INT8_VIRCHOW_FC2)])
+                            for b in (32, 256)},
         },
     }
+
+
+def _virchow_fc2_sums(r) -> dict:
+    """One virchow_v2 forward's 32 fc2 calls of a kernel row, ms."""
+    blocks = 32
+    return {"ms": blocks * r["ms"], "mma_ms": blocks * r["mma_ms"], "packed_mma_ms": blocks * r["packed_mma_ms"],
+            "bound_ms": blocks * max(r["op_ms"], r["byte_ms"]), "int_mm_ms": blocks * r["int_mm_ms"],
+            "library_ms": blocks * r["library_ms"], "bf16_linear_ms": blocks * r["bf16_ms"]}
 
 
 def _per_forward(rows, batch: int) -> dict:
@@ -1947,6 +2014,15 @@ def phase_int8(state):
             f"({100 * f['bound_ms'] / f['ms']:.1f}% of it reached; mma.sync "
             f"{100 * f['bound_ms'] / f['mma_ms']:.1f}%), _int_mm alone {f['int_mm_ms']:.3f}, _int_mm + dequant "
             f"{f['library_ms']:.3f}, bf16 F.linear {f['bf16_ms']:.3f} [{state['card']}]")
+    for batch, f in records["int8_linear_s8"]["virchow_fc2"].items():
+        log(f"int8 int8_linear_s8 per virchow_v2 forward at {batch} (32 fc2, K 3,416, device ms): routed (wgmma, "
+            f"pitched rows) {f['ms']:.3f}, mma.sync body over the pitched rows {f['mma_ms']:.3f}, over packed rows "
+            f"(the route before the pitch) {f['packed_mma_ms']:.3f}, bound {f['bound_ms']:.3f} "
+            f"({100 * f['bound_ms'] / f['ms']:.1f}% of it reached), _int_mm alone {f['int_mm_ms']:.3f}, _int_mm + "
+            f"dequant {f['library_ms']:.3f}, bf16 F.linear {f['bf16_linear_ms']:.3f} [{state['card']}]")
+    virchow = _int8_virchow(state)
+    records["int8_linear_s8"].update(virchow_variant_launches=virchow["launches"],
+                                     virchow_forward_ms=virchow["ms"], virchow_packed_forward_ms=virchow["packed_ms"])
 
     # (b) vit_l_16 at full width, random weights from the registry
     entry = ENTRIES["vit_l_16"]
@@ -2128,6 +2204,78 @@ def phase_int8(state):
             f"{rec['library_ms'] and round(rec['library_ms'], 3)}; launches {rec['launches']} in the cli run"
             f"{'' if 'variant_launches' not in rec else ' ' + str(rec['variant_launches'])}"
             f"{'' if 'prologue_launches' not in rec else ' ' + str(rec['prologue_launches'])} [{state['card']}]")
+
+
+def _int8_virchow(state) -> dict:
+    """(b2) virchow_v2 in the int8 serving mode at full width and depth
+    (dim 1,280, 32 blocks, 16 heads, SwiGLU half-width 3,416; random weights
+    from the registry), 32 patches at batch 32: its 128 linears all on the
+    wgmma body (the engine pitched every weight_q, and fc2's xq comes at the
+    16-byte pitch), no mma launch; its features equal, max-abs 0, to the same
+    model's with its weights packed again (the route before the pitch: fc2
+    on the mma body over packed rows, 96 wgmma + 32 mma launches); the
+    resident forward's device-queue ms on each route, in turns (pitched,
+    packed, packed, pitched). Returns the launches and the times."""
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.models.encoders import build_default_registry
+    from atlaspatch_tpu_torch.models.encoders.vit import Int8Linear
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    entry = ENTRIES["virchow_v2"]
+    spec = entry.spec
+    if (spec.dim, spec.depth, spec.heads, spec.hidden_dim, spec.swiglu) != (1280, 32, 16, 3416, True):
+        raise AssertionError(f"virchow_v2 is not at full width: {spec}")
+    t0 = time.perf_counter()
+    i8 = build_default_registry(device="cuda", dtype="int8").create("virchow_v2")
+    build_s = time.perf_counter() - t0
+    fc2 = i8.model.blocks[0].mlp.fc2.weight_q
+    if fc2.shape != (1280, 3416) or fc2.stride() != (3424, 1) or fc2.data_ptr() % 16:
+        raise AssertionError(f"virchow_v2 int8: fc2 weight {tuple(fc2.shape)} with strides {fc2.stride()}")
+    packed = copy.deepcopy(i8.model)
+    for mod in packed.modules():
+        if isinstance(mod, Int8Linear):
+            mod.weight_q = mod.weight_q.contiguous()
+    pitched = i8.replicas[0]
+    rng = np.random.default_rng(3)
+    u8 = torch.from_numpy(np.stack([entry.preprocess.apply_host(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+                                    for _ in range(32)])).cuda()
+
+    def forward(model):
+        i8.replicas[0] = model
+        try:
+            return i8.forward_device(u8)
+        finally:
+            i8.replicas[0] = pitched
+
+    launches = {}
+    outs = {}
+    for name, model in (("pitched", pitched), ("packed", packed)):
+        I.reset_launch_counts()
+        outs[name] = forward(model)
+        torch.cuda.synchronize()
+        launches[name] = dict(I.int8_linear.variant_launches)
+    got, want = outs["pitched"], outs["packed"]
+    err = (got - want).abs().max().item()
+    if launches != {"pitched": {"wgmma": 128}, "packed": {"wgmma": 96, "mma": 32}} or err != 0 \
+            or got.shape != (32, 2560) or not torch.isfinite(got).all():
+        raise AssertionError(f"virchow_v2 int8: launches by body {launches}, features {tuple(got.shape)}, "
+                             f"max-abs {err} against the packed route (must be 0)")
+    ms = {"pitched": [], "packed": []}
+    for name in ("pitched", "packed", "packed", "pitched"):
+        model = pitched if name == "pitched" else packed
+        ms[name].append(cuda_ms(lambda: forward(model), min_total_ms=300.0))
+    i8.cleanup()
+    del i8, packed, pitched, outs, got, want
+    torch.cuda.empty_cache()
+    log(f"int8 (b2) virchow_v2 (dim 1280, depth 32, 16 heads, SwiGLU 3,416; random weights, registry build "
+        f"{build_s:.1f} s), 32 patches at batch 32: launches by body {launches['pitched']} (fc2's weights and xq at "
+        f"the 16-byte pitch), packed again {launches['packed']}; features max-abs {err} between the two routes; "
+        f"resident forward ms (CUDA events, pitched / packed / packed / pitched) {ms['pitched'][0]:.3f} / "
+        f"{ms['packed'][0]:.3f} / {ms['packed'][1]:.3f} / {ms['pitched'][1]:.3f} [{state['card']}]")
+    return {"launches": launches["pitched"], "ms": min(ms["pitched"]), "packed_ms": min(ms["packed"])}
 
 
 def _int8_cli(state) -> dict:
@@ -3401,6 +3549,9 @@ TP_LINEAR_CASES = [  # (model, layer, whole K, N)
     ("vit_l_16", "proj", 1024, 1024), ("vit_l_16", "fc2", 4096, 1024),
     ("dinov3_vit7b16", "proj", 4096, 4096), ("dinov3_vit7b16", "fc2", 8192, 4096),
 ]
+# the (1, 2) shards whose K is no multiple of 16, at batch 32: (model, whole K, N, M): medsiglip's fc2
+# (1,024 tokens, K 2,152 a shard) and virchow_v2's (261 tokens, K 1,708 a shard)
+TP_RAGGED_CASES = [("medsiglip", 4304, 1152, 32 * 1024), ("virchow_v2", 3416, 1280, 32 * 261)]
 # the new launches in one TP (1, 2) int8 forward: per block and shard an amax-only and a given-amax
 # quantizer before proj (identity) and before fc2 (the amax-only storing the activation's values, the
 # given-amax quantizing them by the identity prologue), on the streamed body, and their int32
@@ -3634,7 +3785,83 @@ def _tp_int8_kernel_rows(state) -> dict:
             + f" [{state['card']}]")
         del xq, w, halves, partials, forced, got, want
     torch.cuda.empty_cache()
-    return {"rows": rows, "worst": worst, "linear_err": linear_err}
+    rows["ragged"], ragged_err = _tp_ragged_rows(state, gen)
+    return {"rows": rows, "worst": worst, "linear_err": max(linear_err, ragged_err)}
+
+
+def _tp_ragged_rows(state, gen) -> tuple[dict, int]:
+    """(k0) the int32 partials of the TP_RAGGED_CASES shards, whose K is no
+    multiple of 16: each shard's xq and weight at the 16-byte row pitch (pad
+    bytes PAD_BYTE), as the quantizer and shard_vit leave them, routed to
+    the wgmma body; it and the mma body (over the pitched rows, and over
+    packed ones: the route before the pitch), forced, equal int_product, and
+    dequant_sum_s32 of the two partials equals int8_linear_s8 on the whole K,
+    max-abs 0. A shard's device ms per body, bound, plain and torch._int_mm
+    (packed rows; it takes K a multiple of 8 only: not 1,708). Returns the
+    rows and the largest error."""
+    import torch
+
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    rows, worst = {}, 0
+    for model, k, n, m in TP_RAGGED_CASES:
+        kk = k // 2
+        xq, s_x = I.quantize_rows((torch.randn(m, k, device="cuda", generator=gen) * 2).to(torch.bfloat16))
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+        qscale = (torch.rand(n, device="cuda", generator=gen) + 0.5) / 127.0
+        bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+        halves = [(I.pitched(xq[:, c]), I.pitched(w[:, c])) for c in (slice(0, kk), slice(kk, k))]
+        for a, b in halves:
+            if not a.stride(0) == b.stride(0) == I.pitch16(kk):
+                raise AssertionError(f"multi tp {model} fc2: shard rows {a.stride(0)}, {b.stride(0)} bytes apart")
+            _fill_pad(a)
+            _fill_pad(b)
+        packed = [(a.contiguous(), b.contiguous()) for a, b in halves]
+        I.reset_launch_counts()
+        partials = [I.int8_linear_s32(a, b) for a, b in halves]
+        got = I.dequant_sum(partials, s_x, qscale, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = dict(I.int8_linear.variant_launches)
+        want = I.int8_linear(xq, s_x, w, qscale, bias, torch.bfloat16)
+        forced = {"mma": [I._launch_linear("mma", a, None, b, None, None, torch.int32) for a, b in halves],
+                  "mma packed": [I._launch_linear("mma", a, None, b, None, None, torch.int32) for a, b in packed],
+                  **{f"wgmma/{bn}": [I._launch_linear("wgmma", a, None, b, None, None, torch.int32, bn)
+                                     for a, b in halves] for bn in I.WGMMA_BLOCK_NS}}
+        s32_err = max((p.long() - I.int8_linear_s32_plain(a, b).long()).abs().max().item()
+                      for ps in (partials, *forced.values()) for p, (a, b) in zip(ps, packed))
+        sum_err = (got.float() - want.float()).abs().max().item()
+        if launches != {"wgmma": 2} or s32_err != 0 or sum_err != 0:
+            raise AssertionError(f"multi tp {model} fc2 M={m} K={k}={kk}+{kk} N={n}: int32 partials by body "
+                                 f"{launches} (want wgmma), vs int_product max-abs {s32_err}, dequant_sum vs "
+                                 f"int8_linear_s8 on the whole K {sum_err}")
+        worst = max(worst, s32_err, sum_err)
+        a, b = halves[0]
+        pa, pb = packed[0]
+        row = dict(ms=device_ms(lambda: I.int8_linear_s32(a, b), kernel="int8_linear_s8"),
+                   mma_ms=device_ms(lambda: I._launch_linear("mma", a, None, b, None, None, torch.int32),
+                                    kernel="int8_linear_s8"),
+                   packed_mma_ms=device_ms(lambda: I._launch_linear("mma", pa, None, pb, None, None, torch.int32),
+                                           kernel="int8_linear_s8"),
+                   plain_ms=cuda_ms(lambda: I.int8_linear_s32_plain(a, b), max_reps=5),
+                   int_mm_ms=device_ms(lambda: torch._int_mm(pa, pb.t()), kernel=None) if kk % 8 == 0 else None,
+                   op_ms=1e3 * 2.0 * m * n * kk / H100_INT8_OPS,
+                   byte_ms=1e3 * (m * kk + n * kk + 4 * m * n) / H100_BYTES_PER_S,
+                   block_n=I.wgmma_block_n(m, n, I._sm_count(0), torch.int32, kk))
+        rows[model] = row
+        bound = max(row["op_ms"], row["byte_ms"])
+        int_mm = "none (K no multiple of 8)" if row["int_mm_ms"] is None else \
+            f"{row['int_mm_ms']:.4f} ({100 * bound / row['int_mm_ms']:.1f}%)"
+        log(f"multi (k0) tp int8 {model} fc2 M={m} K={k}={kk}+{kk} N={n}: the shards' xq and weights at the 16-byte "
+            f"pitch ({I.pitch16(kk)} bytes a row, pad bytes 0x7f), int32 partials on wgmma/{row['block_n']}; every "
+            f"body (mma over pitched and packed rows, wgmma at both widths, forced) vs int_product max-abs 0, "
+            f"dequant_sum_s32 of the 2 partials vs int8_linear_s8 on the whole K max-abs 0; a shard's int32 product "
+            f"dev_ms wgmma {row['ms']:.4f} ({100 * bound / row['ms']:.1f}% of bound {bound:.4f}, "
+            f"{'operations' if row['op_ms'] >= row['byte_ms'] else 'bytes'}), mma over the pitched rows "
+            f"{row['mma_ms']:.4f}, over packed rows (the route before) {row['packed_mma_ms']:.4f}, _int_mm {int_mm}, "
+            f"plain {row['plain_ms']:.4f} [{state['card']}]")
+        del xq, w, halves, packed, partials, forced, got, want
+    torch.cuda.empty_cache()
+    return rows, worst
 
 
 def _tp_int8_records(tp, launches) -> list[dict]:
@@ -3683,7 +3910,10 @@ def _tp_int8_records(tp, launches) -> list[dict]:
          "ms": calls * (lp["s32_ms"] + lf["s32_ms"]), "mma_ms": calls * (lp["s32_mma_ms"] + lf["s32_mma_ms"]),
          "plain_ms": calls * (lp["s32_plain_ms"] + lf["s32_plain_ms"]),
          "bound_ms": max(s32_op, s32_byte), "bound_by": "operations" if s32_op >= s32_byte else "bytes",
-         "library_ms": calls * (lp["int_mm_ms"] + lf["int_mm_ms"])},
+         "library_ms": calls * (lp["int_mm_ms"] + lf["int_mm_ms"]),
+         "ragged": {f"{model} fc2 shard": {key: row[key] for key in ("ms", "mma_ms", "packed_mma_ms", "int_mm_ms",
+                                                                      "plain_ms")}
+                    | {"bound_ms": max(row["op_ms"], row["byte_ms"])} for model, row in r["ragged"].items()}},
         {**base, "name": "dequant_sum_s32", "replaces": TP_INT8_REPLACES["dequant_sum_s32"],
          "launches": launches["dequant_sum"], "max_abs_err": tp["linear_err"],
          "ms": 24 * (lp["sum_ms"] + lf["sum_ms"]), "plain_ms": 24 * (lp["sum_plain_ms"] + lf["sum_plain_ms"]),
@@ -3944,6 +4174,62 @@ def _multi_tp_int8(state) -> dict:
         f"tensor-parallel (1, 2) on {MULTI_CARD}, 32 patches at batch 32, against one device's int8: "
         f"{_feature_gap(want7, got7)} (bit for bit); one forward's launches {launches7}; peak memory {peak:.1f} GiB; "
         f"part {time.perf_counter() - t0:.1f} s wall [{state['card']}]")
+    state["ragged_tp_launches"] = {name: _multi_tp_int8_ragged(state, name, patches) for name, _, _, _ in
+                                   TP_RAGGED_CASES}
+    return launches
+
+
+def _multi_tp_int8_ragged(state, name: str, patches) -> dict:
+    """(k2) ``name`` (medsiglip or virchow_v2: their fc2 shards' K, 2,152 and
+    1,708, no multiple of 16) in the int8 serving mode at full width, depth
+    cut to 2, random weights, tensor-parallel (1, 2) over the card named
+    twice, against one device's int8 on the same 32 patches at batch 32:
+    features bit for bit; one forward's launches as the design gives them,
+    every linear on the wgmma body (the int32 partials of the shards at the
+    16-byte pitch shard_vit gives their weights). Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from atlaspatch_tpu_torch.models.encoders.engine import TorchFeatureExtractor, init_random_weights_
+    from atlaspatch_tpu_torch.models.encoders.vit import ViT, quantize_vit_state_dict
+    from atlaspatch_tpu_torch.models.encoders.zoo import ENTRIES
+    from atlaspatch_tpu_torch.ops import int8 as I
+    from atlaspatch_tpu_torch.parallel.mesh import embedding_mesh
+
+    t0 = time.perf_counter()
+    entry = ENTRIES[name]
+    spec = dataclasses.replace(entry.spec, depth=2)
+    state_dict = quantize_vit_state_dict(init_random_weights_(ViT(spec).cuda(), seed=0).state_dict())
+    model = ViT(dataclasses.replace(spec, quant_int8=True)).cuda()
+    model.load_state_dict(state_dict, strict=True)
+    del state_dict
+    act = model.blocks[0].mlp.act_name
+    kw = dict(name=name, embedding_dim=entry.embedding_dim, spec=entry.preprocess, compute_dtype="int8")
+    one = TorchFeatureExtractor(model=copy.deepcopy(model), device="cuda", **kw)
+    want = one.extract_batch(patches, batch_size=32)
+    one.cleanup()
+    tp = TorchFeatureExtractor(model=model, mesh=embedding_mesh(2, MULTI_CARD), tensor_parallel=True, **kw)
+    shard_k = {sh.fc2.weight_q.shape[1]: sh.fc2.weight_q.stride(0) for sh in tp.replicas[0].blocks[0].mlp.shards}
+    tp.extract_batch(patches[:4], batch_size=32)
+    I.reset_launch_counts()
+    got = tp.extract_batch(patches, batch_size=32)
+    torch.cuda.synchronize()
+    launches = _int8_counts()
+    want_launches = _tp_launches(2, act, 4)
+    if launches != want_launches or shard_k != {spec.hidden_dim // 2: I.pitch16(spec.hidden_dim // 2)} \
+            or not (np.isfinite(got).all() and got.shape == want.shape and np.array_equal(got, want)):
+        raise AssertionError(f"multi tp int8 {name}: launches {launches} (want {want_launches}); fc2 shard K: row "
+                             f"pitch {shard_k}; {_feature_gap(want, got)}")
+    tp.cleanup()
+    del model, one, tp
+    torch.cuda.empty_cache()
+    log(f"multi (k2) {name} int8 (dim {spec.dim}, {spec.heads} heads, MLP {spec.hidden_dim}{' SwiGLU' if spec.swiglu else ''}; "
+        f"depth 2 of {entry.spec.depth}, random weights) tensor-parallel (1, 2) on {MULTI_CARD}, 32 patches at batch "
+        f"32, against one device's int8: {_feature_gap(want, got)} (bit for bit); fc2 shards' K and row pitch "
+        f"{shard_k}; one forward's launches {launches} (the int32 partials all on wgmma); part "
+        f"{time.perf_counter() - t0:.1f} s wall [{state['card']}]")
     return launches
 
 
@@ -4158,6 +4444,7 @@ def phase_multi(state):
     launches = _multi_seg(state, embedding_mesh(1, MULTI_CARD))
     state["multi_int8_launches"] = _multi_embed(state)
     state["tp_int8_records"] = _tp_int8_records(tp_kernels, _multi_tp_int8(state))
+    state["tp_int8_records"][2]["ragged_tp_launches"] = state.pop("ragged_tp_launches")
     for rec in state["tp_int8_records"]:
         before = "" if "before_ms" not in rec else f" (the template mode {rec['before_ms']:.3f}, same run)"
         log(f"multi tp int8 record {rec['name']}: per vit_l_16 TP (1, 2) forward (batch 32) {rec['ms']:.3f} ms "
@@ -4213,15 +4500,16 @@ def main() -> int:
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
-                 "prologue_launches", "extract_launches", "multi_launches", "max_abs_err", "flip_share", "ms",
-                 "mma_ms", "ms_b256", "plain_ms", "bound_ms", "bound_ms_b256", "bound_by", "library_ms", "unfused_ms", "unfused_ms_b256",
-                 "int_mm_ms", "bf16_linear_ms")
+                 "prologue_launches", "extract_launches", "multi_launches", "virchow_variant_launches", "max_abs_err",
+                 "flip_share", "ms", "mma_ms", "ms_b256", "plain_ms", "bound_ms", "bound_ms_b256", "bound_by",
+                 "library_ms", "unfused_ms", "unfused_ms_b256", "int_mm_ms", "bf16_linear_ms", "virchow_fc2",
+                 "virchow_forward_ms", "virchow_packed_forward_ms")
     for rec, launches in zip(state["int8_records"], state["multi_int8_launches"]):
         rec["multi_launches"] = launches  # the multi phase's data-parallel int8 extract_batch
     int8 = [{k: rec[k] for k in int8_keys if k in rec} for rec in state["int8_records"]]
     tp_keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "flip_share", "ms", "before_ms",
                "mma_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "proj_ms", "proj_library_ms", "pair_ms",
-               "pair_before_ms", "pair_bound_ms")
+               "pair_before_ms", "pair_bound_ms", "ragged", "ragged_tp_launches")
     tp_int8 = [{k: rec[k] for k in tp_keys if k in rec} for rec in state["tp_int8_records"]]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: record[k] for k in keys}, *int8, *tp_int8]}))

@@ -804,8 +804,8 @@ def test_forced_wgmma_refused_where_it_does_not_apply(card):
 
     xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 3416)
     I.reset_launch_counts()
-    with pytest.raises(ValueError, match="variant 'wgmma' takes K a multiple of 16"):
-        I._launch_linear("wgmma", xq, s_x, w, qscale, bias, torch.bfloat16)
+    with pytest.raises(ValueError, match="variant 'wgmma' takes row pitches of a multiple of 16 bytes"):
+        I._launch_linear("wgmma", xq, s_x, w, qscale, bias, torch.bfloat16)  # packed rows of K 3,416
     xq, s_x, w, qscale, bias = _int8_operands(card, 37, 72, 1024)
     for a, b in ((_misaligned(xq), w), (xq, _misaligned(w))):
         with pytest.raises(ValueError, match="operands on 16 bytes"):
@@ -821,6 +821,120 @@ def test_forced_wgmma_refused_where_it_does_not_apply(card):
         I._launch_linear("wgmma_m64", xq, s_x, w, qscale, bias, torch.bfloat16)
     torch.cuda.synchronize()
     assert I.int8_linear.variant_launches == {"mma": 2} and I.int8_linear.launches == 2
+
+
+# --- the 16-byte row pitch ------------------------------------------------------------------
+# (K, N): virchow's fc2 (the SwiGLU half-width 3,416), medsiglip's and virchow's TP (1, 2) fc2 shards
+# (2,152 and 1,708), a K short of one 128-byte box (45), one 4 past a multiple of 16 (4,308)
+PITCHED_KN = [(3416, 1280), (2152, 1152), (1708, 1280), (45, 72), (4308, 72)]
+PAD = 0x7F  # the pad bytes' value: a product that read them would differ from the plain version
+
+
+def _pad(t: torch.Tensor) -> torch.Tensor:
+    """The pad bytes of a pitched (rows, K) view: columns K to its pitch of the buffer under it."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    rows, k = t.shape
+    return t.as_strided((rows, I.pitch16(k)), (I.pitch16(k), 1))[:, k:]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("m", [5, 37, 8224])
+@pytest.mark.parametrize("k,n", PITCHED_KN)
+def test_wgmma_body_on_pitched_operands_matches_plain_and_mma(card, k, n, m, out_dtype):
+    """Operands at the 16-byte row pitch, their pad bytes set to 0x7f (the
+    TMA maps' K extent is K: the last box is zero-filled past K and never
+    reads the pad), route to the wgmma body; routed, and forced in both tile
+    widths, it equals the plain version on the packed operands and the mma
+    body on the pitched and on the packed operands, at max-abs 0. The packed
+    operands route to the mma body."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    xq, s_x, w, qscale, bias = _int8_operands(card, m, n, k)
+    px, pw = I.pitched(xq), I.pitched(w)
+    assert px.stride(0) == pw.stride(0) == I.pitch16(k) != k
+    _pad(px).fill_(PAD)
+    _pad(pw).fill_(PAD)
+    assert I.linear_variant(m, n, k, out_dtype, px.data_ptr(), pw.data_ptr(), px.stride(0), pw.stride(0)) == "wgmma"
+    s32 = out_dtype == torch.int32
+    if s32:
+        want = I.int8_linear_s32_plain(xq, w)
+
+        def routed(a, b):
+            return I.int8_linear_s32(a, b)
+
+        def forced(variant, a, b, block_n=None):
+            return I._launch_linear(variant, a, None, b, None, None, torch.int32, block_n)
+    else:
+        want = I.int8_linear_plain(xq, s_x, w, qscale, bias, out_dtype)
+
+        def routed(a, b):
+            return I.int8_linear(a, s_x, b, qscale, bias, out_dtype)
+
+        def forced(variant, a, b, block_n=None):
+            return I._launch_linear(variant, a, s_x, b, qscale, bias, out_dtype, block_n)
+    got = {}
+    for name, a, b, body in (("routed pitched", px, pw, "wgmma"), ("routed packed", xq, w, "mma")):
+        I.reset_launch_counts()
+        got[name] = routed(a, b)
+        torch.cuda.synchronize()
+        assert I.int8_linear.variant_launches == {body: 1}, name
+    for block_n in I.WGMMA_BLOCK_NS:
+        got[f"wgmma/{block_n}"] = forced("wgmma", px, pw, block_n)
+    got["mma pitched"] = forced("mma", px, pw)
+    got["mma packed"] = forced("mma", xq, w)
+    torch.cuda.synchronize()
+    for name, y in got.items():
+        assert y.dtype == out_dtype and y.shape == (m, n), name
+        assert torch.equal(y, want), (name, (y.double() - want.double()).abs().max().item())
+    assert bool((_pad(px) == PAD).all()) and bool((_pad(pw) == PAD).all())
+
+
+# (M, K): virchow's SwiGLU half at batch 1 and 32 (K 3,416), its and medsiglip's TP (1, 2) shard rows
+# (1,708; 2,152), a short row (45) and one 4 past a multiple of 16 (4,308)
+QUANT_PITCH_CASES = [(37, 3416), (8224, 3416), (9, 1708), (5, 2152), (7, 45), (6, 4308)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", QUANT_PITCH_CASES)
+def test_quantizer_writes_pitched_xq_equal_to_the_packed_one(card, m, k, dtype):
+    """quantize_rows_s8's xq at the 16-byte pitch (what every quantizer
+    hands the products on the card) equals its xq written packed (pitch K),
+    with equal scales, in each mode that writes xq and on each body:
+    one-pass of the identity, layernorm and gated SiLU prologues (the
+    template), given-amax of the identity (the streamed body, routed, and
+    the template, forced) and of SiLU (the template); the identity's equals
+    the plain version besides."""
+    from atlaspatch_tpu_torch.ops import int8 as I
+
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    x = (torch.randn(m, k, device=card, generator=gen) * 3).to(dtype)
+    g = (torch.randn(m, k, device=card, generator=gen) * 3).to(dtype)
+    gamma = (1 + 0.5 * torch.randn(k, device=card, generator=gen)).to(dtype)
+    beta = (0.5 * torch.randn(k, device=card, generator=gen)).to(dtype)
+    amax = I.row_amax_plain(x) * 1.25  # another shard's larger abs-max
+    layout = (0, x.stride(0), m, 0, k)
+    calls = {  # name: (prologue, keyword arguments of _launch_quantize, the plain version or None)
+        "identity one-pass": ("identity", {}, I.quantize_rows_plain(x)),
+        "layernorm one-pass": ("layernorm", dict(gamma=gamma, beta=beta, eps=1e-6), None),
+        "silu * b one-pass": ("silu", dict(b=g), None),
+        "identity given-amax stream": ("identity", dict(amax=amax), I.quantize_rows_plain(x, amax)),
+        "identity given-amax template": ("identity", dict(amax=amax, body="template"),
+                                         I.quantize_rows_plain(x, amax)),
+        "silu given-amax template": ("silu", dict(amax=amax), None),
+    }
+    for name, (prologue, kw, plain) in calls.items():
+        I.reset_launch_counts()
+        got = I._launch_quantize(prologue, x, layout, **kw)
+        packed = I._launch_quantize(prologue, x, layout, pitch=k, **kw)
+        torch.cuda.synchronize()
+        assert I.quantize_rows.launches == 2, name
+        if name.endswith("stream"):
+            assert I.quantize_rows.body_launches == {"stream": 2}, name
+        assert got[0].stride() == (I.pitch16(k), 1) and packed[0].is_contiguous(), name
+        assert torch.equal(got[0], packed[0]) and torch.equal(got[1], packed[1]), name
+        if plain is not None:
+            assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]), name
 
 
 # --- quantize_rows_s8's prologues (csrc/int8_linear.cu) -----------------------------------
@@ -1202,7 +1316,7 @@ def test_amax_modes_stream_body_refuses_what_it_does_not_take(card):
     for prologue, mode, act in (("silu", "amax_only", None), ("identity", "amax_only", out),
                                 ("gelu_tanh", "given_amax", None)):
         assert lib.atlas_quantize_rows_s8_stream(
-            I.PROLOGUES.index(prologue), 1, 8, 96, x.data_ptr(), *layout, None, 0, 32, xq.data_ptr(),
+            I.PROLOGUES.index(prologue), 1, 8, 96, x.data_ptr(), *layout, None, 0, 32, xq.data_ptr(), 96,
             amax.data_ptr(), I.QUANT_MODES.index(mode), amax.data_ptr(), None if act is None else act.data_ptr(),
             stream) == 1, (prologue, mode)
     assert I.quantize_rows.launches == 0
@@ -1300,12 +1414,13 @@ def test_dequant_sum_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.parametrize("kw", [dict(gated_mlp=True, mlp_hidden=256, layerscale=True, act="silu"),
-                                dict(swiglu=True, act="silu", mlp_hidden=192, pos_mode="rope", reg_tokens=2)])
+                                dict(swiglu=True, act="silu", mlp_hidden=192, pos_mode="rope", reg_tokens=2),
+                                dict(swiglu=True, act="silu", mlp_hidden=200, layerscale=True, reg_tokens=4)])
 def test_tensor_parallel_int8_equals_one_device_on_the_card(card, monkeypatch, kw):
     """A bfloat16 int8 ViT sharded over the card named twice equals the same model on one device bit
     for bit; per block the row-parallel quantizers run amax-only and given-amax on each shard, the
-    partials come from the wgmma body in int32 and dequant_sum_s32 runs once per row-parallel layer;
-    no plain version runs."""
+    partials come from the wgmma body in int32 (a shard's fc2 K of 100, virchow's case, at its
+    16-byte pitch too) and dequant_sum_s32 runs once per row-parallel layer; no plain version runs."""
     import dataclasses
 
     from atlaspatch_tpu_torch.models.encoders.engine import _cast_floating_, init_random_weights_

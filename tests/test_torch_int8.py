@@ -766,7 +766,8 @@ def _int8_widths(name: str) -> dict:
 
 
 # the row-parallel shards of the TP (1, 2) int8 plan whose K (half of the whole) is no multiple of 16:
-# medsiglip's fc2 (2,152 of 4,304) and virchow's (1,708 of the SwiGLU half-width 3,416)
+# medsiglip's fc2 (2,152 of 4,304) and virchow's (1,708 of the SwiGLU half-width 3,416), on mma where
+# their operands are contiguous, on wgmma at the 16-byte row pitch the model gives them
 _TP_S32_ON_MMA = {("medsiglip", "fc2"), ("virchow_v1", "fc2"), ("virchow_v2", "fc2")}
 
 
@@ -781,36 +782,53 @@ _TP_S32_ON_MMA = {("medsiglip", "fc2"), ("virchow_v1", "fc2"), ("virchow_v2", "f
       for layer in ("proj", "fc2")],
 ])
 def test_linear_variant_over_the_zoo_int8_widths(name, layer, out_dtype, want):
-    """The wgmma body takes K a multiple of 16 (a TMA map's row stride):
-    every vit_l_16, medsiglip and uni linear in bfloat16, the int8 engine's
-    dtype; virchow's fc2 reads the SwiGLU half-width, K = 3,416 = 16 x
-    213.5, and stays on mma.sync, as does every float32 output. Under
-    tensor-parallel int8 (the (1, 2) plan: half the heads or hidden units a
-    shard) each zoo ViT's row-parallel shards write int32 partials, on
-    wgmma (vit_l_16's proj K 512 and fc2 K 2,048, N 1,024;
-    dinov3_vit7b16's 2,048 and 4,096, N 4,096) but where half of K is no
-    multiple of 16: medsiglip's fc2 (2,152) and virchow's (1,708)."""
+    """The wgmma body takes row pitches of a multiple of 16 bytes (a TMA
+    map's row stride). Contiguous operands (pitch K): every vit_l_16,
+    medsiglip and uni linear in bfloat16, the int8 engine's dtype, on wgmma;
+    virchow's fc2 reads the SwiGLU half-width, K = 3,416 = 16 x 213.5, and
+    goes to mma.sync, as does every float32 output. Under tensor-parallel
+    int8 (the (1, 2) plan: half the heads or hidden units a shard) each zoo
+    ViT's row-parallel shards write int32 partials, on wgmma (vit_l_16's
+    proj K 512 and fc2 K 2,048, N 1,024; dinov3_vit7b16's 2,048 and 4,096,
+    N 4,096) but where half of K is no multiple of 16: medsiglip's fc2
+    (2,152) and virchow's (1,708). At the 16-byte pitch the model gives
+    them (``pitch16(K)``: 3,424, 1,712, 2,160) every one of these products
+    runs on wgmma."""
     k, n = _int8_widths(name)[layer]
     if out_dtype == torch.int32:
         k //= 2
+    pitch = dict(ldx=I.pitch16(k), ldw=I.pitch16(k))
     for m in (1, 5, 32 * 197, 256 * 197):
         assert I.linear_variant(m, n, k, out_dtype) == want, (name, layer, m, k, n)
         assert I.linear_variant(m, n, k, out_dtype, xq_ptr=1 << 20, w_ptr=3 << 20) == want
         assert I.linear_variant(m, n, k, out_dtype, xq_ptr=(1 << 20) + 8) == "mma"  # a base off 16 bytes
         assert I.linear_variant(m, n, k, out_dtype, w_ptr=(1 << 20) + 1) == "mma"
         assert I.linear_variant(m, n, k, torch.float32) == "mma"
+        assert I.linear_variant(m, n, k, out_dtype, 1 << 20, 3 << 20, **pitch) == "wgmma", (name, layer, m, k, n)
+        assert I.linear_variant(m, n, k, out_dtype, xq_ptr=(1 << 20) + 8, **pitch) == "mma"
+        assert I.linear_variant(m, n, k, torch.float32, **pitch) == "mma"
 
 
 @pytest.mark.parametrize("k,want", [(45, "mma"), (44, "mma"), (40, "mma"), (48, "wgmma"), (1040, "wgmma"),
                                     (3416, "mma"), (4304, "wgmma"), (4308, "mma"), (512, "wgmma"), (2048, "wgmma"),
                                     (1708, "mma"), (2152, "mma")])
 def test_linear_variant_by_depth(k, want):
-    """bfloat16 and int32 output alike: K a multiple of 16 on wgmma (the
-    TMA zero-fills the last 128-byte block's tail: 4,304), the rest on mma
-    (virchow's and medsiglip's fc2 shards under TP (1, 2): 1,708, 2,152)."""
+    """bfloat16 and int32 output alike, contiguous operands (pitch K): K a
+    multiple of 16 on wgmma (the TMA zero-fills the last 128-byte block's
+    tail: 4,304), the rest on mma (virchow's and medsiglip's fc2 shards
+    under TP (1, 2): 1,708, 2,152). The pitch decides, not K: at the 16-byte
+    pitch every K goes to wgmma, at a pitch no multiple of 16 (or short of
+    K) to mma, on either operand."""
+    p = I.pitch16(k)
+    assert p % 16 == 0 and k <= p < k + 16
     for out_dtype in (torch.bfloat16, torch.int32):
         assert I.linear_variant(37, 72, k, out_dtype) == want
         assert I.wgmma_admits(72, k, out_dtype) == (want == "wgmma")
+        assert I.linear_variant(37, 72, k, out_dtype, ldx=k, ldw=k) == want
+        assert I.linear_variant(37, 72, k, out_dtype, ldx=p, ldw=p) == "wgmma"
+        assert I.wgmma_admits(72, k, out_dtype, ldx=p + 16, ldw=p)
+        for ldx, ldw in ((p + 8, p), (p, p + 4), (p - 16, p), (p, p - 16)):
+            assert I.linear_variant(37, 72, k, out_dtype, ldx=ldx, ldw=ldw) == "mma", (ldx, ldw)
 
 
 @pytest.mark.parametrize("n,out_dtype,want", [
@@ -856,12 +874,13 @@ def test_wgmma_int32_block_n_rule(m, k, n, want):
 
 
 @pytest.mark.parametrize("k,offset,match", [
-    (3416, 0, "variant 'wgmma' takes K a multiple of 16"), (45, 0, "variant 'wgmma' takes K"),
-    (1024, 1, "operands on 16 bytes"),
+    (3416, 0, "variant 'wgmma' takes row pitches of a multiple of 16 bytes.* row pitches 3416 and 3416"),
+    (45, 0, "variant 'wgmma' takes row pitches"), (1024, 1, "operands on 16 bytes"),
 ])
 def test_forced_wgmma_refused_before_any_launch(k, offset, match):
     """``_launch_linear`` refuses a body that cannot take the shape before it
-    touches a card or the library (pure Python, so it runs here)."""
+    touches a card or the library (pure Python, so it runs here): contiguous
+    rows of a K no multiple of 16 (their pitch is K), a base off 16 bytes."""
     I.reset_launch_counts()
     buf = torch.zeros(5 * k + offset, dtype=torch.int8)
     xq = buf[offset:].view(5, k)
@@ -917,6 +936,135 @@ def _staged_int32_addresses(block_n: int = 128) -> np.ndarray:
                     addr = r * 128 + 8 * (t & 1) + (j >> 2) * 8192 + h * 8 * 128 + ((32 * (j & 3)) ^ chunk)
                     out.append((w, j, h, lane, addr, r + 8 * h, 8 * jj + 2 * t))
     return np.array(out)
+
+
+# --- the 16-byte row pitch ---------------------------------------------------------------
+# virchow's block at the tiny width: SwiGLU of SiLU over a half-width of 44 (fc2's K: no multiple of 16,
+# as virchow's 3,416 is not), LayerScale, register tokens, CLS + mean pooling
+VIRCHOW_LIKE = dict(swiglu=True, act="silu", mlp_hidden=44, layerscale=True, reg_tokens=4, pool="cls_mean_concat")
+
+
+def _int8_tensor(shape, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(-127, 128, shape, dtype=np.int8)).clone()
+
+
+def _pad(t: torch.Tensor) -> torch.Tensor:
+    """The pad bytes of a pitched (rows, K) view: columns K to its pitch of the buffer under it."""
+    rows, k = t.shape
+    return t.as_strided((rows, I.pitch16(k)), (I.pitch16(k), 1))[:, k:]
+
+
+@pytest.mark.parametrize("rows,k", [(5, 3416), (3, 1708), (4, 2152), (2, 45), (3, 48), (1, 45)])
+def test_pitched_gives_rows_a_16_byte_pitch(rows, k):
+    """``pitched``: the same values, rows ``pitch16(K)`` bytes apart from a
+    16-byte-aligned base; a tensor already so is returned as it is (K a
+    multiple of 16: no copy), a misaligned or packed one copied."""
+    t = _int8_tensor((rows, k), seed=k)
+    p = I.pitched(t)
+    assert torch.equal(p, t) and p.shape == (rows, k) and p.stride(1) == 1 and p.data_ptr() % 16 == 0
+    assert rows == 1 or p.stride(0) == I.pitch16(k)
+    assert (p is t) == (k % 16 == 0 or rows == 1)
+    assert I.pitched(p) is p
+    misaligned = torch.empty(rows * k + 1, dtype=torch.int8)[1:].view(rows, k).copy_(t)
+    again = I.pitched(misaligned)
+    assert again is not misaligned and torch.equal(again, t) and again.data_ptr() % 16 == 0
+
+
+def test_row_pitch_of_the_operands_the_wrappers_read_in_place():
+    """``int8_linear`` and ``int8_linear_s32`` read a row-pitched view where
+    it lies, its pitch its row stride; a view of another layout (columns
+    not unit-strided, rows overlapping) is copied to packed rows; a single
+    row's stride addresses nothing, so its pitch is K's 16-byte one."""
+    view = torch.zeros(6, 3424, dtype=torch.int8)[:, :3416]
+    assert I._rows_of(view) is view and I._pitch(view) == 3424
+    packed = I._rows_of(torch.zeros(3416, 6, dtype=torch.int8).t())
+    assert packed.is_contiguous() and I._pitch(packed) == 3416
+    assert I._pitch(torch.zeros(1, 3416, dtype=torch.int8)) == 3424
+    assert I._pitch(torch.zeros(6, 3416, dtype=torch.int8)) == 3416
+    overlapping = torch.zeros(32, dtype=torch.int8).as_strided((4, 8), (4, 1))
+    assert I._rows_of(overlapping).is_contiguous()
+
+
+@pytest.mark.parametrize("m,n,k", [(37, 24, 3416), (9, 16, 1708), (5, 8, 2152), (3, 8, 45), (4, 8, 64)])
+def test_pitched_and_contiguous_operands_give_the_same_plain_result(m, n, k):
+    """The plain versions over row-pitched xq and weights (pad bytes filled
+    with 127) equal them over the packed ones, bit for bit: int32, and
+    dequantized to float32 and bfloat16."""
+    xq, w = _int8_tensor((m, k), seed=m), _int8_tensor((n, k), seed=n + k)
+    rng = np.random.default_rng(k)
+    s_x = torch.from_numpy(rng.uniform(0.01, 0.1, m).astype(np.float32))
+    qscale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)) / 127
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    px, pw = I.pitched(xq), I.pitched(w)
+    if k % 16:
+        assert px.stride(0) == pw.stride(0) == I.pitch16(k)
+        _pad(px).fill_(127)
+        _pad(pw).fill_(127)
+    want = I.int8_linear_s32(xq, w)
+    for a, b in ((px, pw), (px, w), (xq, pw)):
+        assert torch.equal(I.int8_linear_s32(a, b), want)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(I.int8_linear(a, s_x, b, qscale, bias, out_dtype),
+                               I.int8_linear(xq, s_x, w, qscale, bias, out_dtype))
+
+
+def test_pitching_leaves_the_int8_state_dict_unchanged():
+    """``pitch_int8_weights``: every Int8Linear's weight_q at the 16-byte
+    pitch (fc2's K 44 in a copy, the others as they were), and
+    ``state_dict()``'s keys, dtypes, shapes and values as before; a state
+    dict loads into the pitched model in place, keeping the pitch; the
+    engine pitches the weights where the model lands."""
+    qtree = jvit.quantize_vit_params(_params(VIRCHOW_LIKE, seed=6))
+    model = _int8_model(VIRCHOW_LIKE, qtree)
+    before = {key: t.clone() for key, t in model.state_dict().items()}
+    unpitched = model.blocks[0].attn.qkv.weight_q
+    assert pvit.pitch_int8_weights(model) is model
+    assert model.blocks[0].attn.qkv.weight_q is unpitched  # K 64: already at its pitch
+    after = model.state_dict()
+    assert list(after) == list(before)
+    for key, t in after.items():
+        assert t.dtype == before[key].dtype and t.shape == before[key].shape and torch.equal(t, before[key]), key
+    layers = [mod for mod in model.modules() if isinstance(mod, pvit.Int8Linear)]
+    assert len(layers) == 2 * 4 and {mod.in_features for mod in layers} == {64, 44}
+    for mod in layers:
+        assert mod.weight_q.stride() == (I.pitch16(mod.in_features), 1) and mod.weight_q.data_ptr() % 16 == 0
+    model.load_state_dict({key: t * (-1 if key.endswith("weight_q") else 1) for key, t in before.items()})
+    fc2 = model.blocks[1].mlp.fc2.weight_q
+    assert fc2.stride(0) == 48 and torch.equal(fc2, -before["blocks.1.mlp.fc2.weight_q"])
+    ext = TorchFeatureExtractor(name="tiny", embedding_dim=128, spec=PreprocessSpec(**PRE),
+                                model=_int8_model(VIRCHOW_LIKE, qtree), device="cpu", compute_dtype="int8")
+    assert ext.model.blocks[0].mlp.fc2.weight_q.stride(0) == 48
+    assert torch.equal(ext.model.blocks[0].mlp.fc2.weight_q, before["blocks.0.mlp.fc2.weight_q"])
+
+
+def test_pitched_virchow_like_int8_vit_matches_jax_in_float32(monkeypatch):
+    """A virchow-like int8 ViT (VIRCHOW_LIKE) through row-pitched tensors, as
+    the card runs it (weights pitched, the quantizers' xq handed over at
+    the 16-byte pitch): equal to the packed model bit for bit, and within
+    test_int8_vit_matches_jax_in_float32's bar of JAX's Int8Dense path."""
+    qtree = jvit.quantize_vit_params(_params(VIRCHOW_LIKE, seed=7))
+    x = _images(seed=7)
+    want = np.asarray(jvit.ViT(jvit.ViTSpec(**TINY, **VIRCHOW_LIKE, quant_int8=True)).apply(
+        {"params": qtree}, jnp.asarray(x)))
+    with torch.no_grad():
+        packed = _int8_model(VIRCHOW_LIKE, qtree)(torch.from_numpy(x)).numpy()
+    model = pvit.pitch_int8_weights(_int8_model(VIRCHOW_LIKE, qtree))
+    plain, pitches = I.quantize_rows_plain, []
+
+    def pitched_rows(rows, *amax):
+        xq, s_x = plain(rows, *amax)
+        xq = I.pitched(xq)
+        pitches.append((xq.shape[1], xq.stride(0)))
+        return xq, s_x
+
+    monkeypatch.setattr(I, "quantize_rows_plain", pitched_rows)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert sorted(set(pitches)) == [(44, 48), (64, 64)] and len(pitches) == 2 * 4
+    np.testing.assert_array_equal(got, packed)
+    err = np.abs(got - want).max()
+    print(f"virchow-like, pitched: max-abs {err:.3g} of {np.abs(want).max():.3g}")
+    assert got.shape == want.shape == (3, 128) and err <= 1e-3 * np.abs(want).max()
 
 
 def test_int32_staging_fills_the_swizzled_panels_once_without_bank_conflicts():

@@ -228,6 +228,12 @@ _TP_SPECS = {
                        act="silu", pool="map"),
     "rope_registers": dict(img_size=32, patch_size=8, dim=64, depth=2, heads=4, pos_mode="rope", reg_tokens=2,
                            class_token=True),
+    # virchow's block: a SwiGLU-packed MLP over a half-width no multiple of 16 (44: a shard's fc2 K is
+    # 22, and shard 1's columns start at byte 22 of a row), LayerScale, register tokens, CLS + mean
+    # pooling; its gate ReLU, not SiLU: the CPU's SiLU rounds a row's vector tail otherwise than its
+    # body, and a shard's rows of 22 and the whole rows of 44 end in other tails
+    "swiglu_ragged": dict(img_size=32, patch_size=8, dim=64, depth=2, heads=4, mlp_hidden=44, swiglu=True,
+                          act="relu", layerscale=True, reg_tokens=4, pool="cls_mean_concat"),
 }
 
 
@@ -355,6 +361,31 @@ def test_tp_int8_forward_matches_one_device_and_jax_mesh(name, int8_attn, monkey
     assert [s.heads for s in block.attn.shards] == [2, 2] and block.attn.shards[0].proj.bias is None
     if spec.pool == "map":  # the MAP head's MLP stays float, and whole: one device's result
         assert not isinstance(replicas[0].head.mlp, RowParallel)
+
+
+def test_shard_vit_pitches_the_int8_shards():
+    """Every int8 shard's weight_q lies at the 16-byte row pitch on its
+    device (``pitch16(K)`` bytes a row, a 16-byte base): fc2's K 22 a
+    shard, shard 1's a copy of its own (its columns start at byte 22 of the
+    whole weight's rows), with the values of its slice."""
+    from atlaspatch_tpu_torch.models.encoders.vit import Int8Linear
+    from atlaspatch_tpu_torch.ops.int8 import pitch16
+
+    kw = _TP_SPECS["swiglu_ragged"]
+    vit = _port_vit(kw, quantize_vit_params(shared_vit_params(JaxViTSpec(**kw), seed=6)), quant=True)
+    whole = vit.blocks[1].mlp.fc2.weight_q
+    replicas = shard_vit(vit, mesh.embedding_mesh(2, _cpus(8)))
+    for replica in replicas:
+        linears = [m for m in replica.modules() if isinstance(m, Int8Linear)]
+        assert len(linears) == 2 * 2 * 4  # blocks x shards x (qkv, proj, fc1, fc2)
+        for m in linears:
+            w = m.weight_q
+            assert w.stride() == (pitch16(w.shape[1]), 1) and w.data_ptr() % 16 == 0, (w.shape, w.stride())
+        shards = replica.blocks[1].mlp.shards
+        assert [s.fc2.weight_q.stride(0) for s in shards] == [32, 32]
+        for i, s in enumerate(shards):
+            assert torch.equal(s.fc2.weight_q, whole[:, 22 * i: 22 * (i + 1)])
+            assert s.fc2.weight_q.untyped_storage().data_ptr() != whole.untyped_storage().data_ptr()
 
 
 def test_tp_refuses_a_model_axis_that_does_not_divide():
