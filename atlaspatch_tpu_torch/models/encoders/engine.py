@@ -244,9 +244,10 @@ class TorchFeatureExtractor(FeatureExtractor):
     # --- device ------------------------------------------------------------------
     def forward_device(self, images_u8: torch.Tensor, replica: int = 0) -> torch.Tensor:
         """(N, S, S, 3) uint8 on a replica's device → (N, D) features there,
-        float32 (bfloat16 with ATLASPATCH_FEATURE_D2H_BF16=1)."""
+        float32 (bfloat16 with ATLASPATCH_FEATURE_D2H_BF16=1); one
+        ``embed_forward`` span in an ``ATLASPATCH_TORCH_TRACE`` trace."""
         mean, std = self._norm[replica]
-        with torch.inference_mode():
+        with torch.inference_mode(), perf.span("embed_forward"):
             x = images_u8.to(torch.float32) * self.spec.rescale
             x = ((x - mean) / std).to(self._dtype)
             out = self.replicas[replica](x)

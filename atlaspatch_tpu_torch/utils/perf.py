@@ -9,17 +9,19 @@ before the card finishes, so `segment_fetch` carries the wait.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
 import time
-from collections import defaultdict
-from contextlib import contextmanager
+from collections import Counter, defaultdict
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 logger = logging.getLogger("atlaspatch_tpu_torch.perf")
 
 _lock = threading.Lock()
+_tracing = False  # True while maybe_trace profiles
 _totals: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
 _cpu_totals: dict[str, float] = defaultdict(float)
@@ -91,6 +93,7 @@ def maybe_trace():
         yield
         return
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -99,11 +102,39 @@ def maybe_trace():
     out = Path(trace_dir)
     out.mkdir(parents=True, exist_ok=True)
     logger.warning("torch profiler trace capturing to %s", out)
-    with profile(activities=activities) as prof:
-        yield
+    # every thread: the encoder engine dispatches its forwards from a worker
+    # thread, whose CPU ops the profiler otherwise leaves out
+    global _tracing
+    with profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+        _tracing = True
+        try:
+            yield
+        finally:
+            _tracing = False
     path = out / f"trace-{os.getpid()}-{time.strftime('%Y%m%d-%H%M%S')}.json"
     prof.export_chrome_trace(str(path))
     logger.warning("torch profiler trace written to %s", path)
+
+
+def span(name: str):
+    """A named span (one per forward: ``sam2_forward``, ``embed_forward``) in
+    the trace ``maybe_trace`` writes; nothing outside it, so no other
+    profiler's device-time totals gain the span's device-side copy."""
+    if not _tracing:
+        return nullcontext()
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+def trace_counts(path: str | Path) -> Counter:
+    """What a Chrome trace written by ``maybe_trace`` holds, counted by name:
+    ``span:<name>`` for each user-annotated span (``sam2_forward``,
+    ``embed_forward``: one per forward) and ``kernel:<name>`` for each device
+    kernel launch the profiler kept."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kinds = {"user_annotation": "span", "kernel": "kernel"}
+    return Counter(f"{kinds[e['cat']]}:{e['name']}" for e in events if e.get("cat") in kinds)
 
 
 def log_report() -> None:

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading, its SAM2 fine-tuning and its multi-device paths, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading, its SAM2 fine-tuning, its multi-device paths and its launch scripts, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -315,6 +315,26 @@ Phases, one line each (any failure exits non-zero with no result line):
           every slide's coordinates byte for byte one process's, each slide
           processed by one rank, no lock left. One line per part with its
           wall time and the card's name and power limit
+  jobs    the port's launch scripts (jobs/atlaspatch_tpu_torch_*.sh) run with
+          bash and PYTHON=sys.executable over 6 JPEG SVS of 4096x3072, each
+          against an in-process _cli_main run of the argv the script hands
+          the CLI (read by running it with a stub python), attention
+          launches and forwards counted from each script process's own
+          trace (ATLASPATCH_TORCH_TRACE: flash_fwd kernels, sam2_forward and
+          embed_forward spans): (l1) two copies of the patch script at once
+          on one output directory (SLURM_CPUS_PER_TASK=4,
+          SLURM_GPUS_ON_NODE=1): rc 0, coordinates byte for byte, each slide
+          processed by one copy, no lock left, 12 launches per forward;
+          (l2) the features script (EXTRACTORS=vit_l_16) over that output:
+          feature rows equal coordinate rows, features equal the in-process
+          run's at max-abs 0 or else cosine >= JOB_FEATURE_COSINE (the bar
+          that held is logged), and a second run makes no forward and
+          rewrites no H5 file; (l3) the multi-node script on this node
+          through this interpreter's torchrun, with stub srun and scontrol
+          (localhost) and G=2 ranks sharing the card (gloo), and extra flags
+          that give back (l1)'s segmentation settings under --fast: both
+          ranks log their gloo group and host shard, coordinates equal
+          (l1)'s byte for byte. Wall s per part
 
 Then one JSON line with the kernel records: the two int8 kernels'
 (``launches``: the int8 phase's command-line run, and for int8_linear_s8
@@ -333,7 +353,8 @@ virchow_v2 forward's ms on each route) after the attention kernel's (``launches`
 the encoder path holds no TPU kernel of its own; ``finetune_launches``: the
 finetune phase's validation and detect-tissue forwards; ``multi_launches``: the
 multi phase's data-parallel segmentation, data-parallel and two-rank
-fine-tuning and two-rank command line; the int8 records' ``multi_launches``:
+fine-tuning and two-rank command line; ``jobs_launches``: the jobs
+phase's script processes, from their traces; the int8 records' ``multi_launches``:
 its data-parallel int8 extract_batch) and tensor-parallel int8's four
 records (quantize_rows_s8's amax-only and given-amax modes on their streamed
 bodies, the template's modes on the same shards as before_ms, and for
@@ -4465,6 +4486,263 @@ def phase_multi(state):
         f"[{state['card']}]")
 
 
+
+# --- the jobs phase: the port's launch scripts on the card -----------------------------
+JOB_SCRIPTS = {part: Path(__file__).resolve().parent / "jobs" / f"atlaspatch_tpu_torch_{part}.sh"
+               for part in ("patch.slurm", "features.slurm", "multinode.slurm")}
+JOBS_SLIDES = 6
+JOB_TIMEOUT = 300
+JOB_FEATURE_COSINE = 0.999  # the bf16 bar where cuBLAS picks other kernels in the two processes
+JOB_VARS = ("ATLASPATCH_NUM_HOSTS", "ATLASPATCH_HOST_ID", "ATLASPATCH_TORCH_TRACE", "WORLD_SIZE", "RANK",
+            "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "PYTHON")
+
+
+def _job_env(**extra) -> dict:
+    """The calling environment (random weights, no checkpoint, stage counters
+    on) without any group or host-shard variable, with ``extra``."""
+    env = {k: v for k, v in os.environ.items() if k not in JOB_VARS and not k.startswith("SLURM_")}
+    env.update(PYTHONPATH=str(Path(__file__).resolve().parent), **{k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _script_argv(script: Path, env: dict, *extra) -> list[str]:
+    """The command line ``script`` hands ``python -m atlaspatch_tpu_torch.cli``
+    in ``env``, read by running it with a stub ``python`` that records its
+    arguments (so an in-process run takes the script's own options)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stub_") as d:
+        stub = Path(d) / "python"
+        stub.write_text('#!/bin/bash\nprintf \'%s\\0\' "$@" > "$ARGV_OUT"\n')
+        stub.chmod(0o755)
+        run_env = {k: v for k, v in env.items() if k != "PYTHON"}
+        run_env.update(PATH=f"{d}{os.pathsep}{env['PATH']}", ARGV_OUT=f"{d}/argv")
+        subprocess.run(["bash", str(script), *map(str, extra)], env=run_env, check=True, timeout=60)
+        argv = [a.decode() for a in Path(f"{d}/argv").read_bytes().split(b"\0")[:-1]]
+    if argv[:2] != ["-m", "atlaspatch_tpu_torch.cli"]:
+        raise AssertionError(f"jobs: {script.name} ran python {argv[:3]}")
+    return argv[2:]
+
+
+def _run_jobs(runs: list[tuple[Path, dict, list]]) -> list[tuple[int, str]]:
+    """Start each (script, env, extra flags) under ``bash`` at once, wait for
+    each with JOB_TIMEOUT (killed past it); (rc, stdout + stderr) each."""
+    procs = [subprocess.Popen(["bash", str(script), *map(str, extra)], env=env, cwd=Path(__file__).resolve().parent,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for script, env, extra in runs]
+    done = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=JOB_TIMEOUT)
+            done.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (script, _, _), (rc, out) in zip(runs, done):
+        if rc != 0:
+            raise AssertionError(f"jobs: {script.name} exited {rc}:\n{out[-3000:]}")
+    return done
+
+
+def _trace_totals(trace_dir: Path) -> tuple[int, int, int, int]:
+    """(attention launches, SAM2 forwards, encoder forwards, trace files) in
+    the Chrome traces one or more processes wrote to ``trace_dir``."""
+    from atlaspatch_tpu_torch.utils.perf import trace_counts
+
+    files = sorted(trace_dir.glob("trace-*.json"))
+    counts = Counter()
+    for f in files:
+        counts.update(trace_counts(f))
+    launches = sum(n for k, n in counts.items() if k.startswith("kernel:") and "flash_fwd" in k)
+    return launches, counts["span:sam2_forward"], counts["span:embed_forward"], len(files)
+
+
+def _coords(out: Path) -> dict:
+    from atlaspatch_tpu_torch.utils.h5 import read_h5
+
+    return {p.stem: read_h5(p)[0]["coords"] for p in sorted((out / "patches").glob("*.h5"))}
+
+
+def _same_coords(part: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"jobs {part}: H5 files {sorted(got)}, want {sorted(want)}")
+    for stem, coords in want.items():
+        if coords.shape[0] == 0 or coords.tobytes() != got[stem].tobytes():
+            raise AssertionError(f"jobs {part}: {stem} coords {got[stem].shape} differ from {coords.shape}")
+
+
+def _processed_once(part: str, outs: list[str], stems) -> list[list[str]]:
+    """Each slide in exactly one ``[OK]`` line of the runs' verbose output; the
+    slides of each run."""
+    mine = [[s for s in stems if f"[OK] {s}.svs ->" in out] for out in outs]
+    twice = [s for s in stems if sum(s in m for m in mine) != 1]
+    if twice:
+        raise AssertionError(f"jobs {part}: slides {twice} not processed by exactly one process: {mine}")
+    return mine
+
+
+def _no_locks(part: str, out: Path) -> None:
+    left = sorted(p.name for p in out.rglob("*.lock"))
+    if left:
+        raise AssertionError(f"jobs {part}: lock files left: {left}")
+
+
+def phase_jobs(state):
+    """The port's launch scripts run with bash on the card, over JOBS_SLIDES
+    JPEG SVS of TIFF_WH: (l1) two copies of the patch script at once on one
+    output directory, (l2) the features script over it, twice, (l3) the
+    multi-node script on this one node through torchrun (two ranks sharing
+    the card, stub srun and scontrol). Attention launches and forwards are
+    counted from each script process's own trace (ATLASPATCH_TORCH_TRACE)."""
+    import multiprocessing
+    import socket
+    import sysconfig
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from atlaspatch_tpu_torch.utils.h5 import read_h5_tree
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_jobs_"))
+    try:
+        slides = tmp / "slides"
+        slides.mkdir()
+        with ProcessPoolExecutor(max_workers=JOBS_SLIDES, mp_context=multiprocessing.get_context("spawn")) as pool:
+            for job in [pool.submit(_write_svs, str(slides / f"jslide{s:03d}.svs"), TIFF_WH, 300 + s, 3)
+                        for s in range(JOBS_SLIDES)]:
+                job.result()
+        stems = [f"jslide{s:03d}" for s in range(JOBS_SLIDES)]
+        walls = {}
+
+        # (l1) two copies of the patch script at once on one output directory
+        t1 = time.perf_counter()
+        patch = JOB_SCRIPTS["patch.slurm"]
+        out = tmp / "out"
+        slurm = dict(WSI_DIR=slides, OUT_DIR=out, SLURM_CPUS_PER_TASK=4, SLURM_GPUS_ON_NODE=1)
+        copies = _run_jobs([(patch, _job_env(**slurm, PYTHON=sys.executable, ATLASPATCH_TORCH_TRACE=tmp / f"trace_{c}"),
+                             ["--verbose"]) for c in "ab"])
+        walls["l1"] = time.perf_counter() - t1
+        argv = _script_argv(patch, _job_env(**dict(slurm, OUT_DIR=tmp / "ref")), "--verbose")
+        lines, ref_wall, ref_launches, ref_forwards = _cli_main(argv)
+        if f"Completed {JOBS_SLIDES} slide(s), failures: 0" not in lines or ref_launches != 12 * ref_forwards:
+            raise AssertionError(f"jobs (l1) in-process run: {lines[-2:]}, {ref_launches} launches in "
+                                 f"{ref_forwards} forwards")
+        want = _coords(tmp / "ref")
+        _same_coords("(l1)", _coords(out), want)
+        split = _processed_once("(l1)", [o for _, o in copies], stems)
+        _no_locks("(l1)", out)
+        copy_counts = [_trace_totals(tmp / f"trace_{c}") for c in "ab"]
+        l1_launches, l1_forwards = sum(c[0] for c in copy_counts), sum(c[1] for c in copy_counts)
+        if [c[3] for c in copy_counts] != [1, 1] or not l1_forwards or l1_launches != 12 * l1_forwards:
+            raise AssertionError(f"jobs (l1): traces (launches, forwards, -, files) {copy_counts}")
+        log(f"jobs (l1) two copies of {patch.name} at once, {JOBS_SLIDES} slides, SLURM_CPUS_PER_TASK=4, "
+            f"SLURM_GPUS_ON_NODE=1: {walls['l1']:.1f} s wall, rc 0 both; slides per copy "
+            f"{[len(m) for m in split]} ({split}); traces: {l1_launches} attention launches in {l1_forwards} forwards "
+            f"(per copy {[c[:2] for c in copy_counts]}); coordinates equal the in-process run's byte for byte "
+            f"({' '.join(argv[:1] + argv[4:])}: {ref_wall:.1f} s, {ref_forwards} forwards); no lock left "
+            f"[{state['card']}]")
+
+        # (l2) the features script over (l1)'s output, with an in-process run beside it, then again
+        t2 = time.perf_counter()
+        features = JOB_SCRIPTS["features.slurm"]
+        shutil.copytree(out, tmp / "feat_ref")
+        fenv = dict(WSI_DIR=slides, OUT_DIR=out, EXTRACTORS="vit_l_16", SLURM_CPUS_PER_TASK=4, SLURM_GPUS_ON_NODE=1)
+        _run_jobs([(features, _job_env(**fenv, PYTHON=sys.executable, ATLASPATCH_TORCH_TRACE=tmp / "trace_f1"), [])])
+        walls["l2"] = time.perf_counter() - t2
+        f_launches, f_sam2, f_forwards, f_files = _trace_totals(tmp / "trace_f1")
+        if f_files != 1 or not f_forwards or f_sam2 or f_launches:
+            raise AssertionError(f"jobs (l2): the script's trace has {f_forwards} encoder forwards, {f_sam2} SAM2 "
+                                 f"forwards, {f_launches} attention launches")
+        argv = _script_argv(features, _job_env(**dict(fenv, OUT_DIR=tmp / "feat_ref")))
+        lines, feat_wall, feat_launches, feat_sam2 = _cli_main(argv)
+        if f"Completed {JOBS_SLIDES} slide(s), failures: 0" not in lines or feat_launches or feat_sam2:
+            raise AssertionError(f"jobs (l2) in-process run: {lines[-2:]}, {feat_sam2} SAM2 forwards")
+        max_abs, cos_min, rows = 0.0, 1.0, 0
+        for stem in stems:
+            got = read_h5_tree(out / "patches" / f"{stem}.h5").datasets
+            ref = read_h5_tree(tmp / "feat_ref" / "patches" / f"{stem}.h5").datasets
+            feats, n = got.get("features/vit_l_16"), got["coords"].shape[0]
+            if feats is None or feats.shape != (n, 1024) or not np.isfinite(feats).all() \
+                    or got["coords"].tobytes() != want[stem].tobytes():
+                raise AssertionError(f"jobs (l2): {stem} features {None if feats is None else feats.shape} for "
+                                     f"{n} coordinate rows")
+            max_abs = max(max_abs, float(np.abs(feats - ref["features/vit_l_16"]).max()))
+            cos_min = min(cos_min, float(_cos_rows(feats, ref["features/vit_l_16"]).min()))
+            rows += n
+        bar = "max-abs 0" if max_abs == 0.0 else f"cosine >= {JOB_FEATURE_COSINE}"
+        if max_abs != 0.0 and not cos_min >= JOB_FEATURE_COSINE:
+            raise AssertionError(f"jobs (l2): features differ from the in-process run's: max-abs {max_abs}, "
+                                 f"cosine min {cos_min}")
+        _no_locks("(l2)", out)
+        mtimes = {p.name: p.stat().st_mtime_ns for p in (out / "patches").glob("*.h5")}
+        t3 = time.perf_counter()
+        (_, again), = _run_jobs([(features, _job_env(**fenv, PYTHON=sys.executable,
+                                                     ATLASPATCH_TORCH_TRACE=tmp / "trace_f2"), [])])
+        again_wall = time.perf_counter() - t3
+        again_counts = _trace_totals(tmp / "trace_f2")
+        if again_counts[:3] != (0, 0, 0) or {p.name: p.stat().st_mtime_ns for p in
+                                              (out / "patches").glob("*.h5")} != mtimes:
+            raise AssertionError(f"jobs (l2) second run: (launches, SAM2, encoder forwards, traces) {again_counts}, "
+                                 f"or an H5 file was rewritten")
+        log(f"jobs (l2) {features.name} EXTRACTORS=vit_l_16 over (l1)'s output: {walls['l2']:.1f} s wall, rc 0; "
+            f"{f_forwards} encoder forwards, 0 SAM2 forwards (trace); {rows} feature rows, each slide's equal to "
+            f"its coordinate rows; against the in-process process run ({feat_wall:.1f} s): max-abs {max_abs:.3g}, "
+            f"cosine min {cos_min:.6f}, bar held: {bar}; second run {again_wall:.1f} s wall, 0 forwards, no H5 "
+            f"rewritten [{state['card']}]")
+
+        # (l3) the multi-node script on this node: torchrun, two ranks sharing the card
+        t4 = time.perf_counter()
+        multinode = JOB_SCRIPTS["multinode.slurm"]
+        stub = tmp / "stub_bin"
+        stub.mkdir()
+        (stub / "srun").write_text('#!/bin/bash\nexec "$@"\n')
+        (stub / "scontrol").write_text("#!/bin/bash\necho localhost\n")
+        for f in stub.iterdir():
+            f.chmod(0o755)
+        # torchrun of this interpreter, after the stubs
+        path = os.pathsep.join([str(stub), sysconfig.get_path("scripts"), os.environ["PATH"]])
+        torchrun = shutil.which("torchrun", path=path)
+        if torchrun is None:
+            raise AssertionError(f"jobs (l3): no torchrun on {path}")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        menv = _job_env(WSI_DIR=slides, OUT_DIR=tmp / "multi", SLURM_NNODES=1, SLURM_JOB_NODELIST="localhost",
+                        SLURM_JOB_ID=4242, G=2, RDZV_PORT=port, PYTHON=sys.executable,
+                        ATLASPATCH_TORCH_TRACE=tmp / "trace_m")
+        menv["PATH"] = path
+        # the script passes --fast; these flags give (l1)'s segmentation settings back
+        extra = ["--seg-precision", "float32", "--seg-input-size", "1024", "--verbose"]
+        (_, mout), = _run_jobs([(multinode, menv, extra)])
+        walls["l3"] = time.perf_counter() - t4
+        for r in range(2):
+            if not re.search(rf"rank {r}/2 \(local rank {r} of 2\), backend gloo", mout) \
+                    or f"Host {r}/2 takes" not in mout:
+                raise AssertionError(f"jobs (l3): rank {r} logged no gloo group or no host shard:\n{mout[-3000:]}")
+        _same_coords("(l3)", _coords(tmp / "multi"), want)
+        ranks_split = _processed_once("(l3)", [mout], stems)
+        _no_locks("(l3)", tmp / "multi")
+        m_launches, m_forwards, _, m_files = _trace_totals(tmp / "trace_m")
+        if m_files != 2 or not m_forwards or m_launches != 12 * m_forwards:
+            raise AssertionError(f"jobs (l3): {m_files} traces, {m_launches} attention launches in {m_forwards} "
+                                 f"forwards")
+        shards = re.findall(r"Host \d/2 takes \d+ of \d+ slides", mout)
+        log(f"jobs (l3) {multinode.name} on one node (stub srun, scontrol -> localhost), G=2 ranks sharing the card "
+            f"through {torchrun}: {walls['l3']:.1f} s wall, rc 0; both ranks on gloo, {shards}; "
+            f"{len(ranks_split[0])} slides; traces: {m_launches} attention launches in {m_forwards} forwards; "
+            f"coordinates equal (l1)'s byte for byte (extra flags {' '.join(extra)}); no lock left [{state['card']}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["jobs_launches"] = l1_launches + m_launches
+    log(f"jobs: wall s per part (l1) {walls['l1']:.1f}, (l2) {walls['l2']:.1f} (+ second run {again_wall:.1f}), "
+        f"(l3) {walls['l3']:.1f}; {state['jobs_launches']} attention launches in the scripts' processes; phase "
+        f"{time.perf_counter() - t0:.1f} s [{state['card']}]")
+
+
 def main() -> int:
     import torch
 
@@ -4480,7 +4758,8 @@ def main() -> int:
                             ("seg", phase_seg), ("profile", phase_profile), ("coords", phase_coords),
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
                             ("int8", phase_int8), ("process", phase_process), ("cli", phase_cli),
-                            ("weights", phase_weights), ("finetune", phase_finetune), ("multi", phase_multi)):
+                            ("weights", phase_weights), ("finetune", phase_finetune), ("multi", phase_multi),
+                            ("jobs", phase_jobs)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -4494,10 +4773,11 @@ def main() -> int:
     record = dict(state["kernel_record"], launches=state["launches"], runner_launches=state["runner_launches"],
                   tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
                   cli_launches=state["cli_launches"], weights_launches=state["weights_launches"],
-                  finetune_launches=state["finetune_launches"], multi_launches=state["multi_launches"])
+                  finetune_launches=state["finetune_launches"], multi_launches=state["multi_launches"],
+                  jobs_launches=state["jobs_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
             "process_launches", "cli_launches", "weights_launches", "finetune_launches", "multi_launches",
-            "max_abs_err", "ms",
+            "jobs_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
                  "prologue_launches", "extract_launches", "multi_launches", "virchow_variant_launches", "max_abs_err",
