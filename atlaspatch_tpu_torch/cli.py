@@ -453,6 +453,7 @@ def detect_tissue(wsi_path, output, device, seg_batch_size, recursive, mpp_csv,
     from atlaspatch_tpu_torch.services.mpp import CSVMPPResolver
     from atlaspatch_tpu_torch.services.segmentation import SAM2SegmentationService
     from atlaspatch_tpu_torch.services.wsi_loader import DefaultWSILoader
+    from atlaspatch_tpu_torch.utils import perf
     from atlaspatch_tpu_torch.utils.params import get_wsi_files
     from atlaspatch_tpu_torch.utils.visualization import visualize_mask_on_thumbnail
 
@@ -536,26 +537,28 @@ def detect_tissue(wsi_path, output, device, seg_batch_size, recursive, mpp_csv,
                 cleanup(wsi)
             progress.update(1)
 
-    try:
-        batch = []
-        for path_str in slide_paths:
-            base = Slide(path=Path(path_str))
-            slide = Slide(path=base.path, mpp=mpp_resolver.resolve(base), backend=base.backend)
-            try:
-                wsi = wsi_loader.open(slide)
-            except Exception as e:  # noqa: BLE001
-                failures.append((slide, e))
-                progress.update(1)
-                continue
-            batch.append((slide, wsi))
-            if len(batch) >= segmentation_cfg.batch_size:
+    # ATLASPATCH_TORCH_TRACE=<dir>: a trace of the batches, as segment-and-get-coords writes
+    with perf.maybe_trace():
+        try:
+            batch = []
+            for path_str in slide_paths:
+                base = Slide(path=Path(path_str))
+                slide = Slide(path=base.path, mpp=mpp_resolver.resolve(base), backend=base.backend)
+                try:
+                    wsi = wsi_loader.open(slide)
+                except Exception as e:  # noqa: BLE001
+                    failures.append((slide, e))
+                    progress.update(1)
+                    continue
+                batch.append((slide, wsi))
+                if len(batch) >= segmentation_cfg.batch_size:
+                    process_batch(batch)
+                    batch = []
+            if batch:
                 process_batch(batch)
-                batch = []
-        if batch:
-            process_batch(batch)
-    finally:
-        segmentation_service.close()
-        progress.close()
+        finally:
+            segmentation_service.close()
+            progress.close()
 
     click.echo(f"Created {len(results)} mask overlay(s), failures: {len(failures)}")
     if verbose:

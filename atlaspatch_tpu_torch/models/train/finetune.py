@@ -98,9 +98,10 @@ def _dice_loss(logits, targets, eps=1.0, reduce=True):
 
 
 def seg_forward(model: SAM2ImageModel, images_u8: torch.Tensor, out_hw):
-    """Full-frame box-prompted forward: (logits at out_hw, iou_pred)."""
+    """Full-frame box-prompted forward: (logits at out_hw, iou_pred), in the
+    params' dtype (float32; float64 where a check wants the exact gradient)."""
     S = model.cfg.image_size
-    pixels = normalize_images(model.cfg, images_u8)
+    pixels = normalize_images(model.cfg, images_u8).to(next(model.parameters()).dtype)
     B = images_u8.shape[0]
     box = torch.tensor([[0.0, 0.0, S, S]], dtype=torch.float32, device=images_u8.device)
     boxes = box[None].expand(B, 1, 4)

@@ -221,6 +221,7 @@ def finetune_sam2(
 
     rng = np.random.default_rng(seed)
     pool = ThreadPoolExecutor(max_workers=max(1, loader_threads))
+    ahead = ThreadPoolExecutor(max_workers=1)  # loads the next batch (on ``pool``) while a step runs
     losses: list[float] = []
     global_step = 0
     start_epoch = 0
@@ -326,13 +327,17 @@ def finetune_sam2(
     try:
         for epoch in range(start_epoch, epochs):
             order = rng.permutation(len(pairs))
+            # Wrap modulo the dataset so every batch is exactly batch_size
+            # even when batch_size > len(pairs). Multi-process: this rank
+            # loads only its contiguous slice; the flips are drawn for the
+            # global batch and sliced alike.
+            batches = [order[np.arange(b * batch_size, (b + 1) * batch_size) % len(order)][rows]
+                       for b in range(steps_per_epoch)]
+            loading = ahead.submit(_load_batch, batches[0])
             for b in range(steps_per_epoch):
-                # Wrap modulo the dataset so every batch is exactly
-                # batch_size even when batch_size > len(pairs).
-                idx = order[np.arange(b * batch_size, (b + 1) * batch_size) % len(order)]
-                # Multi-process: this rank loads only its contiguous slice;
-                # the flips are drawn for the global batch and sliced alike.
-                images_u8, targets = _load_batch(idx[rows])
+                images_u8, targets = loading.result()
+                if b + 1 < steps_per_epoch:
+                    loading = ahead.submit(_load_batch, batches[b + 1])
                 if augment:
                     # Flips applied identically to image and mask. Seeded by
                     # (seed, global_step), not the shuffle rng, so checkpoint
@@ -386,6 +391,7 @@ def finetune_sam2(
             # so --resume --val-fraction reports metrics for the checkpoint.
             val_loss, val_iou = _run_validation()
     finally:
+        ahead.shutdown(wait=False)
         pool.shutdown(wait=False)
 
     npz_path = output_dir / "sam2_finetuned.npz"

@@ -339,12 +339,12 @@ def f32_error_limit(q, k, v, sm_scale=None):
 
 def attention(q, k, v, sm_scale=None):
     """The plain version where autograd records the call (counted in
-    ``attention.plain_grad_calls``) or the tensors are on the CPU; else the
-    CUDA kernel."""
+    ``attention.plain_grad_calls``) or the tensors are on the CPU or the meta
+    device (shapes only, as a FLOP count runs them); else the CUDA kernel."""
     if _records_grad(q, k, v):
         attention.plain_grad_calls += 1
         return reference_attention(q, k, v, sm_scale)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return reference_attention(q, k, v, sm_scale)
     return flash_attention(q, k, v, sm_scale)
 

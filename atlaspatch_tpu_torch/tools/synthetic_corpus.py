@@ -30,6 +30,7 @@ Output layout (what finetune-sam2 and evaluate-masks consume):
   <out>/masks/<stem>_mask.png    binary truth mask (255 = tissue)
 
 Usage: python -m atlaspatch_tpu_torch.tools.synthetic_corpus <out> --n 128
+(the pairs are made in one spawned process per CPU; a 4096x3072 pair takes ~1.5 GB)
 """
 
 from __future__ import annotations
@@ -63,28 +64,46 @@ def _noise2d(rng: np.random.Generator, h: int, w: int, cells: int,
     return out / total
 
 
+def _window(shape: tuple[int, int], x_lo: float, x_hi: float, y_lo: float, y_hi: float) -> tuple[slice, slice]:
+    """The (rows, columns) of a grid of ``shape`` that cover [x_lo, x_hi] x
+    [y_lo, y_hi], widened by 2 px and clipped (possibly empty). A shape's
+    test run over this window alone gives the same bits as over the whole
+    grid: each pixel's value is computed alone, and outside the window it
+    is False."""
+    h, w = shape
+    return (slice(max(0, int(np.floor(y_lo)) - 2), max(0, min(h, int(np.ceil(y_hi)) + 3))),
+            slice(max(0, int(np.floor(x_lo)) - 2), max(0, min(w, int(np.ceil(x_hi)) + 3))))
+
+
 def _blob(xx: np.ndarray, yy: np.ndarray, cx: float, cy: float, rx: float,
           ry: float, rng: np.random.Generator, wobble: float = 0.45) -> np.ndarray:
     """Irregular blob: unit ellipse with smooth radial harmonics."""
-    dx = (xx - cx) / rx
-    dy = (yy - cy) / ry
+    reach = 1.0 + wobble * (1 + 1 / 2 + 1 / 3 + 1 / 4)  # the largest edge: r < edge only within it
+    rows, cols = _window(xx.shape, cx - reach * rx, cx + reach * rx, cy - reach * ry, cy + reach * ry)
+    dx = (xx[rows, cols] - cx) / rx
+    dy = (yy[rows, cols] - cy) / ry
     r = np.sqrt(dx * dx + dy * dy)
     theta = np.arctan2(dy, dx)
     edge = np.ones_like(r)
     for k in range(1, 5):
         edge += rng.uniform(0.0, wobble / k) * np.sin(k * theta + rng.uniform(0, 2 * np.pi))
-    return r < edge
+    out = np.zeros(xx.shape, dtype=bool)
+    out[rows, cols] = r < edge
+    return out
 
 
 def _stroke(xx: np.ndarray, yy: np.ndarray, pts: np.ndarray, width: float) -> np.ndarray:
     """Thick polyline: union of distance-to-segment bands."""
     hit = np.zeros(xx.shape, dtype=bool)
     for (x0, y0), (x1, y1) in zip(pts[:-1], pts[1:]):
+        rows, cols = _window(xx.shape, min(x0, x1) - width, max(x0, x1) + width,
+                             min(y0, y1) - width, max(y0, y1) + width)
+        xs, ys = xx[rows, cols], yy[rows, cols]
         vx, vy = x1 - x0, y1 - y0
         L2 = vx * vx + vy * vy + 1e-6
-        t = np.clip(((xx - x0) * vx + (yy - y0) * vy) / L2, 0.0, 1.0)
-        d2 = (xx - (x0 + t * vx)) ** 2 + (yy - (y0 + t * vy)) ** 2
-        hit |= d2 < width * width
+        t = np.clip(((xs - x0) * vx + (ys - y0) * vy) / L2, 0.0, 1.0)
+        d2 = (xs - (x0 + t * vx)) ** 2 + (ys - (y0 + t * vy)) ** 2
+        hit[rows, cols] |= d2 < width * width
     return hit
 
 
@@ -158,7 +177,9 @@ def make_annotated_thumbnail(
             vy_ = ay + rng.normal(0, ry * 0.35, n_vac)
             for j in range(n_vac):
                 r_j = vr * rng.uniform(0.5, 1.4)
-                holes |= ((xg - vx_[j]) ** 2 + (yg - vy_[j]) ** 2 < r_j * r_j) & patch
+                rows, cols = _window(holes.shape, vx_[j] - r_j, vx_[j] + r_j, vy_[j] - r_j, vy_[j] + r_j)
+                holes[rows, cols] |= (((xg[rows, cols] - vx_[j]) ** 2 + (yg[rows, cols] - vy_[j]) ** 2 < r_j * r_j)
+                                      & patch[rows, cols])
         holes &= region
         region &= ~holes
         tissue |= region
@@ -246,6 +267,14 @@ def make_annotated_thumbnail(
     return np.clip(img, 0, 255).astype(np.uint8), tissue
 
 
+def _write_pair(images: Path, masks: Path, width: int, height: int, seed: int, stem: str) -> None:
+    from PIL import Image
+
+    img, mask = make_annotated_thumbnail(width, height, seed=seed)
+    Image.fromarray(img).save(images / f"{stem}.png")
+    Image.fromarray((mask * 255).astype(np.uint8)).save(masks / f"{stem}_mask.png")
+
+
 def generate_corpus(
     out_dir: Path,
     *,
@@ -254,23 +283,32 @@ def generate_corpus(
     height: int = 768,
     seed: int = 0,
     prefix: str = "syn",
+    workers: int = 1,
 ) -> tuple[Path, Path]:
-    """Write n annotated pairs; returns (images_dir, masks_dir)."""
-    from PIL import Image
-
+    """Write n annotated pairs; returns (images_dir, masks_dir). With
+    ``workers`` > 1 the pairs are made in that many spawned processes: each
+    pair depends on its seed alone, so the files are the same bytes."""
     images = Path(out_dir) / "images"
     masks = Path(out_dir) / "masks"
     images.mkdir(parents=True, exist_ok=True)
     masks.mkdir(parents=True, exist_ok=True)
-    for i in range(n):
-        img, mask = make_annotated_thumbnail(width, height, seed=seed + i)
-        stem = f"{prefix}{i:04d}"
-        Image.fromarray(img).save(images / f"{stem}.png")
-        Image.fromarray((mask * 255).astype(np.uint8)).save(masks / f"{stem}_mask.png")
+    jobs = [(images, masks, width, height, seed + i, f"{prefix}{i:04d}") for i in range(n)]
+    if min(workers, n) <= 1:
+        for job in jobs:
+            _write_pair(*job)
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(max_workers=min(workers, n), mp_context=multiprocessing.get_context("spawn")) as pool:
+            for done in [pool.submit(_write_pair, *job) for job in jobs]:
+                done.result()
     return images, masks
 
 
 def main() -> None:
+    import os
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out", type=Path)
     ap.add_argument("--n", type=int, default=128)
@@ -281,7 +319,7 @@ def main() -> None:
     args = ap.parse_args()
     images, masks = generate_corpus(
         args.out, n=args.n, width=args.width, height=args.height,
-        seed=args.seed, prefix=args.prefix,
+        seed=args.seed, prefix=args.prefix, workers=len(os.sched_getaffinity(0)),
     )
     print(f"{args.n} pairs: {images} | {masks}")
 

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading, its SAM2 fine-tuning, its multi-device paths and its launch scripts, on one NVIDIA card.
+"""Drive the PyTorch port's segment-and-get-coords and process paths (the int8 serving mode too), its command line, its checkpoint loading, its SAM2 fine-tuning, its multi-device paths, its launch scripts and its mask-quality loop, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -46,7 +46,10 @@ Phases, one line each (any failure exits non-zero with no result line):
           none on the FMA body).
           (b)'s logits are held against the same model on the CPU.
   profile one forward of (a) and of (b) under torch.profiler: device time by
-          kernel, and the device's busy share of the forward
+          kernel, and the device's busy share of the forward; the forward's
+          FLOPs by atlaspatch_tpu_torch/tools/sam2_ceiling.py's count (on the
+          meta device) and their rate over the busy time as a share of the
+          card's peak for the precision (989 TFLOP/s bfloat16, 67 float32)
   coords  the masks of (a) → contours → patch coordinates on a 4096x3072
           synthetic slide (native containment checked against numpy)
   runner  segment-and-get-coords through the port's ProcessingRunner on
@@ -335,6 +338,30 @@ Phases, one line each (any failure exits non-zero with no result line):
           that give back (l1)'s segmentation settings under --fast: both
           ranks log their gloo group and host shard, coordinates equal
           (l1)'s byte for byte. Wall s per part
+  quality (m1) one --trainable all AdamW step at full Hiera-tiny width,
+          1024^2, batch 4, from one random init .npz, on the card and on the
+          CPU: loss within 1e-4 relative, every gradient within FT_GRAD_BOUND
+          of its tensor's largest |CPU gradient|, or of the step's largest
+          for the key-bias tensors (exact gradient zero) and for those whose
+          CPU float32 gradient lies further than half the bound from the
+          float64 one taken on the card (sums that cancel; each printed with
+          both distances), the same step with TF32 switched on over its
+          bound; 0 kernel launches and
+          12 plain autograd attention calls per train step; the step's ms by
+          host clock, device-busy ms, images/s and peak memory. (m2) the
+          mask-quality loop, bash atlaspatch_tpu_torch/tools/quality_loop.sh
+          with PYTHON=sys.executable at its own options (96 training pairs
+          of 1024x768, 16 held-out slides of 4096x3072, finetune-sam2
+          --trainable all from random init, 20 epochs, batch 4, 1024^2;
+          detect-tissue with the trained archive and with random weights;
+          evaluate-masks), each output line time-stamped: rc 0, 20 epochs
+          with the last train loss below the first, each detect-tissue
+          process's trace (ATLASPATCH_TORCH_TRACE) 12 attention launches per
+          forward (9 tf32x3, 3 f32_win), trained mean IoU >= 0.90 over the
+          16 slides and its error (1 - IoU) at most 1/5 of the random
+          baseline's. Prints the training wall time,
+          each epoch's loss and val IoU, mean IoU, F1, precision and recall
+          of both, beside the reference's IoU (0.980 trained, 0.149 random)
 
 Then one JSON line with the kernel records: the two int8 kernels'
 (``launches``: the int8 phase's command-line run, and for int8_linear_s8
@@ -354,7 +381,8 @@ the encoder path holds no TPU kernel of its own; ``finetune_launches``: the
 finetune phase's validation and detect-tissue forwards; ``multi_launches``: the
 multi phase's data-parallel segmentation, data-parallel and two-rank
 fine-tuning and two-rank command line; ``jobs_launches``: the jobs
-phase's script processes, from their traces; the int8 records' ``multi_launches``:
+phase's script processes, from their traces; ``quality_launches``: the quality phase's
+two detect-tissue processes, from their traces; the int8 records' ``multi_launches``:
 its data-parallel int8 extract_batch) and tensor-parallel int8's four
 records (quantize_rows_s8's amax-only and given-amax modes on their streamed
 bodies, the template's modes on the same shards as before_ms, and for
@@ -376,8 +404,10 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -931,11 +961,17 @@ def phase_seg(state):
 def phase_profile(state):
     """One forward of each setting under torch.profiler: device time by
     kernel, and its share of the forward's host-clock time (the best of 3
-    runs without the profiler, which slows the host)."""
+    runs without the profiler, which slows the host); the forward's FLOPs
+    (tools/sam2_ceiling.py's count) and their rate over the busy time as a
+    share of the card's peak for the setting's precision."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from atlaspatch_tpu_torch.tools.sam2_ceiling import PEAK_TFLOPS, analyze_size
+
     for label, (svc, thumbs) in state.pop("services").items():
+        precision = svc.cfg.precision
+        gflop = analyze_size(svc.predictor.input_size, len(thumbs), precision)["flops_per_thumb"] * len(thumbs) / 1e9
         wall_s = min(_run_service(svc, thumbs)[1] for _ in range(3))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _run_service(svc, thumbs)
@@ -948,6 +984,11 @@ def phase_profile(state):
         log(f"profile {label}: forward {1e3 * wall_s:.2f} ms host clock (thumbnails in, masks "
             f"out), device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall_s:.1f}%), "
             f"{sum(e.count for e in rows)} kernel launches [{state['card']}]")
+        tflops = gflop / 1e3 / (busy_us / 1e6)
+        log(f"profile {label}: {gflop:.2f} GFLOP per forward (tools/sam2_ceiling.py: matrix products, "
+            f"convolutions, attention) -> {tflops:.1f} TFLOP/s over the busy time = "
+            f"{100 * tflops / PEAK_TFLOPS[precision]:.1f}% of the {PEAK_TFLOPS[precision]:.0f} TFLOP/s "
+            f"{precision} peak; over the host-clock forward {gflop / 1e3 / wall_s:.1f} TFLOP/s [{state['card']}]")
         for e in rows[:12]:
             us = e.self_device_time_total
             log(f"profile   {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}% x{e.count:<4d} {e.key[:110]}")
@@ -3172,11 +3213,11 @@ def _counting_train_steps(record: dict):
     return restore
 
 
-def _one_train_step(init: Path, cfg, images, targets, device: str, tf32: bool = False):
-    """(model, loss, {Flax key: norm gradient in the JAX layout}) of one
-    norms-only AdamW step from ``init`` on ``device``. TF32 is on when the
-    step is built, which must turn it off; ``tf32`` switches it on again for
-    the step itself, a control."""
+def _one_train_step(init: Path, cfg, images, targets, device: str, tf32: bool = False, trainable: str = "norms"):
+    """(model, loss, {Flax key: gradient in the JAX layout}) of one AdamW
+    step from ``init`` on ``device`` over the ``trainable`` tensors (the
+    norms, or all). TF32 is on when the step is built, which must turn it
+    off; ``tf32`` switches it on again for the step itself, a control."""
     import torch
 
     from atlaspatch_tpu_torch.models.sam2.convert import load_into, load_npz, to_flax_layout
@@ -3186,7 +3227,7 @@ def _one_train_step(init: Path, cfg, images, targets, device: str, tf32: bool = 
     model = SAM2ImageModel(cfg)
     load_into(model, load_npz(init, cfg))
     model.to(device)
-    params = ft.trainable_parameters(model, "norms")
+    params = ft.trainable_parameters(model, trainable)
     optimizer, lr = ft.make_optimizer(params.values())
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = device != "cpu"
     step = ft.make_train_step(model, optimizer, lr)
@@ -4743,6 +4784,274 @@ def phase_jobs(state):
         f"{time.perf_counter() - t0:.1f} s [{state['card']}]")
 
 
+# --- the quality phase: --trainable all on the card, then the mask-quality loop ----------
+QUALITY_SCRIPT = Path(__file__).resolve().parent / "atlaspatch_tpu_torch" / "tools" / "quality_loop.sh"
+QUALITY_TIMEOUT = 900  # s for the whole loop script, killed past it
+QUALITY_BATCH = 4  # the loop's --batch-size
+QUALITY_IOU = 0.90  # trained mean IoU at least this,
+QUALITY_ERROR_RATIO = 5  # and its mean error (1 - IoU) at most 1/5 of the random-weights baseline's
+# the reference's figures (a quality yardstick, not a target): trained and random mean IoU on 16 held-out slides
+JAX_REFERENCE_IOU = {"trained": 0.980, "random": 0.149}
+def _is_key_bias(key: str) -> bool:
+    """A Flax SAM2 tensor that is or holds a key bias: a ``k_proj`` bias,
+    a Hiera ``qkv`` bias (its middle third). Softmax over the keys is
+    unchanged when one vector is added to every key, so their exact gradient
+    is zero and what backward gives is rounding noise."""
+    return key.endswith(("k_proj/bias", "qkv/bias"))
+
+
+def _float64_gradients(init: Path, cfg, images, targets, device: str) -> dict:
+    """{Flax key: gradient} of the loss at ``init`` in float64 on ``device``:
+    the exact gradient, to float32 rounding, that the float32 steps are
+    held to where float32 cannot reach FT_GRAD_BOUND."""
+    import torch
+
+    from atlaspatch_tpu_torch.models.sam2.convert import load_into, load_npz, to_flax_layout
+    from atlaspatch_tpu_torch.models.sam2.model import SAM2ImageModel
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+
+    model = SAM2ImageModel(cfg)
+    load_into(model, load_npz(init, cfg))
+    model.to(device, torch.float64)
+    params = ft.trainable_parameters(model, "all")
+    ft.seg_loss_fn(model, torch.as_tensor(images).to(device),
+                   torch.as_tensor(targets).to(device, torch.float64)).backward()
+    return to_flax_layout(model, {k: t.grad if t.grad is not None else torch.zeros_like(t)
+                                  for k, t in params.items()})
+
+
+def _grad_check(grads: dict, cpu: dict, exact: dict) -> dict:
+    """{Flax key: (gap, bound, rule)} of a float32 step's gradients ``grads``
+    against the CPU's ``cpu``: max |grads - cpu| within FT_GRAD_BOUND of the
+    tensor's largest |cpu| (rule ``own``), or of the step's largest |cpu| of
+    all tensors where a tensor's own scale is noise: a key bias (``key
+    bias``), or a gradient that two float32 computations cannot be held to
+    the bound on, the CPU's own float32 one lying further than half of
+    FT_GRAD_BOUND of its largest from the float64 gradient ``exact``
+    (``float32``: sums over every position that cancel, as the tiled window
+    embedding's; two computations each that far off may differ by the
+    bound)."""
+    import numpy as np
+
+    largest = max(float(np.abs(g).max()) for g in cpu.values())
+    rows = {}
+    for k, g in cpu.items():
+        own = max(float(np.abs(g).max()), 1e-30)
+        rule = ("key bias" if _is_key_bias(k) else
+                "float32" if float(np.abs(g - exact[k]).max()) > FT_GRAD_BOUND / 2 * own else "own")
+        rows[k] = (float(np.abs(grads[k] - g).max()), FT_GRAD_BOUND * (own if rule == "own" else largest), rule)
+    return rows
+
+
+def _quality_step(state, tmp, cfg) -> dict:
+    """(m1): one --trainable all AdamW step at full Hiera-tiny width, 1024^2,
+    batch QUALITY_BATCH, from one random init .npz, on the card and on the
+    CPU (and on the card with TF32 on, a control), then the card step's
+    time, device-busy ms and peak memory."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atlaspatch_tpu_torch.models.sam2.convert import torch_to_flax_flat
+    from atlaspatch_tpu_torch.models.sam2.model import init_params
+    from atlaspatch_tpu_torch.models.train import finetune as ft
+    from atlaspatch_tpu_torch.models.train.loop import collect_pairs, load_pair
+
+    images, masks = _write_ft_corpus(tmp / "corpus", QUALITY_BATCH, 1024, 768)
+    loaded = [load_pair(img, mask, cfg.image_size) for img, mask in collect_pairs(images, masks)]
+    batch = np.stack([im for im, _ in loaded]), np.stack([mk for _, mk in loaded])
+    init = tmp / "init.npz"
+    np.savez(init, **torch_to_flax_flat(init_params(cfg, seed=0), cfg))
+    n_attn = sum(cfg.blocks_per_stage)
+    torch.cuda.reset_peak_memory_stats()
+
+    record = {"train": [], "eval": []}
+    restore = _counting_train_steps(record)
+    try:
+        card_model, card_loss, card_grads = _one_train_step(init, cfg, *batch, "cuda", trainable="all")
+        t0 = time.perf_counter()
+        _, cpu_loss, cpu_grads = _one_train_step(init, cfg, *batch, "cpu", trainable="all")
+        cpu_step_s = time.perf_counter() - t0
+        _, control_loss, control_grads = _one_train_step(init, cfg, *batch, "cuda", tf32=True, trainable="all")
+    finally:
+        restore()
+    for s in record["train"]:
+        if s["grad_calls"] != n_attn or s["launches"]:
+            raise AssertionError(f"quality (m1) train step: {s['launches']} kernel launches, {s['grad_calls']} plain "
+                                 f"autograd attention calls, want 0 and {n_attn}")
+    if len(record["train"]) != 3:
+        raise AssertionError(f"quality (m1): {len(record['train'])} train steps counted, want 3")
+    exact = _float64_gradients(init, cfg, *batch, "cuda")
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    sound, control = _grad_check(card_grads, cpu_grads, exact), _grad_check(control_grads, cpu_grads, exact)
+    over = {k: r for k, r in sound.items() if not r[0] <= r[1]}
+    if not loss_rel <= 1e-4 or over:
+        raise AssertionError(f"quality (m1) card vs CPU: loss rel {loss_rel}; gradients over their bound "
+                             f"(gap, bound, rule): {over}")
+    control_over = sorted(k for k, r in control.items() if not r[0] <= r[1])
+    if not control_over:
+        raise AssertionError("quality (m1): a step in TF32 passes every gradient bound")
+    worst = max((r[0] / r[1], k) for k, r in sound.items() if r[2] == "own")
+    worst_cpu = float(np.abs(cpu_grads[worst[1]] - exact[worst[1]]).max()) / float(np.abs(cpu_grads[worst[1]]).max())
+    special = {k: r for k, r in sound.items() if r[2] != "own"}
+    f32_limited = {k: (r[0], *(float(np.abs(g[k] - exact[k]).max()) for g in (card_grads, cpu_grads)),
+                       float(np.abs(cpu_grads[k]).max())) for k, r in special.items() if r[2] == "float32"}
+    del control_grads, cpu_grads, exact
+
+    # the card step's time: the same model and batch, steps after the first
+    params = ft.trainable_parameters(card_model, "all")
+    optimizer, lr = ft.make_optimizer(params.values())
+    step = ft.make_train_step(card_model, optimizer, lr)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        float(step(*batch))
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step(*batch))
+    rows = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if not busy_ms:
+        raise AssertionError("the profiler recorded no device time in the all-parameter train step")
+    step_ms = 1e3 * statistics.median(times[1:])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"quality (m1) one --trainable all AdamW step, Hiera-tiny at full width, 1024^2, batch {QUALITY_BATCH}, "
+        f"{len(params)} tensors: loss card {card_loss:.6f} vs CPU {cpu_loss:.6f} (rel {loss_rel:.3g} <= 1e-4); "
+        f"{len(sound) - len(special)} gradients within FT_GRAD_BOUND {FT_GRAD_BOUND} of their own largest |CPU "
+        f"gradient|, the worst at {worst[0] * FT_GRAD_BOUND:.3g} of it ({worst[1]}; the CPU's distance to the "
+        f"float64 gradient {worst_cpu:.3g} of it); control, the same step with "
+        f"TF32 on: {len(control_over)} tensors over their bound ({control_over[:4]}...); CPU step {cpu_step_s:.1f} s")
+    log(f"quality (m1) held against the step's largest |CPU gradient| instead of their own (key biases: exact "
+        f"gradient zero, softmax over the keys is unchanged when one vector is added to every key, so backward gives "
+        f"rounding noise): " + ", ".join(f"{k} {r[0]:.3g} <= {r[1]:.3g}" for k, r in special.items()
+                                          if r[2] == "key bias"))
+    log(f"quality (m1) held against the step's largest |CPU gradient| too, as two float32 steps cannot be held to "
+        f"FT_GRAD_BOUND of their own (the CPU's float32 gradient further than half of it from the float64 one; sums "
+        f"that cancel): (card vs CPU, "
+        f"card vs float64, CPU vs float64, own largest) " + ", ".join(
+            f"{k} {g:.3g} {c:.3g} {e:.3g} {m:.3g}" for k, (g, c, e, m) in f32_limited.items()))
+    log(f"quality (m1) launches: 0 in each of {len(record['train'])} train steps, {n_attn} plain autograd attention "
+        f"calls each; train step {step_ms:.1f} ms by host clock (median of {len(times) - 1} after the first), "
+        f"{QUALITY_BATCH * 1e3 / step_ms:.2f} images/s, device busy {busy_ms:.2f} ms (torch.profiler), peak memory "
+        f"{peak_gib:.2f} GiB [{state['card']}]")
+    for e in rows[:8]:
+        log(f"quality profile {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% x{e.count:<4d} {e.key[:100]}")
+    del card_model, step, optimizer, params
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, busy_ms=busy_ms, images_s=QUALITY_BATCH * 1e3 / step_ms, peak_gib=peak_gib,
+                loss_rel=loss_rel, grad_worst=worst, f32_limited=f32_limited, cpu_step_s=cpu_step_s)
+
+
+def _csv_means(path: Path) -> dict:
+    import csv
+    import statistics
+
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    return {k: statistics.fmean(float(r[k]) for r in rows) for k in ("iou", "f1", "precision", "recall")} | {
+        "n": len(rows)}
+
+
+def _quality_loop(state, tmp) -> dict:
+    """(m2): the loop script with bash, at its own options, every line of its
+    output time-stamped on arrival; its epochs, scores and traces read back."""
+    from atlaspatch_tpu_torch.utils.perf import trace_counts
+
+    work, traces = tmp / "qloop", tmp / "trace"
+    env = _job_env(PYTHON=sys.executable, ATLASPATCH_TORCH_TRACE=traces)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["bash", str(QUALITY_SCRIPT), str(work)], env=env, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    watchdog = threading.Timer(QUALITY_TIMEOUT, lambda: os.killpg(proc.pid, signal.SIGKILL))
+    watchdog.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"quality (m2): {QUALITY_SCRIPT.name} exited {rc} after {wall:.1f} s:\n"
+                             + "\n".join(ln for _, ln in lines[-40:]))
+    starts = {}  # when bash traced each step's first command, by what it runs
+    for t, ln in lines:
+        m = re.match(r"\+ .*-m atlaspatch_tpu_torch\.(?:cli (\S+)|tools\.synthetic_corpus)", ln)
+        if m:
+            starts.setdefault(m.group(1) or "corpus", t)
+    train_s = starts["detect-tissue"] - starts["finetune-sam2"]
+    epochs = [tuple(float(x) for x in m.groups()) for _, ln in lines if not ln.startswith("+")
+              for m in [re.search(r"epoch \d+/\d+: train loss ([\d.]+) \| val loss ([\d.]+) val IoU ([\d.]+)", ln)]
+              if m]
+    scores = {name: _csv_means(work / f"{name}.csv") for name in ("trained", "random")}
+    files = sorted(traces.glob("trace-*.json"))
+    per_run = []
+    for f in files:
+        c = trace_counts(f)
+        flash = sum(n for k, n in c.items() if k.startswith("kernel:") and "flash_fwd" in k)
+        tf32x3 = sum(n for k, n in c.items() if k.startswith("kernel:") and "flash_fwd_tf32x3" in k)
+        f32win = sum(n for k, n in c.items() if k.startswith("kernel:") and "flash_fwd_f32win" in k)
+        per_run.append((flash, tf32x3, f32win, c["span:sam2_forward"]))
+    if len(per_run) != 2 or any(not fw or (n, a, b) != (12 * fw, 9 * fw, 3 * fw) for n, a, b, fw in per_run):
+        raise AssertionError(f"quality (m2): detect-tissue traces (launches, tf32x3, f32_win, forwards) {per_run}, "
+                             "want 12, 9 and 3 per forward in each of 2")
+    if len(epochs) != 20 or not epochs[-1][0] < epochs[0][0]:
+        raise AssertionError(f"quality (m2): epochs (train loss, val loss, val IoU) {epochs}")
+    trained, random = scores["trained"], scores["random"]
+    if trained["n"] != 16 or random["n"] != 16:
+        raise AssertionError(f"quality (m2): {trained['n']} trained and {random['n']} random rows, want 16 each")
+    if not (trained["iou"] >= QUALITY_IOU and 1 - trained["iou"] <= (1 - random["iou"]) / QUALITY_ERROR_RATIO):
+        raise AssertionError(f"quality (m2): trained mean IoU {trained['iou']:.4f}, random {random['iou']:.4f}; want "
+                             f">= {QUALITY_IOU} and an error 1 - IoU at most 1/{QUALITY_ERROR_RATIO} of random's")
+    card = state["card"]
+    log(f"quality (m2) bash {QUALITY_SCRIPT.relative_to(QUALITY_SCRIPT.parents[2])} (20 epochs, batch 4, 1024^2, "
+        f"PYTHON={sys.executable}): rc 0 in {wall:.1f} s wall; steps begin at (s) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in starts.items()) + f"; training {train_s:.1f} s wall [{card}]")
+    log("quality (m2) epochs (train loss, val loss, val IoU): "
+        + "; ".join(f"{i + 1}: {a:.4f} {b:.4f} {c:.4f}" for i, (a, b, c) in enumerate(epochs)))
+    for name in ("trained", "random"):
+        sc = scores[name]
+        log(f"quality (m2) {name} masks on 16 held-out 4096x3072 slides: mean IoU {sc['iou']:.4f}, F1 {sc['f1']:.4f}, "
+            f"precision {sc['precision']:.4f}, recall {sc['recall']:.4f} [{card}]; JAX reference, TPU, "
+            f"docs/TRAINING.md: IoU {JAX_REFERENCE_IOU[name]:.3f}")
+    log(f"quality (m2) the two detect-tissue processes' traces (attention launches, tf32x3, f32_win, forwards): "
+        f"{per_run}")
+    log(f"quality (m2) trained against random: mean IoU {trained['iou']:.4f} >= {QUALITY_IOU}, error "
+        f"{1 - trained['iou']:.4f} = 1/{(1 - random['iou']) / (1 - trained['iou']):.1f} of random's "
+        f"{1 - random['iou']:.4f} (held: <= 1/{QUALITY_ERROR_RATIO}); IoU above random by "
+        f"{trained['iou'] - random['iou']:.4f} (the reference's 0.831 is over its own random draw) [{card}]")
+    state["quality_launches"] = sum(r[0] for r in per_run)
+    return dict(wall=wall, train_s=train_s, epochs=epochs, scores=scores, traces=per_run)
+
+
+def phase_quality(state):
+    """(m1) one all-parameter train step on the card against the CPU; (m2)
+    the mask-quality loop (atlaspatch_tpu_torch/tools/quality_loop.sh) at the
+    reference's options: corpora, finetune-sam2 --trainable all from random
+    init, detect-tissue trained and random, evaluate-masks."""
+    import tempfile
+
+    from atlaspatch_tpu_torch.models.sam2.config import SAM2Config
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_"))
+    try:
+        step = _quality_step(state, tmp, SAM2Config.tiny())
+        loop = _quality_loop(state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["quality"] = dict(step, **loop)
+    log(f"quality: phase {time.perf_counter() - t0:.1f} s [{state['card']}]")
+
+
 def main() -> int:
     import torch
 
@@ -4759,7 +5068,7 @@ def main() -> int:
                             ("runner", phase_runner), ("tiff", phase_tiff), ("embed", phase_embed),
                             ("int8", phase_int8), ("process", phase_process), ("cli", phase_cli),
                             ("weights", phase_weights), ("finetune", phase_finetune), ("multi", phase_multi),
-                            ("jobs", phase_jobs)):
+                            ("jobs", phase_jobs), ("quality", phase_quality)):
             t0 = time.perf_counter()
             try:
                 phase(state)
@@ -4774,10 +5083,10 @@ def main() -> int:
                   tiff_launches=state["tiff_launches"], process_launches=state["process_launches"],
                   cli_launches=state["cli_launches"], weights_launches=state["weights_launches"],
                   finetune_launches=state["finetune_launches"], multi_launches=state["multi_launches"],
-                  jobs_launches=state["jobs_launches"])
+                  jobs_launches=state["jobs_launches"], quality_launches=state["quality_launches"])
     keys = ("name", "route", "source", "sources", "replaces", "launches", "runner_launches", "tiff_launches",
             "process_launches", "cli_launches", "weights_launches", "finetune_launches", "multi_launches",
-            "jobs_launches", "max_abs_err", "ms",
+            "jobs_launches", "quality_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     int8_keys = ("name", "route", "source", "sources", "replaces", "launches", "variant_launches",
                  "prologue_launches", "extract_launches", "multi_launches", "virchow_variant_launches", "max_abs_err",

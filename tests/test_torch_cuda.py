@@ -950,7 +950,7 @@ PROLOGUE_CASES = [
     (6304, 1024, "quick_gelu", None), (6304, 4096, "relu", None), (6304, 4096, "gelu", "swiglu"),
     (6304, 4096, "layernorm", None), (37, 45, "layernorm", None), (37, 45, "gelu_tanh", "gated"),
 ]
-FUSED_FLIP_SHARE = 1e-3  # tests/test_torch_int8.py's bar: xq within 1 in this share, s_x within 2^-8
+FUSED_FLIP_SHARE = 1e-3  # tests/test_torch_int8_fused.py's bar: xq within 1 in this share, s_x within 2^-8
 
 
 def _fused_operands(card, m, k, prologue, operand, dtype, seed=0):

@@ -16,24 +16,17 @@ both packages run them: the JAX side as ``tests/test_int8_mode.py`` runs it.
     within 1e-6 (the softmaxes differ in the last bit).
   * the whole int8 ViT on the same quantized tree, float32 activations:
     max-abs within 1e-3 of the feature's largest magnitude (a quantizer input
-    off by one ulp may flip an int8 value; the flips are counted); through
-    both engines' bfloat16 int8 path: per-row cosine >= BF16_INT8_COS.
-  * the quantizer fused with the op before it (``layernorm_quantize_rows``,
-    ``act_quantize_rows``, ``quantize_heads``): each plain version equals the
-    unfused chain bit for bit in float32 and bfloat16, and, in float32,
-    ``nn.LayerNorm`` / the MLP's ``_act`` followed by ``Int8Dense``'s
-    quantizer within FUSED_FLIP_SHARE flipped xq elements of at most 1 and
-    scales within 2^-8; the int8 ViT through the fused path equals the
-    unfused chain bit for bit on the CPU; a gated MLP quantizes its input
-    once; the refusals.
-  * the GELU switch, the registry, the fallback of other families, the
-    drift contract (int8 against float32 cosine > 0.98) and the engine's
-    cast, which keeps ``qscale`` float32 and ``weight_q`` int8.
+    off by one ulp may flip an int8 value; the flips are counted).
+  * the row split over tensor-parallel shards, the routing of
+    ``int8_linear_s8``'s bodies and the 16-byte row pitch.
+
+The fused quantizers are in ``tests/test_torch_int8_fused.py``; the two
+engines, the GELU switch, the registry and the drift contract in
+``tests/test_torch_int8_vit.py``.
 """
 
 import re
 from pathlib import Path
-
 
 import dataclasses
 
@@ -45,58 +38,13 @@ import pytest
 import torch
 
 from atlaspatch_tpu.models.encoders import vit as jvit
-from atlaspatch_tpu.models.encoders.engine import JaxFeatureExtractor
-from atlaspatch_tpu.models.encoders.engine import PreprocessSpec as JaxPreprocessSpec
 from atlaspatch_tpu_torch.models.encoders import vit as pvit
 from atlaspatch_tpu_torch.models.encoders import zoo
 from atlaspatch_tpu_torch.models.encoders.engine import PreprocessSpec, TorchFeatureExtractor
 from atlaspatch_tpu_torch.ops import int8 as I
+from torch_int8_helpers import (ACTS, PRE, SPECS, TINY, _images, _int8_model, _int8_widths, _leaf_paths, _params,
+                                _rows)
 from torch_port_helpers import shared_vit_params
-
-TINY = dict(img_size=32, patch_size=16, dim=64, depth=2, heads=4)
-SPECS = {
-    "plain": {},
-    "gated_mlp": dict(gated_mlp=True, mlp_hidden=96, layerscale=True),
-    "rope": dict(pos_mode="rope", reg_tokens=2, swiglu=True, act="silu", mlp_hidden=48),
-}
-# The fused quantizers' CPU path against the unfused chain also at a CLIP-style tower (pre-LN,
-# QuickGELU), which the JAX parity tests above leave to the quantizer-level tests below.
-FUSED_SPECS = {**SPECS, "quick_gelu": dict(act="quick_gelu", pre_ln=True)}
-PRE = dict(crop=32, resize=32, mode="square")
-# The two engines round bfloat16 at other places (XLA rounds each op of the
-# tanh GELU and of LayerNorm's normalization to bfloat16, torch each of its
-# own ops once), and the int8 quantizers turn such last-bit differences into
-# flipped int8 values. Over 9 seeded (spec, weights) pairs the port's int8
-# path read per-row cosine >= 0.99864 against the JAX one, the size of each
-# engine's own int8-against-float32 drift at this width (>= 0.99898).
-BF16_INT8_COS = 0.998
-# The fused quantizers' bar against the JAX op + quantizer (and, on the card,
-# against their plain versions): xq elements differ by at most 1, in at most
-# this share of them, and the row scales by at most 2^-8 relative.
-FUSED_FLIP_SHARE = 1e-3
-ACTS = ("gelu", "gelu_tanh", "quick_gelu", "silu", "relu")
-
-
-def _leaf_paths(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaf_paths(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
-def _images(n: int = 3, seed: int = 0) -> np.ndarray:
-    return np.random.default_rng(seed).normal(size=(n, 32, 32, 3)).astype(np.float32)
-
-
-def _params(kw: dict, seed: int = 0) -> dict:
-    return shared_vit_params(jvit.ViTSpec(**TINY, **kw), seed=seed)
-
-
-def _int8_model(kw: dict, qtree: dict, **spec) -> pvit.ViT:
-    model = pvit.ViT(pvit.ViTSpec(**TINY, **kw, quant_int8=True, **spec))
-    model.load_state_dict(pvit.flax_vit_to_torch(qtree), strict=True)
-    return model.eval()
 
 
 # --- quantize_vit_params ---------------------------------------------------------------
@@ -441,330 +389,7 @@ def test_quant_modes_match_the_kernel_source():
     assert f"kMaxPartials = {I.MAX_PARTIALS};" in src
 
 
-# --- the quantizer fused with the op before it -------------------------------------------
-def _rows(m: int, k: int, dtype, seed: int, scale: float = 2.0) -> torch.Tensor:
-    x = np.random.default_rng(seed).normal(0.3, scale, (m, k)).astype(np.float32)
-    return torch.from_numpy(x).to(dtype)
-
-
-def _assert_fused_bar(got, want, what):
-    """xq within 1 in at most FUSED_FLIP_SHARE of the elements, s_x within 2^-8."""
-    (xq, s_x), (want_xq, want_s) = got, want
-    diff = (xq.int() - want_xq.int()).abs()
-    share = (diff > 0).float().mean().item()
-    rel = ((s_x - want_s).abs() / want_s).max().item()
-    print(f"{what}: {int((diff > 0).sum())} of {diff.numel()} xq flipped ({share:.2e}), s_x rel {rel:.2e}")
-    assert diff.max().item() <= 1 and share <= FUSED_FLIP_SHARE and rel <= 2.0**-8, what
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [48, 64, 1024])
-def test_layernorm_plain_version_is_the_unfused_chain(dtype, k):
-    x = _rows(37, k, dtype, seed=k)
-    norm = torch.nn.LayerNorm(k, eps=1e-6).to(dtype)
-    with torch.no_grad():
-        norm.weight.copy_(_rows(1, k, dtype, seed=1, scale=0.5)[0] + 1)
-        norm.bias.copy_(_rows(1, k, dtype, seed=2, scale=0.5)[0])
-        want = I.quantize_rows_plain(norm(x))
-    for got in (I.layernorm_quantize_rows_plain(x, norm.weight, norm.bias, norm.eps),
-                I.layernorm_quantize_rows(x, norm.weight, norm.bias, norm.eps)):
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
-@pytest.mark.parametrize("act", ACTS)
-def test_act_plain_version_is_the_unfused_chain(act, gate, dtype):
-    """What Mlp.forward ran before the fusion: act(fc1(x)), act(x1) * x2 of
-    one fc1 output's halves, act(fc_gate(x)) * fc_up(x)."""
-    fn = pvit._act(act)
-    h = _rows(37, 2 * 72 if gate == "swiglu" else 72, dtype, seed=5)
-    if gate == "swiglu":
-        a, b = h.chunk(2, dim=-1)
-    else:
-        a, b = h, (_rows(37, 72, dtype, seed=6) if gate == "gated" else None)
-    want = I.quantize_rows_plain(fn(a) if b is None else fn(a) * b)
-    for got in (I.act_quantize_rows_plain(a, act, b), I.act_quantize_rows(a, act, b)):
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-def test_quantize_heads_is_the_reshaped_rows():
-    """The attention's output as its einsum leaves it: (B, T, H, D), not
-    contiguous, quantized as the (B T, H D) rows of its reshape."""
-    attn = torch.softmax(_rows(2 * 4 * 5, 5, torch.float32, seed=7).reshape(2, 4, 5, 5), dim=-1)
-    v = _rows(2 * 5 * 4, 8, torch.float32, seed=8).reshape(2, 5, 4, 8)
-    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-    assert not out.is_contiguous()
-    want = I.quantize_rows_plain(out.reshape(10, 32))
-    got = I.quantize_heads(out)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-@pytest.mark.parametrize("k", [48, 1024])
-def test_layernorm_quantizer_matches_jax_layernorm_and_int8_dense(k):
-    """float32 rows from numpy: the plain version against the JAX
-    ``nn.LayerNorm`` followed by ``Int8Dense``'s quantizer."""
-    rng = np.random.default_rng(k)
-    x = rng.normal(0.3, 2.0, (64, k)).astype(np.float32)
-    scale, bias = (1 + rng.normal(0, 0.5, k)).astype(np.float32), rng.normal(0, 0.5, k).astype(np.float32)
-    y = fnn.LayerNorm(epsilon=1e-6).apply({"params": {"scale": scale, "bias": bias}}, jnp.asarray(x))
-    want = jvit._q8_dyn(y, axis=-1)
-    got = I.layernorm_quantize_rows_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 1e-6)
-    _assert_fused_bar(got, (torch.from_numpy(np.asarray(want[0])), torch.from_numpy(np.asarray(want[1])[:, 0])),
-                      f"layernorm K={k}")
-
-
-@pytest.mark.parametrize("gate", [None, "swiglu", "gated"])
-@pytest.mark.parametrize("act", ACTS)
-def test_act_quantizer_matches_jax_mlp_and_int8_dense(act, gate):
-    """float32 rows from numpy: the plain version against the JAX MLP's
-    ``_act`` (then ``* b``) followed by ``Int8Dense``'s quantizer."""
-    rng = np.random.default_rng(3)
-    a = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32)
-    b = rng.normal(0.0, 2.0, (64, 96)).astype(np.float32) if gate else None
-    h = jvit._act(act)(jnp.asarray(a))
-    want = jvit._q8_dyn(h if b is None else h * jnp.asarray(b), axis=-1)
-    if gate == "swiglu":  # the two halves of one fc1 output
-        both = torch.from_numpy(np.concatenate([a, b], axis=1))
-        ta, tb = both.chunk(2, dim=-1)
-    else:
-        ta, tb = torch.from_numpy(a), None if b is None else torch.from_numpy(b)
-    got = I.act_quantize_rows_plain(ta, act, tb)
-    _assert_fused_bar(got, (torch.from_numpy(np.asarray(want[0])), torch.from_numpy(np.asarray(want[1])[:, 0])),
-                      f"{act} {gate}")
-
-
-def _unfused_forward(model: pvit.ViT, x: torch.Tensor) -> torch.Tensor:
-    """The int8 ViT as the port ran it before the fusion: each LayerNorm and
-    activation stored, the attention's output reshaped, every Int8Linear fed
-    a plain tensor."""
-    s = model.spec
-
-    def block(blk, x):
-        h = blk.norm1(x)
-        B, T, _ = h.shape
-        q, k, v = blk.attn.qkv(h).reshape(B, T, 3, s.heads, s.dim // s.heads).unbind(2)
-        if s.pos_mode == "rope":
-            cos = blk.attn.rope_cos.to(q.dtype)[None, :, None, :]
-            sin = blk.attn.rope_sin.to(q.dtype)[None, :, None, :]
-            n = T - cos.shape[1]
-            qp, kp = q[:, n:], k[:, n:]
-            q = torch.cat([q[:, :n], qp * cos + pvit._rotate_half(qp) * sin], dim=1)
-            k = torch.cat([k[:, :n], kp * cos + pvit._rotate_half(kp) * sin], dim=1)
-        out = pvit._softmax_attention(q, k, v, "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd")
-        h = blk.attn.proj(out.reshape(B, T, s.dim))
-        x = x + (h if blk.ls1 is None else h * blk.ls1)
-        h, mlp = blk.norm2(x), blk.mlp
-        if s.gated_mlp:
-            h = mlp.act(mlp.fc_gate(h)) * mlp.fc_up(h)
-        elif s.swiglu:
-            x1, x2 = mlp.fc1(h).chunk(2, dim=-1)
-            h = mlp.act(x1) * x2
-        else:
-            h = mlp.act(mlp.fc1(h))
-        h = mlp.fc2(h)
-        return x + (h if blk.ls2 is None else h * blk.ls2)
-
-    blocks = model.blocks
-    features = {}
-    hook = blocks[0].register_forward_pre_hook(lambda mod, args: features.setdefault("in", args[0]))
-    model(x)
-    hook.remove()
-    y = features["in"]
-    for blk in blocks:
-        y = block(blk, y)
-    return y
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(FUSED_SPECS))
-def test_fused_blocks_equal_the_unfused_chain_on_the_cpu(case, dtype):
-    """On the CPU the fused quantizers run the ops the port ran before, so
-    the int8 blocks' output is unchanged bit for bit."""
-    kw = FUSED_SPECS[case]
-    model = _int8_model(kw, jvit.quantize_vit_params(_params(kw, seed=9)))
-    model.to(dtype)
-    for mod in model.modules():
-        if isinstance(mod, pvit.Int8Linear):
-            mod.qscale.data = mod.qscale.data.float()
-    x = torch.from_numpy(_images(seed=9)).to(dtype)
-    outputs = []
-    hook = model.blocks[-1].register_forward_hook(lambda mod, args, out: outputs.append(out))
-    with torch.no_grad():
-        model(x)
-        want = _unfused_forward(model, x)
-    hook.remove()
-    assert outputs[0].dtype == dtype and torch.equal(outputs[0], want)
-
-
-def _counting(monkeypatch, names):
-    calls = {name: 0 for name in names}
-    for name in names:
-        fn = getattr(pvit, name)
-
-        def counted(*args, _fn=fn, _name=name, **kwargs):
-            calls[_name] += 1
-            return _fn(*args, **kwargs)
-
-        monkeypatch.setattr(pvit, name, counted)
-    return calls
-
-
-@pytest.mark.parametrize("case", sorted(FUSED_SPECS))
-def test_quantizers_per_block_by_prologue(case, monkeypatch):
-    """Per block: two layernorm quantizers (norm1 → qkv; norm2 → fc1, or
-    shared by fc_gate and fc_up), one activation quantizer (→ fc2), one of
-    the attention's output (→ proj), and no quantize_rows of a plain
-    tensor."""
-    kw = FUSED_SPECS[case]
-    model = _int8_model(kw, jvit.quantize_vit_params(_params(kw)))
-    calls = _counting(monkeypatch, ("layernorm_quantize_rows", "act_quantize_rows", "quantize_heads",
-                                    "quantize_rows"))
-    with torch.no_grad():
-        model(torch.from_numpy(_images()))
-    depth = TINY["depth"]
-    assert calls == {"layernorm_quantize_rows": 2 * depth, "act_quantize_rows": depth, "quantize_heads": depth,
-                     "quantize_rows": 0}
-
-
-def test_prologue_codes_match_the_kernel_source():
-    """ops/int8.py::PROLOGUES lists the C enum's prologues in its order."""
-    src = (Path(I.__file__).parents[1] / "csrc" / "int8_linear.cu").read_text()
-    enum = re.search(r"enum Prologue : int \{([^}]*)\}", src).group(1)
-    assert [n.strip()[1:].lower() for n in enum.split(",")] == [n.replace("_", "") for n in I.PROLOGUES]
-
-
-def test_fused_quantizers_refuse_what_they_do_not_take():
-    x = torch.zeros(4, 8)
-    w, b = torch.ones(8), torch.zeros(8)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        I.layernorm_quantize_rows(x.half(), w.half(), b.half(), 1e-6)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        I.act_quantize_rows(x.half(), "gelu")
-    with pytest.raises(ValueError, match="2-D"):
-        I.act_quantize_rows(torch.zeros(2, 4, 8), "gelu")
-    with pytest.raises(ValueError, match="4-D"):
-        I.quantize_heads(x)
-    with pytest.raises(ValueError, match="empty"):
-        I.layernorm_quantize_rows(torch.zeros(0, 8), w, b, 1e-6)
-    with pytest.raises(ValueError, match="empty"):
-        I.act_quantize_rows(torch.zeros(0, 8), "silu")
-    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 weight"):
-        I.layernorm_quantize_rows(x, torch.ones(7), b, 1e-6)
-    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 bias"):
-        I.layernorm_quantize_rows(x, w, b.bfloat16(), 1e-6)
-    with pytest.raises(ValueError, match=r"\(8,\) torch.float32 weight"):
-        I.layernorm_quantize_rows(x, None, b, 1e-6)
-    with pytest.raises(ValueError, match="no activation 'tanh'"):
-        I.act_quantize_rows(x, "tanh")
-    with pytest.raises(ValueError, match="takes b like a"):
-        I.act_quantize_rows(x, "silu", torch.zeros(4, 9))
-    with pytest.raises(ValueError, match="takes b like a"):
-        I.act_quantize_rows(x, "silu", x.bfloat16())
-
-
-@pytest.mark.parametrize("mode,prologue,run,elem,align,want", [
-    ("one_pass", "identity", 1024, 2, 16, ("template", 0)), ("one_pass", "gelu_tanh", 4096, 4, 16, ("template", 0)),
-    ("amax_only", "layernorm", 1024, 2, 16, ("template", 0)), ("given_amax", "layernorm", 1024, 2, 16, ("template", 0)),
-    ("amax_only", "identity", 512, 2, 16, ("stream", 32)), ("given_amax", "identity", 512, 4, 16, ("stream", 32)),
-    ("amax_only", "identity", 64, 2, 16, ("stream", 32)), ("given_amax", "identity", 72, 2, 16, ("stream", 16)),
-    ("amax_only", "gelu_tanh", 2048, 2, 16, ("stream", 32)), ("given_amax", "identity", 4096, 2, 16, ("stream", 32)),
-    ("given_amax", "identity", 1708, 2, 16, ("stream", 8)), ("amax_only", "silu", 1708, 4, 16, ("stream", 16)),
-    ("given_amax", "identity", 2152, 2, 16, ("stream", 16)), ("amax_only", "identity", 95, 2, 16, ("stream", 2)),
-    ("given_amax", "identity", 96, 2, 2, ("stream", 2)), ("given_amax", "identity", 96, 2, 8, ("stream", 8)),
-    ("amax_only", "relu", 90, 4, 16, ("stream", 8)), ("amax_only", "quick_gelu", 45, 4, 16, ("stream", 4)),
-    ("given_amax", "identity", 44, 4, 4, ("stream", 4)), ("given_amax", "silu", 4096, 2, 16, ("template", 0)),
-    ("given_amax", "gelu_tanh", 1708, 2, 16, ("template", 0)), ("given_amax", "gelu", 44, 4, 4, ("template", 0)),
-])
-def test_quant_variant_by_mode_prologue_and_alignment(mode, prologue, run, elem, align, want):
-    """The one-pass mode, layernorm and an activation's given-amax (the forward quantizes the
-    activation's stored values by the identity prologue instead) stay on the template; amax-only of
-    the identity and the activations and the identity's given-amax take the streamed body, in the
-    widest unit of 32, 16 or 8 bytes that tiles the run of values (a row, or a head) and whose loads
-    (at most 16 bytes) the operands' alignment admits, else in single elements."""
-    assert I.quant_variant(mode, prologue, run, elem, align) == want
-
-
-def test_operand_alignment_of_the_quantizers_views():
-    """The largest power of two, at most 16, dividing the operands' bases and strides in bytes: a
-    contiguous bfloat16 row of 2,048 and its (B, T, H, D) heads view; a SwiGLU half (row stride 3,416
-    values); a view from an odd element; a gated pair whose second operand starts 4 or 1 floats in."""
-    x = torch.zeros(8, 2048, dtype=torch.bfloat16)
-    assert I._operand_alignment(x, (0, 2048, 8, 0, 2048)) == 16
-    heads = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
-    assert I._operand_alignment(heads, (heads.stride(0), heads.stride(1), 4, heads.stride(2), 64)) == 16
-    half = torch.zeros(8, 2 * 1708, dtype=torch.bfloat16)[:, 1708:]
-    assert I._operand_alignment(half, (0, half.stride(0), 8, 0, 1708)) == 8
-    odd = x[:, 1:]
-    assert I._operand_alignment(odd, (0, odd.stride(0), 8, 0, 2047)) == 2
-    a = torch.zeros(8, 64)
-    assert I._operand_alignment(a, (0, 64, 8, 0, 64), torch.zeros(8, 68)[:, 4:]) == 16
-    assert I._operand_alignment(a, (0, 64, 8, 0, 64), torch.zeros(8, 65)[:, 1:]) == 4
-
-
-def test_quant_variant_refuses_unknown_names():
-    with pytest.raises(ValueError, match="has modes"):
-        I.quant_variant("two_pass", "identity", 64)
-    with pytest.raises(ValueError, match="prologues"):
-        I.quant_variant("amax_only", "tanh", 64)
-
-
-@pytest.mark.parametrize("name", sorted(n for n, e in zoo.ENTRIES.items()
-                                        if isinstance(getattr(e, "spec", None), pvit.ViTSpec)))
-def test_quant_variant_at_the_zoo_tp_shards(name):
-    """Every zoo ViT's TP (1, 2) shards in bfloat16 (the attention's heads before proj, whose units
-    tile one head of D values; half the hidden units before fc2: the activation's amax-only, then
-    given-amax over its stored rows by the identity prologue) take the streamed body in 32-byte
-    units, but medsiglip's (D 72 and fc2 K 2,152: 16 bytes) and virchow's fc2 (K 1,708: 8)."""
-    spec = zoo.ENTRIES[name].spec
-    k_fc2 = _int8_widths(name)["fc2"][0] // 2
-    want = {"medsiglip": 16, "virchow_v1": 8, "virchow_v2": 8}.get(name, 32)
-    for mode in ("amax_only", "given_amax"):
-        head = 16 if name == "medsiglip" else 32
-        assert I.quant_variant(mode, "identity", spec.dim // spec.heads) == ("stream", head)
-    assert I.quant_variant("amax_only", "gelu_tanh", k_fc2) == ("stream", want), k_fc2
-    assert I.quant_variant("given_amax", "identity", k_fc2) == ("stream", want), k_fc2
-
-
-@pytest.mark.parametrize("gate", [None, "gated"])
-@pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_stored_activation_quantized_by_identity_equals_the_act_quantizer(act, gate, dtype):
-    """A shard's amax-only, which also returns the activation's values: its amax is their rows'
-    abs-max, and those values quantized with a given amax by the identity prologue are
-    act_quantize_rows's bytes and scales with it, bit for bit (the plain versions; the card test
-    holds the kernels)."""
-    a = _rows(64, 96, dtype, seed=12)
-    b = _rows(64, 96, dtype, seed=13) if gate else None
-    amax, values = I.act_row_amax(a, act, b)
-    assert values.dtype == dtype and values.shape == (64, 96)
-    assert torch.equal(amax, I.row_amax_plain(I._act_rows(a, act, b)))
-    given = amax * 1.5  # the maxed amax of another shard
-    got = I.quantize_rows(values, given)
-    want = I.act_quantize_rows_plain(a, act, b, amax=given)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-def test_rows_longer_than_the_registers_hold_are_refused_before_a_launch():
-    """The kernel holds a row in registers (at most QUANT_MAX_K values): a
-    longer one is refused before the library is touched."""
-    I.reset_launch_counts()
-    x = torch.zeros(2, I.QUANT_MAX_K + 16)
-    with pytest.raises(ValueError, match=f"at most {I.QUANT_MAX_K} values"):
-        I._launch_quantize("identity", x, (0, x.stride(0), 2, 0, x.shape[1]))
-    assert I.quantize_rows.launches == 0 and not I.quantize_rows.prologue_launches
-
-
 # --- which int8_linear_s8 body a shape takes ----------------------------------------------
-def _int8_widths(name: str) -> dict:
-    """(K, N) of each int8 block linear of a zoo ViT, by Int8Linear name."""
-    spec = zoo.ENTRIES[name].spec
-    hidden = spec.hidden_dim
-    mlp = ({"fc_gate": (spec.dim, hidden), "fc_up": (spec.dim, hidden)} if spec.gated_mlp
-           else {"fc1": (spec.dim, 2 * hidden if spec.swiglu else hidden)})
-    return {"qkv": (spec.dim, 3 * spec.dim), "proj": (spec.dim, spec.dim), **mlp, "fc2": (hidden, spec.dim)}
-
-
 # the row-parallel shards of the TP (1, 2) int8 plan whose K (half of the whole) is no multiple of 16:
 # medsiglip's fc2 (2,152 of 4,304) and virchow's (1,708 of the SwiGLU half-width 3,416), on mma where
 # their operands are contiguous, on wgmma at the 16-byte row pitch the model gives them
@@ -1180,121 +805,3 @@ def test_int8_vit_matches_jax_in_float32(case, monkeypatch):
     print(f"{case}: max-abs {err:.3g} of {np.abs(want).max():.3g}; {flipped} of {total} xq elements flipped")
     assert got.shape == want.shape
     assert err <= 1e-3 * np.abs(want).max()
-
-
-def _jax_int8_extractor(kw, qtree):
-    model = jvit.ViT(jvit.ViTSpec(**TINY, **kw, quant_int8=True))
-    return JaxFeatureExtractor(name="tiny", embedding_dim=64, spec=JaxPreprocessSpec(**PRE),
-                               apply_fn=lambda p, x: model.apply({"params": p}, x), params=qtree,
-                               device=jax.devices("cpu")[0], compute_dtype="int8")
-
-
-@pytest.mark.parametrize("case", sorted(SPECS))
-def test_both_engines_int8_paths_agree(case):
-    kw = SPECS[case]
-    qtree = jvit.quantize_vit_params(_params(kw, seed=4))
-    patches = [np.random.default_rng(i).integers(0, 256, (40, 40, 3), dtype=np.uint8) for i in range(6)]
-    want = _jax_int8_extractor(kw, qtree).extract_batch(patches, batch_size=4)
-    ext = TorchFeatureExtractor(name="tiny", embedding_dim=64, spec=PreprocessSpec(**PRE),
-                                model=_int8_model(kw, qtree), device="cpu", compute_dtype="int8")
-    got = ext.extract_batch(patches, batch_size=4)
-    assert got.dtype == np.float32 and got.shape == want.shape
-    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
-    assert cos.min() >= BF16_INT8_COS, cos
-
-
-def test_engine_cast_keeps_qscale_float32():
-    qtree = jvit.quantize_vit_params(_params({}))
-    ext = TorchFeatureExtractor(name="tiny", embedding_dim=64, spec=PreprocessSpec(**PRE),
-                                model=_int8_model({}, qtree), device="cpu", compute_dtype="int8")
-    dtypes = {name: t.dtype for name, t in ext.model.state_dict().items()}
-    assert {d for n, d in dtypes.items() if n.endswith("weight_q")} == {torch.int8}
-    assert {d for n, d in dtypes.items() if n.endswith("qscale")} == {torch.float32}
-    others = {d for n, d in dtypes.items() if not n.endswith(("weight_q", "qscale"))}
-    assert others == {torch.bfloat16}
-    # the scales are those of the tree, unrounded
-    np.testing.assert_array_equal(ext.model.blocks[0].attn.qkv.qscale.numpy(),
-                                  qtree["blocks_0"]["attn"]["qkv"]["qscale"])
-
-
-# --- the GELU switch ------------------------------------------------------------------------
-def test_gelu_tanh_is_the_int8_default(monkeypatch):
-    """Mirrors tests/test_vit_parity.py's check of the switch."""
-    v = torch.tensor(-2.0)
-    monkeypatch.delenv("ATLASPATCH_GELU_TANH", raising=False)
-    exact, approx = float(pvit._act("gelu")(v)), float(pvit._act("gelu_tanh")(v))
-    assert exact != approx
-    assert float(pvit._act("gelu", quantized=True)(v)) == approx
-    assert exact == pytest.approx(float(jvit._act("gelu")(jnp.float32(-2.0))), abs=1e-7)
-    assert approx == pytest.approx(float(jvit._act("gelu", quantized=True)(jnp.float32(-2.0))), abs=1e-7)
-    monkeypatch.setenv("ATLASPATCH_GELU_TANH", "0")
-    assert float(pvit._act("gelu", quantized=True)(v)) == exact
-    monkeypatch.setenv("ATLASPATCH_GELU_TANH", "1")
-    assert float(pvit._act("gelu")(v)) == approx
-    assert float(pvit._act("silu", quantized=True)(v)) == float(torch.nn.functional.silu(v))
-
-
-@pytest.mark.parametrize("env", [None, "0"])
-def test_int8_vit_follows_the_switch_like_jax(monkeypatch, env):
-    if env is None:
-        monkeypatch.delenv("ATLASPATCH_GELU_TANH", raising=False)
-    else:
-        monkeypatch.setenv("ATLASPATCH_GELU_TANH", env)
-    qtree = jvit.quantize_vit_params(_params({}, seed=6))
-    x = _images(seed=6)
-    want = np.asarray(jvit.ViT(jvit.ViTSpec(**TINY, quant_int8=True)).apply({"params": qtree}, jnp.asarray(x)))
-    model = _int8_model({}, qtree)
-    with torch.no_grad():
-        got = model(torch.from_numpy(x)).numpy()
-    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
-    # the pooling head of a MAP spec stays float and exact-erf
-    head = pvit.ViT(pvit.ViTSpec(**TINY, pool="map", quant_int8=True)).head.mlp
-    assert float(head.act(torch.tensor(-2.0))) == float(torch.nn.functional.gelu(torch.tensor(-2.0)))
-
-
-# --- the zoo and the registry ---------------------------------------------------------------
-def _cos_rows(a, b):
-    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
-
-
-def test_int8_falls_back_for_non_vit(monkeypatch, caplog):
-    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
-    ext = zoo.build_extractor(zoo.ENTRIES["resnet18"], device="cpu", compute_dtype="int8", max_batch=2)
-    assert ext.compute_dtype == "bfloat16"
-    assert "falling back to bfloat16" in caplog.text
-    kinds = {t.dtype for t in ext.model.state_dict().values()}
-    assert torch.int8 not in kinds and torch.bfloat16 in kinds
-    ext.cleanup()
-
-
-def test_vit_b_16_int8_tracks_float32(monkeypatch):
-    """The drift contract of tests/test_int8_mode.py::test_int8_features_track_float32."""
-    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
-    entry = zoo.ENTRIES["vit_b_16"]
-    rng = np.random.default_rng(0)
-    patches = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(4)]
-    f32 = zoo.build_extractor(entry, device="cpu", compute_dtype="float32", max_batch=4)
-    i8 = zoo.build_extractor(entry, device="cpu", compute_dtype="int8", max_batch=4)
-    assert i8.compute_dtype == "int8"
-    assert {t.dtype for t in i8.model.state_dict().values()} >= {torch.int8, torch.float32, torch.bfloat16}
-    # the int8 weights are the float model's, quantized
-    w = f32.model.blocks[3].mlp.fc1.weight.detach()
-    want_q, want_s = I.quantize_plain(w, dim=1)
-    assert torch.equal(i8.model.blocks[3].mlp.fc1.weight_q, want_q)
-    assert torch.equal(i8.model.blocks[3].mlp.fc1.qscale, want_s[:, 0])
-    feats_f32, feats_i8 = f32.extract_batch(patches, batch_size=4), i8.extract_batch(patches, batch_size=4)
-    assert feats_i8.dtype == np.float32
-    cos = _cos_rows(feats_f32, feats_i8)
-    assert (cos > 0.98).all(), cos
-    f32.cleanup()
-    i8.cleanup()
-
-
-def test_registry_accepts_int8_dtype(monkeypatch):
-    monkeypatch.setenv("ATLASPATCH_ALLOW_RANDOM_WEIGHTS", "1")
-    from atlaspatch_tpu_torch.services.feature_embedding import resolve_feature_dtype
-
-    assert resolve_feature_dtype("cuda", "int8") == "int8"
-    assert resolve_feature_dtype("cpu", "int8") == "float32"
-    registry = zoo.build_default_registry(device="cpu", dtype="int8")
-    assert "vit_b_16" in registry.available()

@@ -177,7 +177,7 @@ def test_unported_converter_and_requests_raise(tmp_path, monkeypatch):
     int8 = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8")
     assert int8.compute_dtype == "int8" and int8.model.spec.quant_int8
     # named when meshes were refused: data-parallel int8 builds one replica per data device
-    # (tests/test_torch_parallel.py); named when tensor-parallel int8 was refused too: it builds a
+    # (tests/test_torch_parallel_tp.py); named when tensor-parallel int8 was refused too: it builds a
     # replica of int8 shards over the mesh's model devices, or, with no mesh, one int8 model
     dp = zoo.build_extractor(tiny, device="cpu", compute_dtype="int8", mesh=embedding_mesh(1, ["cpu", "cpu"]))
     assert len(dp.replicas) == 2 and all(r.spec.quant_int8 for r in dp.replicas)

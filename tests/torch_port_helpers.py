@@ -248,6 +248,21 @@ def shared_cli_weights(mp, root) -> None:
         mp.delenv(var, raising=False)
 
 
+def key_bias_mask(key: str, shape: tuple) -> np.ndarray:
+    """The elements of a Flax SAM2 tensor that are a key bias: all of a
+    ``k_proj`` bias, the middle third of a Hiera ``qkv`` bias. Softmax over
+    the keys does not change when one vector is added to every key, so their
+    exact gradient is zero and what backward gives is rounding noise, which
+    AdamW turns into steps of the learning rate of either sign."""
+    mask = np.zeros(shape, bool)
+    if key.endswith("k_proj/bias"):
+        mask[:] = True
+    elif key.endswith("qkv/bias"):
+        n = shape[-1] // 3
+        mask[..., n : 2 * n] = True
+    return mask
+
+
 def invoke_cli(pkg: str, args, **kw):
     """``pkg``'s click group on ``args`` in this process (click.testing)."""
     import importlib
