@@ -25,8 +25,15 @@ The knobs are the reference's, with its names and meanings:
 into pinned buffers and complete by a CUDA event; 0: blocking fetches),
 ``ATLASPATCH_DEFERRED_MAX_CHUNKS`` (the deferred window, default 64) and
 ``ATLASPATCH_FEATURE_D2H_BF16`` (features cross the link as bfloat16 and are
-cast back to float32). Host stages: ``embed_prep``, ``embed_dispatch``,
-``embed_d2h_start``, ``embed_fetch``.
+cast back to float32). Spans (``utils/perf.py``): ``embed_prep``,
+``embed_slot_wait`` (the calling thread waits for a dispatch slot),
+``embed_drain`` (it waits for the call's last forwards and fetches),
+``embed_fetch``; on the dispatch threads ``embed_dispatch`` (pin, upload,
+start of the copy back) around ``embed_forward`` (the forward's launch).
+Counters: ``embed_rows`` (rows forwarded, padding included),
+``embed_pad_rows``, and from timing events on the device, recorded only with
+``ATLASPATCH_PROFILE=1``, ``embed_device_span`` / ``embed_device_gap`` (the
+time the device had at least one batch in flight, and none; ``_DeviceUnion``).
 
 With a ``mesh`` (``parallel/mesh.py``) batches pad to a multiple of its data
 size and split contiguously over the data rows; each row holds one replica
@@ -42,6 +49,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -172,6 +180,56 @@ def require_device(name: str, device: str) -> torch.device:
     return dev
 
 
+class _HostMark:
+    """The CPU's stand-in for a timing CUDA event: the host clock when made
+    (the CPU has computed a batch when its dispatch returns)."""
+
+    __slots__ = ("t",)
+
+    def __init__(self) -> None:
+        self.t = time.perf_counter()
+
+    def synchronize(self) -> None:
+        pass
+
+    def elapsed_time(self, end: "_HostMark") -> float:
+        return (end.t - self.t) * 1e3
+
+
+def _mark(device: torch.device, timing: bool = True):
+    """An event at this point of the device's current stream (the host clock
+    on the CPU); ``timing`` lets it give elapsed times."""
+    if device.type != "cuda":
+        return _HostMark()
+    event = torch.cuda.Event(enable_timing=timing)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+class _DeviceUnion:
+    """An extractor's batches on its (first) device across ``extract_batch``
+    calls: ``embed_device_span``, the time with at least one batch in flight
+    (each from an event before its upload to the event after its features'
+    copy back), and ``embed_device_gap``, the time between them with none,
+    the gaps between calls included. Two dispatch threads share one stream,
+    so batches may overlap; each call's batches start after the previous
+    call's have ended, since a call drains its batches before it returns."""
+
+    def __init__(self) -> None:
+        self.last = None  # the event that ended the previous call's batches
+
+    def add_call(self, base, batches: list) -> None:
+        """``base``: an event recorded before any of the call's batches;
+        ``batches``: their (start, end) events, all complete."""
+        times = [(base.elapsed_time(s), base.elapsed_time(e)) for s, e in batches]
+        covered, holes = perf.cover(times)
+        if self.last is not None:
+            holes += self.last.elapsed_time(base) + min(s for s, _ in times)
+        perf.add("embed_device_span", covered * 1e-3)
+        perf.add("embed_device_gap", holes * 1e-3)
+        self.last = batches[max(range(len(times)), key=lambda i: times[i][1])][1]
+
+
 class TorchFeatureExtractor(FeatureExtractor):
     """Runs an encoder ``nn.Module`` over preprocessed patch batches on one
     device, or over a mesh.
@@ -237,6 +295,7 @@ class TorchFeatureExtractor(FeatureExtractor):
         self._batch_align = mesh.shape["data"] if mesh is not None else 1
         self._norm = [(torch.tensor(spec.mean, dtype=torch.float32, device=d),
                        torch.tensor(spec.std, dtype=torch.float32, device=d)) for d in self._row_devices()]
+        self._device_union = _DeviceUnion()
 
     def _row_devices(self) -> list[torch.device]:
         return self.mesh.data_devices if self.mesh is not None else [self.device]
@@ -245,18 +304,19 @@ class TorchFeatureExtractor(FeatureExtractor):
     def forward_device(self, images_u8: torch.Tensor, replica: int = 0) -> torch.Tensor:
         """(N, S, S, 3) uint8 on a replica's device → (N, D) features there,
         float32 (bfloat16 with ATLASPATCH_FEATURE_D2H_BF16=1); one
-        ``embed_forward`` span in an ``ATLASPATCH_TORCH_TRACE`` trace."""
+        ``embed_forward`` span (its launch)."""
         mean, std = self._norm[replica]
-        with torch.inference_mode(), perf.span("embed_forward"):
+        with torch.inference_mode(), perf.stage("embed_forward"):
             x = images_u8.to(torch.float32) * self.spec.rescale
             x = ((x - mean) / std).to(self._dtype)
             out = self.replicas[replica](x)
             return out.to(torch.bfloat16 if self._fetch_bf16 else torch.float32)
 
-    def _forward_async(self, images_u8: np.ndarray) -> list[torch.Tensor]:
+    def _forward_async(self, images_u8: np.ndarray, deferred: bool = True, timed: bool = False):
         """Upload one padded batch and enqueue its forward, each data row's
-        contiguous rows on its replica; returns the device tensors in row
-        order (not fetched)."""
+        contiguous rows on its replica, and, ``deferred``, start each row's
+        copy back; returns (the started fetches, else the device tensors in
+        row order; with ``timed`` an event before the upload, else None)."""
         from atlaspatch_tpu_torch.parallel.mesh import shard_batch
 
         devices = self._row_devices()
@@ -265,6 +325,7 @@ class TorchFeatureExtractor(FeatureExtractor):
             host = torch.from_numpy(images_u8)
             if self.device.type == "cuda":
                 host = host.pin_memory()
+            start = _mark(self.device) if timed else None
             parts = shard_batch(self.mesh, host) if self.mesh is not None else [host.to(self.device, non_blocking=True)]
             for i, rows in enumerate(parts):
                 try:
@@ -273,20 +334,21 @@ class TorchFeatureExtractor(FeatureExtractor):
                     if self.mesh is None:
                         raise
                     raise RuntimeError(f"{self.name}: embedding replica {i} on {devices[i]} failed: {e}") from e
-        return outs
+            if deferred:
+                outs = self._start_fetch(outs, timed)
+        return outs, start
 
-    def _start_fetch(self, dev_outs: list[torch.Tensor]) -> list:
+    def _start_fetch(self, dev_outs: list[torch.Tensor], timed: bool = False) -> list:
         """Start each device→host copy into a pinned buffer; returns what
-        ``_materialize_f32`` completes."""
+        ``_materialize_f32`` completes, each copy's event (with ``timed`` a
+        timing one, on the CPU the host clock) the end of its batch."""
         if self.device.type != "cuda":
-            return [(t, None) for t in dev_outs]
+            return [(t, _mark(self.device) if timed else None) for t in dev_outs]
         fetches = []
         for dev_out in dev_outs:
             host = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
             host.copy_(dev_out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev_out.device))
-            fetches.append((host, event))
+            fetches.append((host, _mark(dev_out.device, timing=timed)))
         return fetches
 
     @staticmethod
@@ -309,8 +371,8 @@ class TorchFeatureExtractor(FeatureExtractor):
 
         # Software pipeline: (a) per-chunk host preprocessing parallelized over
         # the thread pool, (b) forwards dispatched from `depth` threads, (c)
-        # each chunk's device→host copy started as soon as its dispatch
-        # returns, and waited for at the end (or when the window fills).
+        # each chunk's device→host copy started by its dispatch, and waited
+        # for at the end (or when the window fills).
         def prep_chunk(ex: ThreadPoolExecutor, chunk) -> np.ndarray:
             if len(chunk) >= 4 and self.prep_workers > 1:
                 slices = np.array_split(np.arange(len(chunk)), self.prep_workers)
@@ -332,19 +394,26 @@ class TorchFeatureExtractor(FeatureExtractor):
 
         pending: deque[tuple] = deque()  # (dispatch future, n_valid)
         done: deque[tuple] = deque()  # (started fetch, n_valid)
+        timed = perf.enabled()
+        base = _mark(self.device) if timed else None
+        batches: list[tuple] = []  # with ``timed``: each batch's (start, end) events
 
         def _drain_one() -> None:
             fut, k = pending.popleft()
+            outs, start = fut.result()
             if deferred:
-                with perf.stage("embed_d2h_start"):
-                    done.append((self._start_fetch(fut.result()), k))
+                done.append((outs, k))
+                if timed:
+                    batches.append((start, outs[0][1]))
                 if len(done) > max_deferred:
                     fetch, k0 = done.popleft()
                     with perf.stage("embed_fetch"):
                         outputs.append(self._materialize_f32(fetch)[:k0])
             else:
                 with perf.stage("embed_fetch"):
-                    outputs.append(self._materialize_f32([(t.cpu(), None) for t in fut.result()])[:k])
+                    outputs.append(self._materialize_f32([(t.cpu(), None) for t in outs])[:k])
+                if timed:
+                    batches.append((start, _mark(self.device)))
 
         with ThreadPoolExecutor(max_workers=self.prep_workers) as ex, ThreadPoolExecutor(
             max_workers=depth, thread_name_prefix="h2d-dispatch"
@@ -359,15 +428,25 @@ class TorchFeatureExtractor(FeatureExtractor):
                     imgs = np.concatenate(
                         [imgs, np.zeros((padded - n, *imgs.shape[1:]), imgs.dtype)]
                     )
+                if timed:
+                    perf.add("embed_rows", 0.0, padded)
+                    perf.add("embed_pad_rows", 0.0, padded - n)
                 # drain BEFORE submitting so at most `depth` dispatches are outstanding
-                while len(pending) >= depth:
+                if len(pending) >= depth:
+                    with perf.stage("embed_slot_wait"):
+                        while len(pending) >= depth:
+                            _drain_one()
+                pending.append((dispatcher.submit(perf.carry(self._forward_async), imgs, deferred, timed), n))
+            with perf.stage("embed_drain"):
+                while pending:
                     _drain_one()
-                pending.append((dispatcher.submit(self._forward_async, imgs), n))
-            while pending:
-                _drain_one()
-            for fetch, k in done:
-                with perf.stage("embed_fetch"):
-                    outputs.append(self._materialize_f32(fetch)[:k])
+                for fetch, k in done:
+                    with perf.stage("embed_fetch"):
+                        outputs.append(self._materialize_f32(fetch)[:k])
+        if timed:
+            self._device_union.add_call(base, batches)
+        else:  # an untimed call's batches would read as a gap
+            self._device_union.last = None
         return np.concatenate(outputs, axis=0)
 
     def cleanup(self) -> None:

@@ -98,11 +98,11 @@ def normalize_images(cfg: SAM2Config, images: torch.Tensor) -> torch.Tensor:
 def _full_frame_logits(model: SAM2ImageModel, pixels: torch.Tensor) -> torch.Tensor:
     """Normalized (B,S,S,3) pixels → (B,S,S) float32 logits for a full-frame
     box prompt and single-mask output, upscaled with torch-parity bilinear.
-    Each call is one ``sam2_forward`` span in an ``ATLASPATCH_TORCH_TRACE``
-    trace (``perf.span``), so a trace counts its forwards."""
+    Each call is one ``sam2_forward`` span (``perf.stage``), so an
+    ``ATLASPATCH_TORCH_TRACE`` trace counts its forwards."""
     S = model.cfg.image_size
     B = pixels.shape[0]
-    with perf.span("sam2_forward"):
+    with perf.stage("sam2_forward"):
         box = torch.tensor([[0.0, 0.0, S, S]], dtype=torch.float32, device=pixels.device)
         boxes = box[None].expand(B, 1, 4)
         masks, _iou, _obj = model(pixels.to(_param_dtype(model)), boxes, multimask_output=False)

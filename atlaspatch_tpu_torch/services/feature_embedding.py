@@ -18,6 +18,12 @@ by the port's own reader (utils/h5.py). Feature plugins
 (``feature_cfg.plugins``) register into the service's own registry, as in the
 JAX package. ``precision="int8"`` runs the ViT-family encoders in the W8A8
 serving mode on the card (other families fall back to bfloat16).
+
+Spans (``utils/perf.py``), each tagged with its slide's stem: ``slide`` (one
+per slide on the embedding thread, from taking its prep to its
+publication), ``slide_wait`` (that thread waiting for the slide's prep),
+``block_wait`` (waiting for a prefetched pixel block, or reading it inline)
+and ``patch_read`` (a block's read, on whichever thread reads it).
 """
 
 from __future__ import annotations
@@ -166,17 +172,18 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
         background thread while the previous slide's batches are on device
         (the reference re-reads patches strictly serially per slide:
         reference feature_embedding.py:81-96)."""
-        wsi = wsi_loader.open(res.slide)
-        try:
-            coords = read_h5_tree(res.h5_path).datasets["coords"]
-            first = self._read_patch_block(wsi, coords[: self._block_rows])
-            return wsi, coords, first
-        except Exception:
+        with perf.slide(res.slide.stem):
+            wsi = wsi_loader.open(res.slide)
             try:
-                wsi.cleanup()
+                coords = read_h5_tree(res.h5_path).datasets["coords"]
+                first = self._read_patch_block(wsi, coords[: self._block_rows])
+                return wsi, coords, first
             except Exception:
-                pass
-            raise
+                try:
+                    wsi.cleanup()
+                except Exception:
+                    pass
+                raise
 
     def _block_pipeline(self, wsi: IWSI, coords: np.ndarray, first_block):
         """One-block-ahead pixel reader shared by both embed modes.
@@ -185,7 +192,8 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
         pixels for [start, stop) and kicks off the NEXT block's read on a
         background thread, so the device computes block i while the host
         reads block i+1. `first_block`, when given, seeds block 0 (it was
-        pre-read by the cross-slide prep thread).
+        pre-read by the cross-slide prep thread). The calling thread's wait
+        for a block, or its read inline, is the ``block_wait`` span.
         """
         batch = self._block_rows
         total_rows = int(coords.shape[0])
@@ -204,9 +212,10 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
 
         def get_block(start: int, stop: int) -> list:
             fut = pending.pop(start, None)
-            patches = fut.result() if fut is not None else read_block(start)
+            with perf.stage("block_wait"):
+                patches = fut.result() if fut is not None else read_block(start)
             if stop < total_rows and stop not in pending:
-                pending[stop] = prefetcher.submit(read_block, stop)
+                pending[stop] = prefetcher.submit(perf.carry(read_block), stop)
             return patches
 
         return get_block, lambda: prefetcher.shutdown(wait=True)
@@ -610,29 +619,32 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
                 for res, prep_fut in slides:
                     names = sorted(pending.get(res.h5_path, set()))
                     wsi = None
-                    try:
-                        wsi, coords, first = prep_fut.result()
-                        _done, errors = self._embed_with_extractors(
-                            result=res,
-                            wsi=wsi,
-                            extractors={n: extractors[n] for n in names},
-                            preloaded=(coords, first),
-                        )
-                        # errors is keyed by the extractor's dataset name
-                        # (case-preserved), not the registry key — record by
-                        # value.
-                        failures.extend((res.slide, err) for err in errors.values())
-                    except Exception as e:  # noqa: BLE001
-                        # Whole-slide failure (prep or writer): every missing
-                        # extractor unit for this slide failed, mirroring the
-                        # extractor-major loop's one-entry-per-unit accounting.
-                        failures.extend((res.slide, e) for _ in names)
-                    finally:
-                        if wsi is not None:
-                            try:
-                                wsi.cleanup()
-                            except Exception:
-                                pass
+                    with perf.slide(res.slide.stem), perf.stage("slide"):
+                        try:
+                            with perf.stage("slide_wait"):
+                                wsi, coords, first = prep_fut.result()
+                            _done, errors = self._embed_with_extractors(
+                                result=res,
+                                wsi=wsi,
+                                extractors={n: extractors[n] for n in names},
+                                preloaded=(coords, first),
+                            )
+                            # errors is keyed by the extractor's dataset name
+                            # (case-preserved), not the registry key — record
+                            # by value.
+                            failures.extend((res.slide, err) for err in errors.values())
+                        except Exception as e:  # noqa: BLE001
+                            # Whole-slide failure (prep or writer): every
+                            # missing extractor unit for this slide failed,
+                            # mirroring the extractor-major loop's
+                            # one-entry-per-unit accounting.
+                            failures.extend((res.slide, e) for _ in names)
+                        finally:
+                            if wsi is not None:
+                                try:
+                                    wsi.cleanup()
+                                except Exception:
+                                    pass
                     if progress:
                         progress.update(len(names))
         finally:
@@ -669,24 +681,26 @@ class PatchFeatureEmbeddingService(FeatureEmbeddingService):
                 with self._prepped_slides(todo, wsi_loader) as slides:
                     for res, prep_fut in slides:
                         wsi = None
-                        try:
-                            wsi, coords, first = prep_fut.result()
-                            if not self._feature_present(res, extractor.name):
-                                self._embed_with_extractor(
-                                    result=res,
-                                    wsi=wsi,
-                                    extractor=extractor,
-                                    preloaded=(coords, first),
-                                )
-                            self._update_metadata_feature_sets(res)
-                        except Exception as e:  # noqa: BLE001
-                            failures.append((res.slide, e))
-                        finally:
-                            if wsi is not None:
-                                try:
-                                    wsi.cleanup()
-                                except Exception:
-                                    pass
+                        with perf.slide(res.slide.stem), perf.stage("slide"):
+                            try:
+                                with perf.stage("slide_wait"):
+                                    wsi, coords, first = prep_fut.result()
+                                if not self._feature_present(res, extractor.name):
+                                    self._embed_with_extractor(
+                                        result=res,
+                                        wsi=wsi,
+                                        extractor=extractor,
+                                        preloaded=(coords, first),
+                                    )
+                                self._update_metadata_feature_sets(res)
+                            except Exception as e:  # noqa: BLE001
+                                failures.append((res.slide, e))
+                            finally:
+                                if wsi is not None:
+                                    try:
+                                        wsi.cleanup()
+                                    except Exception:
+                                        pass
                         if progress:
                             progress.update(1)
             finally:

@@ -337,8 +337,7 @@ class SAM2Predictor:
     def predict_masks(self, images_u8: np.ndarray) -> np.ndarray:
         """(B,S,S,3) uint8 → (B,S,S) uint8 binary masks (threshold on device,
         only packed bits cross to the host)."""
-        with perf.stage("segment_device"):
-            return self.fetch_masks(self.predict_masks_async(images_u8))
+        return self.fetch_masks(self.predict_masks_async(images_u8))
 
     def predict_batch(self, images: Sequence, *, resize_to_input: bool = True) -> list[np.ndarray]:
         if not len(images):

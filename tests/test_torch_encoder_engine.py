@@ -120,8 +120,10 @@ def test_stage_counters_are_the_references(params, monkeypatch):
     _port_extractor(params).extract_batch(_patches(9), batch_size=4)
     stages = perf.report()
     perf.reset()
-    assert {"embed_prep", "embed_dispatch", "embed_d2h_start", "embed_fetch"} <= set(stages)
-    assert stages["embed_dispatch"]["count"] == 3
+    assert {"embed_prep", "embed_dispatch", "embed_forward", "embed_slot_wait", "embed_drain", "embed_fetch",
+            "embed_rows", "embed_pad_rows", "embed_device_span", "embed_device_gap"} == set(stages)
+    assert stages["embed_dispatch"]["count"] == stages["embed_forward"]["count"] == 3
+    assert stages["embed_rows"]["count"] == 9 and stages["embed_pad_rows"]["count"] == 0
 
 
 def test_bf16_params_and_features(params, monkeypatch):

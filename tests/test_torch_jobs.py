@@ -13,6 +13,7 @@ the card in ``chip_smoke.py``'s jobs phase.
 
 from __future__ import annotations
 
+import json
 import os
 import shlex
 import subprocess
@@ -227,7 +228,9 @@ def test_a_trace_counts_the_forwards_of_its_run(tmp_path, monkeypatch):
     forward and one ``embed_forward`` span per encoder forward, those the
     engine dispatches from its worker thread included, counted by
     ``perf.trace_counts`` (how the jobs phase counts a script process's
-    forwards). A stand-in SAM2 module and a one-layer encoder keep it cheap."""
+    forwards). They are the recorder's spans, merged into the trace, never
+    the profiler's own annotations. A stand-in SAM2 module and a one-layer
+    encoder keep it cheap."""
     import numpy as np
     import torch
 
@@ -272,6 +275,11 @@ def test_a_trace_counts_the_forwards_of_its_run(tmp_path, monkeypatch):
         encoder.cleanup()
     assert rows.shape == (3, 4)
     (trace,) = (tmp_path / "trace").glob("trace-*.json")
-    # no card here, so no kernel; no other span
-    assert perf.trace_counts(trace) == {"span:sam2_forward": 3, "span:embed_forward": 2}
+    # no card here, so no kernel; the engine's other spans besides
+    counts = perf.trace_counts(trace)
+    assert counts["span:sam2_forward"] == 3 and counts["span:embed_forward"] == 2
+    assert not [k for k in counts if k.startswith("kernel:")]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert not [e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] in ("sam2_forward", "embed_forward")]
     assert not {e.name for e in prof.events()} & {"sam2_forward", "embed_forward"}
